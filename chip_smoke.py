@@ -1,0 +1,633 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's SPA-Cache decode on one CUDA card and check it.
+
+    python3 chip_smoke.py                 # one card, no arguments
+
+Phases (each asserts; any failure exits non-zero):
+
+1. the card's name and power limit (``nvidia-smi``);
+2. build the CUDA kernels from ``src/repro_torch/csrc`` (timed);
+3. every kernel against its plain PyTorch version on the card, at the
+   slice shapes (B=4, N=512, d=4096, r=128, 32 heads of 128, bf16,
+   k in {16, 128}) and at edge shapes (ragged N, out-of-range and unsorted
+   indices, GQA, window, soft_cap, kv_len, int8 K/V, f32), with median
+   CUDA-event times of the kernel, its plain version and one PyTorch
+   library call where one computes the same function;
+4. decode parity: a 2-layer, full-width LLaDA, in f32 and in bf16 (the
+   main path's kernel variants), through ``CudaBackend`` and
+   ``TorchBackend`` must give identical tokens and step counts;
+5. the main path: LLaDA-8B (32 layers, bf16, random weights from a seed),
+   B=4, prompt 256 + gen 256, ``DecodeSession.run`` with ``SPACache``
+   (adaptive, r=128), the confidence scheduler and ``CudaBackend``; every
+   slot must commit, the hidden states stay finite and every kernel must
+   have launched; then 16 steps of the ``NoCache`` baseline.
+
+The last lines are the kernels' JSON record, the card line and
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
+repository's ``src/`` beside it, the script exits non-zero before printing
+any result.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+# H100 SXM peaks (NVIDIA data sheet): HBM bytes/s and dense bf16 tensor FLOP/s.
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS = 989e12
+
+SLICE = dict(B=4, N=512, d=4096, r=128, H=32, KVH=32, hd=128)
+GEN_LEN = 256             # main path: prompt 256 + gen 256 = N
+SPIN_CYCLES = 4_000_000   # ~2 ms of a spin kernel at H100 clocks
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60)
+    return out.stdout.strip().splitlines()[0] if out.returncode == 0 \
+        else f"nvidia-smi failed: {out.stderr.strip()}"
+
+
+def median_ms(fn, torch, flush, runs: int = 30, warmup: int = 3) -> float:
+    """Median device time of one call, from CUDA events.  The L2 is
+    overwritten before every timed call, so inputs come from HBM as on the
+    decode path, and a spin kernel ahead of the start event keeps the card
+    busy while the host enqueues the call, so the events bracket device
+    work and not Python dispatch."""
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        stop.record()
+        stop.synchronize()
+        times.append(start.elapsed_time(stop))
+    return statistics.median(times)
+
+
+def max_err(a, b) -> float:
+    return float((a.float() - b.float()).abs().max())
+
+
+def bound(nbytes: float, flops: float):
+    """(least ms, "bytes" or "operations") for bf16 work on the H100."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# Phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def check_kernels(torch, flush):
+    import torch.nn.functional as F
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import proxy_score as ps
+    from repro_torch.kernels import scatter_update as sc
+    from repro_torch.kernels import sparse_attention as sa
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1234)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def randn(*shape, dtype=bf16, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale
+                ).to(dtype)
+
+    def randint(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, generator=gen, device=dev,
+                             dtype=torch.int32)
+
+    def assert_close(name, got, want, atol, rtol):
+        err = max_err(got, want)
+        lim = atol + rtol * float(want.float().abs().max())
+        print(f"  {name}: max_abs_err {err:.3e} (limit {lim:.3e})")
+        assert err <= lim, f"{name}: {err} > {lim}"
+        return err
+
+    records = {}
+    B, N, d, r = SLICE["B"], SLICE["N"], SLICE["d"], SLICE["r"]
+    H, KVH, hd = SLICE["H"], SLICE["KVH"], SLICE["hd"]
+
+    # -- proxy_score ------------------------------------------------------
+    # bf16 tolerance: kernel and plain round p to bf16 after summing in a
+    # different order, so p may differ by one bf16 ulp (2^-8 relative) and
+    # the cosine by ~1e-3.
+    print("proxy_score")
+    x = randn(B, N, d)
+    w = randn(d, r, scale=0.05)
+    pc = randn(B, N, r)
+    s_k, p_k = ps.proxy_score(x, w, pc)
+    s_p, p_p = ps.proxy_score_plain(x, w, pc)
+    err = max(assert_close("slice scores", s_k, s_p, 5e-3, 0),
+              assert_close("slice p_now", p_k, p_p, 0, 1e-2))
+    # unchanged rows tie at cosine 1 (the identifier's premise)
+    s1, _ = ps.proxy_score(x, w, p_k)
+    assert float((s1 - 1).abs().max()) < 1e-5, "unchanged rows must score 1"
+    for (b_, n_, d_, r_) in [(3, 300, 96, 16), (2, 33, 4096, 128)]:
+        xe, we, pe = randn(b_, n_, d_), randn(d_, r_), randn(b_, n_, r_)
+        a, bb = ps.proxy_score(xe, we, pe), ps.proxy_score_plain(xe, we, pe)
+        assert_close(f"bf16 N={n_} d={d_} r={r_} scores", a[0], bb[0],
+                     5e-3, 0)
+        xf, wf, pf = xe.float(), we.float(), pe.float()
+        a, bb = ps.proxy_score(xf, wf, pf), ps.proxy_score_plain(xf, wf, pf)
+        assert_close(f"f32 N={n_} d={d_} r={r_} scores", a[0], bb[0], 1e-5, 0)
+        assert_close(f"f32 N={n_} d={d_} r={r_} p_now", a[1], bb[1], 0, 1e-5)
+    records["proxy_score"] = dict(
+        source="src/repro_torch/csrc/proxy_score.cu",
+        replaces="src/repro/kernels/proxy_score.py:101", max_abs_err=err,
+        ms=median_ms(lambda: ps.proxy_score(x, w, pc), torch, flush),
+        plain_ms=median_ms(lambda: ps.proxy_score_plain(x, w, pc), torch,
+                           flush),
+        library_ms=None,
+        bound=bound(2 * (B * N * d + d * r + 2 * B * N * r) + 4 * B * N,
+                    2 * B * N * d * r))
+
+    # -- gather_norm --------------------------------------------------------
+    # raw rows are copies (exact); normed rows round once to bf16 from f32
+    # math that differs only in the sum order of mean(x^2): one bf16 ulp.
+    print("gather_norm")
+    h = randn(B, N, d)
+    wn = randn(d, scale=0.1)
+    for k in (16, 128):
+        idx = torch.sort(torch.randperm(N, generator=gen, device=dev)[:k]
+                         ).values.to(torch.int32).expand(B, k).contiguous()
+        rk, nk = ps.gather_norm(h, idx, wn, 1e-6)
+        rp, np_ = ps.gather_norm_plain(h, idx, wn, 1e-6)
+        assert_close(f"k={k} rows", rk, rp, 0, 0)
+        err = assert_close(f"k={k} normed", nk, np_, 0, 1e-2)
+    idx_edge = torch.tensor([[5, -3, 700, 2, 511, 0, 9000, 7]] * B,
+                            dtype=torch.int32, device=dev)
+    for dt in (bf16, f32):
+        he, we_ = h[:, :, :1000].to(dt).contiguous(), wn[:1000].to(dt)
+        a, bb = ps.gather_norm(he, idx_edge, we_, 1e-6), \
+            ps.gather_norm_plain(he, idx_edge, we_, 1e-6)
+        assert_close(f"{dt} clamped rows", a[0], bb[0], 0, 0)
+        assert_close(f"{dt} clamped normed", a[1], bb[1], 0,
+                     1e-2 if dt == bf16 else 1e-5)
+    records["gather_norm"] = dict(
+        source="src/repro_torch/csrc/gather_norm.cu",
+        replaces="src/repro/kernels/proxy_score.py:308", max_abs_err=err,
+        ms=median_ms(lambda: ps.gather_norm(h, idx, wn, 1e-6), torch, flush),
+        plain_ms=median_ms(lambda: ps.gather_norm_plain(h, idx, wn, 1e-6),
+                           torch, flush),
+        library_ms=None,
+        bound=bound(2 * (3 * B * 128 * d + d) + 4 * B * 128,
+                    4 * B * 128 * d))
+
+    # -- sparse_attention ---------------------------------------------------
+    # both versions compute in f32 (the kernel's P to 2^-17) and round the
+    # output once to bf16; the f32 sum orders differ, so an element may
+    # flip by one bf16 ulp, which is at most 2^-7 of the largest output.
+    # Limit: 2^-7 * max|out|.  One key masked wrongly in the 65-key window
+    # below moves an output by about 1/65 of a value, several times that.
+    # f32: FMA order only, 1e-5.
+    bf16_attn_tol = dict(atol=0, rtol=2 ** -7)
+    print("sparse_attention")
+    kc = randn(B, N, KVH, hd)
+    vc = randn(B, N, KVH, hd)
+    for kq in (16, 128, 512):
+        q = randn(B, kq, H, hd)
+        qpos = (torch.arange(N, device=dev, dtype=torch.int32)[None]
+                .expand(B, N) if kq == N else torch.sort(
+                    torch.randperm(N, generator=gen, device=dev)[:kq]
+                ).values.to(torch.int32).expand(B, kq).contiguous())
+        a = sa.sparse_attention(q, kc, vc, qpos)
+        bb = sa.sparse_attention_plain(q, kc, vc, qpos)
+        err_kq = assert_close(f"kq={kq}", a, bb, **bf16_attn_tol)
+        if kq == 128:
+            err, q128, qpos128 = err_kq, q, qpos
+    # hd=128 bf16 runs the main path's tensor-core tiles; hd=64 the same
+    # kernel at another width; int8 (and every f32 case) the FMA tiles.
+    edge = [
+        dict(name="hd128 GQA ragged N window soft_cap kv_len", b=2, kq=50,
+             n=300, h=8, kvh=2, hd=128, window=32, soft_cap=30.0,
+             kv_len=[300, 170], quant=False),
+        dict(name="hd64 GQA ragged N window soft_cap kv_len", b=2, kq=70,
+             n=200, h=4, kvh=2, hd=64, window=40, soft_cap=20.0,
+             kv_len=[131, 200], quant=False),
+        dict(name="int8 K/V scales GQA", b=2, kq=24, n=160, h=4, kvh=2,
+             hd=32, window=0, soft_cap=0.0, kv_len=None, quant=True),
+        dict(name="kv_len 0 row (outputs 0)", b=2, kq=8, n=64, h=2, kvh=1,
+             hd=128, window=0, soft_cap=0.0, kv_len=[64, 0], quant=False),
+    ]
+    for e in edge:
+        for dt in (bf16, f32):
+            qe = randn(e["b"], e["kq"], e["h"], e["hd"], dtype=dt)
+            qp = randint(0, e["n"], e["b"], e["kq"])
+            if e["quant"]:
+                ke = randint(-127, 128, e["b"], e["n"], e["kvh"], e["hd"]
+                             ).to(torch.int8)
+                ve = randint(-127, 128, e["b"], e["n"], e["kvh"], e["hd"]
+                             ).to(torch.int8)
+                kse = (torch.rand((e["b"], e["n"], e["kvh"]), generator=gen,
+                                  device=dev) * 0.02).to(torch.float16)
+                vse = (torch.rand((e["b"], e["n"], e["kvh"]), generator=gen,
+                                  device=dev) * 0.02).to(torch.float16)
+            else:
+                ke = randn(e["b"], e["n"], e["kvh"], e["hd"], dtype=dt)
+                ve = randn(e["b"], e["n"], e["kvh"], e["hd"], dtype=dt)
+                kse = vse = None
+            kvl = (None if e["kv_len"] is None else torch.tensor(
+                e["kv_len"], dtype=torch.int32, device=dev))
+            kw = dict(k_scale=kse, v_scale=vse, window=e["window"],
+                      soft_cap=e["soft_cap"], kv_len=kvl)
+            a = sa.sparse_attention(qe, ke, ve, qp, **kw)
+            bb = sa.sparse_attention_plain(qe, ke, ve, qp, **kw)
+            tol = bf16_attn_tol if dt == bf16 else dict(atol=1e-5, rtol=0)
+            assert_close(f"{e['name']} {dt}", a, bb, **tol)
+    qt = q128.transpose(1, 2)
+    kt, vt = kc.transpose(1, 2), vc.transpose(1, 2)
+    mask = torch.ones((B, 1, 128, N), dtype=torch.bool, device=dev)
+    records["sparse_attention"] = dict(
+        source="src/repro_torch/csrc/sparse_attention.cu",
+        replaces="src/repro/kernels/sparse_attention.py:219",
+        max_abs_err=err,
+        ms=median_ms(lambda: sa.sparse_attention(q128, kc, vc, qpos128),
+                     torch, flush),
+        plain_ms=median_ms(lambda: sa.sparse_attention_plain(
+            q128, kc, vc, qpos128), torch, flush),
+        library_ms=median_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask), torch, flush),
+        bound=bound(2 * (2 * B * N * KVH * hd + 2 * B * 128 * H * hd)
+                    + 4 * B * 128, 4 * B * 128 * N * H * hd))
+
+    # -- scatter_update_multi -----------------------------------------------
+    # a copy: results must be bit-identical.
+    print("scatter_update_multi")
+
+    def kv_bufs():
+        return [randn(B, N, KVH, hd), randn(B, N, KVH, hd)]
+
+    base = kv_bufs()
+    for k in (16, 128):
+        idx = torch.stack([torch.randperm(N, generator=gen, device=dev)[:k]
+                           for _ in range(B)]).to(torch.int32)  # unsorted
+        rows = [randn(B, k, KVH, hd), randn(B, k, KVH, hd)]
+        got = [t.clone() for t in base]
+        want = [t.clone() for t in base]
+        sc.scatter_update_multi(got, idx, rows)
+        sc.scatter_update_multi_plain(want, idx, rows)
+        err = max(assert_close(f"k={k} K", got[0], want[0], 0, 0),
+                  assert_close(f"k={k} V", got[1], want[1], 0, 0))
+    # mixed buffers: int8 rows + f16 scales + f32 proxy, out-of-range drops
+    idx_e = torch.tensor([[3, -1, 40, 2, 99, 7], [63, 0, 64, 5, 1, 200]],
+                         dtype=torch.int32, device=dev)
+    bufs = [randint(-127, 128, 2, 64, 2, 32).to(torch.int8),
+            torch.rand((2, 64, 2), generator=gen, device=dev
+                       ).to(torch.float16),
+            randn(2, 64, 48, dtype=f32), randn(2, 64, 5)]
+    rows_e = [randint(-127, 128, 2, 6, 2, 32).to(torch.int8),
+              torch.rand((2, 6, 2), generator=gen, device=dev
+                         ).to(torch.float16),
+              randn(2, 6, 48, dtype=f32), randn(2, 6, 5)]
+    got = [t.clone() for t in bufs]
+    want = [t.clone() for t in bufs]
+    sc.scatter_update_multi(got, idx_e, rows_e)
+    sc.scatter_update_multi_plain(want, idx_e, rows_e)
+    for t_got, t_want in zip(got, want):
+        assert torch.equal(t_got, t_want), "mixed-buffer scatter differs"
+    print("  mixed dtypes / widths / dropped indices: identical")
+    k_bufs = [t.clone() for t in base]
+
+    def index_copy_all():
+        for buf, rw in zip(k_bufs, rows):
+            flat = buf.view(B * N, KVH, hd)
+            flat.index_copy_(0, (idx.long() + torch.arange(
+                B, device=dev)[:, None] * N).reshape(-1),
+                rw.reshape(B * k, KVH, hd))
+
+    records["scatter_update_multi"] = dict(
+        source="src/repro_torch/csrc/scatter_update.cu",
+        replaces="src/repro/kernels/scatter_update.py:114", max_abs_err=err,
+        ms=median_ms(lambda: sc.scatter_update_multi(k_bufs, idx, rows),
+                     torch, flush),
+        plain_ms=median_ms(lambda: sc.scatter_update_multi_plain(
+            k_bufs, idx, rows), torch, flush),
+        library_ms=median_ms(index_copy_all, torch, flush),
+        bound=bound(2 * 2 * (2 * B * 128 * KVH * hd) + 4 * B * 128, 0))
+    for name, rec in records.items():
+        lib = ("-" if rec["library_ms"] is None
+               else f"{rec['library_ms']:.4f}")
+        print(f"  {name}: kernel {rec['ms']:.4f} ms, plain "
+              f"{rec['plain_ms']:.4f} ms, library {lib} ms, bound "
+              f"{rec['bound'][0]:.4f} ms ({rec['bound'][1]})")
+    _lib.reset_launch_counts()
+    return records
+
+
+# ---------------------------------------------------------------------------
+# Phases 4 and 5: decode
+# ---------------------------------------------------------------------------
+
+def _parity_setup(torch, dtype: str):
+    """A 2-layer, full-width LLaDA, its proxies and a B=4 prompt of 48."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.strategy import SPACache
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(get_arch("llada-8b"), n_layers=2,
+                              param_dtype=dtype)
+    params = transformer.init_params(cfg, seed=7)
+    strat = SPACache.from_spec(cfg.spa)
+    proxies = strat.build_proxies(params, cfg)
+    gen = torch.Generator().manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab_size - 1, (4, 48), generator=gen)
+    return cfg, params, strat, proxies, prompt
+
+
+def _cache_rel_diff(got, want) -> float:
+    """Largest difference of any cache buffer, over that buffer's largest
+    value."""
+    worst = 0.0
+    for kind, bufs in got.items():
+        for nm, t in bufs.items():
+            w = want[kind][nm]
+            worst = max(worst, max_err(t, w) / max(
+                float(w.float().abs().max()), 1e-30))
+    return worst
+
+
+def decode_parity(torch, cache_tol: float):
+    """f32: a whole decode through ``CudaBackend`` and ``TorchBackend``;
+    tokens and step counts must be identical, and every cache buffer must
+    agree within ``cache_tol`` of its largest value."""
+    from repro_torch.dlm.session import DecodeSession
+
+    cfg, params, strat, proxies, prompt = _parity_setup(torch, "float32")
+    out = {}
+    for name in ("cuda", "torch"):
+        sess = DecodeSession(params, cfg, strategy=strat, backend=name,
+                             spa_proxies=proxies)
+        sess.prefill(prompt, 16)
+        toks, info = sess.run()
+        torch.cuda.synchronize()
+        out[name] = (toks.cpu(), info["steps"], sess.state.cache)
+    n_diff = int((out["cuda"][0] != out["torch"][0]).sum())
+    assert n_diff == 0, \
+        f"float32: CudaBackend and TorchBackend differ in {n_diff} tokens"
+    assert out["cuda"][1] == out["torch"][1], "step counts differ"
+    worst = _cache_rel_diff(out["cuda"][2], out["torch"][2])
+    print(f"  float32: tokens identical, steps {out['cuda'][1]}, "
+          f"max cache diff {worst:.3e} of the buffer's largest value")
+    assert worst <= cache_tol, f"cache buffers differ by {worst}"
+    del params, proxies, out
+
+
+def lockstep_parity(torch, logit_tol: float, cache_tol: float):
+    """bf16, the main path's kernel variants: a whole decode through
+    ``CudaBackend``, and before every step ``TorchBackend`` is given a copy
+    of the CUDA session's state and takes the same step.  From the same
+    state, the step's tokens must be identical, its candidate logits agree
+    within ``logit_tol`` and every cache buffer within ``cache_tol`` of its
+    largest value.  A free-running bf16 pair is not compared token for
+    token: the one-ulp differences of each call pile up in the caches over
+    the steps, and with random weights the bf16 confidences over the 126k
+    vocabulary tie at the ulp, so a later step may commit another slot."""
+    from repro_torch.dlm.decoding import DecodeState
+    from repro_torch.dlm.scheduler import ConfidenceScheduler
+    from repro_torch.dlm.session import DecodeSession
+
+    @dataclasses.dataclass(frozen=True)
+    class Recording(ConfidenceScheduler):
+        last: list = dataclasses.field(default_factory=list, compare=False,
+                                       hash=False)
+
+        def select_commits(self, view):
+            self.last[:] = [view.logits.float()]
+            return super().select_commits(view)
+
+    def clone(state: DecodeState) -> DecodeState:
+        return state._replace(
+            tokens=state.tokens.clone(), committed=state.committed.clone(),
+            n_masked=state.n_masked.clone(),
+            cache={kind: {nm: t.clone() for nm, t in bufs.items()}
+                   for kind, bufs in state.cache.items()})
+
+    cfg, params, strat, proxies, prompt = _parity_setup(torch, "bfloat16")
+    rec = {name: Recording() for name in ("cuda", "torch")}
+    sess = {name: DecodeSession(params, cfg, strategy=strat, backend=name,
+                                spa_proxies=proxies, scheduler=rec[name])
+            for name in rec}
+    for s in sess.values():
+        s.prefill(prompt, 16)
+    a, b = sess["cuda"], sess["torch"]
+    prefill_diff = _cache_rel_diff(a.state.cache, b.state.cache)
+    logit_diff = cache_diff = 0.0
+    flips = steps = 0
+    while not a.done:
+        b.state = clone(a.state)
+        a.step()
+        b.step()
+        steps += 1
+        la, lb = rec["cuda"].last[0], rec["torch"].last[0]
+        finite = torch.isfinite(lb)
+        assert torch.equal(finite, torch.isfinite(la)), "non-finite logits"
+        logit_diff = max(logit_diff, float(
+            (la - lb).abs()[finite].max() / lb.abs()[finite].max()))
+        cache_diff = max(cache_diff,
+                         _cache_rel_diff(a.state.cache, b.state.cache))
+        flips += int(not torch.equal(a.state.tokens, b.state.tokens))
+    torch.cuda.synchronize()
+    assert steps == 16, f"bf16 lockstep took {steps} steps"
+    print(f"  bfloat16 lockstep: {steps} steps, prefill cache diff "
+          f"{prefill_diff:.3e}, step cache diff {cache_diff:.3e}, logits "
+          f"diff {logit_diff:.3e} (each of the largest value), steps whose "
+          f"tokens differ from the same state: {flips}")
+    assert max(prefill_diff, cache_diff) <= cache_tol, \
+        f"bf16 cache buffers differ by {max(prefill_diff, cache_diff)}"
+    assert logit_diff <= logit_tol, f"bf16 logits differ by {logit_diff}"
+    assert flips == 0, f"bf16 tokens differ after {flips} steps"
+    del params, proxies, sess
+
+
+# kernel-name fragments -> the share each group takes of the device time
+KERNEL_GROUPS = (("proxy_score", ("proxy_score",)),
+                 ("gather_norm", ("gather_norm",)),
+                 ("sparse_attention", ("attention_bf16_tc", "attention_kernel")),
+                 ("scatter_update_multi", ("scatter_kernel",)),
+                 ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_",
+                                      "nvjet")))
+
+
+def profile_steps(torch, step, n_steps: int, label: str) -> None:
+    """Device time by kernel group and the device-busy share of a window of
+    ``n_steps`` steps, from a ``torch.profiler`` trace."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
+    groups["other kernels"] = 0.0
+    others = {}
+    busy = 0.0
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = ev.self_cuda_time_total
+        busy += t
+        group = next((name for name, keys in KERNEL_GROUPS
+                      if any(k in ev.key for k in keys)), "other kernels")
+        groups[group] += t
+        if group == "other kernels":
+            others[ev.key] = others.get(ev.key, 0.0) + t
+    if busy == 0:
+        print(f"  {label} profile: the trace shows no device time")
+        return
+    print(f"  {label} profile over {n_steps} steps: {wall_us / n_steps / 1e3:.2f}"
+          f" ms/step wall, device busy {busy / wall_us:.1%}")
+    for name, t in sorted(groups.items(), key=lambda kv: -kv[1]):
+        print(f"    {name:>22}: {t / n_steps / 1e3:8.3f} ms/step "
+              f"({t / busy:.1%} of device time)")
+    for name, t in sorted(others.items(), key=lambda kv: -kv[1])[:6]:
+        print(f"      other: {t / n_steps / 1e3:8.3f} ms/step  {name[:90]}")
+
+
+def main_path(torch):
+    from repro_torch.configs import get_arch
+    from repro_torch.core import spa_layer
+    from repro_torch.core.strategy import NoCache, SPACache
+    from repro_torch.dlm.session import DecodeSession
+    from repro_torch.kernels import _lib
+    from repro_torch.models import transformer
+
+    cfg = get_arch("llada-8b")
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    print(f"  init {cfg.name} bf16 weights: "
+          f"{time.perf_counter() - t0:.2f} s")
+    strat = SPACache.from_spec(cfg.spa)
+    t0 = time.perf_counter()
+    proxies = strat.build_proxies(params, cfg)
+    torch.cuda.synchronize()
+    print(f"  SVD proxies (32 x [4096, 4096] -> r=128): "
+          f"{time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator().manual_seed(11)
+    b, p_len, g_len = 4, 256, GEN_LEN
+    prompt = torch.randint(0, cfg.vocab_size - 1, (b, p_len), generator=gen)
+
+    _lib.reset_launch_counts()
+    sess = DecodeSession(params, cfg, strategy=strat, backend="cuda",
+                         spa_proxies=proxies)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess.prefill(prompt, g_len)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    toks, info = sess.run()
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = _lib.launch_counts()
+    gen_span = toks[:, p_len:]
+    assert int((gen_span == cfg.mask_id).sum()) == 0, "open slots remain"
+    assert int(sess.state.n_masked.max()) == 0, "n_masked not drained"
+    assert bool(sess.last_info["row_finite"].all()), "non-finite hidden"
+    for name, n in launches.items():
+        assert n > 0, f"kernel {name} never launched on the main path"
+    steps = info["steps"]
+    spa_ms = t_run / steps * 1e3
+    print(f"  SPA: steps {steps}, prefill {t_prefill:.3f} s, decode "
+          f"{t_run:.3f} s, {spa_ms:.2f} ms/step, "
+          f"{b * g_len / t_run:.1f} generated tokens/s")
+    print(f"  launches on the main path: {launches}")
+    print(f"  per-layer k: {spa_layer.layer_ks(cfg, strat, p_len + g_len)}")
+    del sess
+
+    # a short profiled window of SPA steps (outside the timed run above)
+    sess = DecodeSession(params, cfg, strategy=strat, backend="cuda",
+                         spa_proxies=proxies)
+    sess.prefill(prompt, g_len)
+    sess.step()
+    profile_steps(torch, sess.step, 4, "SPA")
+    del sess
+
+    base = DecodeSession(params, cfg, strategy=NoCache(), backend="cuda")
+    base.prefill(prompt, g_len, use_cache=False)
+    base.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(16):
+        base.step()
+    torch.cuda.synchronize()
+    base_ms = (time.perf_counter() - t0) / 16 * 1e3
+    print(f"  NoCache: {base_ms:.2f} ms/step over 16 steps "
+          f"(SPA {spa_ms:.2f} ms/step, ratio {base_ms / spa_ms:.2f}x)")
+    profile_steps(torch, base.step, 2, "NoCache")
+    return launches
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.kernels import _lib
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    print(f"card: {card}")
+
+    print("build")
+    _lib.load()
+    print(f"  kernels built in {_lib.build_seconds():.1f} s")
+    (_lib.BUILD_DIR / "nvcc.log").write_text(_lib.build_log())
+    for line in _lib.build_log().splitlines():
+        if "registers" in line or "spill" in line:
+            print("  " + line.strip())
+
+    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    records = check_kernels(torch, flush)
+    print("decode parity (2-layer full-width LLaDA, CudaBackend vs "
+          "TorchBackend)")
+    # f32: the kernels agree with the plain versions to FMA order.
+    decode_parity(torch, 1e-5)
+    # bf16, the main path's kernels (tensor-core attention, bf16 proxies):
+    # each call agrees to one bf16 ulp (2^-7), so one step's buffers and
+    # logits to a few ulps of their largest value (an H100 read 1.1e-2 and
+    # 6.0e-3); the limit is four ulps.
+    lockstep_parity(torch, 2 ** -5, 2 ** -5)
+    torch.cuda.empty_cache()
+    print(f"main path (LLaDA-8B bf16, B=4, prompt 256 + gen {GEN_LEN})")
+    launches = main_path(torch)
+
+    kernels = []
+    for name, rec in records.items():
+        bound_ms, bound_by = rec.pop("bound")
+        kernels.append(dict(name=name, route="cuda", launches=launches[name],
+                            bound_ms=bound_ms, bound_by=bound_by, **rec))
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

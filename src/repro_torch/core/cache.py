@@ -1,0 +1,178 @@
+"""SPA-Cache state + int8 cache quantization (the dense half).
+
+Per attention layer the cache holds (Algorithm 1):
+  k, v   — the partially-updated KV cache          [B, N, KVH, HD]
+  h      — the block OUTPUT states H^c             [B, N, d]
+  proxy  — identifier vectors at the last refresh  [B, N, r]
+
+Layers are stacked per layer kind ({kind: {name: [Lk, B, N, ...]}}).  The
+JAX package returns new cache arrays from every write; the port writes the
+buffers IN PLACE (one copy of a multi-GB cache, no donation needed).  So a
+tensor that aliases a cache buffer changes under later writes: readers
+that keep a value (``read_h_full``) return a copy.
+
+int8 mode (``cache_dtype="int8"``): symmetric per-row quantization with a
+float16 scale, as in the JAX package.  The paged layout waits for the
+paged-serving slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ATTENTION_KINDS, ModelConfig
+from repro_torch.device import torch_dtype
+
+
+def quantize_rows(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 over the last axis. Returns (q [.., d] i8, scale f16).
+
+    The rowwise multiply stays in x's dtype, as in the JAX package."""
+    amax = torch.amax(torch.abs(x), dim=-1).float()
+    scale = torch.clamp(amax / 127.0, min=1e-8)
+    inv = (1.0 / scale).to(x.dtype)
+    q = torch.clamp(torch.round((x * inv[..., None]).float()),
+                    -127, 127).to(torch.int8)
+    return q, scale.to(torch.float16)
+
+
+def dequantize_rows(q: torch.Tensor, scale: torch.Tensor,
+                    dtype=torch.float32) -> torch.Tensor:
+    return (q.float() * scale.float()[..., None]).to(dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class CachePolicy:
+    quantized: bool
+    compute_dtype: torch.dtype
+
+    @classmethod
+    def from_config(cls, cfg: ModelConfig) -> "CachePolicy":
+        return cls(quantized=(cfg.cache_dtype == "int8"),
+                   compute_dtype=torch_dtype(cfg.param_dtype))
+
+
+def init_attn_layer_cache(cfg: ModelConfig, batch: int, n: int,
+                          policy: CachePolicy, strategy=None, *,
+                          device=None) -> Dict[str, torch.Tensor]:
+    """Zeros cache for ONE attention layer (no leading L axis)."""
+    from repro_torch.core.strategy import resolve_strategy
+    strategy = resolve_strategy(cfg, strategy)
+    kvh, hd, d = cfg.n_kv_heads, cfg.head_dim, cfg.d_model
+    r = strategy.proxy_dim(cfg)
+    cd = policy.compute_dtype
+
+    def z(shape, dtype):
+        return torch.zeros(shape, dtype=dtype, device=device)
+
+    out: Dict[str, torch.Tensor] = {}
+    if policy.quantized:
+        out["k"] = z((batch, n, kvh, hd), torch.int8)
+        out["v"] = z((batch, n, kvh, hd), torch.int8)
+        out["h"] = z((batch, n, d), torch.int8)
+        out["k_scale"] = z((batch, n, kvh), torch.float16)
+        out["v_scale"] = z((batch, n, kvh), torch.float16)
+        out["h_scale"] = z((batch, n), torch.float16)
+    else:
+        out["k"] = z((batch, n, kvh, hd), cd)
+        out["v"] = z((batch, n, kvh, hd), cd)
+        out["h"] = z((batch, n, d), cd)
+    if r:
+        out["proxy"] = z((batch, n, r), cd)
+    return out
+
+
+def init_model_cache(cfg: ModelConfig, batch: int, n: int, strategy=None,
+                     *, device=None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Stacked caches per attention kind: {kind: {name: [Lk, B, N, ...]}}."""
+    policy = CachePolicy.from_config(cfg)
+    out: Dict[str, Dict[str, torch.Tensor]] = {}
+    for kind in sorted(set(cfg.layer_kinds)):
+        if kind not in ATTENTION_KINDS:
+            continue
+        lk = cfg.n_layers_of_kind(kind)
+        one = init_attn_layer_cache(cfg, batch, n, policy, strategy,
+                                    device=device)
+        out[kind] = {name: a[None].repeat((lk,) + (1,) * a.dim())
+                     for name, a in one.items()}
+    return out
+
+
+def scatter_buffers(cache: Dict[str, torch.Tensor], idx: torch.Tensor,
+                    upd: Dict[str, torch.Tensor],
+                    backend=None) -> Dict[str, torch.Tensor]:
+    """Scatter row payloads ``upd`` [B,k,...] into the named cache buffers
+    at idx, in place, through the KernelBackend (ONE multi-buffer kernel
+    launch on ``CudaBackend``).  Quantization happens before this."""
+    if backend is None:
+        from repro_torch.kernels.backend import TORCH_BACKEND as backend
+    backend.scatter_multi({name: cache[name] for name in upd}, idx, upd)
+    return cache
+
+
+def h_row_update(h_rows: torch.Tensor, policy: CachePolicy
+                 ) -> Dict[str, torch.Tensor]:
+    """Row payloads for an H^c commit ({"h"[, "h_scale"]})."""
+    if policy.quantized:
+        hq, hs = quantize_rows(h_rows)
+        return {"h": hq, "h_scale": hs}
+    return {"h": h_rows}
+
+
+def write_kv(cache: Dict[str, torch.Tensor], idx: torch.Tensor,
+             k_rows: torch.Tensor, v_rows: torch.Tensor,
+             policy: CachePolicy, backend=None) -> Dict[str, torch.Tensor]:
+    """Scatter new K/V rows ([B,k,KVH,HD]) into the layer cache at idx."""
+    if policy.quantized:
+        kq, ks = quantize_rows(k_rows)
+        vq, vs = quantize_rows(v_rows)
+        upd = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    else:
+        upd = {"k": k_rows, "v": v_rows}
+    return scatter_buffers(cache, idx, upd, backend)
+
+
+def write_h(cache: Dict[str, torch.Tensor], idx: torch.Tensor,
+            h_rows: torch.Tensor, policy: CachePolicy,
+            backend=None) -> Dict[str, torch.Tensor]:
+    return scatter_buffers(cache, idx, h_row_update(h_rows, policy),
+                           backend)
+
+
+def read_kv_for_attention(cache: Dict[str, torch.Tensor],
+                          policy: CachePolicy):
+    """Returns (k, v, k_scale, v_scale) for the attention stage."""
+    if policy.quantized:
+        return (cache["k"], cache["v"], cache["k_scale"], cache["v_scale"])
+    return (cache["k"], cache["v"], None, None)
+
+
+def read_h_full(cache: Dict[str, torch.Tensor], policy: CachePolicy,
+                dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """The layer's H^c as a NEW tensor (never an alias of the buffer,
+    which later commits overwrite in place)."""
+    dtype = dtype or policy.compute_dtype
+    if policy.quantized:
+        return dequantize_rows(cache["h"], cache["h_scale"], dtype)
+    return cache["h"].to(dtype, copy=True)
+
+
+def fill_from_prefill(entries: Dict[str, torch.Tensor],
+                      policy: CachePolicy) -> Dict[str, torch.Tensor]:
+    """Build one kind's cache dict from raw prefill tensors [Lk, B, N, ...].
+    ``entries`` must be fresh stacks (``forward_hidden`` builds them with
+    ``torch.stack``): a cast to the dtype they already have keeps them."""
+    out: Dict[str, torch.Tensor] = {}
+    if policy.quantized:
+        out["k"], out["k_scale"] = quantize_rows(entries["k"])
+        out["v"], out["v_scale"] = quantize_rows(entries["v"])
+        out["h"], out["h_scale"] = quantize_rows(entries["h"])
+    else:
+        cd = policy.compute_dtype
+        for name in ("k", "v", "h"):
+            out[name] = entries[name].to(cd)
+    if "proxy" in entries:
+        out["proxy"] = entries["proxy"].to(policy.compute_dtype)
+    return out

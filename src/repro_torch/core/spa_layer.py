@@ -1,0 +1,162 @@
+"""SPA-Cache transformer block (paper Algorithm 1) + layer orchestration.
+
+Phase 1 — identification & selection: project the current inputs to
+identifier vectors, score cosine drift against the cached identifiers and
+select the top-k most-drifted rows.
+Phase 2 — attention with a partially cached KV: recompute Q/K/V for the
+selected rows only, commit K/V to the cache, then attend the selected
+queries to the whole (partially refreshed) cache.
+Phase 3 — FFN & output update on the selected rows, committed into H^c;
+the layer output is the whole refreshed H^c.
+
+The kernel-shaped stages (identification, gather + norm, attention, the
+two commits) dispatch through ``strategy.backend``.  Caches are updated in
+place.
+
+k per layer: the JAX package runs homogeneous all-attention models of
+8 layers or more as a layer scan whose segments share the bucketed k of
+``budget.bucketize``, and smaller ones with the exact ``k_schedule``.
+The port has no scan but uses the same k for every layer in both regimes
+(``layer_ks``), so the two packages select the same rows.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ATTENTION_KINDS, ModelConfig
+from repro_torch.core import budget, cache as cache_lib, selection
+from repro_torch.core.cache import CachePolicy
+from repro_torch.core.strategy import CacheStrategy, resolve_strategy
+from repro_torch.models import common
+from repro_torch.models.transformer import (apply_block_dense,
+                                            apply_ffn_or_moe, layer_params,
+                                            layer_window, qkv_project)
+
+Params = Dict[str, Any]
+
+
+def _mask_tail_scores(scores: torch.Tensor, n: int,
+                      kv_len: Optional[torch.Tensor]) -> torch.Tensor:
+    """Rows past a request's valid canvas length never select (their
+    similarity is forced to +inf: LOW = drifted = update)."""
+    if kv_len is None:
+        return scores
+    pos = torch.arange(n, device=scores.device)[None, :]
+    return torch.where(pos < kv_len.long()[:, None], scores, torch.inf)
+
+
+def _identifier_scores(strategy: CacheStrategy, bp: Params, proxy_mat, x,
+                       cache_sl):
+    """Returns (scores [B, N] f32, p_now [B, N, r]) on the backend."""
+    return strategy.backend.identifier_scores(strategy, bp, proxy_mat, x,
+                                              cache_sl["proxy"])
+
+
+def spa_attn_block(cfg: ModelConfig, kind: str, bp: Params,
+                   proxy_mat: Optional[torch.Tensor],
+                   cache_sl: Dict[str, torch.Tensor], h: torch.Tensor,
+                   k_upd: int, policy: CachePolicy,
+                   strategy: Optional[CacheStrategy] = None,
+                   kv_len: Optional[torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One SPA-Cache attention block step.  h: [B, N, d] current inputs;
+    ``cache_sl`` (this layer's buffers) is updated in place.  Returns
+    (h_out, selected idx)."""
+    strategy = resolve_strategy(cfg, strategy)
+    b, n, d = h.shape
+    w = layer_window(cfg, kind)
+    if w > 0 and n > 8192:
+        raise NotImplementedError(
+            "stratified selection for windowed long context waits for a "
+            "later slice")
+
+    # ---- Phase 1: identification & selection ----
+    # Cosine drift is invariant to per-row scale: score on
+    # h * (1 + norm_weight) and rms-norm only the k selected rows.
+    ident_in = h * (1.0 + bp["norm1"]).to(h.dtype)
+    scores, p_now = _identifier_scores(strategy, bp, proxy_mat, ident_in,
+                                       cache_sl)
+    scores = _mask_tail_scores(scores, n, kv_len)
+    idx = selection.select_topk_drift(scores, k_upd)
+    k_eff = idx.shape[1]
+    h_rows, x_rows = strategy.backend.gather_norm(h, idx, bp["norm1"],
+                                                  cfg.norm_eps)
+
+    # ---- Phase 2: attention with partially cached KV ----
+    # K/V are committed BEFORE attention reads the cache.
+    q, k_new, v_new = qkv_project(bp, x_rows, cfg, idx)
+    strategy.commit_kv(cache_sl, idx, k_new, v_new, policy)
+    kf, vf, ks, vs = cache_lib.read_kv_for_attention(cache_sl, policy)
+    attn = strategy.backend.attention(
+        q, kf, vf, k_scale=ks, v_scale=vs, q_positions=idx, window=w,
+        soft_cap=cfg.attn_softcap, banded=False, q_span=0, kv_len=kv_len)
+    attn_out = attn.reshape(b, k_eff, cfg.q_dim) @ bp["wo"]
+    if cfg.post_norms:
+        attn_out = common.rms_norm(attn_out, bp["norm_post_attn"],
+                                   cfg.norm_eps)
+    h_mid = h_rows + attn_out
+
+    # ---- Phase 3: FFN & output update ----
+    y = common.rms_norm(h_mid, bp["norm2"], cfg.norm_eps)
+    ffn_out = apply_ffn_or_moe(bp, y, cfg)
+    if cfg.post_norms:
+        ffn_out = common.rms_norm(ffn_out, bp["norm_post_ffn"],
+                                  cfg.norm_eps)
+    y_rows = h_mid + ffn_out
+    strategy.commit(cache_sl, idx, y_rows, policy, p_now=p_now)
+    return cache_lib.read_h_full(cache_sl, policy, h.dtype), idx
+
+
+# ---------------------------------------------------------------------------
+# Whole-model serve forward
+# ---------------------------------------------------------------------------
+
+def _homogeneous_attention(cfg: ModelConfig) -> bool:
+    kinds = set(cfg.layer_pattern)
+    return len(kinds) == 1 and next(iter(kinds)) in ATTENTION_KINDS
+
+
+def layer_ks(cfg: ModelConfig, strategy: CacheStrategy, n: int) -> List[int]:
+    """The k each layer runs with, as the JAX package runs it: bucketed
+    (one k per scan segment) for homogeneous all-attention models of 8 or
+    more layers with ``scan_layers``, the exact schedule otherwise."""
+    ks = strategy.k_schedule(cfg, n)
+    if _homogeneous_attention(cfg) and cfg.scan_layers and cfg.n_layers >= 8:
+        out = list(ks)
+        for a, b_end, kseg in budget.bucketize(ks, strategy.n_buckets):
+            out[a:b_end] = [kseg] * (b_end - a)
+        return out
+    return list(ks)
+
+
+def spa_forward(params: Params, cfg: ModelConfig,
+                cache: Dict[str, Dict[str, torch.Tensor]], h: torch.Tensor,
+                spa_proxies: Optional[Dict[str, torch.Tensor]] = None,
+                strategy: Optional[CacheStrategy] = None, backend=None,
+                kv_len: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, Dict]:
+    """Run all blocks with the strategy on attention layers.  ``cache``
+    ({kind: {name: [Lk, B, N, ...]}}) is updated in place and returned.
+    Returns (h_final, cache)."""
+    strategy = resolve_strategy(cfg, strategy)
+    if backend is not None:
+        strategy = strategy.with_backend(backend)
+    policy = CachePolicy.from_config(cfg)
+    n = h.shape[1]
+    ks = layer_ks(cfg, strategy, n)
+    for l in range(cfg.n_layers):
+        kind = cfg.kind_of_layer(l)
+        ki = cfg.kind_index(l)
+        bp = layer_params(params, cfg, l)
+        if kind in ATTENTION_KINDS and strategy.uses_cache:
+            csl = {name: t[ki] for name, t in cache[kind].items()}
+            prox = (spa_proxies[kind][ki]
+                    if strategy.uses_proxy_mat and spa_proxies else None)
+            h, _ = spa_attn_block(cfg, kind, bp, prox, csl, h, ks[l],
+                                  policy, strategy, kv_len=kv_len)
+        else:
+            h, _ = apply_block_dense(cfg, kind, bp, h, strategy=strategy,
+                                     kv_len=kv_len)
+    return h, cache

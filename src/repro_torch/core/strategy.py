@@ -1,0 +1,238 @@
+"""Caching strategies (the ``CacheStrategy`` protocol), as in the JAX package.
+
+Every policy is a frozen dataclass implementing one protocol; the decode
+surfaces accept a strategy at call time and ``ModelConfig.spa`` is only the
+default spec.  This slice ports:
+
+  ``SPACache`` — the paper: rank-r singular proxy (§3.3) + piecewise-
+                 Gaussian adaptive budget (Eq. 5); non-incremental.
+  ``NoCache``  — vanilla full recomputation (the baseline rows).
+
+The other strategies (value / query / key / attn_in projections, window,
+attn_out, the incremental identifier) wait for a later slice.
+
+A strategy owns the identifier projection (``project`` /
+``prefill_proxy``), the drift score (``score``), the per-layer budget
+(``k_schedule``), the cache layout and commits (``proxy_dim`` /
+``commit_kv`` / ``commit``) and its offline artefacts
+(``build_proxies``).  Its ``backend`` field selects the kernels of the hot
+path (``CudaBackend`` by default: the CUDA kernels on the card, their plain
+versions on the CPU).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, ClassVar, Dict, List, Optional, Type
+
+import torch
+
+from repro_torch.configs.base import ATTENTION_KINDS, ModelConfig, SPAConfig
+from repro_torch.kernels.backend import CUDA_BACKEND, KernelBackend
+
+Params = Dict[str, Any]
+
+REGISTRY: Dict[str, Type["CacheStrategy"]] = {}
+
+
+def register(*idents: str):
+    def deco(cls):
+        for ident in idents:
+            REGISTRY[ident] = cls
+        return cls
+
+    return deco
+
+
+@dataclasses.dataclass(frozen=True)
+class CacheStrategy:
+    """Protocol base.  Subclasses override the class-vars and methods."""
+
+    refresh_interval: int = 0
+    n_buckets: int = 6
+    backend: KernelBackend = CUDA_BACKEND
+
+    name: ClassVar[str] = "abstract"
+    uses_cache: ClassVar[bool] = True     # False only for NoCache
+    uses_proxy_mat: ClassVar[bool] = False   # True only for SPACache
+    incremental: ClassVar[bool] = False
+
+    @property
+    def spec(self) -> SPAConfig:
+        raise NotImplementedError
+
+    def with_backend(self, backend) -> "CacheStrategy":
+        """Same strategy, hot path on the given backend (or its name)."""
+        from repro_torch.kernels.backend import resolve_backend
+        return dataclasses.replace(self, backend=resolve_backend(backend))
+
+    # ---- budget ----
+
+    def k_schedule(self, cfg: ModelConfig, seq_len: int) -> List[int]:
+        """Static per-layer update counts k(l)."""
+        from repro_torch.core import budget
+        return budget.k_schedule(self.spec, cfg.n_layers, seq_len)
+
+    # ---- identification ----
+
+    def project(self, h: torch.Tensor, bp: Params,
+                proxy_mat: Optional[torch.Tensor] = None) -> torch.Tensor:
+        raise NotImplementedError(f"{self.name} has no projection")
+
+    def projection_matrix(self, bp: Params,
+                          proxy_mat: Optional[torch.Tensor] = None
+                          ) -> Optional[torch.Tensor]:
+        """The [d, r] matrix M with ``project(h) == h @ M``, or None."""
+        return None
+
+    def score(self, p_now: torch.Tensor,
+              p_cached: torch.Tensor) -> torch.Tensor:
+        """Similarity per row [B, N]; LOW = drifted = update."""
+        from repro_torch.core.identifiers import drift_scores
+        return drift_scores(p_now, p_cached)
+
+    def prefill_proxy(self, bp: Params, proxy_mat, h_in, x, attn_out,
+                      h_out) -> Optional[torch.Tensor]:
+        """Identifier vectors collected during prefill: the projection of
+        h * (1 + norm1) WITHOUT the rms division, exactly the serve path's
+        identifier input, so unchanged rows tie at cosine 1.0."""
+        scaled = h_in * (1.0 + bp["norm1"]).to(h_in.dtype)
+        return self.project(scaled, bp, proxy_mat)
+
+    # ---- cache layout + lifecycle ----
+
+    def proxy_dim(self, cfg: ModelConfig) -> int:
+        return 0
+
+    def commit_kv(self, cache_sl: Dict[str, torch.Tensor], idx, k_rows,
+                  v_rows, policy) -> Dict[str, torch.Tensor]:
+        """Scatter refreshed K/V rows into the layer cache at idx (one
+        multi-buffer kernel launch on ``CudaBackend``)."""
+        from repro_torch.core import cache as cache_lib
+        return cache_lib.write_kv(cache_sl, idx, k_rows, v_rows, policy,
+                                  backend=self.backend)
+
+    def commit(self, cache_sl: Dict[str, torch.Tensor], idx, h_rows,
+               policy, *, p_now: Optional[torch.Tensor] = None
+               ) -> Dict[str, torch.Tensor]:
+        """Scatter refreshed block outputs (+ int8 scale) and the selected
+        identifier rows at idx in ONE multi-buffer commit."""
+        from repro_torch.core import cache as cache_lib
+        from repro_torch.core import selection
+        upd = cache_lib.h_row_update(h_rows, policy)
+        if p_now is not None and "proxy" in cache_sl:
+            upd["proxy"] = selection.gather_rows(p_now, idx)
+        return cache_lib.scatter_buffers(cache_sl, idx, upd,
+                                         backend=self.backend)
+
+    def refresh_cache(self, params: Params, cfg: ModelConfig,
+                      tokens: torch.Tensor, spa_proxies=None,
+                      kv_len: Optional[torch.Tensor] = None
+                      ) -> Dict[str, Dict[str, torch.Tensor]]:
+        """Full cache rebuild from the current canvas (a prefill)."""
+        if not self.uses_cache:
+            return {}
+        from repro_torch.dlm import decoding
+        _, cache = decoding.prefill(params, cfg, {"tokens": tokens},
+                                    spa_proxies, self, kv_len=kv_len)
+        return cache
+
+    # ---- offline artefacts ----
+
+    def build_proxies(self, params: Params, cfg: ModelConfig
+                      ) -> Optional[Dict[str, torch.Tensor]]:
+        return None
+
+
+@register("singular")
+@dataclasses.dataclass(frozen=True)
+class SPACache(CacheStrategy):
+    """The paper: rank-r singular proxy + adaptive budget (Alg. 1)."""
+
+    rank: int = 128
+    schedule: str = "adaptive"
+    rho_peak: float = 0.25
+    rho_first: float = 0.03
+    rho_last: float = 0.13
+    layer_peak: Optional[int] = None
+
+    name: ClassVar[str] = "spa"
+    uses_proxy_mat: ClassVar[bool] = True
+
+    @property
+    def spec(self) -> SPAConfig:
+        return SPAConfig(
+            identifier="singular", rank=self.rank, schedule=self.schedule,
+            rho_peak=self.rho_peak, rho_first=self.rho_first,
+            rho_last=self.rho_last, layer_peak=self.layer_peak,
+            n_buckets=self.n_buckets,
+            refresh_interval=self.refresh_interval)
+
+    @classmethod
+    def from_spec(cls, spa: SPAConfig) -> "SPACache":
+        if spa.incremental_ident:
+            raise NotImplementedError(
+                "the incremental identifier waits for a later slice")
+        return cls(rank=spa.rank, schedule=spa.schedule,
+                   rho_peak=spa.rho_peak, rho_first=spa.rho_first,
+                   rho_last=spa.rho_last, layer_peak=spa.layer_peak,
+                   n_buckets=spa.n_buckets,
+                   refresh_interval=spa.refresh_interval)
+
+    def proxy_dim(self, cfg: ModelConfig) -> int:
+        return self.rank
+
+    def project(self, h, bp, proxy_mat=None):
+        assert proxy_mat is not None, "SPACache needs offline proxies"
+        return h @ proxy_mat
+
+    def projection_matrix(self, bp, proxy_mat=None):
+        assert proxy_mat is not None, "SPACache needs offline proxies"
+        return proxy_mat
+
+    def build_proxies(self, params, cfg):
+        """Offline SVD of value projections -> {kind: [Lk, d, r]}."""
+        from repro_torch.core.svd_proxy import build_proxy_stack
+        return {kind: build_proxy_stack(params["blocks"][kind]["wv"],
+                                        self.rank)
+                for kind in sorted(set(cfg.layer_kinds))
+                if kind in ATTENTION_KINDS}
+
+
+@register("none")
+@dataclasses.dataclass(frozen=True)
+class NoCache(CacheStrategy):
+    """Vanilla full recomputation every refinement step (baseline)."""
+
+    name: ClassVar[str] = "none"
+    uses_cache: ClassVar[bool] = False
+
+    @property
+    def spec(self) -> SPAConfig:
+        return SPAConfig(identifier="none")
+
+    @classmethod
+    def from_spec(cls, spa: SPAConfig) -> "NoCache":
+        return cls()
+
+    def k_schedule(self, cfg: ModelConfig, seq_len: int) -> List[int]:
+        return [seq_len] * cfg.n_layers
+
+    def prefill_proxy(self, bp, proxy_mat, h_in, x, attn_out, h_out):
+        return None
+
+
+def strategy_from_spec(spa: SPAConfig) -> CacheStrategy:
+    """Build the strategy described by a (serializable) ``SPAConfig``."""
+    cls = REGISTRY.get(spa.identifier)
+    if cls is None:
+        raise NotImplementedError(
+            f"identifier {spa.identifier!r} is not ported yet; ported: "
+            f"{sorted(REGISTRY)}")
+    return cls.from_spec(spa)
+
+
+def resolve_strategy(cfg: ModelConfig,
+                     strategy: Optional[CacheStrategy] = None
+                     ) -> CacheStrategy:
+    """Call-time strategy wins; ``cfg.spa`` is only the default spec."""
+    return strategy if strategy is not None else strategy_from_spec(cfg.spa)

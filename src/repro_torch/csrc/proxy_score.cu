@@ -1,0 +1,253 @@
+// Fused Phase-1 identification: p = x @ W_r (f32 accumulation), p rounded to
+// the storage dtype, score = cosine(p_rounded, p_cached) with the norm
+// product floored at eps.
+//
+// Replaces: src/repro/kernels/proxy_score.py:proxy_score (Pallas,
+//   _proxy_score_kernel), a grid over (batch, row block) with the d-long
+//   projection of each block done in VMEM.
+// Bound on the H100: bytes.  At the slice shape (B=4, N=512, d=4096, r=128,
+//   bf16) the projection is 2.1 GFLOP but x alone is 16.8 MB, so the least
+//   time is the ~19 MB read once (x, W_r, p_cached) and written once (p_now,
+//   scores): about 6 us at 3.35 TB/s, against about 2 us of tensor-core work.
+// Design: one block per (row tile, batch row); the whole d-loop runs inside
+//   the block (nothing carries between blocks).  bf16: 32-row tiles, x and
+//   W_r chunks of 64 staged in shared memory by a two-stage cp.async
+//   pipeline (16-byte copies, the next chunk in flight while warp-level
+//   tensor-core MMAs (wmma, f32 accumulators) consume this one).  f32: 16-row
+//   tiles and a plain FMA loop (exact f32, no TF32).  The epilogue rounds p
+//   through the storage dtype, writes p_now and reduces the three dot
+//   products of each row with one warp per row, so p never makes an HBM
+//   round trip before it is scored.  Every block re-reads W_r (1 MB at the
+//   slice shape) from L2, 64 MB in all; sharing it across a cluster with
+//   TMA multicast is later work.
+#include <mma.h>
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int kThreads = 256;   // 8 warps
+constexpr int kRMax = 256;      // largest rank a block holds
+
+// ---- bf16: tensor-core tiles, two-stage cp.async pipeline ------------------
+constexpr int kRowsB = 32;      // rows of x per block (2 MMA row tiles)
+constexpr int kTkB = 64;        // d-chunk per pipeline stage
+constexpr int kLdX = kTkB + 8;  // padded row stride of an x stage (bf16)
+constexpr int kSlots = 4;       // accumulator tiles per warp (r <= 256)
+
+size_t bf16_smem_bytes(int r) {
+  const size_t stages = 2 * sizeof(__nv_bfloat16) *
+                        (size_t)(kRowsB * kLdX + kTkB * (r + 8));
+  const size_t p_tile = sizeof(float) * (size_t)kRowsB * (r + 8);
+  return stages > p_tile ? stages : p_tile;
+}
+
+// Needs d % 8 == 0, r % 16 == 0 and 16-byte aligned x / w (checked by the
+// wrapper): every tile row moves as 16-byte cp.async chunks.
+__global__ void __launch_bounds__(kThreads) proxy_score_bf16(
+    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
+    const __nv_bfloat16* __restrict__ pc, float* __restrict__ scores,
+    __nv_bfloat16* __restrict__ pnow, int N, int d, int r, float eps) {
+  using namespace nvcuda;
+  using bf16 = __nv_bfloat16;
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int ldw = r + 8;
+  bf16* xs0 = reinterpret_cast<bf16*>(smem);
+  bf16* ws0 = xs0 + 2 * kRowsB * kLdX;
+
+  const int b = blockIdx.y;
+  const int row0 = blockIdx.x * kRowsB;
+  const int tid = threadIdx.x;
+  const int warp = tid / 32, lane = tid % 32;
+  const int n_tiles = (kRowsB / 16) * (r / 16);
+  const int r8 = r / 8;
+  const int n_k = (d + kTkB - 1) / kTkB;
+  const bf16* xb = x + (size_t)b * N * d;
+
+  auto load_stage = [&](int s, int k0) {
+    bf16* xs = xs0 + s * kRowsB * kLdX;
+    bf16* ws = ws0 + s * kTkB * ldw;
+    for (int e = tid; e < kRowsB * (kTkB / 8); e += kThreads) {
+      const int i = e / (kTkB / 8), c = (e % (kTkB / 8)) * 8;
+      const int row = row0 + i, col = k0 + c;
+      const bool ok = row < N && col < d;
+      spa::cp_async16(xs + i * kLdX + c, ok ? xb + (size_t)row * d + col : x,
+                      ok);
+    }
+    for (int e = tid; e < kTkB * r8; e += kThreads) {
+      const int kk = e / r8, c = (e - kk * r8) * 8;
+      const int col = k0 + kk;
+      const bool ok = col < d;
+      spa::cp_async16(ws + kk * ldw + c, ok ? w + (size_t)col * r + c : w, ok);
+    }
+  };
+
+  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kSlots];
+#pragma unroll
+  for (int t = 0; t < kSlots; ++t) wmma::fill_fragment(acc[t], 0.f);
+
+  load_stage(0, 0);
+  spa::cp_async_commit();
+  for (int it = 0; it < n_k; ++it) {
+    if (it + 1 < n_k) load_stage((it + 1) & 1, (it + 1) * kTkB);
+    spa::cp_async_commit();
+    spa::cp_async_wait<1>();  // this stage has landed; the next may fly
+    __syncthreads();
+    const bf16* xs = xs0 + (it & 1) * kRowsB * kLdX;
+    const bf16* ws = ws0 + (it & 1) * kTkB * ldw;
+#pragma unroll
+    for (int slot = 0; slot < kSlots; ++slot) {
+      const int t = warp + slot * (kThreads / 32);
+      if (t >= n_tiles) continue;
+      const int rt = t % (kRowsB / 16), ct = t / (kRowsB / 16);
+#pragma unroll
+      for (int kk = 0; kk < kTkB; kk += 16) {
+        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
+        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
+        wmma::load_matrix_sync(fa, xs + rt * 16 * kLdX + kk, kLdX);
+        wmma::load_matrix_sync(fb, ws + kk * ldw + ct * 16, ldw);
+        wmma::mma_sync(acc[slot], fa, fb, acc[slot]);
+      }
+    }
+    __syncthreads();  // the stage is free for the load two steps ahead
+  }
+  spa::cp_async_wait<0>();
+
+  float* ps = reinterpret_cast<float*>(smem);  // [kRowsB][r + 8]
+#pragma unroll
+  for (int slot = 0; slot < kSlots; ++slot) {
+    const int t = warp + slot * (kThreads / 32);
+    if (t >= n_tiles) continue;
+    const int rt = t % (kRowsB / 16), ct = t / (kRowsB / 16);
+    wmma::store_matrix_sync(ps + rt * 16 * ldw + ct * 16, acc[slot], ldw,
+                            wmma::mem_row_major);
+  }
+  __syncthreads();
+
+  // epilogue: round p to bf16, write p_now, score against p_cached
+  for (int i = warp; i < kRowsB; i += kThreads / 32) {
+    const int row = row0 + i;
+    if (row >= N) continue;
+    const size_t off = ((size_t)b * N + row) * r;
+    float num = 0.f, pp = 0.f, cc = 0.f;
+    for (int c = lane; c < r; c += 32) {
+      const bf16 pr = __float2bfloat16_rn(ps[i * ldw + c]);
+      pnow[off + c] = pr;
+      const float p = __bfloat162float(pr);
+      const float q = __bfloat162float(pc[off + c]);
+      num += p * q;
+      pp += p * p;
+      cc += q * q;
+    }
+    num = spa::warp_sum(num);
+    pp = spa::warp_sum(pp);
+    cc = spa::warp_sum(cc);
+    if (lane == 0) scores[(size_t)b * N + row] = num / fmaxf(sqrtf(pp * cc), eps);
+  }
+}
+
+// ---- f32: exact FMA loop ----------------------------------------------------
+constexpr int kRows = 16;       // rows of x per block
+constexpr int kTkF = 32;
+
+__global__ void __launch_bounds__(kThreads) proxy_score_f32(
+    const float* __restrict__ x, const float* __restrict__ w,
+    const float* __restrict__ pc, float* __restrict__ scores,
+    float* __restrict__ pnow, int N, int d, int r, float eps) {
+  __shared__ float xs[kRows][kTkF + 1];
+  __shared__ float ws[kTkF * kRMax];  // reused as the p tile [kRows][kRMax]
+
+  const int b = blockIdx.y;
+  const int row0 = blockIdx.x * kRows;
+  const int tid = threadIdx.x;
+  const int trow = tid / 16, tcol = tid % 16;  // 16 rows x 16 column lanes
+  const int nj = (r + 15) / 16;
+  const float* xb = x + (size_t)b * N * d;
+
+  float acc[kRMax / 16];
+#pragma unroll
+  for (int j = 0; j < kRMax / 16; ++j) acc[j] = 0.f;
+
+  for (int k0 = 0; k0 < d; k0 += kTkF) {
+    for (int e = tid; e < kRows * kTkF; e += kThreads) {
+      const int i = e / kTkF, kk = e % kTkF;
+      const int row = row0 + i, col = k0 + kk;
+      xs[i][kk] = (row < N && col < d) ? xb[(size_t)row * d + col] : 0.f;
+    }
+    for (int e = tid; e < kTkF * r; e += kThreads) {
+      const int kk = e / r, c = e % r;
+      const int col = k0 + kk;
+      ws[kk * kRMax + c] = col < d ? w[(size_t)col * r + c] : 0.f;
+    }
+    __syncthreads();
+    for (int kk = 0; kk < kTkF; ++kk) {
+      const float xv = xs[trow][kk];
+#pragma unroll
+      for (int j = 0; j < kRMax / 16; ++j) {
+        const int c = tcol + 16 * j;
+        if (j < nj && c < r) acc[j] = fmaf(xv, ws[kk * kRMax + c], acc[j]);
+      }
+    }
+    __syncthreads();
+  }
+  float* ps = ws;
+#pragma unroll
+  for (int j = 0; j < kRMax / 16; ++j) {
+    const int c = tcol + 16 * j;
+    if (j < nj && c < r) ps[trow * kRMax + c] = acc[j];
+  }
+  __syncthreads();
+  const int warp = tid / 32, lane = tid % 32;
+  for (int i = warp; i < kRows; i += kThreads / 32) {
+    const int row = row0 + i;
+    if (row >= N) continue;
+    const size_t off = ((size_t)b * N + row) * r;
+    float num = 0.f, pp = 0.f, cc = 0.f;
+    for (int c = lane; c < r; c += 32) {
+      const float p = ps[i * kRMax + c];
+      const float q = pc[off + c];
+      pnow[off + c] = p;
+      num += p * q;
+      pp += p * p;
+      cc += q * q;
+    }
+    num = spa::warp_sum(num);
+    pp = spa::warp_sum(pp);
+    cc = spa::warp_sum(cc);
+    if (lane == 0) scores[(size_t)b * N + row] = num / fmaxf(sqrtf(pp * cc), eps);
+  }
+}
+
+}  // namespace
+
+// x [B,N,d], w [d,r], pc [B,N,r] (one dtype); scores [B,N] f32; pnow [B,N,r].
+extern "C" int spa_proxy_score(const void* x, const void* w, const void* pc,
+                               void* scores, void* pnow, int B, int N, int d,
+                               int r, int dtype, float eps, void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  if (r <= 0 || r > kRMax) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == spa::kBF16) {
+    if (r % 16 || d % 8) return (int)cudaErrorInvalidValue;
+    const size_t bytes = bf16_smem_bytes(r);
+    const cudaError_t err = cudaFuncSetAttribute(
+        proxy_score_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((N + kRowsB - 1) / kRowsB, B);
+    proxy_score_bf16<<<grid, kThreads, bytes, s>>>(
+        static_cast<const __nv_bfloat16*>(x),
+        static_cast<const __nv_bfloat16*>(w),
+        static_cast<const __nv_bfloat16*>(pc), static_cast<float*>(scores),
+        static_cast<__nv_bfloat16*>(pnow), N, d, r, eps);
+  } else if (dtype == spa::kF32) {
+    const dim3 grid((N + kRows - 1) / kRows, B);
+    proxy_score_f32<<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w),
+        static_cast<const float*>(pc), static_cast<float*>(scores),
+        static_cast<float*>(pnow), N, d, r, eps);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,149 @@
+"""DLM iterative-unmasking decode primitives with pluggable caching.
+
+  prefill    — full forward over the canvas that builds the strategy's
+               layer caches (K, V, H^c, identifier vectors).
+  serve_step — ONE refinement step: sparse layer updates driven by the
+               strategy, candidate-limited logits, and the commit decision
+               of an ``UnmaskScheduler``.
+
+The step loop lives in ``repro_torch.dlm.session.DecodeSession``.  Logits
+are evaluated only at ``n_candidates`` open positions per step.  Every
+top-k here breaks ties lowest index first, like ``jax.lax.top_k``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core import cache as cache_lib
+from repro_torch.core import selection, spa_layer
+from repro_torch.core.cache import CachePolicy
+from repro_torch.core.strategy import CacheStrategy, resolve_strategy
+from repro_torch.dlm.scheduler import (CommitView, UnmaskScheduler,
+                                       resolve_scheduler)
+from repro_torch.models import transformer
+
+Params = Dict[str, Any]
+
+
+class DecodeState(NamedTuple):
+    tokens: torch.Tensor         # [B, N] canvas (mask_id at open slots)
+    cache: Any                   # {kind: {name: [Lk,B,N,...]}}, in place
+    step: int
+    committed: torch.Tensor      # [B, C] recently committed positions (-1)
+    n_masked: torch.Tensor       # [B] remaining masked counts
+    active: Optional[torch.Tensor] = None   # [B, N] bool commit mask
+    kv_len: Optional[torch.Tensor] = None   # [B] valid canvas length
+
+
+@dataclasses.dataclass(frozen=True)
+class DecodeSettings:
+    """Per-request decode knobs (see the JAX package's ``DecodeSettings``).
+
+    ``refresh_interval``: R > 0 rebuilds the cache every R steps, 0 falls
+    back to the strategy's default and -1 disables refresh."""
+    n_candidates: int = 64
+    parallel_threshold: float = 0.0   # > 0: a scheduler of a later slice
+    refresh_interval: int = 0
+    commit_ring: int = 8
+
+
+def prefill(params: Params, cfg: ModelConfig,
+            inputs: Dict[str, torch.Tensor], spa_proxies=None,
+            strategy: Optional[CacheStrategy] = None,
+            kv_len: Optional[torch.Tensor] = None
+            ) -> Tuple[torch.Tensor, Dict]:
+    """Full forward building the strategy's caches. Returns (h, cache)."""
+    strategy = resolve_strategy(cfg, strategy)
+    policy = CachePolicy.from_config(cfg)
+    h = transformer.embed_inputs(params, cfg, inputs)
+    h, raw = transformer.forward_hidden(
+        params, cfg, h, collect_cache=True, spa_proxies=spa_proxies,
+        strategy=strategy, kv_len=kv_len)
+    return h, {kind: cache_lib.fill_from_prefill(entries, policy)
+               for kind, entries in (raw or {}).items()}
+
+
+def _candidate_positions(tokens: torch.Tensor, mask_id: int, n_cand: int,
+                         active: Optional[torch.Tensor] = None):
+    """First n_cand open (masked AND active) positions per row, sorted;
+    with fewer open slots the rest are the lowest closed positions (the
+    ``-inf`` ties of the JAX top-k)."""
+    b, n = tokens.shape
+    is_masked = tokens == mask_id
+    if active is not None:
+        is_masked = is_masked & active
+    pos = torch.arange(n, device=tokens.device, dtype=torch.float32)
+    score = torch.where(is_masked, -pos[None, :], -torch.inf)
+    idx = selection.topk_lowest_first(score, min(n_cand, n))
+    return torch.sort(idx, dim=-1).values.to(torch.int32), is_masked
+
+
+def serve_step(params: Params, cfg: ModelConfig, state: DecodeState,
+               settings: DecodeSettings, spa_proxies=None,
+               strategy: Optional[CacheStrategy] = None,
+               scheduler: Optional[UnmaskScheduler] = None
+               ) -> Tuple[DecodeState, Dict[str, torch.Tensor]]:
+    """One diffusion refinement step under the resolved strategy; the
+    cache is updated in place."""
+    strategy = resolve_strategy(cfg, strategy)
+    scheduler = resolve_scheduler(settings, scheduler)
+    tokens, cache = state.tokens, state.cache
+    mask_id = cfg.mask_id
+
+    h = transformer.embed_inputs(params, cfg, {"tokens": tokens})
+    if not strategy.uses_cache or not cache:
+        h, _ = transformer.forward_hidden(params, cfg, h, strategy=strategy,
+                                          kv_len=state.kv_len)
+    else:
+        h, cache = spa_layer.spa_forward(params, cfg, cache, h,
+                                         spa_proxies=spa_proxies,
+                                         strategy=strategy,
+                                         kv_len=state.kv_len)
+
+    # Candidate-limited logit evaluation + commit.
+    cand_idx, is_masked = _candidate_positions(
+        tokens, mask_id, settings.n_candidates, state.active)
+    h_cand = selection.gather_rows(h, cand_idx)
+    logits = transformer.logits_from_hidden(params, cfg, h_cand)
+    # the model must never commit the [MASK] token itself
+    logits[..., mask_id] = -torch.inf
+    probs = torch.softmax(logits, dim=-1)
+    conf = probs.amax(dim=-1)                          # [B, n_cand]
+    pred = torch.argmax(probs, dim=-1).to(tokens.dtype)
+
+    cand_is_masked = torch.gather(is_masked, 1, cand_idx.long())
+    conf = torch.where(cand_is_masked, conf, -torch.inf)
+
+    active = state.active if state.active is not None \
+        else torch.ones_like(tokens, dtype=torch.bool)
+    view = CommitView(
+        logits=logits, conf=conf, pred=pred, cand_idx=cand_idx,
+        cand_open=cand_is_masked, open_mask=is_masked, active=active)
+    commit, pred = scheduler.select_commits(view)
+    commit = commit & cand_is_masked
+
+    old = torch.gather(tokens, 1, cand_idx.long())
+    new_tokens = tokens.clone()
+    new_tokens.scatter_(1, cand_idx.long(), torch.where(commit, pred, old))
+
+    committed_pos = torch.where(commit, cand_idx, -1)
+    ring = settings.commit_ring
+    order = selection.topk_lowest_first(committed_pos.float(),
+                                        min(ring, committed_pos.shape[-1]))
+    committed = torch.gather(committed_pos, 1, order)
+    if committed.shape[-1] < ring:
+        committed = torch.nn.functional.pad(
+            committed, (0, ring - committed.shape[-1]), value=-1)
+
+    n_committed = commit.sum(dim=-1).to(state.n_masked.dtype)
+    new_state = DecodeState(
+        tokens=new_tokens, cache=cache, step=state.step + 1,
+        committed=committed, n_masked=state.n_masked - n_committed,
+        active=state.active, kv_len=state.kv_len)
+    info = {"n_committed": n_committed,
+            "row_finite": torch.isfinite(h).all(dim=2).all(dim=1)}
+    return new_state, info

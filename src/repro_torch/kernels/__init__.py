@@ -1,0 +1,12 @@
+"""Hand-written Hopper kernels of the SPA hot path (CUDA C++ in ``csrc/``).
+
+  proxy_score      — fused rank-r projection + cosine drift scores, and
+                     ``gather_norm``, the fused gather + rms_norm epilogue
+  sparse_attention — gathered-query attention vs the full KV cache
+                     (dense grid; also serves prefill)
+  scatter_update   — in-place multi-buffer row commits
+
+Each module keeps the plain PyTorch version beside its kernel.
+``backend.py`` packages them as ``TorchBackend`` (plain) and
+``CudaBackend`` (kernels); ``_lib.py`` builds and binds the library.
+"""

@@ -1,0 +1,189 @@
+"""KernelBackend — the eight hot-path stages of ``repro/kernels/backend.py``.
+
+A SPA layer step has four kernel-shaped stages on the dense path
+(identification, the gather + norm epilogue, gathered-query attention and
+the cache commits) plus a score-only pass and three paged stages.  A
+backend owns all of them and rides on the ``CacheStrategy`` (a frozen
+dataclass field), exactly as in the JAX package.
+
+  ``TorchBackend`` — the plain PyTorch versions, on any device: the oracle.
+  ``CudaBackend``  — the kernel wrappers: CUDA kernels for tensors on the
+                     card, the plain versions for tensors on the CPU.  It
+                     has no fallback: a kernel that cannot build or launch
+                     raises.
+
+Dispatch rules follow the JAX package: selection (top-k) stays plain
+tensor code, and the fused identification kernel engages only when the
+strategy's projection is a plain matrix and its score is the base cosine.
+Stages this slice does not port raise ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, ClassVar, Dict, Optional
+
+import torch
+
+from repro_torch.kernels import proxy_score as ps
+from repro_torch.kernels import scatter_update as sc
+from repro_torch.kernels import sparse_attention as sa
+
+Params = Dict[str, Any]
+
+_LATER_SCORE = ("score-only drift (cosine_drift: the incremental and "
+                "attn_in identifiers) waits for a later slice")
+_LATER_PAGED = "the paged cache stages wait for the paged-serving slice"
+
+
+def _no_paging(page_table) -> None:
+    if page_table is not None:
+        raise NotImplementedError(_LATER_PAGED)
+
+
+@dataclasses.dataclass(frozen=True)
+class KernelBackend:
+    """Protocol base: the hot-path stages of one SPA layer step."""
+
+    name: ClassVar[str] = "abstract"
+
+    def identifier_scores(self, strategy, bp: Params, proxy_mat,
+                          x: torch.Tensor, p_cached: torch.Tensor,
+                          page_table=None):
+        """Phase 1: project x and score drift. Returns (scores, p_now)."""
+        raise NotImplementedError
+
+    def score_drift(self, strategy, p_now, p_cached, page_table=None):
+        raise NotImplementedError(_LATER_SCORE)
+
+    def gather_norm(self, h, idx, weight, eps):
+        """Phase-1 epilogue: returns (rows [B,k,d], rms-normed rows)."""
+        raise NotImplementedError
+
+    def attention(self, q, k, v, *, k_scale=None, v_scale=None,
+                  q_positions=None, window: int = 0, soft_cap: float = 0.0,
+                  banded: bool = False, q_span: int = 0, kv_len=None):
+        """Phase 2: (gathered-)query attention vs the KV cache."""
+        raise NotImplementedError
+
+    def scatter_multi(self, buffers: Dict[str, torch.Tensor], idx,
+                      rows: Dict[str, torch.Tensor]
+                      ) -> Dict[str, torch.Tensor]:
+        """Phase 2/3 commit: scatter row payloads into cache buffers (in
+        place; returns the same buffers)."""
+        raise NotImplementedError
+
+    def gather_pages(self, arena, page_table):
+        raise NotImplementedError(_LATER_PAGED)
+
+    def scatter_pages(self, arena, page_table, dense):
+        raise NotImplementedError(_LATER_PAGED)
+
+    def scatter_rows_paged(self, arena, page_table, idx, rows):
+        raise NotImplementedError(_LATER_PAGED)
+
+    @staticmethod
+    def _fused_matrix(strategy, bp, proxy_mat) -> Optional[torch.Tensor]:
+        """The [d, r] matrix of the fused identification, or None when the
+        strategy overrides ``score`` or its projection is no matmul."""
+        from repro_torch.core.strategy import CacheStrategy
+        if type(strategy).score is not CacheStrategy.score:
+            return None
+        return strategy.projection_matrix(bp, proxy_mat)
+
+
+@dataclasses.dataclass(frozen=True)
+class TorchBackend(KernelBackend):
+    """The plain PyTorch versions of every kernel (the oracle)."""
+
+    name: ClassVar[str] = "torch"
+
+    def identifier_scores(self, strategy, bp, proxy_mat, x, p_cached,
+                          page_table=None):
+        _no_paging(page_table)
+        mat = self._fused_matrix(strategy, bp, proxy_mat)
+        if mat is None:
+            p_now = strategy.project(x, bp, proxy_mat)
+            return strategy.score(p_now, p_cached), p_now
+        return ps.proxy_score_plain(x, mat, p_cached)
+
+    def gather_norm(self, h, idx, weight, eps):
+        return ps.gather_norm_plain(h, idx, weight, eps)
+
+    def attention(self, q, k, v, *, k_scale=None, v_scale=None,
+                  q_positions=None, window=0, soft_cap=0.0, banded=False,
+                  q_span=0, kv_len=None):
+        q_positions, q_span = _positions(q, q_positions, q_span)
+        if sa.banded_engages(k.shape[1], window, banded, q_span):
+            raise NotImplementedError(
+                "the banded attention grid waits for a later slice")
+        return sa.sparse_attention_plain(
+            q, k, v, q_positions, k_scale=k_scale, v_scale=v_scale,
+            window=window, soft_cap=soft_cap, kv_len=kv_len)
+
+    def scatter_multi(self, buffers, idx, rows):
+        names = sorted(rows)
+        sc.scatter_update_multi_plain([buffers[n] for n in names], idx,
+                                      [rows[n] for n in names])
+        return {n: buffers[n] for n in names}
+
+
+@dataclasses.dataclass(frozen=True)
+class CudaBackend(KernelBackend):
+    """The hand-written Hopper kernels (``csrc/``) on the hot path."""
+
+    name: ClassVar[str] = "cuda"
+
+    def identifier_scores(self, strategy, bp, proxy_mat, x, p_cached,
+                          page_table=None):
+        _no_paging(page_table)
+        mat = self._fused_matrix(strategy, bp, proxy_mat)
+        if mat is None:
+            raise NotImplementedError(_LATER_SCORE)
+        return ps.proxy_score(x, mat, p_cached)
+
+    def gather_norm(self, h, idx, weight, eps):
+        return ps.gather_norm(h, idx, weight, eps)
+
+    def attention(self, q, k, v, *, k_scale=None, v_scale=None,
+                  q_positions=None, window=0, soft_cap=0.0, banded=False,
+                  q_span=0, kv_len=None):
+        q_positions, q_span = _positions(q, q_positions, q_span)
+        return sa.sparse_attention(
+            q, k, v, q_positions, k_scale=k_scale, v_scale=v_scale,
+            window=window, soft_cap=soft_cap, banded=banded, q_span=q_span,
+            kv_len=kv_len)
+
+    def scatter_multi(self, buffers, idx, rows):
+        names = sorted(rows)
+        sc.scatter_update_multi([buffers[n] for n in names], idx,
+                                [rows[n] for n in names])
+        return {n: buffers[n] for n in names}
+
+
+def _positions(q, q_positions, q_span):
+    """Contiguous canvas (prefill): positions arange, span one q block."""
+    if q_positions is not None:
+        return q_positions, q_span
+    b, sq = q.shape[:2]
+    pos = torch.arange(sq, device=q.device, dtype=torch.int32)
+    return pos.expand(b, sq), min(sa.BLOCK_K, sq)
+
+
+TORCH_BACKEND = TorchBackend()
+CUDA_BACKEND = CudaBackend()
+
+REGISTRY: Dict[str, KernelBackend] = {
+    "torch": TORCH_BACKEND,
+    "cuda": CUDA_BACKEND,
+}
+
+
+def resolve_backend(backend) -> KernelBackend:
+    """Accept a KernelBackend instance or a registry name."""
+    if isinstance(backend, str):
+        try:
+            return REGISTRY[backend]
+        except KeyError:
+            raise ValueError(f"unknown kernel backend {backend!r}; "
+                             f"registered: {sorted(REGISTRY)}") from None
+    return backend

@@ -1,0 +1,117 @@
+"""Phase-1 kernels: fused identification and the gather + rms_norm epilogue.
+
+``proxy_score`` replaces ``repro/kernels/proxy_score.py:proxy_score``:
+``p = x @ W_r`` with f32 accumulation, ``p`` rounded to ``x.dtype``, then
+the rowwise cosine of the ROUNDED ``p`` against the cached identifiers
+with the norm product floored at ``eps`` (what ``strategy.project``
+followed by ``strategy.score`` computes, so unchanged rows tie at 1.0).
+
+``gather_norm`` replaces ``repro/kernels/proxy_score.py:gather_norm``:
+the k selected rows of ``h`` (indices clamped to ``[0, N)``) are emitted
+raw and rms-normed, ``row * rsqrt(mean(row^2) + eps) * (1 + w)``, in one
+pass.
+
+Each function has a ``*_plain`` PyTorch version beside it.  The wrapper
+takes the plain version for tensors on the CPU and launches the CUDA
+kernel (``csrc/proxy_score.cu``, ``csrc/gather_norm.cu``) for tensors on
+the card; it never falls back from one to the other.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.kernels import _lib
+
+
+def cosine(p: torch.Tensor, pc: torch.Tensor, eps: float) -> torch.Tensor:
+    """Rowwise f32 cosine with the norm PRODUCT floored at eps."""
+    p, pc = p.float(), pc.float()
+    num = torch.sum(p * pc, dim=-1)
+    den = torch.sqrt(torch.sum(p * p, dim=-1) * torch.sum(pc * pc, dim=-1))
+    return num / torch.clamp(den, min=eps)
+
+
+def proxy_score_plain(x: torch.Tensor, proxy_mat: torch.Tensor,
+                      p_cached: torch.Tensor, *, eps: float = 1e-8
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, N, d]; proxy_mat: [d, r]; p_cached: [B, N, r].
+    Returns (scores [B, N] f32, p_now [B, N, r] in x.dtype)."""
+    p_now = (x.float() @ proxy_mat.float()).to(x.dtype)
+    return cosine(p_now, p_cached, eps), p_now
+
+
+def proxy_score(x: torch.Tensor, proxy_mat: torch.Tensor,
+                p_cached: torch.Tensor, *, eps: float = 1e-8
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused projection + drift scoring (see module docstring)."""
+    if x.device.type == "cpu":
+        return proxy_score_plain(x, proxy_mat, p_cached, eps=eps)
+    _lib.require_cuda(x, proxy_mat, p_cached)
+    b, n, d = x.shape
+    r = proxy_mat.shape[1]
+    if proxy_mat.shape != (d, r) or p_cached.shape != (b, n, r):
+        raise ValueError(f"shapes x {tuple(x.shape)}, proxy_mat "
+                         f"{tuple(proxy_mat.shape)}, p_cached "
+                         f"{tuple(p_cached.shape)}")
+    if proxy_mat.dtype != x.dtype or p_cached.dtype != x.dtype:
+        raise TypeError("x, proxy_mat and p_cached must share one dtype")
+    if r > 256:
+        raise ValueError(f"proxy_score kernel takes rank <= 256, got {r}")
+    x, proxy_mat, p_cached = (x.contiguous(), proxy_mat.contiguous(),
+                              p_cached.contiguous())
+    if x.dtype == torch.bfloat16 and (
+            r % 16 or d % 8 or x.data_ptr() % 16
+            or proxy_mat.data_ptr() % 16):
+        raise ValueError("the bf16 proxy_score kernel needs rank % 16 == 0, "
+                         "d % 8 == 0 and 16-byte aligned x and proxy_mat")
+    scores = torch.empty((b, n), dtype=torch.float32, device=x.device)
+    p_now = torch.empty((b, n, r), dtype=x.dtype, device=x.device)
+    lib = _lib.load()
+    _lib.check(lib.spa_proxy_score(
+        x.data_ptr(), proxy_mat.data_ptr(), p_cached.data_ptr(),
+        scores.data_ptr(), p_now.data_ptr(), b, n, d, r,
+        _lib.dtype_code(x.dtype), eps, _lib.stream_ptr(x)), "proxy_score")
+    _lib.LAUNCHES["proxy_score"] += 1
+    return scores, p_now
+
+
+def gather_norm_plain(h: torch.Tensor, idx: torch.Tensor,
+                      weight: torch.Tensor, eps: float = 1e-6
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """h: [B, N, d]; idx: [B, k] (clamped to [0, N)); weight: [d].
+    Returns (rows [B, k, d], normed [B, k, d]), both in h.dtype."""
+    n = h.shape[1]
+    ii = idx.long().clamp(0, n - 1)
+    rows = torch.gather(h, 1, ii[..., None].expand(-1, -1, h.shape[2]))
+    rf = rows.float()
+    var = torch.mean(rf * rf, dim=-1, keepdim=True)
+    normed = (rf * torch.rsqrt(var + eps)) * (1.0 + weight.float())
+    return rows, normed.to(h.dtype)
+
+
+def gather_norm(h: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor,
+                eps: float = 1e-6) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Fused gathered-row rms_norm (see module docstring)."""
+    if h.device.type == "cpu":
+        return gather_norm_plain(h, idx, weight, eps)
+    _lib.require_cuda(h, idx, weight)
+    b, n, d = h.shape
+    k = idx.shape[1]
+    if idx.shape[0] != b or weight.shape != (d,):
+        raise ValueError(f"shapes h {tuple(h.shape)}, idx "
+                         f"{tuple(idx.shape)}, weight {tuple(weight.shape)}")
+    if weight.dtype != h.dtype:
+        raise TypeError("h and weight must share one dtype")
+    h, weight = h.contiguous(), weight.contiguous()
+    idx = idx.to(torch.int32).contiguous()
+    rows = torch.empty((b, k, d), dtype=h.dtype, device=h.device)
+    normed = torch.empty((b, k, d), dtype=h.dtype, device=h.device)
+    lib = _lib.load()
+    _lib.check(lib.spa_gather_norm(
+        h.data_ptr(), idx.data_ptr(), weight.data_ptr(), rows.data_ptr(),
+        normed.data_ptr(), b, n, d, k, _lib.dtype_code(h.dtype), eps,
+        _lib.stream_ptr(h)), "gather_norm")
+    _lib.LAUNCHES["gather_norm"] += 1
+    return rows, normed

@@ -1,0 +1,92 @@
+"""Each CUDA kernel of the port against its plain PyTorch version, on the
+card.  Marked ``cuda``: without a card the test skips.  The file imports
+neither jax nor the JAX package, and needs no fixture of
+``tests/conftest.py`` (which imports jax), so it also runs where only
+PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
+        tests/test_torch_cuda.py
+
+Tolerances: f32 within 1e-5 (FMA order only, TF32 off); row copies
+bit-exact.  bf16 outputs may flip by one bf16 ulp, since the kernel and
+the plain version sum in different orders before rounding:
+- ``p_now`` and normed rows: 2^-7 of each element (one ulp), plus 1e-5
+  for f32 sum-order error on values that cancel to near 0;
+- scores: 5e-3, as a cosine moves by at most 2^-8 when every element of
+  ``p`` flips by one ulp;
+- attention: 2^-7 of the largest output (one ulp of it), well below the
+  ~1/25 of a value that one wrongly masked key in the 25-key window moves.
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import proxy_score as tps
+from repro_torch.kernels import scatter_update as tsc
+from repro_torch.kernels import sparse_attention as tsa
+
+
+def _cuda_or_skip():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_kernels_match_plain(dtype):
+    """Each kernel against its plain version, both dtypes."""
+    _cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False   # exact f32 plain path
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+
+    def rn(*s):
+        return torch.randn(s, generator=g, device=dev).to(dtype)
+
+    f32 = dtype == torch.float32
+    elem = dict(rtol=1e-5, atol=1e-5) if f32 else dict(rtol=2 ** -7,
+                                                       atol=1e-5)
+    x, w, pc = rn(2, 70, 256), rn(256, 32) * 0.1, rn(2, 70, 32)
+    (s_k, p_k), (s_p, p_p) = (tps.proxy_score(x, w, pc),
+                              tps.proxy_score_plain(x, w, pc))
+    torch.testing.assert_close(s_k, s_p, rtol=0, atol=1e-5 if f32 else 5e-3)
+    torch.testing.assert_close(p_k.float(), p_p.float(), **elem)
+    idx = torch.tensor([[3, -1, 69, 200, 5]] * 2, dtype=torch.int32,
+                       device=dev)
+    (r_k, n_k), (r_p, n_p) = (tps.gather_norm(x, idx, w[:, 0], 1e-6),
+                              tps.gather_norm_plain(x, idx, w[:, 0], 1e-6))
+    assert torch.equal(r_k, r_p)
+    torch.testing.assert_close(n_k.float(), n_p.float(), **elem)
+    q, kv = rn(2, 10, 4, 32), rn(2, 70, 2, 32)
+    pos = torch.randint(0, 70, (2, 10), generator=g, device=dev)
+    kvl = torch.tensor([70, 33], device=dev)
+    a_k = tsa.sparse_attention(q, kv, kv, pos, window=12, soft_cap=20.0,
+                               kv_len=kvl).float()
+    a_p = tsa.sparse_attention_plain(q, kv, kv, pos, window=12,
+                                     soft_cap=20.0, kv_len=kvl).float()
+    torch.testing.assert_close(
+        a_k, a_p, rtol=0,
+        atol=1e-5 if f32 else 2 ** -7 * float(a_p.abs().max()))
+    bufs = [rn(2, 70, 2, 32), rn(2, 70, 32)]
+    rows = [rn(2, 5, 2, 32), rn(2, 5, 32)]
+    got, want = [t.clone() for t in bufs], [t.clone() for t in bufs]
+    tsc.scatter_update_multi(got, idx, rows)
+    tsc.scatter_update_multi_plain(want, idx, rows)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_attention_refuses_untiled_bf16():
+    """bf16 K/V run only on the tensor-core tiles: another head_dim, or
+    scales on float K/V, raise instead of taking a slower path."""
+    _cuda_or_skip()
+    dev = torch.device("cuda")
+    q = torch.zeros((1, 4, 2, 40), dtype=torch.bfloat16, device=dev)
+    kv = torch.zeros((1, 8, 2, 40), dtype=torch.bfloat16, device=dev)
+    pos = torch.zeros((1, 4), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="head_dim"):
+        tsa.sparse_attention(q, kv, kv, pos)
+    q, kv = q[..., :32].contiguous(), kv[..., :32].contiguous()
+    sc = torch.ones((1, 8, 2), device=dev)
+    with pytest.raises(ValueError, match="scales"):
+        tsa.sparse_attention(q, kv, kv, pos, k_scale=sc, v_scale=sc)

@@ -1,0 +1,82 @@
+"""Import hygiene of the PyTorch port and its device rule.
+
+``repro_torch`` imports torch and numpy, never ``jax`` and no module of
+the JAX package ``repro``: checked in a fresh interpreter after importing
+every submodule.  Entry points run on the card unless the caller names a
+device, and without a card they raise instead of running on the CPU.
+"""
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import repro_torch
+from repro_torch.configs import get_arch, reduced
+from repro_torch.device import resolve_device
+
+SRC = Path(__file__).resolve().parent.parent / "src"
+
+torch.set_num_threads(1)
+
+
+def _submodules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, "repro_torch."))
+
+
+def test_port_imports_neither_jax_nor_repro():
+    mods = _submodules()
+    assert {"repro_torch.kernels.backend", "repro_torch.dlm.session",
+            "repro_torch.weights"} <= set(mods)
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')\n"
+            "print(repr(bad))\n")
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]", out.stdout
+
+
+def test_default_device_raises_without_cuda(monkeypatch):
+    """No card and no explicit device: the entry points raise."""
+    from repro_torch.dlm.session import DecodeSession
+    from repro_torch.models import transformer
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced(get_arch("internlm2-1.8b"), n_layers=1, d_model=32,
+                  n_heads=2, n_kv_heads=1, head_dim=16, d_ff=64,
+                  vocab_size=64)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        transformer.init_params(cfg, seed=0)
+    params = transformer.init_params(cfg, seed=0, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DecodeSession(params, cfg)
+    with pytest.raises(RuntimeError, match="CUDA is unavailable"):
+        resolve_device("cuda")
+    sess = DecodeSession(params, cfg, device="cpu")
+    assert sess.device.type == "cpu"
+
+
+def test_kernel_wrappers_build_nothing_on_cpu(monkeypatch):
+    """CPU tensors take the plain versions: no library is built or
+    loaded and no launch is counted."""
+    from repro_torch.kernels import _lib, proxy_score
+
+    def no_build():
+        raise AssertionError("a CPU call must not build the kernels")
+
+    monkeypatch.setattr(_lib, "load", no_build)
+    before = _lib.launch_counts()
+    h = torch.randn(1, 6, 8)
+    proxy_score.gather_norm(h, torch.tensor([[0, 5]]), torch.zeros(8))
+    proxy_score.proxy_score(h, torch.randn(8, 4), torch.randn(1, 6, 4))
+    assert _lib.launch_counts() == before
