@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's SPA-Cache decode on one CUDA card and check it.
+"""Drive the PyTorch port's SPA-Cache decode and server on one CUDA card and
+check them.
 
     python3 chip_smoke.py                 # one card, no arguments
 
@@ -13,17 +14,29 @@ Phases (each asserts; any failure exits non-zero):
    indices, GQA, window, soft_cap, kv_len, int8 K/V, f32), with median
    CUDA-event times of the kernel, its plain version and one PyTorch
    library call where one computes the same function;
+   The paged kernels (gather_pages, scatter_pages, scatter_rows_paged,
+   proxy_score_paged) must match exactly, proxy_score_paged bitwise equal
+   to proxy_score on the gathered pages;
 4. decode parity: a 2-layer, full-width LLaDA, in f32 and in bf16 (the
    main path's kernel variants), through ``CudaBackend`` and
-   ``TorchBackend`` must give identical tokens and step counts;
+   ``TorchBackend`` must give identical tokens and step counts; in f32 also
+   through the paged cache (full-length and mixed-``kv_len`` rows);
 5. the main path: LLaDA-8B (32 layers, bf16, random weights from a seed),
    B=4, prompt 256 + gen 256, ``DecodeSession.run`` with ``SPACache``
    (adaptive, r=128), the confidence scheduler and ``CudaBackend``; every
-   slot must commit, the hidden states stay finite and every kernel must
-   have launched; then 16 steps of the ``NoCache`` baseline.
+   slot must commit, the hidden states stay finite and every kernel of the
+   path must have launched; then 16 steps of the ``NoCache`` baseline;
+6. what paging costs a step (the main path's decode on a dense cache and
+   on the pool, in turns), then the server: the same model and proxies
+   through ``ServingEngine`` over
+   the paged pool (canvas 512, 97 pages of 16, 4 slots), nine requests of
+   mixed lengths, 1.67x the pool, one of them a priority-5 arrival that
+   must preempt; all complete, the pool drains, every paged kernel
+   launched, with a ``torch.profiler`` window over a few engine steps.
 
-The last lines are the kernels' JSON record, the card line and
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
+The last lines are the kernels' JSON record (each kernel's launches are
+those of its path: phase 5 for the session kernels, phase 6 for the paged
+ones), the card line and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository's ``src/`` beside it, the script exits non-zero before printing
 any result.
 """
@@ -42,6 +55,15 @@ HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 
 SLICE = dict(B=4, N=512, d=4096, r=128, H=32, KVH=32, hd=128)
+PAGE = 16                 # rows per cache page of the serving pool
+# kernels of the main path (DecodeSession.run) and of the serving path
+# (ServingEngine over the paged pool); each path's launches are counted
+# from zero just before it runs
+SESSION_KERNELS = ("proxy_score", "gather_norm", "sparse_attention",
+                   "scatter_update_multi")
+SERVING_KERNELS = ("gather_pages", "scatter_pages", "scatter_rows_paged",
+                   "proxy_score_paged", "gather_norm", "sparse_attention",
+                   "scatter_update_multi")
 GEN_LEN = 256             # main path: prompt 256 + gen 256 = N
 SPIN_CYCLES = 4_000_000   # ~2 ms of a spin kernel at H100 clocks
 
@@ -320,6 +342,8 @@ def check_kernels(torch, flush):
             k_bufs, idx, rows), torch, flush),
         library_ms=median_ms(index_copy_all, torch, flush),
         bound=bound(2 * 2 * (2 * B * 128 * KVH * hd) + 4 * B * 128, 0))
+    records.update(check_paged_kernels(torch, flush, gen, randn, randint,
+                                       assert_close))
     for name, rec in records.items():
         lib = ("-" if rec["library_ms"] is None
                else f"{rec['library_ms']:.4f}")
@@ -327,6 +351,173 @@ def check_kernels(torch, flush):
               f"{rec['plain_ms']:.4f} ms, library {lib} ms, bound "
               f"{rec['bound'][0]:.4f} ms ({rec['bound'][1]})")
     _lib.reset_launch_counts()
+    return records
+
+
+def check_paged_kernels(torch, flush, gen, randn, randint, assert_close):
+    """gather_pages, scatter_pages, scatter_rows_paged and
+    proxy_score_paged against their plain versions at the serving slice
+    (LLaDA-8B: 32 layers, B=4, N=512, page 16, bf16; a pool of 129 pages
+    so that every logical page of the 4 rows is a real one) and at edge
+    cases (zero page, sentinel N, idx < 0, logical pages past n_log, short
+    rows, int8 K/V and f16 scales).  The copies must be exact, and
+    proxy_score_paged bitwise equal to proxy_score on the gathered pages."""
+    from repro_torch.kernels import proxy_score as ps
+    from repro_torch.kernels import scatter_update as sc
+
+    dev = torch.device("cuda")
+    B, N, d, r = SLICE["B"], SLICE["N"], SLICE["d"], SLICE["r"]
+    L, F, page = 32, SLICE["KVH"] * SLICE["hd"], PAGE
+    n_log = N // page
+    P = 1 + B * n_log
+    records = {}
+
+    def exact(name, got, want):
+        assert torch.equal(got, want), f"{name}: differs from plain"
+        print(f"  {name}: identical")
+        return 0.0
+
+    # every logical page real (a permutation of the pool's 128 pages), and
+    # a table of short rows whose tails map to the zero page
+    perm = torch.randperm(P - 1, generator=gen, device=dev) + 1
+    pt = perm.reshape(B, n_log).to(torch.int32).contiguous()
+    pt_short = pt.clone()
+    for b_, n_real in enumerate((32, 16, 24, 8)):
+        pt_short[b_, n_real:] = 0
+
+    # -- gather_pages / scatter_pages (one buffer: K, V or H) ----------------
+    print("gather_pages / scatter_pages")
+    arena = randn(L, P, page, F)
+    arena[:, 0] = 0
+    for name, table in (("full rows", pt), ("short rows", pt_short)):
+        exact(f"gather {name}", sc.gather_pages(arena, table),
+              sc.gather_pages_plain(arena, table))
+    dense = randn(L, B, N, F)
+    for name, table in (("full rows", pt), ("short rows", pt_short)):
+        got, want = arena.clone(), arena.clone()
+        sc.scatter_pages(got, table, dense)
+        sc.scatter_pages_plain(want, table, dense)
+        exact(f"scatter {name}", got, want)
+        assert not got[:, 0].any(), "scatter_pages wrote the zero page"
+        del got, want
+    # the int8 cache's buffers: int8 K/V rows, f16 scales of width 32 and 1
+    for shape, dt in (((2, 128), torch.int8), ((32,), torch.float16),
+                      ((), torch.float16)):
+        small = (randint(-127, 128, 2, 9, page, *shape).to(dt)
+                 if dt == torch.int8 else randn(2, 9, page, *shape, dtype=dt))
+        small[:, 0] = 0
+        tbl = torch.tensor([[1, 2, 0, 0], [3, 4, 5, 8]], dtype=torch.int32,
+                           device=dev)
+        exact(f"gather {dt} {shape}", sc.gather_pages(small, tbl),
+              sc.gather_pages_plain(small, tbl))
+        dn = (randint(-127, 128, 2, 2, 4 * page, *shape).to(dt)
+              if dt == torch.int8 else randn(2, 2, 4 * page, *shape,
+                                             dtype=dt))
+        got, want = small.clone(), small.clone()
+        sc.scatter_pages(got, tbl, dn)
+        sc.scatter_pages_plain(want, tbl, dn)
+        exact(f"scatter {dt} {shape}", got, want)
+    pt_long = pt.long()
+    side_bytes = 2 * L * B * N * F          # one side of the copy, bf16
+    records["gather_pages"] = dict(
+        source="src/repro_torch/csrc/paged.cu",
+        replaces="src/repro/kernels/scatter_update.py:160", max_abs_err=0.0,
+        ms=median_ms(lambda: sc.gather_pages(arena, pt), torch, flush),
+        plain_ms=median_ms(lambda: sc.gather_pages_plain(arena, pt), torch,
+                           flush),
+        library_ms=median_ms(lambda: arena[:, pt_long], torch, flush),
+        bound=bound(2 * side_bytes + 4 * B * n_log, 0))
+    back = arena.clone()
+    records["scatter_pages"] = dict(
+        source="src/repro_torch/csrc/paged.cu",
+        replaces="src/repro/kernels/scatter_update.py:199", max_abs_err=0.0,
+        ms=median_ms(lambda: sc.scatter_pages(back, pt, dense), torch, flush),
+        plain_ms=median_ms(lambda: sc.scatter_pages_plain(back, pt, dense),
+                           torch, flush),
+        library_ms=None,
+        bound=bound(2 * side_bytes + 4 * B * n_log, 0))
+    del arena, dense, back
+
+    # -- scatter_rows_paged (one layer of the proxy arena) -------------------
+    print("scatter_rows_paged")
+    parena = randn(L, P, page, r)
+    parena[:, 0] = 0
+    lay = L // 2                             # the layer slice written
+    k = 128
+    idx = torch.sort(torch.stack([
+        torch.randperm(N, generator=gen, device=dev)[:k]
+        for _ in range(B)])).values
+    idx = idx.to(torch.int32).contiguous()
+    rows = randn(B, k, r)
+    idx_e = idx.clone()
+    idx_e[:, -4:] = N                        # the top-k sentinel
+    idx_e[0, 0], idx_e[1, 0] = -1, N + 40    # idx < 0, page >= n_log
+    for name, table, ii in (("k=128", pt, idx), ("drops", pt_short, idx_e)):
+        got, want = parena.clone(), parena.clone()
+        sc.scatter_rows_paged(got[lay], table, ii, rows)
+        sc.scatter_rows_paged_plain(want[lay], table, ii, rows)
+        exact(f"{name}", got, want)
+        assert not got[:, 0].any(), "scatter_rows_paged wrote the zero page"
+    for shape, dt in (((2, 128), torch.int8), ((32,), torch.float16),
+                      ((), torch.float16)):
+        small = torch.zeros((3, 9, page) + shape, dtype=dt, device=dev)
+        rw = (randint(-127, 128, 2, 6, *shape).to(dt) if dt == torch.int8
+              else randn(2, 6, *shape, dtype=dt))
+        tbl = torch.tensor([[1, 2, 0, 0], [3, 4, 5, 8]], dtype=torch.int32,
+                           device=dev)
+        ii = torch.tensor([[0, 5, 40, -2, 64, 17], [1, 20, 33, 62, 63, 3]],
+                          dtype=torch.int32, device=dev)
+        got, want = small.clone(), small.clone()
+        sc.scatter_rows_paged(got[1], tbl, ii, rw)
+        sc.scatter_rows_paged_plain(want[1], tbl, ii, rw)
+        exact(f"{dt} {shape}", got, want)
+    work = parena.clone()
+    records["scatter_rows_paged"] = dict(
+        source="src/repro_torch/csrc/paged.cu",
+        replaces="src/repro/kernels/scatter_update.py:296", max_abs_err=0.0,
+        ms=median_ms(lambda: sc.scatter_rows_paged(work[lay], pt, idx, rows),
+                     torch, flush),
+        plain_ms=median_ms(lambda: sc.scatter_rows_paged_plain(
+            work[lay], pt, idx, rows), torch, flush),
+        library_ms=None,
+        bound=bound(2 * 2 * B * k * r + 4 * B * k + 4 * B * n_log, 0))
+
+    # -- proxy_score_paged ---------------------------------------------------
+    # bitwise equal to proxy_score on the gathered pages: both run one
+    # kernel body that differs only in how a p_cached row is addressed.
+    print("proxy_score_paged")
+    x = randn(B, N, d)
+    w = randn(d, r, scale=0.05)
+    err = 0.0
+    for name, table in (("full rows", pt), ("short rows", pt_short)):
+        s_k, p_k = ps.proxy_score_paged(x, w, parena[lay], table)
+        s_d, p_d = ps.proxy_score(
+            x, w, sc.gather_pages(parena[lay][None], table)[0])
+        assert torch.equal(s_k, s_d) and torch.equal(p_k, p_d), \
+            f"proxy_score_paged {name}: not bitwise proxy_score"
+        print(f"  {name}: bitwise equal to proxy_score on the gathered pages")
+        s_p, p_p = ps.proxy_score_paged_plain(x, w, parena[lay], table)
+        err = max(err, assert_close(f"{name} scores vs plain", s_k, s_p,
+                                    5e-3, 0))
+        assert_close(f"{name} p_now vs plain", p_k, p_p, 0, 1e-2)
+    xf, wf, af = x[:2, :80].float(), w.float(), parena[lay].float()
+    tf = torch.tensor([[1, 7, 0, 0, 0], [9, 2, 3, 4, 100]],
+                      dtype=torch.int32, device=dev)
+    s_k, p_k = ps.proxy_score_paged(xf, wf, af, tf)
+    s_d, p_d = ps.proxy_score(xf, wf, sc.gather_pages(af[None], tf)[0])
+    assert torch.equal(s_k, s_d) and torch.equal(p_k, p_d), \
+        "f32 proxy_score_paged: not bitwise proxy_score"
+    print("  f32 N=80: bitwise equal to proxy_score on the gathered pages")
+    records["proxy_score_paged"] = dict(
+        source="src/repro_torch/csrc/proxy_score.cu",
+        replaces="src/repro/kernels/proxy_score.py:207", max_abs_err=err,
+        ms=median_ms(lambda: ps.proxy_score_paged(x, w, parena[lay], pt),
+                     torch, flush),
+        plain_ms=median_ms(lambda: ps.proxy_score_paged_plain(
+            x, w, parena[lay], pt), torch, flush),
+        library_ms=None,
+        bound=bound(2 * (B * N * d + d * r + 2 * B * N * r) + 4 * B * N
+                    + 4 * B * n_log, 2 * B * N * d * r))
     return records
 
 
@@ -455,8 +646,80 @@ def lockstep_parity(torch, logit_tol: float, cache_tol: float):
     del params, proxies, sess
 
 
+def paged_parity(torch, cache_tol: float):
+    """Paged sessions of the 2-layer full-width f32 LLaDA (B=4, prompt 48
+    + gen 16, pages of 16 rows): through ``CudaBackend`` they must give the
+    tokens of the dense ``CudaBackend`` session on full-length rows, and the
+    tokens and step counts of the paged ``TorchBackend`` session there and
+    on rows of mixed ``kv_len`` (64, 32, 48 and 16: short rows' tails map to
+    the zero page); arenas within ``cache_tol`` of their largest value."""
+    from repro_torch.dlm.session import DecodeSession
+    from repro_torch.serving.pool import PagePool
+
+    cfg, params, strat, proxies, prompt = _parity_setup(torch, "float32")
+    gen = 16
+    n = prompt.shape[1] + gen
+    n_log = n // PAGE
+
+    def paged(backend, tokens, active, kv_lens):
+        pool = PagePool(cfg, n_pages=1 + len(kv_lens) * n_log,
+                        page_size=PAGE, strategy=strat)
+        pt = [pool.page_table_row(pool.alloc(kv // PAGE), n)
+              for kv in kv_lens]
+        sess = DecodeSession(params, cfg, strategy=strat, backend=backend,
+                             spa_proxies=proxies)
+        sess.attach(tokens, active=active, kv_len=torch.tensor(kv_lens),
+                    arenas=pool.arenas_for(strat), page_table=torch.tensor(pt))
+        toks, info = sess.run()
+        torch.cuda.synchronize()
+        return toks.cpu(), info["steps"], sess.state.cache.arenas
+
+    dense = DecodeSession(params, cfg, strategy=strat, backend="cuda",
+                          spa_proxies=proxies)
+    dense.prefill(prompt, gen)
+    dense_toks = dense.run()[0].cpu()
+    del dense
+    canvas = torch.full((4, n), cfg.mask_id, dtype=torch.long)
+    canvas[:, :prompt.shape[1]] = prompt
+    active = torch.zeros((4, n), dtype=torch.bool)
+    active[:, prompt.shape[1]:] = True
+    mixed = torch.full((4, n), cfg.mask_id, dtype=torch.long)
+    mixed_active = torch.zeros((4, n), dtype=torch.bool)
+    kv_mixed = []
+    for i, (p_len, g_len) in enumerate(((48, 16), (16, 16), (32, 16),
+                                        (8, 8))):
+        mixed[i, :p_len] = prompt[i, :p_len]
+        mixed_active[i, p_len:p_len + g_len] = True
+        kv_mixed.append(p_len + g_len)
+    for name, toks, act, kv in (("full-length rows", canvas, active,
+                                 [n] * 4),
+                                ("mixed kv_len", mixed, mixed_active,
+                                 kv_mixed)):
+        c_toks, c_steps, c_arenas = paged("cuda", toks, act, kv)
+        t_toks, t_steps, t_arenas = paged("torch", toks, act, kv)
+        n_diff = int((c_toks != t_toks).sum())
+        assert n_diff == 0, f"paged {name}: Cuda/Torch differ in {n_diff}"
+        assert c_steps == t_steps, f"paged {name}: step counts differ"
+        if name == "full-length rows":
+            assert torch.equal(c_toks, dense_toks), \
+                "paged and dense CudaBackend sessions differ"
+        for bufs in c_arenas.values():
+            for nm, t in bufs.items():
+                assert not t[:, 0].any(), f"{nm}: the zero page was written"
+        worst = _cache_rel_diff(c_arenas, t_arenas)
+        print(f"  paged {name}: tokens identical to TorchBackend"
+              f"{' and to the dense session' if kv == [n] * 4 else ''}, "
+              f"steps {c_steps}, max arena diff {worst:.3e}")
+        assert worst <= cache_tol, f"paged arenas differ by {worst}"
+    del params, proxies
+
+
 # kernel-name fragments -> the share each group takes of the device time
-KERNEL_GROUPS = (("proxy_score", ("proxy_score",)),
+# (first match wins: the paged proxy_score instance before the dense one)
+KERNEL_GROUPS = (("gather_pages + scatter_pages", ("page_copy_kernel",)),
+                 ("scatter_rows_paged", ("rows_paged_kernel",)),
+                 ("proxy_score_paged", ("PagedRows",)),
+                 ("proxy_score", ("proxy_score",)),
                  ("gather_norm", ("gather_norm",)),
                  ("sparse_attention", ("attention_bf16_tc", "attention_kernel")),
                  ("scatter_update_multi", ("scatter_kernel",)),
@@ -464,19 +727,26 @@ KERNEL_GROUPS = (("proxy_score", ("proxy_score",)),
                                       "nvjet")))
 
 
+def new_profiler(torch):
+    from torch.profiler import ProfilerActivity, profile
+    return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+
+
 def profile_steps(torch, step, n_steps: int, label: str) -> None:
     """Device time by kernel group and the device-busy share of a window of
     ``n_steps`` steps, from a ``torch.profiler`` trace."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with new_profiler(torch) as prof:
         t0 = time.perf_counter()
         for _ in range(n_steps):
             step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    report_profile(prof, n_steps, wall_us, label)
+
+
+def report_profile(prof, n_steps: int, wall_us: float, label: str) -> None:
+    from torch.autograd import DeviceType
     groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
     groups["other kernels"] = 0.0
     others = {}
@@ -546,8 +816,9 @@ def main_path(torch):
     assert int((gen_span == cfg.mask_id).sum()) == 0, "open slots remain"
     assert int(sess.state.n_masked.max()) == 0, "n_masked not drained"
     assert bool(sess.last_info["row_finite"].all()), "non-finite hidden"
-    for name, n in launches.items():
-        assert n > 0, f"kernel {name} never launched on the main path"
+    for name in SESSION_KERNELS:
+        assert launches[name] > 0, \
+            f"kernel {name} never launched on the main path"
     steps = info["steps"]
     spa_ms = t_run / steps * 1e3
     print(f"  SPA: steps {steps}, prefill {t_prefill:.3f} s, decode "
@@ -577,6 +848,156 @@ def main_path(torch):
     print(f"  NoCache: {base_ms:.2f} ms/step over 16 steps "
           f"(SPA {spa_ms:.2f} ms/step, ratio {base_ms / spa_ms:.2f}x)")
     profile_steps(torch, base.step, 2, "NoCache")
+    del base
+    return launches, cfg, params, strat, proxies
+
+
+# ---------------------------------------------------------------------------
+# Phase 6: the server at full width
+# ---------------------------------------------------------------------------
+
+def paging_cost(torch, cfg, params, strat, proxies, pairs: int = 10,
+                block: int = 8):
+    """What paging costs a step: the main path's decode (B=4, prompt 256 +
+    gen 256, full-length rows, kv_len given to both) on a dense cache and
+    on a pool of pages of 16.  Both sessions live side by side and step in
+    ``pairs`` pairs of ``block``-step blocks, the order alternating pair by
+    pair; a block's time is its mean ms/step (each step syncs on ``done``,
+    as ``run`` does).  The host-bound step varies a lot from block to
+    block, so only the paired comparison says anything."""
+    from repro_torch.dlm.session import DecodeSession
+    from repro_torch.serving.pool import PagePool
+
+    gen = torch.Generator().manual_seed(11)
+    b, p_len = 4, 256
+    n = p_len + GEN_LEN
+    prompt = torch.randint(0, cfg.vocab_size - 1, (b, p_len), generator=gen)
+    kv_len = torch.full((b,), n, dtype=torch.int32)
+    pool = PagePool(cfg, n_pages=1 + b * (n // PAGE), page_size=PAGE,
+                    strategy=strat)
+    pt = torch.tensor([pool.page_table_row(pool.alloc(n // PAGE), n)
+                       for _ in range(b)])
+    sess = {}
+    for kind in ("dense", "paged"):
+        sess[kind] = DecodeSession(params, cfg, strategy=strat,
+                                   backend="cuda", spa_proxies=proxies)
+        paged = kind == "paged"
+        sess[kind].prefill(prompt, GEN_LEN, kv_len=kv_len,
+                           arenas=pool.arenas_for(strat) if paged else None,
+                           page_table=pt if paged else None)
+        sess[kind].step()
+    times = {"dense": [], "paged": []}
+    for i in range(pairs):
+        for kind in (("dense", "paged") if i % 2 == 0
+                     else ("paged", "dense")):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(block):
+                assert not sess[kind].done
+                sess[kind].step()
+            torch.cuda.synchronize()
+            times[kind].append((time.perf_counter() - t0) / block * 1e3)
+    assert torch.equal(sess["dense"].state.tokens,
+                       sess["paged"].state.tokens), \
+        "paged and dense sessions diverged"
+    slower = sum(p > d for d, p in zip(times["dense"], times["paged"]))
+    diff = [p - d for d, p in zip(times["dense"], times["paged"])]
+
+    def spread(xs):
+        q = statistics.quantiles(xs, n=4)
+        return (f"median {statistics.median(xs):.2f} (quartiles {q[0]:.2f}"
+                f"-{q[2]:.2f}, range {min(xs):.2f}-{max(xs):.2f})")
+
+    print(f"  paging A/B, {pairs} pairs of {block}-step blocks in "
+          f"alternating order (ms/step): dense {spread(times['dense'])}; "
+          f"paged {spread(times['paged'])}; paged - dense per pair "
+          f"{spread(diff)}; paged slower in {slower} of {pairs} pairs; "
+          f"tokens identical")
+    del sess, pool
+
+
+# (prompt, gen) of the queued requests: 160 pages of 16 rows, 1.67x the pool
+SERVE_REQUESTS = ((128, 128), (64, 64), (256, 256), (192, 192), (128, 256),
+                  (64, 64), (256, 128), (192, 192))
+LATE_REQUEST = (256, 256)     # priority 5, submitted at engine step 32
+LATE_STEP = 32
+PROFILE_WINDOW = (60, 64)     # engine steps after which the trace starts/ends
+
+
+def serve_full_width(torch, cfg, params, strat, proxies, *, device=None,
+                     profile: bool = True):
+    """LLaDA-8B through ``ServingEngine``: canvas 512, pages of 16 rows, a
+    pool of 97 pages (96 allocatable: three full canvases), 4 slots,
+    ``run(max_steps=300)``; eight requests queued up front and one of
+    priority 5 arriving at engine step 32, which must preempt.  Reuses the
+    main path's weights and SVD proxies."""
+    import numpy as np
+    from repro_torch.kernels import _lib
+    from repro_torch.serving.engine import ServingEngine
+
+    engine = ServingEngine(cfg, params, max_batch=4, canvas_len=SLICE["N"],
+                           strategy=strat, pool_pages=97, page_size=PAGE,
+                           device=device)
+    engine._proxies[engine.strategy] = proxies   # no second SVD
+    rng = np.random.default_rng(0)
+    for p_len, g_len in SERVE_REQUESTS:
+        engine.submit(rng.integers(0, cfg.vocab_size - 1, p_len), g_len)
+    late_prompt = rng.integers(0, cfg.vocab_size - 1, LATE_REQUEST[0])
+    marks = {}                  # engine step -> host clock after it
+    seen = {"released_row": False}
+    prof = new_profiler(torch) if profile else None
+
+    def on_step(e):
+        step = e.stats.steps
+        marks[step] = time.perf_counter()
+        sess = next(iter(e._sessions.values()))
+        assert bool(sess.last_info["row_finite"].all()), \
+            f"non-finite hidden states at engine step {step}"
+        seen["released_row"] |= int(sess.state.kv_len.min()) == 0
+        if step == LATE_STEP:
+            e.submit(late_prompt, LATE_REQUEST[1], priority=5)
+        if prof is not None and step in PROFILE_WINDOW:
+            torch.cuda.synchronize()
+            if step == PROFILE_WINDOW[0]:
+                prof.start()
+                seen["t0"] = time.perf_counter()
+            else:
+                prof.stop()
+                seen["wall_us"] = (time.perf_counter() - seen["t0"]) * 1e6
+
+    _lib.reset_launch_counts()
+    stats = engine.run(max_steps=300, on_step=on_step)
+    launches = _lib.launch_counts()
+    n_req = len(SERVE_REQUESTS) + 1
+    assert stats.requests_done == n_req == len(engine.done), \
+        f"{stats.requests_done} of {n_req} requests completed"
+    for r in engine.done:
+        assert r.output is not None and len(r.output) == r.gen_len
+        assert not (r.output == cfg.mask_id).any(), f"uid {r.uid}: open slots"
+    assert stats.preemptions >= 1, "the priority-5 arrival preempted nothing"
+    assert engine.pool.available == engine.pool.capacity, "pool not drained"
+    assert seen["released_row"], "no released row (kv_len 0) was stepped"
+    wall = engine._wall
+    intervals = [marks[i] - marks[i - 1] for i in marks
+                 if i - 1 in marks and not (
+                     prof is not None
+                     and PROFILE_WINDOW[0] < i <= PROFILE_WINDOW[1])]
+    gen_tokens = sum(r.gen_len for r in engine.done)
+    pct = stats.percentiles()
+    print(f"  engine steps {stats.steps}, swaps {stats.swaps}, preemptions "
+          f"{stats.preemptions}, admission stalls {stats.admission_stalls}")
+    print(f"  pool: peak {stats.peak_pool_util:.1%}, steady "
+          f"{stats.steady_pool_util:.1%} of {engine.pool.capacity} pages")
+    print(f"  wall {wall:.3f} s, {gen_tokens} generated tokens, "
+          f"{stats.tokens_committed / wall:.1f} generated tokens/s, "
+          f"{wall / stats.steps * 1e3:.2f} ms per engine step "
+          f"(median step-to-step {statistics.median(intervals) * 1e3:.2f} "
+          f"ms outside the profiled window)")
+    print(f"  e2e p50 {pct['e2e_p50']:.3f} s, p95 {pct['e2e_p95']:.3f} s")
+    print(f"  launches on the serving path: {launches}")
+    if prof is not None:
+        report_profile(prof, PROFILE_WINDOW[1] - PROFILE_WINDOW[0],
+                       seen["wall_us"], "engine")
     return launches
 
 
@@ -612,14 +1033,25 @@ def main() -> int:
     # logits to a few ulps of their largest value (an H100 read 1.1e-2 and
     # 6.0e-3); the limit is four ulps.
     lockstep_parity(torch, 2 ** -5, 2 ** -5)
+    print("paged decode parity (2-layer full-width f32 LLaDA, pages of "
+          f"{PAGE})")
+    paged_parity(torch, 1e-5)
     torch.cuda.empty_cache()
     print(f"main path (LLaDA-8B bf16, B=4, prompt 256 + gen {GEN_LEN})")
-    launches = main_path(torch)
+    launches, cfg, params, strat, proxies = main_path(torch)
+    torch.cuda.empty_cache()
+    print("server at full width (LLaDA-8B bf16 through ServingEngine, "
+          f"canvas 512, pool of 97 pages of {PAGE}, 4 slots)")
+    paging_cost(torch, cfg, params, strat, proxies)
+    served = serve_full_width(torch, cfg, params, strat, proxies)
+    for name in SERVING_KERNELS:
+        assert served[name] > 0, f"kernel {name} never launched serving"
 
     kernels = []
     for name, rec in records.items():
         bound_ms, bound_by = rec.pop("bound")
-        kernels.append(dict(name=name, route="cuda", launches=launches[name],
+        n = launches[name] if name in SESSION_KERNELS else served[name]
+        kernels.append(dict(name=name, route="cuda", launches=n,
                             bound_ms=bound_ms, bound_by=bound_by, **rec))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -12,13 +12,21 @@ tensor that aliases a cache buffer changes under later writes: readers
 that keep a value (``read_h_full``) return a copy.
 
 int8 mode (``cache_dtype="int8"``): symmetric per-row quantization with a
-float16 scale, as in the JAX package.  The paged layout waits for the
-paged-serving slice.
+float16 scale, as in the JAX package.
+
+Paged layout (paged serving): cache rows live in ONE pooled arena of
+fixed-size pages per buffer, {kind: {name: [Lk, P, page, ...]}}, and a
+per-request page table maps logical canvas pages to physical pages.
+Physical page 0 is the zero page: never written, and every logical page
+past a row's ``kv_len`` maps to it.  A step gathers every buffer but the
+identifier pages into a dense view, runs on it and scatters it back; the
+identifier pages stay paged and are read and committed through the page
+table.  Arenas, too, are written in place.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -98,6 +106,99 @@ def init_model_cache(cfg: ModelConfig, batch: int, n: int, strategy=None,
         out[kind] = {name: a[None].repeat((lk,) + (1,) * a.dim())
                      for name, a in one.items()}
     return out
+
+
+# ---------------------------------------------------------------------------
+# Paged layout
+# ---------------------------------------------------------------------------
+
+class PagedCache(NamedTuple):
+    """Paged cache state: pooled arenas + the batch page table.
+
+    arenas:     {kind: {name: [Lk, P, page, ...]}}
+    page_table: [B, n_log] int32 physical page per logical canvas page
+    """
+    arenas: Dict[str, Dict[str, torch.Tensor]]
+    page_table: torch.Tensor
+
+
+# Buffers that stay PAGED through the layer loop (identification reads and
+# row commits go through the page table); every other buffer is gathered
+# into a dense view per step (attention reads all of K/V anyway).
+PAGED_IN_STEP = ("proxy",)
+
+
+def n_logical_pages(canvas_len: int, page_size: int) -> int:
+    if canvas_len % page_size:
+        raise ValueError(
+            f"canvas_len {canvas_len} must be a multiple of page_size "
+            f"{page_size}")
+    return canvas_len // page_size
+
+
+def init_paged_arenas(cfg: ModelConfig, n_pages: int, page_size: int,
+                      strategy=None, *, device=None
+                      ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Zeroed pooled arenas {kind: {name: [Lk, n_pages, page, ...]}}: the
+    buffer set of :func:`init_model_cache` with (batch, n) replaced by
+    (physical pages, page rows); page 0 is the zero page."""
+    return init_model_cache(cfg, n_pages, page_size, strategy,
+                            device=device)
+
+
+def paged_step_view(pc: PagedCache, backend=None
+                    ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Per-step compute view of a paged cache: every buffer except the
+    ``PAGED_IN_STEP`` set is gathered dense through the page table; the
+    identifier arenas are passed as they are."""
+    if backend is None:
+        from repro_torch.kernels.backend import TORCH_BACKEND as backend
+    return {kind: {name: (arena if name in PAGED_IN_STEP
+                          else backend.gather_pages(arena, pc.page_table))
+                   for name, arena in bufs.items()}
+            for kind, bufs in pc.arenas.items()}
+
+
+def paged_step_commit(pc: PagedCache, view: Dict[str, Dict[str, torch.Tensor]],
+                      backend=None) -> PagedCache:
+    """Scatter a stepped view back into the arenas, in place (zero-page
+    writes drop, so short rows' tails stay zero).  Returns ``pc``."""
+    if backend is None:
+        from repro_torch.kernels.backend import TORCH_BACKEND as backend
+    for kind, bufs in pc.arenas.items():
+        for name, arena in bufs.items():
+            if name not in PAGED_IN_STEP:
+                backend.scatter_pages(arena, pc.page_table, view[kind][name])
+    return pc
+
+
+def paged_from_dense(arenas: Dict[str, Dict[str, torch.Tensor]],
+                     page_table: torch.Tensor,
+                     dense: Dict[str, Dict[str, torch.Tensor]],
+                     backend=None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Scatter a dense cache ([Lk, B, N, ...], a prefill's output) into the
+    arenas through the page table, in place, EVERY buffer including the
+    identifier pages.  ``page_table`` may cover a sub-batch (row swap).
+    Returns ``arenas``."""
+    if backend is None:
+        from repro_torch.kernels.backend import TORCH_BACKEND as backend
+    for kind, bufs in arenas.items():
+        for name, arena in bufs.items():
+            backend.scatter_pages(arena, page_table, dense[kind][name])
+    return arenas
+
+
+def repage(arenas: Dict[str, Dict[str, torch.Tensor]],
+           page_table: torch.Tensor,
+           dense: Dict[str, Dict[str, torch.Tensor]], backend=None,
+           full_table: Optional[torch.Tensor] = None) -> PagedCache:
+    """Scatter a freshly built dense cache into the arenas and wrap them as
+    a :class:`PagedCache`: the one repage protocol of attach, refresh and
+    row swaps (``page_table`` may cover a sub-batch; ``full_table`` is then
+    the whole batch's table to carry)."""
+    return PagedCache(
+        paged_from_dense(arenas, page_table, dense, backend),
+        page_table if full_table is None else full_table)
 
 
 def scatter_buffers(cache: Dict[str, torch.Tensor], idx: torch.Tensor,

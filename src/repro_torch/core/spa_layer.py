@@ -11,7 +11,10 @@ the layer output is the whole refreshed H^c.
 
 The kernel-shaped stages (identification, gather + norm, attention, the
 two commits) dispatch through ``strategy.backend``.  Caches are updated in
-place.
+place.  Paged serving: with ``page_table`` the ``proxy`` buffer of a layer
+is its page arena [P, page, r] (identification and the proxy commit go
+through the page table), and ``kv_len`` [B] marks each row's valid canvas
+length: rows past it never select and are never attended.
 
 k per layer: the JAX package runs homogeneous all-attention models of
 8 layers or more as a layer scan whose segments share the bucketed k of
@@ -48,10 +51,11 @@ def _mask_tail_scores(scores: torch.Tensor, n: int,
 
 
 def _identifier_scores(strategy: CacheStrategy, bp: Params, proxy_mat, x,
-                       cache_sl):
+                       cache_sl, page_table=None):
     """Returns (scores [B, N] f32, p_now [B, N, r]) on the backend."""
     return strategy.backend.identifier_scores(strategy, bp, proxy_mat, x,
-                                              cache_sl["proxy"])
+                                              cache_sl["proxy"],
+                                              page_table=page_table)
 
 
 def spa_attn_block(cfg: ModelConfig, kind: str, bp: Params,
@@ -59,7 +63,8 @@ def spa_attn_block(cfg: ModelConfig, kind: str, bp: Params,
                    cache_sl: Dict[str, torch.Tensor], h: torch.Tensor,
                    k_upd: int, policy: CachePolicy,
                    strategy: Optional[CacheStrategy] = None,
-                   kv_len: Optional[torch.Tensor] = None
+                   kv_len: Optional[torch.Tensor] = None,
+                   page_table: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One SPA-Cache attention block step.  h: [B, N, d] current inputs;
     ``cache_sl`` (this layer's buffers) is updated in place.  Returns
@@ -77,7 +82,7 @@ def spa_attn_block(cfg: ModelConfig, kind: str, bp: Params,
     # h * (1 + norm_weight) and rms-norm only the k selected rows.
     ident_in = h * (1.0 + bp["norm1"]).to(h.dtype)
     scores, p_now = _identifier_scores(strategy, bp, proxy_mat, ident_in,
-                                       cache_sl)
+                                       cache_sl, page_table)
     scores = _mask_tail_scores(scores, n, kv_len)
     idx = selection.select_topk_drift(scores, k_upd)
     k_eff = idx.shape[1]
@@ -105,7 +110,8 @@ def spa_attn_block(cfg: ModelConfig, kind: str, bp: Params,
         ffn_out = common.rms_norm(ffn_out, bp["norm_post_ffn"],
                                   cfg.norm_eps)
     y_rows = h_mid + ffn_out
-    strategy.commit(cache_sl, idx, y_rows, policy, p_now=p_now)
+    strategy.commit(cache_sl, idx, y_rows, policy, p_now=p_now,
+                    page_table=page_table)
     return cache_lib.read_h_full(cache_sl, policy, h.dtype), idx
 
 
@@ -135,11 +141,13 @@ def spa_forward(params: Params, cfg: ModelConfig,
                 cache: Dict[str, Dict[str, torch.Tensor]], h: torch.Tensor,
                 spa_proxies: Optional[Dict[str, torch.Tensor]] = None,
                 strategy: Optional[CacheStrategy] = None, backend=None,
-                kv_len: Optional[torch.Tensor] = None
+                kv_len: Optional[torch.Tensor] = None,
+                page_table: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Dict]:
     """Run all blocks with the strategy on attention layers.  ``cache``
-    ({kind: {name: [Lk, B, N, ...]}}) is updated in place and returned.
-    Returns (h_final, cache)."""
+    ({kind: {name: [Lk, B, N, ...]}}) is updated in place and returned;
+    with ``page_table`` [B, n_log] its ``proxy`` buffers are page arenas
+    [Lk, P, page, r].  Returns (h_final, cache)."""
     strategy = resolve_strategy(cfg, strategy)
     if backend is not None:
         strategy = strategy.with_backend(backend)
@@ -155,7 +163,8 @@ def spa_forward(params: Params, cfg: ModelConfig,
             prox = (spa_proxies[kind][ki]
                     if strategy.uses_proxy_mat and spa_proxies else None)
             h, _ = spa_attn_block(cfg, kind, bp, prox, csl, h, ks[l],
-                                  policy, strategy, kv_len=kv_len)
+                                  policy, strategy, kv_len=kv_len,
+                                  page_table=page_table)
         else:
             h, _ = apply_block_dense(cfg, kind, bp, h, strategy=strategy,
                                      kv_len=kv_len)

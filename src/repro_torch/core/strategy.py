@@ -112,15 +112,24 @@ class CacheStrategy:
                                   backend=self.backend)
 
     def commit(self, cache_sl: Dict[str, torch.Tensor], idx, h_rows,
-               policy, *, p_now: Optional[torch.Tensor] = None
+               policy, *, p_now: Optional[torch.Tensor] = None,
+               page_table: Optional[torch.Tensor] = None
                ) -> Dict[str, torch.Tensor]:
         """Scatter refreshed block outputs (+ int8 scale) and the selected
-        identifier rows at idx in ONE multi-buffer commit."""
+        identifier rows at idx in ONE multi-buffer commit.  With
+        ``page_table`` the ``proxy`` buffer is a page arena: its rows
+        commit through the page table (``backend.scatter_rows_paged``) and
+        the dense view's buffers keep the multi-buffer commit."""
         from repro_torch.core import cache as cache_lib
         from repro_torch.core import selection
         upd = cache_lib.h_row_update(h_rows, policy)
         if p_now is not None and "proxy" in cache_sl:
-            upd["proxy"] = selection.gather_rows(p_now, idx)
+            proxy_rows = selection.gather_rows(p_now, idx)
+            if page_table is not None:
+                self.backend.scatter_rows_paged(cache_sl["proxy"],
+                                                page_table, idx, proxy_rows)
+            else:
+                upd["proxy"] = proxy_rows
         return cache_lib.scatter_buffers(cache_sl, idx, upd,
                                          backend=self.backend)
 

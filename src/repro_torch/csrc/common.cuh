@@ -48,6 +48,41 @@ __device__ __forceinline__ float warp_max(float v) {
   return v;
 }
 
+// Copy nbytes from src to dst with all threads of the block: 16-byte moves
+// (four in flight per thread) where both ends and the length are 16-byte
+// aligned, 4-byte or single-byte moves otherwise.  The two ranges must not
+// overlap.
+__device__ __forceinline__ void block_copy(char* __restrict__ dst,
+                                           const char* __restrict__ src,
+                                           long long nbytes) {
+  const uintptr_t align = reinterpret_cast<uintptr_t>(dst) |
+                          reinterpret_cast<uintptr_t>(src) |
+                          static_cast<uintptr_t>(nbytes);
+  const long long t = threadIdx.x, n = blockDim.x;
+  if ((align & 15) == 0) {
+    constexpr int kUnroll = 4;
+    for (long long o = t * 16; o < nbytes; o += kUnroll * n * 16) {
+      uint4 v[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long oo = o + u * n * 16;
+        if (oo < nbytes) v[u] = *reinterpret_cast<const uint4*>(src + oo);
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long oo = o + u * n * 16;
+        if (oo < nbytes) *reinterpret_cast<uint4*>(dst + oo) = v[u];
+      }
+    }
+  } else if ((align & 3) == 0) {
+    for (long long o = t * 4; o < nbytes; o += n * 4)
+      *reinterpret_cast<uint32_t*>(dst + o) =
+          *reinterpret_cast<const uint32_t*>(src + o);
+  } else {
+    for (long long o = t; o < nbytes; o += n) dst[o] = src[o];
+  }
+}
+
 // 16-byte global -> shared copy that bypasses registers (sm_80+); with
 // pred false the destination is zero-filled and nothing is read.
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem,

@@ -20,6 +20,13 @@
 //   round trip before it is scored.  Every block re-reads W_r (1 MB at the
 //   slice shape) from L2, 64 MB in all; sharing it across a cluster with
 //   TMA multicast is later work.
+//
+// proxy_score_paged (replaces src/repro/kernels/proxy_score.py:
+//   proxy_score_paged) reads p_cached through a page table from a pooled
+//   arena [P, page, r] instead of a dense [B, N, r] buffer.  It is the same
+//   kernel body, templated only on how a row of p_cached is addressed
+//   (DenseRows / PagedRows), so its results are bitwise those of proxy_score
+//   on the gathered pages.  Its bound is proxy_score's.
 #include <mma.h>
 
 #include "common.cuh"
@@ -28,6 +35,27 @@ namespace {
 
 constexpr int kThreads = 256;   // 8 warps
 constexpr int kRMax = 256;      // largest rank a block holds
+
+// Where row `row` of batch row b of p_cached lies.
+template <typename T>
+struct DenseRows {  // [B, N, r]
+  const T* pc;
+  int N, r;
+  __device__ __forceinline__ const T* operator()(int b, int row) const {
+    return pc + ((size_t)b * N + row) * r;
+  }
+};
+
+template <typename T>
+struct PagedRows {  // arena [P, page, r] through pt [B, n_log]
+  const T* arena;
+  const int* pt;
+  int n_log, page, r;
+  __device__ __forceinline__ const T* operator()(int b, int row) const {
+    const int pid = pt[b * n_log + row / page];
+    return arena + ((size_t)pid * page + row % page) * r;
+  }
+};
 
 // ---- bf16: tensor-core tiles, two-stage cp.async pipeline ------------------
 constexpr int kRowsB = 32;      // rows of x per block (2 MMA row tiles)
@@ -44,9 +72,10 @@ size_t bf16_smem_bytes(int r) {
 
 // Needs d % 8 == 0, r % 16 == 0 and 16-byte aligned x / w (checked by the
 // wrapper): every tile row moves as 16-byte cp.async chunks.
+template <typename Rows>
 __global__ void __launch_bounds__(kThreads) proxy_score_bf16(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-    const __nv_bfloat16* __restrict__ pc, float* __restrict__ scores,
+    Rows pc_row, float* __restrict__ scores,
     __nv_bfloat16* __restrict__ pnow, int N, int d, int r, float eps) {
   using namespace nvcuda;
   using bf16 = __nv_bfloat16;
@@ -129,12 +158,13 @@ __global__ void __launch_bounds__(kThreads) proxy_score_bf16(
     const int row = row0 + i;
     if (row >= N) continue;
     const size_t off = ((size_t)b * N + row) * r;
+    const bf16* pc = pc_row(b, row);
     float num = 0.f, pp = 0.f, cc = 0.f;
     for (int c = lane; c < r; c += 32) {
       const bf16 pr = __float2bfloat16_rn(ps[i * ldw + c]);
       pnow[off + c] = pr;
       const float p = __bfloat162float(pr);
-      const float q = __bfloat162float(pc[off + c]);
+      const float q = __bfloat162float(pc[c]);
       num += p * q;
       pp += p * p;
       cc += q * q;
@@ -150,9 +180,10 @@ __global__ void __launch_bounds__(kThreads) proxy_score_bf16(
 constexpr int kRows = 16;       // rows of x per block
 constexpr int kTkF = 32;
 
+template <typename Rows>
 __global__ void __launch_bounds__(kThreads) proxy_score_f32(
     const float* __restrict__ x, const float* __restrict__ w,
-    const float* __restrict__ pc, float* __restrict__ scores,
+    Rows pc_row, float* __restrict__ scores,
     float* __restrict__ pnow, int N, int d, int r, float eps) {
   __shared__ float xs[kRows][kTkF + 1];
   __shared__ float ws[kTkF * kRMax];  // reused as the p tile [kRows][kRMax]
@@ -202,10 +233,11 @@ __global__ void __launch_bounds__(kThreads) proxy_score_f32(
     const int row = row0 + i;
     if (row >= N) continue;
     const size_t off = ((size_t)b * N + row) * r;
+    const float* pc = pc_row(b, row);
     float num = 0.f, pp = 0.f, cc = 0.f;
     for (int c = lane; c < r; c += 32) {
       const float p = ps[i * kRMax + c];
-      const float q = pc[off + c];
+      const float q = pc[c];
       pnow[off + c] = p;
       num += p * q;
       pp += p * p;
@@ -218,36 +250,58 @@ __global__ void __launch_bounds__(kThreads) proxy_score_f32(
   }
 }
 
+template <template <typename> class Rows, typename... A>
+int launch(const void* x, const void* w, const void* pc, void* scores,
+           void* pnow, int B, int N, int d, int r, int dtype, float eps,
+           void* stream, A... where) {
+  if (B <= 0 || N <= 0) return 0;
+  if (r <= 0 || r > kRMax) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == spa::kBF16) {
+    if (r % 16 || d % 8) return (int)cudaErrorInvalidValue;
+    using T = __nv_bfloat16;
+    const size_t bytes = bf16_smem_bytes(r);
+    const cudaError_t err = cudaFuncSetAttribute(
+        proxy_score_bf16<Rows<T>>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((N + kRowsB - 1) / kRowsB, B);
+    proxy_score_bf16<Rows<T>><<<grid, kThreads, bytes, s>>>(
+        static_cast<const T*>(x), static_cast<const T*>(w),
+        Rows<T>{static_cast<const T*>(pc), where...},
+        static_cast<float*>(scores), static_cast<T*>(pnow), N, d, r, eps);
+  } else if (dtype == spa::kF32) {
+    const dim3 grid((N + kRows - 1) / kRows, B);
+    proxy_score_f32<Rows<float>><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w),
+        Rows<float>{static_cast<const float*>(pc), where...},
+        static_cast<float*>(scores), static_cast<float*>(pnow), N, d, r,
+        eps);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // x [B,N,d], w [d,r], pc [B,N,r] (one dtype); scores [B,N] f32; pnow [B,N,r].
 extern "C" int spa_proxy_score(const void* x, const void* w, const void* pc,
                                void* scores, void* pnow, int B, int N, int d,
                                int r, int dtype, float eps, void* stream) {
-  if (B <= 0 || N <= 0) return 0;
-  if (r <= 0 || r > kRMax) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == spa::kBF16) {
-    if (r % 16 || d % 8) return (int)cudaErrorInvalidValue;
-    const size_t bytes = bf16_smem_bytes(r);
-    const cudaError_t err = cudaFuncSetAttribute(
-        proxy_score_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((N + kRowsB - 1) / kRowsB, B);
-    proxy_score_bf16<<<grid, kThreads, bytes, s>>>(
-        static_cast<const __nv_bfloat16*>(x),
-        static_cast<const __nv_bfloat16*>(w),
-        static_cast<const __nv_bfloat16*>(pc), static_cast<float*>(scores),
-        static_cast<__nv_bfloat16*>(pnow), N, d, r, eps);
-  } else if (dtype == spa::kF32) {
-    const dim3 grid((N + kRows - 1) / kRows, B);
-    proxy_score_f32<<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w),
-        static_cast<const float*>(pc), static_cast<float*>(scores),
-        static_cast<float*>(pnow), N, d, r, eps);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
+  return launch<DenseRows>(x, w, pc, scores, pnow, B, N, d, r, dtype, eps,
+                           stream, N, r);
+}
+
+// As spa_proxy_score, with p_cached read from arena [P, page, r] (contiguous,
+// x's dtype) through pt [B, n_log] int32; N == n_log * page.
+extern "C" int spa_proxy_score_paged(const void* x, const void* w,
+                                     const void* arena, const void* pt,
+                                     void* scores, void* pnow, int B, int N,
+                                     int d, int r, int page, int n_log,
+                                     int dtype, float eps, void* stream) {
+  if (page <= 0 || n_log * page != N) return (int)cudaErrorInvalidValue;
+  return launch<PagedRows>(x, w, arena, scores, pnow, B, N, d, r, dtype, eps,
+                           stream, static_cast<const int*>(pt), n_log, page,
+                           r);
 }

@@ -13,9 +13,8 @@
 // Design: buffers of any dtype and row width travel as a descriptor array
 //   (pointers and byte strides) passed by value, so one launch serves them
 //   all.  One block per (selected row, batch row) copies that row of every
-//   buffer with 16-byte vector moves where both ends are 16-byte aligned,
-//   4-byte or single-byte moves otherwise.  Rows are independent, so no
-//   ordering between blocks is needed.
+//   buffer with spa::block_copy.  Rows are independent, so no ordering
+//   between blocks is needed.
 #include "common.cuh"
 
 namespace {
@@ -41,24 +40,10 @@ __global__ void __launch_bounds__(kThreads) scatter_kernel(
   if (i < 0 || i >= N) return;
   for (int t = 0; t < bufs.n; ++t) {
     const Buf& bb = bufs.buf[t];
-    char* dst = bb.dst + b * bb.dst_bstride + (long long)i * bb.dst_rstride;
-    const char* src = bb.src + b * bb.src_bstride + (long long)j * bb.src_rstride;
-    const long long nbytes = bb.row_bytes;
-    const uintptr_t align = reinterpret_cast<uintptr_t>(dst) |
-                            reinterpret_cast<uintptr_t>(src) |
-                            static_cast<uintptr_t>(nbytes);
-    if ((align & 15) == 0) {
-      for (long long o = threadIdx.x * 16; o < nbytes; o += kThreads * 16)
-        *reinterpret_cast<uint4*>(dst + o) =
-            *reinterpret_cast<const uint4*>(src + o);
-    } else if ((align & 3) == 0) {
-      for (long long o = threadIdx.x * 4; o < nbytes; o += kThreads * 4)
-        *reinterpret_cast<uint32_t*>(dst + o) =
-            *reinterpret_cast<const uint32_t*>(src + o);
-    } else {
-      for (long long o = threadIdx.x; o < nbytes; o += kThreads)
-        dst[o] = src[o];
-    }
+    spa::block_copy(
+        bb.dst + b * bb.dst_bstride + (long long)i * bb.dst_rstride,
+        bb.src + b * bb.src_bstride + (long long)j * bb.src_rstride,
+        bb.row_bytes);
   }
 }
 

@@ -31,7 +31,8 @@ Params = Dict[str, Any]
 
 class DecodeState(NamedTuple):
     tokens: torch.Tensor         # [B, N] canvas (mask_id at open slots)
-    cache: Any                   # {kind: {name: [Lk,B,N,...]}}, in place
+    cache: Any                   # {kind: {name: [Lk,B,N,...]}} or a
+    #                              PagedCache; updated in place
     step: int
     committed: torch.Tensor      # [B, C] recently committed positions (-1)
     n_masked: torch.Tensor       # [B] remaining masked counts
@@ -95,14 +96,23 @@ def serve_step(params: Params, cfg: ModelConfig, state: DecodeState,
     mask_id = cfg.mask_id
 
     h = transformer.embed_inputs(params, cfg, {"tokens": tokens})
-    if not strategy.uses_cache or not cache:
+    # Paged cache: every buffer but the identifier pages is gathered into
+    # a dense view through the page table, the step runs on it and the
+    # view is scattered back; all through strategy.backend.
+    paged = isinstance(cache, cache_lib.PagedCache)
+    view = (cache_lib.paged_step_view(cache, backend=strategy.backend)
+            if paged else cache)
+    if not strategy.uses_cache or not view:
         h, _ = transformer.forward_hidden(params, cfg, h, strategy=strategy,
                                           kv_len=state.kv_len)
     else:
-        h, cache = spa_layer.spa_forward(params, cfg, cache, h,
-                                         spa_proxies=spa_proxies,
-                                         strategy=strategy,
-                                         kv_len=state.kv_len)
+        h, view = spa_layer.spa_forward(
+            params, cfg, view, h, spa_proxies=spa_proxies,
+            strategy=strategy, kv_len=state.kv_len,
+            page_table=cache.page_table if paged else None)
+        cache = (cache_lib.paged_step_commit(cache, view,
+                                             backend=strategy.backend)
+                 if paged else view)
 
     # Candidate-limited logit evaluation + commit.
     cand_idx, is_masked = _candidate_positions(

@@ -1,10 +1,12 @@
 """Hand-written Hopper kernels of the SPA hot path (CUDA C++ in ``csrc/``).
 
-  proxy_score      — fused rank-r projection + cosine drift scores, and
-                     ``gather_norm``, the fused gather + rms_norm epilogue
+  proxy_score      — fused rank-r projection + cosine drift scores (dense
+                     or through a page table), and ``gather_norm``, the
+                     fused gather + rms_norm epilogue
   sparse_attention — gathered-query attention vs the full KV cache
                      (dense grid; also serves prefill)
-  scatter_update   — in-place multi-buffer row commits
+  scatter_update   — in-place multi-buffer row commits, and the paged
+                     cache copies (gather/scatter pages, paged row commits)
 
 Each module keeps the plain PyTorch version beside its kernel.
 ``backend.py`` packages them as ``TorchBackend`` (plain) and

@@ -31,12 +31,14 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 KERNELS = ("proxy_score", "gather_norm", "sparse_attention",
-           "scatter_update_multi")
+           "scatter_update_multi", "gather_pages", "scatter_pages",
+           "scatter_rows_paged", "proxy_score_paged")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
 # C signatures (csrc/*.cu ``extern "C"`` entry points)
 _SIGNATURES = {
     "spa_proxy_score": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
@@ -46,6 +48,12 @@ _SIGNATURES = {
                              _F, _F, _P],
     "spa_scatter_update_multi": [_P, _I, _I, _I, _I,
                                  _P, _P, _P, _P, _P, _P, _P, _P],
+    "spa_proxy_score_paged": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                              _I, _I, _F, _P],
+    "spa_gather_pages": [_P, _P, _P, _I, _I, _I, _I, _L, _P],
+    "spa_scatter_pages": [_P, _P, _P, _I, _I, _I, _I, _L, _P],
+    "spa_scatter_rows_paged": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L,
+                               _P],
 }
 
 _state: Dict[str, object] = {"lib": None, "build_seconds": None,

@@ -15,7 +15,12 @@ dataclass field), exactly as in the JAX package.
 Dispatch rules follow the JAX package: selection (top-k) stays plain
 tensor code, and the fused identification kernel engages only when the
 strategy's projection is a plain matrix and its score is the base cosine.
-Stages this slice does not port raise ``NotImplementedError``.
+With a page table (paged serving) the cached identifiers are a pooled page
+arena [P, page, r]: a plain matrix goes to ``proxy_score_paged`` and
+anything but an identity projection gathers the pages dense and scores
+them with the strategy's own ops.  Stages not ported yet (the identity
+projection's ``cosine_drift_paged``, ``score_drift``) raise
+``NotImplementedError``.
 """
 from __future__ import annotations
 
@@ -32,12 +37,6 @@ Params = Dict[str, Any]
 
 _LATER_SCORE = ("score-only drift (cosine_drift: the incremental and "
                 "attn_in identifiers) waits for a later slice")
-_LATER_PAGED = "the paged cache stages wait for the paged-serving slice"
-
-
-def _no_paging(page_table) -> None:
-    if page_table is not None:
-        raise NotImplementedError(_LATER_PAGED)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -49,7 +48,9 @@ class KernelBackend:
     def identifier_scores(self, strategy, bp: Params, proxy_mat,
                           x: torch.Tensor, p_cached: torch.Tensor,
                           page_table=None):
-        """Phase 1: project x and score drift. Returns (scores, p_now)."""
+        """Phase 1: project x and score drift. Returns (scores, p_now).
+        With ``page_table`` [B, n_log], ``p_cached`` is one layer's page
+        arena [P, page, r] instead of a dense [B, N, r] buffer."""
         raise NotImplementedError
 
     def score_drift(self, strategy, p_now, p_cached, page_table=None):
@@ -73,13 +74,20 @@ class KernelBackend:
         raise NotImplementedError
 
     def gather_pages(self, arena, page_table):
-        raise NotImplementedError(_LATER_PAGED)
+        """arena [L, P, page, ...] + page table [B, n_log] -> dense view
+        [L, B, n_log*page, ...]."""
+        raise NotImplementedError
 
     def scatter_pages(self, arena, page_table, dense):
-        raise NotImplementedError(_LATER_PAGED)
+        """Write a dense view back through the page table, into the arena
+        in place (writes to the zero page drop).  Returns the arena."""
+        raise NotImplementedError
 
     def scatter_rows_paged(self, arena, page_table, idx, rows):
-        raise NotImplementedError(_LATER_PAGED)
+        """Commit rows [B, k, ...] at logical rows idx [B, k] into ONE
+        layer's arena [P, page, ...] in place (zero-page and out-of-range
+        rows drop).  Returns the arena."""
+        raise NotImplementedError
 
     @staticmethod
     def _fused_matrix(strategy, bp, proxy_mat) -> Optional[torch.Tensor]:
@@ -99,7 +107,8 @@ class TorchBackend(KernelBackend):
 
     def identifier_scores(self, strategy, bp, proxy_mat, x, p_cached,
                           page_table=None):
-        _no_paging(page_table)
+        if page_table is not None:
+            p_cached = self.gather_pages(p_cached[None], page_table)[0]
         mat = self._fused_matrix(strategy, bp, proxy_mat)
         if mat is None:
             p_now = strategy.project(x, bp, proxy_mat)
@@ -126,6 +135,15 @@ class TorchBackend(KernelBackend):
                                       [rows[n] for n in names])
         return {n: buffers[n] for n in names}
 
+    def gather_pages(self, arena, page_table):
+        return sc.gather_pages_plain(arena, page_table)
+
+    def scatter_pages(self, arena, page_table, dense):
+        return sc.scatter_pages_plain(arena, page_table, dense)
+
+    def scatter_rows_paged(self, arena, page_table, idx, rows):
+        return sc.scatter_rows_paged_plain(arena, page_table, idx, rows)
+
 
 @dataclasses.dataclass(frozen=True)
 class CudaBackend(KernelBackend):
@@ -135,11 +153,18 @@ class CudaBackend(KernelBackend):
 
     def identifier_scores(self, strategy, bp, proxy_mat, x, p_cached,
                           page_table=None):
-        _no_paging(page_table)
         mat = self._fused_matrix(strategy, bp, proxy_mat)
-        if mat is None:
+        if page_table is None:
+            if mat is None:
+                raise NotImplementedError(_LATER_SCORE)
+            return ps.proxy_score(x, mat, p_cached)
+        if mat is not None:
+            return ps.proxy_score_paged(x, mat, p_cached, page_table)
+        p_now = strategy.project(x, bp, proxy_mat)
+        if p_now is x:      # identity projection: cosine_drift_paged
             raise NotImplementedError(_LATER_SCORE)
-        return ps.proxy_score(x, mat, p_cached)
+        p_dense = self.gather_pages(p_cached[None], page_table)[0]
+        return strategy.score(p_now, p_dense), p_now
 
     def gather_norm(self, h, idx, weight, eps):
         return ps.gather_norm(h, idx, weight, eps)
@@ -158,6 +183,15 @@ class CudaBackend(KernelBackend):
         sc.scatter_update_multi([buffers[n] for n in names], idx,
                                 [rows[n] for n in names])
         return {n: buffers[n] for n in names}
+
+    def gather_pages(self, arena, page_table):
+        return sc.gather_pages(arena, page_table)
+
+    def scatter_pages(self, arena, page_table, dense):
+        return sc.scatter_pages(arena, page_table, dense)
+
+    def scatter_rows_paged(self, arena, page_table, idx, rows):
+        return sc.scatter_rows_paged(arena, page_table, idx, rows)
 
 
 def _positions(q, q_positions, q_span):

@@ -6,6 +6,12 @@ the rowwise cosine of the ROUNDED ``p`` against the cached identifiers
 with the norm product floored at ``eps`` (what ``strategy.project``
 followed by ``strategy.score`` computes, so unchanged rows tie at 1.0).
 
+``proxy_score_paged`` replaces ``repro/kernels/proxy_score.py:
+proxy_score_paged``: the same function with the cached identifiers read
+from a pooled page arena [P, page, r] through a page table [B, n_log]
+(``csrc/proxy_score.cu`` shares one kernel body between the two, so the
+paged result is bitwise the dense result on the gathered pages).
+
 ``gather_norm`` replaces ``repro/kernels/proxy_score.py:gather_norm``:
 the k selected rows of ``h`` (indices clamped to ``[0, N)``) are emitted
 raw and rms-normed, ``row * rsqrt(mean(row^2) + eps) * (1 + w)``, in one
@@ -23,6 +29,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _lib
+from repro_torch.kernels.scatter_update import gather_pages_plain
 
 
 def cosine(p: torch.Tensor, pc: torch.Tensor, eps: float) -> torch.Tensor:
@@ -42,6 +49,19 @@ def proxy_score_plain(x: torch.Tensor, proxy_mat: torch.Tensor,
     return cosine(p_now, p_cached, eps), p_now
 
 
+def _check_operands(x, proxy_mat, r, d):
+    """Contiguous x and proxy_mat that the kernel takes, or raise."""
+    if r > 256:
+        raise ValueError(f"proxy_score kernel takes rank <= 256, got {r}")
+    x, proxy_mat = x.contiguous(), proxy_mat.contiguous()
+    if x.dtype == torch.bfloat16 and (
+            r % 16 or d % 8 or x.data_ptr() % 16
+            or proxy_mat.data_ptr() % 16):
+        raise ValueError("the bf16 proxy_score kernel needs rank % 16 == 0, "
+                         "d % 8 == 0 and 16-byte aligned x and proxy_mat")
+    return x, proxy_mat
+
+
 def proxy_score(x: torch.Tensor, proxy_mat: torch.Tensor,
                 p_cached: torch.Tensor, *, eps: float = 1e-8
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -57,15 +77,8 @@ def proxy_score(x: torch.Tensor, proxy_mat: torch.Tensor,
                          f"{tuple(p_cached.shape)}")
     if proxy_mat.dtype != x.dtype or p_cached.dtype != x.dtype:
         raise TypeError("x, proxy_mat and p_cached must share one dtype")
-    if r > 256:
-        raise ValueError(f"proxy_score kernel takes rank <= 256, got {r}")
-    x, proxy_mat, p_cached = (x.contiguous(), proxy_mat.contiguous(),
-                              p_cached.contiguous())
-    if x.dtype == torch.bfloat16 and (
-            r % 16 or d % 8 or x.data_ptr() % 16
-            or proxy_mat.data_ptr() % 16):
-        raise ValueError("the bf16 proxy_score kernel needs rank % 16 == 0, "
-                         "d % 8 == 0 and 16-byte aligned x and proxy_mat")
+    x, proxy_mat = _check_operands(x, proxy_mat, r, d)
+    p_cached = p_cached.contiguous()
     scores = torch.empty((b, n), dtype=torch.float32, device=x.device)
     p_now = torch.empty((b, n, r), dtype=x.dtype, device=x.device)
     lib = _lib.load()
@@ -74,6 +87,54 @@ def proxy_score(x: torch.Tensor, proxy_mat: torch.Tensor,
         scores.data_ptr(), p_now.data_ptr(), b, n, d, r,
         _lib.dtype_code(x.dtype), eps, _lib.stream_ptr(x)), "proxy_score")
     _lib.LAUNCHES["proxy_score"] += 1
+    return scores, p_now
+
+
+def proxy_score_paged_plain(x: torch.Tensor, proxy_mat: torch.Tensor,
+                            arena: torch.Tensor, pt: torch.Tensor, *,
+                            eps: float = 1e-8
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Gather the pages dense, then :func:`proxy_score_plain`."""
+    return proxy_score_plain(x, proxy_mat,
+                             gather_pages_plain(arena[None], pt)[0], eps=eps)
+
+
+def proxy_score_paged(x: torch.Tensor, proxy_mat: torch.Tensor,
+                      arena: torch.Tensor, pt: torch.Tensor, *,
+                      eps: float = 1e-8
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, N, d]; proxy_mat: [d, r]; arena: [P, page, r] (one layer);
+    pt: [B, n_log] with N == n_log * page.  Returns (scores [B, N] f32,
+    p_now [B, N, r] in x.dtype), as :func:`proxy_score` on the gathered
+    pages."""
+    if x.device.type == "cpu":
+        return proxy_score_paged_plain(x, proxy_mat, arena, pt, eps=eps)
+    _lib.require_cuda(x, proxy_mat, arena, pt)
+    b, n, d = x.shape
+    r = proxy_mat.shape[1]
+    page = arena.shape[1]
+    n_log = pt.shape[1]
+    if (proxy_mat.shape != (d, r) or arena.dim() != 3
+            or arena.shape[2] != r or pt.shape[0] != b
+            or n != n_log * page):
+        raise ValueError(f"shapes x {tuple(x.shape)}, proxy_mat "
+                         f"{tuple(proxy_mat.shape)}, arena "
+                         f"{tuple(arena.shape)}, pt {tuple(pt.shape)}")
+    if proxy_mat.dtype != x.dtype or arena.dtype != x.dtype:
+        raise TypeError("x, proxy_mat and arena must share one dtype")
+    if not arena.is_contiguous():
+        raise ValueError("the proxy arena must be contiguous")
+    x, proxy_mat = _check_operands(x, proxy_mat, r, d)
+    pt = pt.to(torch.int32).contiguous()
+    scores = torch.empty((b, n), dtype=torch.float32, device=x.device)
+    p_now = torch.empty((b, n, r), dtype=x.dtype, device=x.device)
+    lib = _lib.load()
+    _lib.check(lib.spa_proxy_score_paged(
+        x.data_ptr(), proxy_mat.data_ptr(), arena.data_ptr(), pt.data_ptr(),
+        scores.data_ptr(), p_now.data_ptr(), b, n, d, r, page, n_log,
+        _lib.dtype_code(x.dtype), eps, _lib.stream_ptr(x)),
+        "proxy_score_paged")
+    _lib.LAUNCHES["proxy_score_paged"] += 1
     return scores, p_now
 
 

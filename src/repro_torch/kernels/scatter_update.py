@@ -1,4 +1,4 @@
-"""Phase-2/3 kernel: commit row payloads into several cache buffers.
+"""Cache-commit kernels: dense multi-buffer row commits and the paged copies.
 
 Replaces ``repro/kernels/scatter_update.py:scatter_update_multi``: the
 rows ``[B, k, ...]`` of every buffer of one commit (K + V (+ scales), then
@@ -14,12 +14,30 @@ is given (and returns them): callers that need a "before" copy clone it.
 ``scatter_update_multi_plain`` is the PyTorch version (advanced-index
 writes of the in-range rows); the wrapper takes it for CPU tensors and
 launches ``csrc/scatter_update.cu`` for CUDA ones.
+
+Paged cache (``csrc/paged.cu``; replaces ``gather_pages``,
+``scatter_pages`` and ``scatter_rows_paged`` of
+``repro/kernels/scatter_update.py``): cache rows live in a pooled arena of
+fixed-size pages, and logical canvas row n of batch row b is physical row
+``pt[b, n // page] * page + n % page``.  Physical page 0 is the pool's zero
+page: never written, so every logical page past a row's ``kv_len`` can map
+to it.
+
+  gather_pages       arena [L, P, page, ...] -> dense [L, B, n_log*page, ...]
+  scatter_pages      the inverse, into the arena in place; page-0 writes drop
+  scatter_rows_paged rows [B, k, ...] at logical rows idx [B, k] into ONE
+                     layer's arena [P, page, ...] in place; idx < 0,
+                     idx // page >= n_log and page-0 rows drop
+
+Each has a ``*_plain`` version written the way the JAX package's
+``XlaBackend`` writes it, taken for CPU tensors.  Page tables must hold
+page ids in [0, P).
 """
 from __future__ import annotations
 
-from typing import Sequence, Tuple
-
 import ctypes
+import math
+from typing import Sequence, Tuple
 
 import torch
 
@@ -97,3 +115,131 @@ def scatter_update_multi(caches: Sequence[torch.Tensor], idx: torch.Tensor,
         _lib.stream_ptr(idx)), "scatter_update_multi")
     _lib.LAUNCHES["scatter_update_multi"] += 1
     return tuple(caches)
+
+
+# ---------------------------------------------------------------------------
+# Paged cache
+# ---------------------------------------------------------------------------
+
+def gather_pages_plain(arena: torch.Tensor, pt: torch.Tensor
+                       ) -> torch.Tensor:
+    """arena [L, P, page, ...]; pt [B, n_log] -> [L, B, n_log*page, ...]."""
+    l, page = arena.shape[0], arena.shape[2]
+    b, n_log = pt.shape
+    out = arena[:, pt.long()]                   # [L, B, n_log, page, ...]
+    return out.reshape((l, b, n_log * page) + tuple(arena.shape[3:]))
+
+
+def scatter_pages_plain(arena: torch.Tensor, pt: torch.Tensor,
+                        dense: torch.Tensor) -> torch.Tensor:
+    """Write dense [L, B, n_log*page, ...] back through pt, in place;
+    pages with id 0 (the zero page) are skipped.  Returns arena."""
+    l, page = arena.shape[0], arena.shape[2]
+    b, n_log = pt.shape
+    dense = dense.reshape((l, b, n_log, page) + tuple(arena.shape[3:]))
+    ok = pt > 0
+    arena[:, pt[ok].long()] = dense[:, ok].to(arena.dtype)
+    return arena
+
+
+def scatter_rows_paged_plain(arena: torch.Tensor, pt: torch.Tensor,
+                             idx: torch.Tensor, rows: torch.Tensor
+                             ) -> torch.Tensor:
+    """arena [P, page, ...] (one layer); rows [B, k, ...] at idx [B, k],
+    in place.  Returns arena."""
+    page = arena.shape[1]
+    n_log = pt.shape[1]
+    ii = idx.long()
+    lpage = torch.div(ii, page, rounding_mode="floor")
+    pid = torch.gather(pt.long(), 1, lpage.clamp(0, n_log - 1))
+    ok = (ii >= 0) & (lpage < n_log) & (pid > 0)
+    arena[pid[ok], (ii % page)[ok]] = rows[ok].to(arena.dtype)
+    return arena
+
+
+def _page_bytes(arena: torch.Tensor) -> int:
+    return math.prod(arena.shape[2:]) * arena.element_size()
+
+
+def _check_pages(arena, pt, what):
+    if arena.dim() < 3 or pt.dim() != 2:
+        raise ValueError(f"{what}: arena [L, P, page, ...] and pt [B, n_log]"
+                         f", got {tuple(arena.shape)}, {tuple(pt.shape)}")
+    if not arena.is_contiguous():
+        raise ValueError(f"{what}: the arena must be contiguous")
+
+
+def gather_pages(arena: torch.Tensor, pt: torch.Tensor) -> torch.Tensor:
+    """The dense view of a paged arena (see module docstring)."""
+    if arena.device.type == "cpu":
+        return gather_pages_plain(arena, pt)
+    _lib.require_cuda(arena, pt)
+    _check_pages(arena, pt, "gather_pages")
+    l, p, page = arena.shape[:3]
+    b, n_log = pt.shape
+    out = torch.empty((l, b, n_log * page) + tuple(arena.shape[3:]),
+                      dtype=arena.dtype, device=arena.device)
+    pt32 = pt.to(torch.int32).contiguous()
+    lib = _lib.load()
+    _lib.check(lib.spa_gather_pages(
+        arena.data_ptr(), pt32.data_ptr(), out.data_ptr(), l, p, b, n_log,
+        _page_bytes(arena), _lib.stream_ptr(arena)), "gather_pages")
+    _lib.LAUNCHES["gather_pages"] += 1
+    return out
+
+
+def scatter_pages(arena: torch.Tensor, pt: torch.Tensor,
+                  dense: torch.Tensor) -> torch.Tensor:
+    """Write a dense view back into the arena in place (see module
+    docstring).  Returns arena."""
+    if arena.device.type == "cpu":
+        return scatter_pages_plain(arena, pt, dense)
+    _lib.require_cuda(arena, pt, dense)
+    _check_pages(arena, pt, "scatter_pages")
+    l, p, page = arena.shape[:3]
+    b, n_log = pt.shape
+    if dense.numel() != l * b * n_log * math.prod(arena.shape[2:]):
+        raise ValueError(f"scatter_pages: dense {tuple(dense.shape)} does not "
+                         f"fill {b} rows of {n_log} pages of arena "
+                         f"{tuple(arena.shape)}")
+    dense = dense.to(arena.dtype).contiguous()
+    pt32 = pt.to(torch.int32).contiguous()
+    lib = _lib.load()
+    _lib.check(lib.spa_scatter_pages(
+        arena.data_ptr(), pt32.data_ptr(), dense.data_ptr(), l, p, b, n_log,
+        _page_bytes(arena), _lib.stream_ptr(arena)), "scatter_pages")
+    _lib.LAUNCHES["scatter_pages"] += 1
+    return arena
+
+
+def scatter_rows_paged(arena: torch.Tensor, pt: torch.Tensor,
+                       idx: torch.Tensor, rows: torch.Tensor
+                       ) -> torch.Tensor:
+    """Row commits into one layer's arena in place (see module
+    docstring).  ``arena`` may be a layer slice of [L, P, page, ...]: the
+    kernel writes through its pointer and strides.  Returns arena."""
+    if arena.device.type == "cpu":
+        return scatter_rows_paged_plain(arena, pt, idx, rows)
+    _lib.require_cuda(arena, pt, idx, rows)
+    p, page = arena.shape[:2]
+    b, k = idx.shape
+    f = math.prod(arena.shape[2:])
+    if pt.shape[0] != b or rows.shape[:2] != (b, k) \
+            or rows.shape[2:] != arena.shape[2:]:
+        raise ValueError(f"scatter_rows_paged: arena {tuple(arena.shape)}, "
+                         f"pt {tuple(pt.shape)}, idx {tuple(idx.shape)}, "
+                         f"rows {tuple(rows.shape)}")
+    view = arena.reshape(p, page, f)
+    if view.data_ptr() != arena.data_ptr() or view.stride(2) != 1:
+        raise ValueError("scatter_rows_paged: arena rows must be contiguous")
+    src = rows.to(arena.dtype).contiguous()
+    pt32 = pt.to(torch.int32).contiguous()
+    idx32 = idx.to(torch.int32).contiguous()
+    es = arena.element_size()
+    lib = _lib.load()
+    _lib.check(lib.spa_scatter_rows_paged(
+        arena.data_ptr(), pt32.data_ptr(), idx32.data_ptr(), src.data_ptr(),
+        b, k, pt.shape[1], page, f * es, view.stride(0) * es,
+        view.stride(1) * es, _lib.stream_ptr(arena)), "scatter_rows_paged")
+    _lib.LAUNCHES["scatter_rows_paged"] += 1
+    return arena

@@ -40,3 +40,55 @@ def np32(x):
     if isinstance(x, torch.Tensor):
         return x.detach().float().cpu().numpy()
     return np.asarray(x).astype(np.float32)
+
+
+def serve_both(cfg, params, requests, *, strategies, on_step=None, **kw):
+    """Serve the same requests through the JAX engine and the port's.
+
+    ``requests``: (prompt, gen_len, priority) triples submitted up front;
+    ``strategies``: (JAX strategy, port strategy); ``on_step(engine,
+    submit)`` may submit more through ``submit(prompt, gen_len, priority)``
+    at the same engine step in both runs.  The port engine scores with the
+    JAX engine's singular proxies.  Returns (JAX engine, port engine)."""
+    from repro.serving.engine import ServingEngine as JEngine
+    from repro_torch.serving.engine import ServingEngine as TEngine
+
+    def run(engine):
+        for prompt, gen, prio in requests:
+            engine.submit(prompt, gen_len=gen, priority=prio)
+        hook = None
+        if on_step is not None:
+            def hook(e):
+                on_step(e, lambda p, g, prio=0: e.submit(p, gen_len=g,
+                                                         priority=prio))
+        engine.run(on_step=hook)
+        return engine
+
+    jeng = run(JEngine(cfg, params, strategy=strategies[0], **kw))
+    tcfg = port_cfg(cfg)
+    teng = TEngine(tcfg, port_params(params, tcfg), strategy=strategies[1],
+                   device="cpu", **kw)
+    jprox = jeng._proxies.get(jeng.strategy)
+    if jprox is not None:
+        teng._proxies[teng.strategy] = port_proxies(jprox, tcfg)
+    return jeng, run(teng)
+
+
+ENGINE_STATS = ("steps", "swaps", "preemptions", "requests_done",
+                "admission_stalls")
+
+
+def assert_engines_match(jeng, teng):
+    """Identical outputs for every uid, equal engine counters, and (paged)
+    a drained pool on both sides."""
+    j_out = {r.uid: np.asarray(r.output) for r in jeng.done}
+    t_out = {r.uid: np.asarray(r.output) for r in teng.done}
+    assert sorted(j_out) == sorted(t_out)
+    for uid, out in j_out.items():
+        np.testing.assert_array_equal(t_out[uid], out, err_msg=f"uid {uid}")
+    for name in ENGINE_STATS:
+        assert getattr(teng.stats, name) == getattr(jeng.stats, name), name
+    if teng.pool is not None:
+        assert teng.pool.available == teng.pool.capacity
+        assert jeng.pool.available == jeng.pool.capacity
+    return t_out

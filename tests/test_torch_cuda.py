@@ -16,6 +16,10 @@ the plain version sum in different orders before rounding:
   ``p`` flips by one ulp;
 - attention: 2^-7 of the largest output (one ulp of it), well below the
   ~1/25 of a value that one wrongly masked key in the 25-key window moves.
+
+The paged kernels are copies and must match their plain versions exactly,
+drop rules included; ``proxy_score_paged`` shares its kernel body with
+``proxy_score`` and must equal it bit for bit on the gathered pages.
 """
 import pytest
 import torch
@@ -90,3 +94,76 @@ def test_cuda_attention_refuses_untiled_bf16():
     sc = torch.ones((1, 8, 2), device=dev)
     with pytest.raises(ValueError, match="scales"):
         tsa.sparse_attention(q, kv, kv, pos, k_scale=sc, v_scale=sc)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int8,
+                                   torch.float16])
+def test_cuda_paged_copies_match_plain(dtype):
+    """gather_pages, scatter_pages and scatter_rows_paged against their
+    plain versions: exact, with the zero page, the sentinel N, idx < 0,
+    logical pages >= n_log and short rows; int8 K/V rows and f16 scales of
+    width 2 and 1 (the int8 cache's buffers) included."""
+    _cuda_or_skip()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(1)
+    page, n_log, p = 4, 4, 9
+    feats = {torch.int8: [(2, 8)], torch.float16: [(2,), ()]}.get(
+        dtype, [(8,), (2, 8)])
+    pt = torch.tensor([[1, 2, 0, 0], [3, 4, 5, 6]], dtype=torch.int32,
+                      device=dev)
+    n = n_log * page
+    idx = torch.tensor([[-1, 0, 1, 5, 9, 15, n, n + 7],
+                        [-5, 2, 4, 6, 7, 12, 15, n]], dtype=torch.int32,
+                       device=dev)
+
+    def rand(*shape):
+        if dtype == torch.int8:
+            return torch.randint(-127, 128, shape, generator=g, device=dev,
+                                 dtype=torch.int8)
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    for feat in feats:
+        arena = rand(3, p, page, *feat)
+        arena[:, 0] = 0
+        assert torch.equal(tsc.gather_pages(arena, pt),
+                           tsc.gather_pages_plain(arena, pt))
+        dense = rand(3, 2, n, *feat)
+        got, want = arena.clone(), arena.clone()
+        tsc.scatter_pages(got, pt, dense)
+        tsc.scatter_pages_plain(want, pt, dense)
+        assert torch.equal(got, want) and not got[:, 0].any()
+        rows = rand(2, idx.shape[1], *feat)
+        got, want = arena.clone(), arena.clone()
+        tsc.scatter_rows_paged(got[1], pt, idx, rows)   # a layer slice
+        tsc.scatter_rows_paged_plain(want[1], pt, idx, rows)
+        assert torch.equal(got, want) and not got[:, 0].any()
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_proxy_score_paged_bitwise(dtype):
+    """proxy_score_paged equals proxy_score on the gathered pages bit for
+    bit, and its plain version within proxy_score's tolerances."""
+    _cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(2)
+    page, n_log, d, r = 16, 5, 256, 32
+    x = torch.randn(2, n_log * page, d, generator=g, device=dev).to(dtype)
+    w = (torch.randn(d, r, generator=g, device=dev) * 0.1).to(dtype)
+    arena = torch.randn(11, page, r, generator=g, device=dev).to(dtype)
+    arena[0] = 0
+    pt = torch.tensor([[1, 2, 3, 0, 0], [4, 5, 6, 7, 10]],
+                      dtype=torch.int32, device=dev)
+    s_k, p_k = tps.proxy_score_paged(x, w, arena, pt)
+    dense = tsc.gather_pages(arena[None], pt)[0]
+    s_d, p_d = tps.proxy_score(x, w, dense)
+    assert torch.equal(s_k, s_d) and torch.equal(p_k, p_d)
+    s_p, p_p = tps.proxy_score_paged_plain(x, w, arena, pt)
+    f32 = dtype == torch.float32
+    torch.testing.assert_close(s_k, s_p, rtol=0, atol=1e-5 if f32 else 5e-3)
+    torch.testing.assert_close(p_k.float(), p_p.float(),
+                               rtol=1e-5 if f32 else 2 ** -7, atol=1e-5)
+    torch.cuda.synchronize()

@@ -31,7 +31,9 @@ def _submodules():
 def test_port_imports_neither_jax_nor_repro():
     mods = _submodules()
     assert {"repro_torch.kernels.backend", "repro_torch.dlm.session",
-            "repro_torch.weights"} <= set(mods)
+            "repro_torch.weights", "repro_torch.serving.pool",
+            "repro_torch.serving.engine",
+            "repro_torch.launch.serve"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -64,12 +66,19 @@ def test_default_device_raises_without_cuda(monkeypatch):
         resolve_device("cuda")
     sess = DecodeSession(params, cfg, device="cpu")
     assert sess.device.type == "cpu"
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.pool import PagePool
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ServingEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PagePool(cfg, n_pages=4, page_size=4)
+    assert ServingEngine(cfg, params, device="cpu").device.type == "cpu"
 
 
 def test_kernel_wrappers_build_nothing_on_cpu(monkeypatch):
     """CPU tensors take the plain versions: no library is built or
     loaded and no launch is counted."""
-    from repro_torch.kernels import _lib, proxy_score
+    from repro_torch.kernels import _lib, proxy_score, scatter_update
 
     def no_build():
         raise AssertionError("a CPU call must not build the kernels")
@@ -79,4 +88,10 @@ def test_kernel_wrappers_build_nothing_on_cpu(monkeypatch):
     h = torch.randn(1, 6, 8)
     proxy_score.gather_norm(h, torch.tensor([[0, 5]]), torch.zeros(8))
     proxy_score.proxy_score(h, torch.randn(8, 4), torch.randn(1, 6, 4))
+    arena, pt = torch.randn(2, 3, 2, 4), torch.tensor([[1, 0, 2]])
+    proxy_score.proxy_score_paged(h, torch.randn(8, 4), arena[0], pt)
+    dense = scatter_update.gather_pages(arena, pt)
+    scatter_update.scatter_pages(arena, pt, dense)
+    scatter_update.scatter_rows_paged(arena[0], pt, torch.tensor([[0, 5]]),
+                                      torch.randn(1, 2, 4))
     assert _lib.launch_counts() == before

@@ -234,5 +234,14 @@ def test_backends_agree_on_cpu():
     for be in (tbackend.TORCH_BACKEND, tbackend.CUDA_BACKEND):
         with pytest.raises(NotImplementedError):
             be.score_drift(None, h, h)
-        with pytest.raises(NotImplementedError):
-            be.gather_pages(h, idx)
+    # the paged stages: an arena [L=2, P=5, page=3, 32], rows of 6
+    arena = h[:, :15].reshape(2, 5, 3, 32).clone()
+    pt = torch.tensor([[1, 4], [2, 0]], dtype=torch.int32)
+    outs = []
+    for be in (tbackend.TORCH_BACKEND, tbackend.CUDA_BACKEND):
+        a = arena.clone()
+        dense = be.gather_pages(a, pt)
+        be.scatter_pages(a, pt, dense * 2)
+        be.scatter_rows_paged(a[1], pt, idx, h[:, :3])
+        outs.append((dense, a))
+    assert all(torch.equal(x, y) for x, y in zip(*outs))
