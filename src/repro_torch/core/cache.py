@@ -1,9 +1,12 @@
 """SPA-Cache state + int8 cache quantization (the dense half).
 
 Per attention layer the cache holds (Algorithm 1):
-  k, v   — the partially-updated KV cache          [B, N, KVH, HD]
-  h      — the block OUTPUT states H^c             [B, N, d]
-  proxy  — identifier vectors at the last refresh  [B, N, r]
+  k, v      — the partially-updated KV cache          [B, N, KVH, HD]
+  h         — the block OUTPUT states H^c             [B, N, d]
+  proxy     — identifier vectors at the last refresh  [B, N, r]
+  proxy_now — every row's CURRENT identifier vector   [B, N, r]
+              (incremental identifiers only: only the rows whose inputs
+              changed are re-projected each step)
 
 Layers are stacked per layer kind ({kind: {name: [Lk, B, N, ...]}}).  The
 JAX package returns new cache arrays from every write; the port writes the
@@ -21,7 +24,8 @@ Physical page 0 is the zero page: never written, and every logical page
 past a row's ``kv_len`` maps to it.  A step gathers every buffer but the
 identifier pages into a dense view, runs on it and scatters it back; the
 identifier pages stay paged and are read and committed through the page
-table.  Arenas, too, are written in place.
+table (``proxy_now``, where there is one, is a dense-view buffer like
+``h``).  Arenas, too, are written in place.
 """
 from __future__ import annotations
 
@@ -89,6 +93,8 @@ def init_attn_layer_cache(cfg: ModelConfig, batch: int, n: int,
         out["h"] = z((batch, n, d), cd)
     if r:
         out["proxy"] = z((batch, n, r), cd)
+        if strategy.incremental:
+            out["proxy_now"] = z((batch, n, r), cd)
     return out
 
 
@@ -261,10 +267,13 @@ def read_h_full(cache: Dict[str, torch.Tensor], policy: CachePolicy,
 
 
 def fill_from_prefill(entries: Dict[str, torch.Tensor],
-                      policy: CachePolicy) -> Dict[str, torch.Tensor]:
+                      policy: CachePolicy, incremental: bool = False
+                      ) -> Dict[str, torch.Tensor]:
     """Build one kind's cache dict from raw prefill tensors [Lk, B, N, ...].
     ``entries`` must be fresh stacks (``forward_hidden`` builds them with
-    ``torch.stack``): a cast to the dtype they already have keeps them."""
+    ``torch.stack``): a cast to the dtype they already have keeps them.
+    ``incremental`` adds ``proxy_now``, a copy of ``proxy`` (its own
+    buffer: the two are written in place independently)."""
     out: Dict[str, torch.Tensor] = {}
     if policy.quantized:
         out["k"], out["k_scale"] = quantize_rows(entries["k"])
@@ -276,4 +285,6 @@ def fill_from_prefill(entries: Dict[str, torch.Tensor],
             out[name] = entries[name].to(cd)
     if "proxy" in entries:
         out["proxy"] = entries["proxy"].to(policy.compute_dtype)
+        if incremental:
+            out["proxy_now"] = out["proxy"].clone()
     return out

@@ -16,11 +16,20 @@ is its page arena [P, page, r] (identification and the proxy commit go
 through the page table), and ``kv_len`` [B] marks each row's valid canvas
 length: rows past it never select and are never attended.
 
+Identification variants, as in the JAX package: ``scores_override``
+(the window strategy's locality scores, computed before the layer stack)
+replaces identification; the incremental identifier re-projects only the
+rows whose inputs changed (the previous layer's selection, the step's
+newly committed tokens at layer 0) into ``proxy_now`` and rescores every
+row with the backend's score-only pass; ``AttnOutCache`` runs full
+attention for identification and a sparse FFN.
+
 k per layer: the JAX package runs homogeneous all-attention models of
 8 layers or more as a layer scan whose segments share the bucketed k of
-``budget.bucketize``, and smaller ones with the exact ``k_schedule``.
-The port has no scan but uses the same k for every layer in both regimes
-(``layer_ks``), so the two packages select the same rows.
+``budget.bucketize`` -- but only without a score override -- and every
+other case with the exact ``k_schedule``.  The port has no scan but uses
+the same k for every layer in every case (``layer_ks``), so the two
+packages select the same rows.
 """
 from __future__ import annotations
 
@@ -51,11 +60,36 @@ def _mask_tail_scores(scores: torch.Tensor, n: int,
 
 
 def _identifier_scores(strategy: CacheStrategy, bp: Params, proxy_mat, x,
-                       cache_sl, page_table=None):
-    """Returns (scores [B, N] f32, p_now [B, N, r]) on the backend."""
-    return strategy.backend.identifier_scores(strategy, bp, proxy_mat, x,
+                       cache_sl, scores_override=None, prev_idx=None,
+                       page_table=None):
+    """Returns (scores [B, N] f32, p_now or None, proxy_now or None).
+
+    Incremental mode: only rows whose INPUTS changed (``prev_idx`` [B,
+    k_max], sentinel N for padding) can have drifted identifiers, so the
+    projection runs on those rows alone and writes them into the
+    ``proxy_now`` buffer (in place); every row is then rescored against
+    the cached identifiers by the backend's score-only pass."""
+    backend = strategy.backend
+    if scores_override is not None:
+        return scores_override, None, None
+    if (strategy.incremental and prev_idx is not None
+            and "proxy_now" in cache_sl):
+        rows = selection.gather_rows(x, prev_idx)    # x = scaled h
+        p_rows = strategy.project(rows, bp, proxy_mat)
+        # the sentinel rows drop; the multi-buffer commit drops every
+        # index outside [0, N), which is the JAX scatter's rule for the
+        # indices given here (top-k positions and the sentinel)
+        proxy_now = backend.scatter_multi(
+            {"proxy_now": cache_sl["proxy_now"]}, prev_idx,
+            {"proxy_now": p_rows})["proxy_now"]
+        scores = backend.score_drift(strategy, proxy_now.float(),
+                                     cache_sl["proxy"],
+                                     page_table=page_table)
+        return scores, None, proxy_now
+    scores, p_now = backend.identifier_scores(strategy, bp, proxy_mat, x,
                                               cache_sl["proxy"],
                                               page_table=page_table)
+    return scores, p_now, None
 
 
 def spa_attn_block(cfg: ModelConfig, kind: str, bp: Params,
@@ -63,6 +97,8 @@ def spa_attn_block(cfg: ModelConfig, kind: str, bp: Params,
                    cache_sl: Dict[str, torch.Tensor], h: torch.Tensor,
                    k_upd: int, policy: CachePolicy,
                    strategy: Optional[CacheStrategy] = None,
+                   scores_override: Optional[torch.Tensor] = None,
+                   prev_idx: Optional[torch.Tensor] = None,
                    kv_len: Optional[torch.Tensor] = None,
                    page_table: Optional[torch.Tensor] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -76,13 +112,18 @@ def spa_attn_block(cfg: ModelConfig, kind: str, bp: Params,
         raise NotImplementedError(
             "stratified selection for windowed long context waits for a "
             "later slice")
+    if strategy.full_attn_ident:
+        return _attn_out_identifier_block(cfg, kind, bp, cache_sl, h, k_upd,
+                                          policy, strategy, kv_len=kv_len,
+                                          page_table=page_table)
 
     # ---- Phase 1: identification & selection ----
     # Cosine drift is invariant to per-row scale: score on
     # h * (1 + norm_weight) and rms-norm only the k selected rows.
     ident_in = h * (1.0 + bp["norm1"]).to(h.dtype)
-    scores, p_now = _identifier_scores(strategy, bp, proxy_mat, ident_in,
-                                       cache_sl, page_table)
+    scores, p_now, proxy_now = _identifier_scores(
+        strategy, bp, proxy_mat, ident_in, cache_sl, scores_override,
+        prev_idx, page_table)
     scores = _mask_tail_scores(scores, n, kv_len)
     idx = selection.select_topk_drift(scores, k_upd)
     k_eff = idx.shape[1]
@@ -111,6 +152,46 @@ def spa_attn_block(cfg: ModelConfig, kind: str, bp: Params,
                                   cfg.norm_eps)
     y_rows = h_mid + ffn_out
     strategy.commit(cache_sl, idx, y_rows, policy, p_now=p_now,
+                    proxy_now=proxy_now, page_table=page_table)
+    return cache_lib.read_h_full(cache_sl, policy, h.dtype), idx
+
+
+def _attn_out_identifier_block(cfg, kind, bp, cache_sl, h, k_upd, policy,
+                               strategy, kv_len=None, page_table=None):
+    """Table-1 'attn output' identifier: full attention for ALL rows
+    against the (stale) cached K/V, for identification only; the drift of
+    its output against the cached one selects the rows whose K/V, H and
+    FFN are refreshed."""
+    b, n, d = h.shape
+    w = layer_window(cfg, kind)
+    x = common.rms_norm(h, bp["norm1"], cfg.norm_eps)
+    positions = torch.arange(n, device=h.device).expand(b, n)
+    q_all, k_all, v_all = qkv_project(bp, x, cfg, positions)
+    kf, vf, ks, vs = cache_lib.read_kv_for_attention(cache_sl, policy)
+    attn_all = strategy.backend.attention(
+        q_all, kf, vf, k_scale=ks, v_scale=vs, window=w,
+        soft_cap=cfg.attn_softcap, banded=(w > 0), kv_len=kv_len)
+    attn_all = attn_all.reshape(b, n, cfg.q_dim) @ bp["wo"]
+    if cfg.post_norms:
+        attn_all = common.rms_norm(attn_all, bp["norm_post_attn"],
+                                   cfg.norm_eps)
+    scores = strategy.backend.score_drift(strategy, attn_all,
+                                          cache_sl["proxy"],
+                                          page_table=page_table)
+    scores = _mask_tail_scores(scores, n, kv_len)
+    idx = selection.select_topk_drift(scores, k_upd)
+
+    strategy.commit_kv(cache_sl, idx, selection.gather_rows(k_all, idx),
+                       selection.gather_rows(v_all, idx), policy)
+    h_mid = selection.gather_rows(h, idx) + selection.gather_rows(
+        attn_all, idx)
+    y = common.rms_norm(h_mid, bp["norm2"], cfg.norm_eps)
+    ffn_out = apply_ffn_or_moe(bp, y, cfg)
+    if cfg.post_norms:
+        ffn_out = common.rms_norm(ffn_out, bp["norm_post_ffn"],
+                                  cfg.norm_eps)
+    y_rows = h_mid + ffn_out
+    strategy.commit(cache_sl, idx, y_rows, policy, attn_all=attn_all,
                     page_table=page_table)
     return cache_lib.read_h_full(cache_sl, policy, h.dtype), idx
 
@@ -124,12 +205,15 @@ def _homogeneous_attention(cfg: ModelConfig) -> bool:
     return len(kinds) == 1 and next(iter(kinds)) in ATTENTION_KINDS
 
 
-def layer_ks(cfg: ModelConfig, strategy: CacheStrategy, n: int) -> List[int]:
+def layer_ks(cfg: ModelConfig, strategy: CacheStrategy, n: int, *,
+             scores_override: bool = False) -> List[int]:
     """The k each layer runs with, as the JAX package runs it: bucketed
     (one k per scan segment) for homogeneous all-attention models of 8 or
-    more layers with ``scan_layers``, the exact schedule otherwise."""
+    more layers with ``scan_layers`` and no score override (the window
+    strategy's), the exact schedule otherwise."""
     ks = strategy.k_schedule(cfg, n)
-    if _homogeneous_attention(cfg) and cfg.scan_layers and cfg.n_layers >= 8:
+    if (_homogeneous_attention(cfg) and cfg.scan_layers
+            and cfg.n_layers >= 8 and not scores_override):
         out = list(ks)
         for a, b_end, kseg in budget.bucketize(ks, strategy.n_buckets):
             out[a:b_end] = [kseg] * (b_end - a)
@@ -140,6 +224,8 @@ def layer_ks(cfg: ModelConfig, strategy: CacheStrategy, n: int) -> List[int]:
 def spa_forward(params: Params, cfg: ModelConfig,
                 cache: Dict[str, Dict[str, torch.Tensor]], h: torch.Tensor,
                 spa_proxies: Optional[Dict[str, torch.Tensor]] = None,
+                scores_override: Optional[torch.Tensor] = None,
+                changed_idx: Optional[torch.Tensor] = None,
                 strategy: Optional[CacheStrategy] = None, backend=None,
                 kv_len: Optional[torch.Tensor] = None,
                 page_table: Optional[torch.Tensor] = None
@@ -147,13 +233,33 @@ def spa_forward(params: Params, cfg: ModelConfig,
     """Run all blocks with the strategy on attention layers.  ``cache``
     ({kind: {name: [Lk, B, N, ...]}}) is updated in place and returned;
     with ``page_table`` [B, n_log] its ``proxy`` buffers are page arenas
-    [Lk, P, page, r].  Returns (h_final, cache)."""
+    [Lk, P, page, r].  ``scores_override`` [B, N] replaces identification
+    on every layer; ``changed_idx`` [B, c] (the committed ring, -1 unused)
+    names the rows whose inputs changed since the previous step, for the
+    incremental identifier.  Returns (h_final, cache)."""
     strategy = resolve_strategy(cfg, strategy)
     if backend is not None:
         strategy = strategy.with_backend(backend)
     policy = CachePolicy.from_config(cfg)
-    n = h.shape[1]
-    ks = layer_ks(cfg, strategy, n)
+    b, n = h.shape[0], h.shape[1]
+    ks = layer_ks(cfg, strategy, n,
+                  scores_override=scores_override is not None)
+    k_max = max(ks)
+    incremental = strategy.incremental and scores_override is None
+
+    def pad_idx(idx):
+        """Pad or clip an index set to [B, k_max] with the sentinel n."""
+        if idx is None:
+            return torch.full((b, k_max), n, dtype=torch.int32,
+                              device=h.device)
+        idx = idx.to(torch.int32)
+        idx = torch.where(idx < 0, n, idx)        # -1 ring slots
+        if idx.shape[1] >= k_max:
+            return idx[:, :k_max]
+        return torch.nn.functional.pad(idx, (0, k_max - idx.shape[1]),
+                                       value=n)
+
+    prev = pad_idx(changed_idx) if incremental else None
     for l in range(cfg.n_layers):
         kind = cfg.kind_of_layer(l)
         ki = cfg.kind_index(l)
@@ -162,9 +268,13 @@ def spa_forward(params: Params, cfg: ModelConfig,
             csl = {name: t[ki] for name, t in cache[kind].items()}
             prox = (spa_proxies[kind][ki]
                     if strategy.uses_proxy_mat and spa_proxies else None)
-            h, _ = spa_attn_block(cfg, kind, bp, prox, csl, h, ks[l],
-                                  policy, strategy, kv_len=kv_len,
-                                  page_table=page_table)
+            h, idx = spa_attn_block(cfg, kind, bp, prox, csl, h, ks[l],
+                                    policy, strategy,
+                                    scores_override=scores_override,
+                                    prev_idx=prev, kv_len=kv_len,
+                                    page_table=page_table)
+            if incremental:
+                prev = pad_idx(idx)
         else:
             h, _ = apply_block_dense(cfg, kind, bp, h, strategy=strategy,
                                      kv_len=kv_len)

@@ -2,19 +2,25 @@
 
 Every policy is a frozen dataclass implementing one protocol; the decode
 surfaces accept a strategy at call time and ``ModelConfig.spa`` is only the
-default spec.  This slice ports:
+default spec.
 
-  ``SPACache`` — the paper: rank-r singular proxy (§3.3) + piecewise-
-                 Gaussian adaptive budget (Eq. 5); non-incremental.
-  ``NoCache``  — vanilla full recomputation (the baseline rows).
-
-The other strategies (value / query / key / attn_in projections, window,
-attn_out, the incremental identifier) wait for a later slice.
+  ``SPACache``        — the paper: rank-r singular proxy (§3.3) + piecewise-
+                        Gaussian adaptive budget (Eq. 5); optionally the
+                        incremental identifier (projection of the changed
+                        rows only).
+  ``ValueProxyCache`` — dLLM-Cache: full value-state proxy, uniform budget;
+                        ``projection`` selects the Table-1 variants
+                        (value / query / key / attn_in).
+  ``WindowCache``     — dKV-Cache: rows near recently committed tokens
+                        refresh (locality, no projection, no proxy cache).
+  ``AttnOutCache``    — Table-1 'attn output' identifier: full attention
+                        for identification, sparse FFN.
+  ``NoCache``         — vanilla full recomputation (the baseline rows).
 
 A strategy owns the identifier projection (``project`` /
-``prefill_proxy``), the drift score (``score``), the per-layer budget
-(``k_schedule``), the cache layout and commits (``proxy_dim`` /
-``commit_kv`` / ``commit``) and its offline artefacts
+``prefill_proxy``), the drift score (``score`` / ``pre_scores``), the
+per-layer budget (``k_schedule`` / ``k_for``), the cache layout and commits
+(``proxy_dim`` / ``commit_kv`` / ``commit``) and its offline artefacts
 (``build_proxies``).  Its ``backend`` field selects the kernels of the hot
 path (``CudaBackend`` by default: the CUDA kernels on the card, their plain
 versions on the CPU).
@@ -54,7 +60,8 @@ class CacheStrategy:
     name: ClassVar[str] = "abstract"
     uses_cache: ClassVar[bool] = True     # False only for NoCache
     uses_proxy_mat: ClassVar[bool] = False   # True only for SPACache
-    incremental: ClassVar[bool] = False
+    full_attn_ident: ClassVar[bool] = False  # True only for AttnOutCache
+    incremental: ClassVar[bool] = False      # proxy recompute on changed rows
 
     @property
     def spec(self) -> SPAConfig:
@@ -71,6 +78,9 @@ class CacheStrategy:
         """Static per-layer update counts k(l)."""
         from repro_torch.core import budget
         return budget.k_schedule(self.spec, cfg.n_layers, seq_len)
+
+    def k_for(self, cfg: ModelConfig, layer: int, seq_len: int) -> int:
+        return self.k_schedule(cfg, seq_len)[layer]
 
     # ---- identification ----
 
@@ -89,6 +99,12 @@ class CacheStrategy:
         """Similarity per row [B, N]; LOW = drifted = update."""
         from repro_torch.core.identifiers import drift_scores
         return drift_scores(p_now, p_cached)
+
+    def pre_scores(self, n: int, committed: torch.Tensor
+                   ) -> Optional[torch.Tensor]:
+        """Scores computed BEFORE the layer stack from decode-loop state
+        (the committed-token ring); None for projection-based strategies."""
+        return None
 
     def prefill_proxy(self, bp: Params, proxy_mat, h_in, x, attn_out,
                       h_out) -> Optional[torch.Tensor]:
@@ -113,25 +129,36 @@ class CacheStrategy:
 
     def commit(self, cache_sl: Dict[str, torch.Tensor], idx, h_rows,
                policy, *, p_now: Optional[torch.Tensor] = None,
+               proxy_now: Optional[torch.Tensor] = None,
+               attn_all: Optional[torch.Tensor] = None,
                page_table: Optional[torch.Tensor] = None
                ) -> Dict[str, torch.Tensor]:
         """Scatter refreshed block outputs (+ int8 scale) and the selected
         identifier rows at idx in ONE multi-buffer commit.  With
         ``page_table`` the ``proxy`` buffer is a page arena: its rows
         commit through the page table (``backend.scatter_rows_paged``) and
-        the dense view's buffers keep the multi-buffer commit."""
+        the dense view's buffers keep the multi-buffer commit.
+
+        The incremental identifier passes ``proxy_now`` (every row's
+        current identifier, the ``proxy_now`` buffer already updated in
+        place); the non-incremental one passes ``p_now``, which also
+        becomes ``proxy_now`` where the cache keeps one."""
         from repro_torch.core import cache as cache_lib
         from repro_torch.core import selection
         upd = cache_lib.h_row_update(h_rows, policy)
-        if p_now is not None and "proxy" in cache_sl:
-            proxy_rows = selection.gather_rows(p_now, idx)
+        src = proxy_now if proxy_now is not None else p_now
+        if src is not None and "proxy" in cache_sl:
+            proxy_rows = selection.gather_rows(src, idx)
             if page_table is not None:
                 self.backend.scatter_rows_paged(cache_sl["proxy"],
                                                 page_table, idx, proxy_rows)
             else:
                 upd["proxy"] = proxy_rows
-        return cache_lib.scatter_buffers(cache_sl, idx, upd,
-                                         backend=self.backend)
+        cache_lib.scatter_buffers(cache_sl, idx, upd, backend=self.backend)
+        if (src is not None and "proxy_now" in cache_sl
+                and src is not cache_sl["proxy_now"]):
+            cache_sl["proxy_now"].copy_(src)
+        return cache_sl
 
     def refresh_cache(self, params: Params, cfg: ModelConfig,
                       tokens: torch.Tensor, spa_proxies=None,
@@ -163,9 +190,14 @@ class SPACache(CacheStrategy):
     rho_first: float = 0.03
     rho_last: float = 0.13
     layer_peak: Optional[int] = None
+    incremental_ident: bool = False   # beyond-paper: changed rows only
 
     name: ClassVar[str] = "spa"
     uses_proxy_mat: ClassVar[bool] = True
+
+    @property
+    def incremental(self) -> bool:  # type: ignore[override]
+        return self.incremental_ident
 
     @property
     def spec(self) -> SPAConfig:
@@ -174,18 +206,17 @@ class SPACache(CacheStrategy):
             rho_peak=self.rho_peak, rho_first=self.rho_first,
             rho_last=self.rho_last, layer_peak=self.layer_peak,
             n_buckets=self.n_buckets,
-            refresh_interval=self.refresh_interval)
+            refresh_interval=self.refresh_interval,
+            incremental_ident=self.incremental_ident)
 
     @classmethod
     def from_spec(cls, spa: SPAConfig) -> "SPACache":
-        if spa.incremental_ident:
-            raise NotImplementedError(
-                "the incremental identifier waits for a later slice")
         return cls(rank=spa.rank, schedule=spa.schedule,
                    rho_peak=spa.rho_peak, rho_first=spa.rho_first,
                    rho_last=spa.rho_last, layer_peak=spa.layer_peak,
                    n_buckets=spa.n_buckets,
-                   refresh_interval=spa.refresh_interval)
+                   refresh_interval=spa.refresh_interval,
+                   incremental_ident=spa.incremental_ident)
 
     def proxy_dim(self, cfg: ModelConfig) -> int:
         return self.rank
@@ -205,6 +236,144 @@ class SPACache(CacheStrategy):
                                         self.rank)
                 for kind in sorted(set(cfg.layer_kinds))
                 if kind in ATTENTION_KINDS}
+
+
+@dataclasses.dataclass(frozen=True)
+class _RhoBudgetStrategy(CacheStrategy):
+    """Shared budget fields of the baseline strategies.
+
+    ``rho_first``/``rho_last``/``layer_peak`` only matter with
+    ``schedule="adaptive"``; None means flat at ``rho``."""
+
+    schedule: str = "uniform"
+    rho: float = 0.25
+    rho_first: Optional[float] = None
+    rho_last: Optional[float] = None
+    layer_peak: Optional[int] = None
+
+    def _spec_budget(self) -> Dict[str, Any]:
+        return dict(
+            schedule=self.schedule, rho_peak=self.rho,
+            rho_first=self.rho if self.rho_first is None else self.rho_first,
+            rho_last=self.rho if self.rho_last is None else self.rho_last,
+            layer_peak=self.layer_peak, n_buckets=self.n_buckets,
+            refresh_interval=self.refresh_interval)
+
+    @staticmethod
+    def _budget_from_spec(spa: SPAConfig) -> Dict[str, Any]:
+        def ramp(r):                 # flat-at-rho normalizes to None
+            return None if r == spa.rho_peak else r
+        return dict(schedule=spa.schedule, rho=spa.rho_peak,
+                    rho_first=ramp(spa.rho_first),
+                    rho_last=ramp(spa.rho_last), layer_peak=spa.layer_peak,
+                    n_buckets=spa.n_buckets,
+                    refresh_interval=spa.refresh_interval)
+
+
+@register("value", "query", "key", "attn_in")
+@dataclasses.dataclass(frozen=True)
+class ValueProxyCache(_RhoBudgetStrategy):
+    """dLLM-Cache (value) and the Table-1 projection ablations."""
+
+    projection: str = "value"        # value | query | key | attn_in
+    incremental_ident: bool = False  # changed-rows-only projection
+
+    name: ClassVar[str] = "value_proxy"
+
+    @property
+    def incremental(self) -> bool:  # type: ignore[override]
+        return self.incremental_ident
+
+    @property
+    def spec(self) -> SPAConfig:
+        return SPAConfig(identifier=self.projection,
+                         incremental_ident=self.incremental_ident,
+                         **self._spec_budget())
+
+    @classmethod
+    def from_spec(cls, spa: SPAConfig) -> "ValueProxyCache":
+        return cls(projection=spa.identifier,
+                   incremental_ident=spa.incremental_ident,
+                   **cls._budget_from_spec(spa))
+
+    def proxy_dim(self, cfg: ModelConfig) -> int:
+        return {"value": cfg.kv_dim, "key": cfg.kv_dim,
+                "query": cfg.q_dim, "attn_in": cfg.d_model}[self.projection]
+
+    def project(self, h, bp, proxy_mat=None):
+        w = self.projection_matrix(bp, proxy_mat)
+        return h if w is None else h @ w    # attn_in: the raw inputs
+
+    def projection_matrix(self, bp, proxy_mat=None):
+        w = {"value": "wv", "query": "wq", "key": "wk"}.get(self.projection)
+        return bp[w] if w else None   # attn_in: identity (score-only)
+
+
+@register("window")
+@dataclasses.dataclass(frozen=True)
+class WindowCache(_RhoBudgetStrategy):
+    """dKV-Cache-style locality heuristic: rows within ``locality_window``
+    of a recently committed token refresh; no projection, no proxy cache."""
+
+    locality_window: int = 64
+
+    name: ClassVar[str] = "window"
+
+    @property
+    def spec(self) -> SPAConfig:
+        return SPAConfig(identifier="window",
+                         locality_window=self.locality_window,
+                         **self._spec_budget())
+
+    @classmethod
+    def from_spec(cls, spa: SPAConfig) -> "WindowCache":
+        return cls(locality_window=spa.locality_window,
+                   **cls._budget_from_spec(spa))
+
+    def pre_scores(self, n: int, committed: torch.Tensor):
+        from repro_torch.core.identifiers import locality_scores
+        return locality_scores(n, committed, self.locality_window)
+
+    def prefill_proxy(self, bp, proxy_mat, h_in, x, attn_out, h_out):
+        return None
+
+
+@register("attn_out")
+@dataclasses.dataclass(frozen=True)
+class AttnOutCache(_RhoBudgetStrategy):
+    """Table-1 'attn output' identifier: full attention against the stale
+    cached K/V for ALL rows (identification only), sparse FFN after."""
+
+    name: ClassVar[str] = "attn_out"
+    full_attn_ident: ClassVar[bool] = True
+
+    @property
+    def spec(self) -> SPAConfig:
+        return SPAConfig(identifier="attn_out", **self._spec_budget())
+
+    @classmethod
+    def from_spec(cls, spa: SPAConfig) -> "AttnOutCache":
+        return cls(**cls._budget_from_spec(spa))
+
+    def proxy_dim(self, cfg: ModelConfig) -> int:
+        return cfg.d_model
+
+    def prefill_proxy(self, bp, proxy_mat, h_in, x, attn_out, h_out):
+        return attn_out
+
+    def commit(self, cache_sl, idx, h_rows, policy, *, p_now=None,
+               proxy_now=None, attn_all=None, page_table=None):
+        from repro_torch.core import cache as cache_lib
+        cache_lib.write_h(cache_sl, idx, h_rows, policy,
+                          backend=self.backend)
+        # momentum signal: proxy = this step's full attention output (paged:
+        # a whole-view page write; zero-page tails drop)
+        if page_table is not None:
+            self.backend.scatter_pages(cache_sl["proxy"][None], page_table,
+                                       attn_all[None])
+        else:
+            cache_sl["proxy"].copy_(attn_all)
+        return cache_sl
 
 
 @register("none")
@@ -234,10 +403,11 @@ def strategy_from_spec(spa: SPAConfig) -> CacheStrategy:
     """Build the strategy described by a (serializable) ``SPAConfig``."""
     cls = REGISTRY.get(spa.identifier)
     if cls is None:
-        raise NotImplementedError(
-            f"identifier {spa.identifier!r} is not ported yet; ported: "
+        raise ValueError(
+            f"unknown identifier {spa.identifier!r}; registered: "
             f"{sorted(REGISTRY)}")
     return cls.from_spec(spa)
+
 
 
 def resolve_strategy(cfg: ModelConfig,

@@ -27,6 +27,29 @@
 //   kernel body, templated only on how a row of p_cached is addressed
 //   (DenseRows / PagedRows), so its results are bitwise those of proxy_score
 //   on the gathered pages.  Its bound is proxy_score's.
+//
+// Wide ranks (r > 256: the value / query / key identifiers project onto
+//   kv_dim or q_dim, 4096 for LLaDA-8B).  A block cannot hold a 256 < r row
+//   of p, so the projection runs alone (spa_proxy_project: the same
+//   tensor-core body with the scoring epilogue swapped for a store, tiled
+//   over (row tile, batch row, 256-column tile of r)) and writes the ROUNDED
+//   p_now; cosine_drift (or cosine_drift_paged) then scores it.  That is the
+//   JAX semantics exactly (the cosine of the rounded p), and the paged
+//   result stays bitwise the dense one.  Bound at B=4, N=512, d=r=4096,
+//   bf16: operations, 68.7 GFLOP = 0.069 ms at 989 TFLOP/s (the bytes, 84
+//   MB, take 0.025 ms).  Every 256-column tile re-reads x from L2.
+//
+// cosine_drift (replaces src/repro/kernels/proxy_score.py:cosine_drift):
+//   rowwise cosine(x, p_cached) with no projection, the norm product
+//   floored at eps, f32 sums.  x and p_cached may differ in dtype (the
+//   incremental identifier scores an f32 x against a bf16 cache).  One warp
+//   per row reads both rows once with 16-byte loads, so the kernel is
+//   bound by bytes: at attn_in width (B=4, N=512, r=4096, bf16 both) 33.6 MB,
+//   0.010 ms at 3.35 TB/s; at the incremental width (r=128, f32 x) 1.6 MB,
+//   0.5 us, where the launch dominates.
+// cosine_drift_paged (replaces src/repro/kernels/proxy_score.py:
+//   cosine_drift_paged) is that kernel with PagedRows: bitwise cosine_drift
+//   on the gathered pages.
 #include <mma.h>
 
 #include "common.cuh"
@@ -71,8 +94,10 @@ size_t bf16_smem_bytes(int r) {
 }
 
 // Needs d % 8 == 0, r % 16 == 0 and 16-byte aligned x / w (checked by the
-// wrapper): every tile row moves as 16-byte cp.async chunks.
-template <typename Rows>
+// wrapper): every tile row moves as 16-byte cp.async chunks.  kScore: the
+// block holds all r <= 256 columns of p and scores them; otherwise it
+// projects the 256-column tile blockIdx.z of a wide r and stores it.
+template <typename Rows, bool kScore>
 __global__ void __launch_bounds__(kThreads) proxy_score_bf16(
     const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
     Rows pc_row, float* __restrict__ scores,
@@ -80,7 +105,9 @@ __global__ void __launch_bounds__(kThreads) proxy_score_bf16(
   using namespace nvcuda;
   using bf16 = __nv_bfloat16;
   extern __shared__ __align__(128) unsigned char smem[];
-  const int ldw = r + 8;
+  const int c0 = blockIdx.z * kRMax;        // first column of p in the block
+  const int nc = min(kRMax, r - c0);        // columns of p in the block
+  const int ldw = nc + 8;
   bf16* xs0 = reinterpret_cast<bf16*>(smem);
   bf16* ws0 = xs0 + 2 * kRowsB * kLdX;
 
@@ -88,8 +115,8 @@ __global__ void __launch_bounds__(kThreads) proxy_score_bf16(
   const int row0 = blockIdx.x * kRowsB;
   const int tid = threadIdx.x;
   const int warp = tid / 32, lane = tid % 32;
-  const int n_tiles = (kRowsB / 16) * (r / 16);
-  const int r8 = r / 8;
+  const int n_tiles = (kRowsB / 16) * (nc / 16);
+  const int r8 = nc / 8;
   const int n_k = (d + kTkB - 1) / kTkB;
   const bf16* xb = x + (size_t)b * N * d;
 
@@ -107,7 +134,8 @@ __global__ void __launch_bounds__(kThreads) proxy_score_bf16(
       const int kk = e / r8, c = (e - kk * r8) * 8;
       const int col = k0 + kk;
       const bool ok = col < d;
-      spa::cp_async16(ws + kk * ldw + c, ok ? w + (size_t)col * r + c : w, ok);
+      spa::cp_async16(ws + kk * ldw + c,
+                      ok ? w + (size_t)col * r + c0 + c : w, ok);
     }
   };
 
@@ -142,7 +170,7 @@ __global__ void __launch_bounds__(kThreads) proxy_score_bf16(
   }
   spa::cp_async_wait<0>();
 
-  float* ps = reinterpret_cast<float*>(smem);  // [kRowsB][r + 8]
+  float* ps = reinterpret_cast<float*>(smem);  // [kRowsB][nc + 8]
 #pragma unroll
   for (int slot = 0; slot < kSlots; ++slot) {
     const int t = warp + slot * (kThreads / 32);
@@ -153,26 +181,37 @@ __global__ void __launch_bounds__(kThreads) proxy_score_bf16(
   }
   __syncthreads();
 
-  // epilogue: round p to bf16, write p_now, score against p_cached
-  for (int i = warp; i < kRowsB; i += kThreads / 32) {
-    const int row = row0 + i;
-    if (row >= N) continue;
-    const size_t off = ((size_t)b * N + row) * r;
-    const bf16* pc = pc_row(b, row);
-    float num = 0.f, pp = 0.f, cc = 0.f;
-    for (int c = lane; c < r; c += 32) {
-      const bf16 pr = __float2bfloat16_rn(ps[i * ldw + c]);
-      pnow[off + c] = pr;
-      const float p = __bfloat162float(pr);
-      const float q = __bfloat162float(pc[c]);
-      num += p * q;
-      pp += p * p;
-      cc += q * q;
+  if constexpr (!kScore) {  // wide r: store this column tile of p, rounded
+    for (int e = tid; e < kRowsB * nc; e += kThreads) {
+      const int i = e / nc, c = e - i * nc;
+      const int row = row0 + i;
+      if (row < N)
+        pnow[((size_t)b * N + row) * r + c0 + c] =
+            __float2bfloat16_rn(ps[i * ldw + c]);
     }
-    num = spa::warp_sum(num);
-    pp = spa::warp_sum(pp);
-    cc = spa::warp_sum(cc);
-    if (lane == 0) scores[(size_t)b * N + row] = num / fmaxf(sqrtf(pp * cc), eps);
+  } else {
+    // epilogue: round p to bf16, write p_now, score against p_cached
+    for (int i = warp; i < kRowsB; i += kThreads / 32) {
+      const int row = row0 + i;
+      if (row >= N) continue;
+      const size_t off = ((size_t)b * N + row) * r;
+      const bf16* pc = pc_row(b, row);
+      float num = 0.f, pp = 0.f, cc = 0.f;
+      for (int c = lane; c < r; c += 32) {
+        const bf16 pr = __float2bfloat16_rn(ps[i * ldw + c]);
+        pnow[off + c] = pr;
+        const float p = __bfloat162float(pr);
+        const float q = __bfloat162float(pc[c]);
+        num += p * q;
+        pp += p * p;
+        cc += q * q;
+      }
+      num = spa::warp_sum(num);
+      pp = spa::warp_sum(pp);
+      cc = spa::warp_sum(cc);
+      if (lane == 0)
+        scores[(size_t)b * N + row] = num / fmaxf(sqrtf(pp * cc), eps);
+    }
   }
 }
 
@@ -180,7 +219,7 @@ __global__ void __launch_bounds__(kThreads) proxy_score_bf16(
 constexpr int kRows = 16;       // rows of x per block
 constexpr int kTkF = 32;
 
-template <typename Rows>
+template <typename Rows, bool kScore>
 __global__ void __launch_bounds__(kThreads) proxy_score_f32(
     const float* __restrict__ x, const float* __restrict__ w,
     Rows pc_row, float* __restrict__ scores,
@@ -190,9 +229,11 @@ __global__ void __launch_bounds__(kThreads) proxy_score_f32(
 
   const int b = blockIdx.y;
   const int row0 = blockIdx.x * kRows;
+  const int c0 = blockIdx.z * kRMax;        // as in proxy_score_bf16
+  const int nc = min(kRMax, r - c0);
   const int tid = threadIdx.x;
   const int trow = tid / 16, tcol = tid % 16;  // 16 rows x 16 column lanes
-  const int nj = (r + 15) / 16;
+  const int nj = (nc + 15) / 16;
   const float* xb = x + (size_t)b * N * d;
 
   float acc[kRMax / 16];
@@ -205,10 +246,10 @@ __global__ void __launch_bounds__(kThreads) proxy_score_f32(
       const int row = row0 + i, col = k0 + kk;
       xs[i][kk] = (row < N && col < d) ? xb[(size_t)row * d + col] : 0.f;
     }
-    for (int e = tid; e < kTkF * r; e += kThreads) {
-      const int kk = e / r, c = e % r;
+    for (int e = tid; e < kTkF * nc; e += kThreads) {
+      const int kk = e / nc, c = e % nc;
       const int col = k0 + kk;
-      ws[kk * kRMax + c] = col < d ? w[(size_t)col * r + c] : 0.f;
+      ws[kk * kRMax + c] = col < d ? w[(size_t)col * r + c0 + c] : 0.f;
     }
     __syncthreads();
     for (int kk = 0; kk < kTkF; ++kk) {
@@ -216,37 +257,49 @@ __global__ void __launch_bounds__(kThreads) proxy_score_f32(
 #pragma unroll
       for (int j = 0; j < kRMax / 16; ++j) {
         const int c = tcol + 16 * j;
-        if (j < nj && c < r) acc[j] = fmaf(xv, ws[kk * kRMax + c], acc[j]);
+        if (j < nj && c < nc) acc[j] = fmaf(xv, ws[kk * kRMax + c], acc[j]);
       }
     }
     __syncthreads();
   }
-  float* ps = ws;
+  if constexpr (!kScore) {  // wide r: store this column tile of p
+    const int row = row0 + trow;
+    if (row < N) {
 #pragma unroll
-  for (int j = 0; j < kRMax / 16; ++j) {
-    const int c = tcol + 16 * j;
-    if (j < nj && c < r) ps[trow * kRMax + c] = acc[j];
-  }
-  __syncthreads();
-  const int warp = tid / 32, lane = tid % 32;
-  for (int i = warp; i < kRows; i += kThreads / 32) {
-    const int row = row0 + i;
-    if (row >= N) continue;
-    const size_t off = ((size_t)b * N + row) * r;
-    const float* pc = pc_row(b, row);
-    float num = 0.f, pp = 0.f, cc = 0.f;
-    for (int c = lane; c < r; c += 32) {
-      const float p = ps[i * kRMax + c];
-      const float q = pc[c];
-      pnow[off + c] = p;
-      num += p * q;
-      pp += p * p;
-      cc += q * q;
+      for (int j = 0; j < kRMax / 16; ++j) {
+        const int c = tcol + 16 * j;
+        if (j < nj && c < nc) pnow[((size_t)b * N + row) * r + c0 + c] = acc[j];
+      }
     }
-    num = spa::warp_sum(num);
-    pp = spa::warp_sum(pp);
-    cc = spa::warp_sum(cc);
-    if (lane == 0) scores[(size_t)b * N + row] = num / fmaxf(sqrtf(pp * cc), eps);
+  } else {
+    float* ps = ws;
+#pragma unroll
+    for (int j = 0; j < kRMax / 16; ++j) {
+      const int c = tcol + 16 * j;
+      if (j < nj && c < nc) ps[trow * kRMax + c] = acc[j];
+    }
+    __syncthreads();
+    const int warp = tid / 32, lane = tid % 32;
+    for (int i = warp; i < kRows; i += kThreads / 32) {
+      const int row = row0 + i;
+      if (row >= N) continue;
+      const size_t off = ((size_t)b * N + row) * r;
+      const float* pc = pc_row(b, row);
+      float num = 0.f, pp = 0.f, cc = 0.f;
+      for (int c = lane; c < r; c += 32) {
+        const float p = ps[i * kRMax + c];
+        const float q = pc[c];
+        pnow[off + c] = p;
+        num += p * q;
+        pp += p * p;
+        cc += q * q;
+      }
+      num = spa::warp_sum(num);
+      pp = spa::warp_sum(pp);
+      cc = spa::warp_sum(cc);
+      if (lane == 0)
+        scores[(size_t)b * N + row] = num / fmaxf(sqrtf(pp * cc), eps);
+    }
   }
 }
 
@@ -262,17 +315,17 @@ int launch(const void* x, const void* w, const void* pc, void* scores,
     using T = __nv_bfloat16;
     const size_t bytes = bf16_smem_bytes(r);
     const cudaError_t err = cudaFuncSetAttribute(
-        proxy_score_bf16<Rows<T>>,
+        proxy_score_bf16<Rows<T>, true>,
         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (err != cudaSuccess) return (int)err;
     const dim3 grid((N + kRowsB - 1) / kRowsB, B);
-    proxy_score_bf16<Rows<T>><<<grid, kThreads, bytes, s>>>(
+    proxy_score_bf16<Rows<T>, true><<<grid, kThreads, bytes, s>>>(
         static_cast<const T*>(x), static_cast<const T*>(w),
         Rows<T>{static_cast<const T*>(pc), where...},
         static_cast<float*>(scores), static_cast<T*>(pnow), N, d, r, eps);
   } else if (dtype == spa::kF32) {
     const dim3 grid((N + kRows - 1) / kRows, B);
-    proxy_score_f32<Rows<float>><<<grid, kThreads, 0, s>>>(
+    proxy_score_f32<Rows<float>, true><<<grid, kThreads, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(w),
         Rows<float>{static_cast<const float*>(pc), where...},
         static_cast<float*>(scores), static_cast<float*>(pnow), N, d, r,
@@ -280,6 +333,121 @@ int launch(const void* x, const void* w, const void* pc, void* scores,
   } else {
     return (int)cudaErrorInvalidValue;
   }
+  return (int)cudaGetLastError();
+}
+
+// The projection alone for a wide r (> 256): p_now = x @ w rounded to x's
+// dtype, one block per (row tile, batch row, 256-column tile).
+int launch_project(const void* x, const void* w, void* pnow, int B, int N,
+                   int d, int r, int dtype, void* stream) {
+  if (B <= 0 || N <= 0) return 0;
+  if (r <= 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int n_col = (r + kRMax - 1) / kRMax;
+  if (dtype == spa::kBF16) {
+    if (r % 16 || d % 8) return (int)cudaErrorInvalidValue;
+    using T = __nv_bfloat16;
+    const size_t bytes = bf16_smem_bytes(r < kRMax ? r : kRMax);
+    const cudaError_t err = cudaFuncSetAttribute(
+        proxy_score_bf16<DenseRows<T>, false>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+    const dim3 grid((N + kRowsB - 1) / kRowsB, B, n_col);
+    proxy_score_bf16<DenseRows<T>, false><<<grid, kThreads, bytes, s>>>(
+        static_cast<const T*>(x), static_cast<const T*>(w),
+        DenseRows<T>{nullptr, N, r}, nullptr, static_cast<T*>(pnow), N, d,
+        r, 0.f);
+  } else if (dtype == spa::kF32) {
+    const dim3 grid((N + kRows - 1) / kRows, B, n_col);
+    proxy_score_f32<DenseRows<float>, false><<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(x), static_cast<const float*>(w),
+        DenseRows<float>{nullptr, N, r}, nullptr,
+        static_cast<float*>(pnow), N, d, r, 0.f);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// ---- cosine_drift: one warp per row, 8 elements a lane per load ----------
+constexpr int kDriftRows = 8;   // rows (warps) per block
+
+// Eight consecutive elements as f32 (16-byte aligned: r % 8 == 0 and the
+// row bases are checked by the wrapper).
+__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+}
+
+__device__ __forceinline__ void load8(const __nv_bfloat16* p,
+                                      float (&v)[8]) {
+  const uint4 u = *reinterpret_cast<const uint4*>(p);
+  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __bfloat1622float2(h[i]);
+    v[2 * i] = f.x;
+    v[2 * i + 1] = f.y;
+  }
+}
+
+// x [B*N, r] in TX; row n of batch row b of p_cached at pc_row(b, n).
+template <typename TX, typename Rows>
+__global__ void __launch_bounds__(kDriftRows * 32) cosine_drift_kernel(
+    const TX* __restrict__ x, Rows pc_row, float* __restrict__ scores,
+    long long BN, int N, int r, float eps) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const long long g = (long long)blockIdx.x * kDriftRows + warp;
+  if (g >= BN) return;
+  const TX* xr = x + g * r;
+  const auto* pr = pc_row((int)(g / N), (int)(g % N));
+  float num = 0.f, pp = 0.f, cc = 0.f;
+#pragma unroll 4
+  for (int c = lane * 8; c < r; c += 32 * 8) {
+    float a[8], q[8];
+    load8(xr + c, a);
+    load8(pr + c, q);
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      num = fmaf(a[i], q[i], num);
+      pp = fmaf(a[i], a[i], pp);
+      cc = fmaf(q[i], q[i], cc);
+    }
+  }
+  num = spa::warp_sum(num);
+  pp = spa::warp_sum(pp);
+  cc = spa::warp_sum(cc);
+  if (lane == 0) scores[g] = num / fmaxf(sqrtf(pp * cc), eps);
+}
+
+template <typename TX, typename TC, template <typename> class Rows,
+          typename... A>
+void drift_go(const void* x, const void* pc, void* scores, long long bn,
+              int N, int r, float eps, cudaStream_t s, A... where) {
+  const dim3 grid((unsigned)((bn + kDriftRows - 1) / kDriftRows));
+  cosine_drift_kernel<TX, Rows<TC>><<<grid, kDriftRows * 32, 0, s>>>(
+      static_cast<const TX*>(x), Rows<TC>{static_cast<const TC*>(pc), where...},
+      static_cast<float*>(scores), bn, N, r, eps);
+}
+
+template <template <typename> class Rows, typename... A>
+int launch_drift(const void* x, const void* pc, void* scores, int B, int N,
+                 int r, int x_dtype, int pc_dtype, float eps, void* stream,
+                 A... where) {
+  if (B <= 0 || N <= 0) return 0;
+  if (r <= 0 || r % 8) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long bn = (long long)B * N;
+  using bf16 = __nv_bfloat16;
+  const bool xf = x_dtype == spa::kF32, xb = x_dtype == spa::kBF16;
+  const bool cf = pc_dtype == spa::kF32, cb = pc_dtype == spa::kBF16;
+  if (xf && cf) drift_go<float, float, Rows>(x, pc, scores, bn, N, r, eps, s, where...);
+  else if (xf && cb) drift_go<float, bf16, Rows>(x, pc, scores, bn, N, r, eps, s, where...);
+  else if (xb && cf) drift_go<bf16, float, Rows>(x, pc, scores, bn, N, r, eps, s, where...);
+  else if (xb && cb) drift_go<bf16, bf16, Rows>(x, pc, scores, bn, N, r, eps, s, where...);
+  else return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
 
@@ -304,4 +472,35 @@ extern "C" int spa_proxy_score_paged(const void* x, const void* w,
   return launch<PagedRows>(x, w, arena, scores, pnow, B, N, d, r, dtype, eps,
                            stream, static_cast<const int*>(pt), n_log, page,
                            r);
+}
+
+// x [B,N,d], w [d,r] (one dtype, r > 256 or any r); pnow [B,N,r] = x @ w
+// rounded to that dtype.
+extern "C" int spa_proxy_project(const void* x, const void* w, void* pnow,
+                                 int B, int N, int d, int r, int dtype,
+                                 void* stream) {
+  return launch_project(x, w, pnow, B, N, d, r, dtype, stream);
+}
+
+// x [B,N,r], pc [B,N,r] (each f32 or bf16, r % 8 == 0, 16-byte aligned);
+// scores [B,N] f32.
+extern "C" int spa_cosine_drift(const void* x, const void* pc, void* scores,
+                                int B, int N, int r, int x_dtype,
+                                int pc_dtype, float eps, void* stream) {
+  return launch_drift<DenseRows>(x, pc, scores, B, N, r, x_dtype, pc_dtype,
+                                 eps, stream, N, r);
+}
+
+// As spa_cosine_drift, with pc read from arena [P, page, r] (contiguous)
+// through pt [B, n_log] int32; N == n_log * page.
+extern "C" int spa_cosine_drift_paged(const void* x, const void* arena,
+                                      const void* pt, void* scores, int B,
+                                      int N, int r, int page, int n_log,
+                                      int x_dtype, int pc_dtype, float eps,
+                                      void* stream) {
+  if (page <= 0 || n_log * page != N) return (int)cudaErrorInvalidValue;
+  return launch_drift<PagedRows>(x, arena, scores, B, N, r, x_dtype,
+                                 pc_dtype, eps, stream,
+                                 static_cast<const int*>(pt), n_log, page,
+                                 r);
 }

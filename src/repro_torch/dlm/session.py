@@ -19,9 +19,15 @@ Serving (``serving/engine.py``) drives a session through ``attach`` with
 a paged cache (``arenas=`` + ``page_table=``; the state's cache becomes a
 ``PagedCache``) and the row surgery of continuous batching:
 ``replace_rows``, ``deactivate_rows``, ``release_rows`` and
-``snapshot_rows``.  ``run_compiled`` (the whole loop as one replayed CUDA
-graph), ``events`` and shared-prefix attachments (the prefix cache) wait
-for later slices.
+``snapshot_rows``.  ``run_blocks`` is the semi-AR block schedule through
+the active-position mask.  ``run_compiled`` (the whole loop as one
+replayed CUDA graph), ``events`` and shared-prefix attachments (the prefix
+cache) wait for later slices.
+
+Stochastic schedulers draw from ``rng`` (``prefill``/``attach``): an int
+seed, a ``torch.Generator``, a ``scheduler.Draws`` source, or None, which
+seeds a generator with 0 on the session's device when the scheduler needs
+one (so a replay is seeded by default, as in the JAX package).
 """
 from __future__ import annotations
 
@@ -37,7 +43,8 @@ from repro_torch.core.strategy import CacheStrategy, resolve_strategy
 from repro_torch.device import DeviceLike, check_device, resolve_device
 from repro_torch.dlm import decoding
 from repro_torch.dlm.decoding import DecodeSettings, DecodeState
-from repro_torch.dlm.scheduler import UnmaskScheduler, resolve_scheduler
+from repro_torch.dlm.scheduler import (Draws, GeneratorDraws,
+                                       UnmaskScheduler, resolve_scheduler)
 
 Params = Dict[str, Any]
 
@@ -75,6 +82,7 @@ class DecodeSession:
         self.steps_taken = 0
         self.refresh_count = 0
         self.last_info: Optional[Dict[str, torch.Tensor]] = None
+        self._gen_span: Optional[Tuple[int, int]] = None  # semi-AR bounds
         # one host copy of the canvas per state (see host_tokens)
         self._host_tokens: Optional[np.ndarray] = None
         self._host_tokens_for: Optional[DecodeState] = None
@@ -86,7 +94,8 @@ class DecodeSession:
     def prefill(self, prompt: torch.Tensor, gen_len: int, *,
                 use_cache: bool = True,
                 kv_len: Optional[torch.Tensor] = None, arenas=None,
-                page_table: Optional[torch.Tensor] = None) -> DecodeState:
+                page_table: Optional[torch.Tensor] = None,
+                rng=None) -> DecodeState:
         """Build the canvas (prompt + gen_len [MASK] slots) and run the
         full prefill forward that populates the strategy's caches."""
         from repro_torch.dlm.noise import mask_canvas
@@ -97,9 +106,11 @@ class DecodeSession:
         active[:, prompt.shape[1]:] = True
         n_masked = torch.full((b,), gen_len, dtype=torch.int32,
                               device=self.device)
-        return self.attach(canvas, active=active, n_masked=n_masked,
-                           use_cache=use_cache, kv_len=kv_len,
-                           arenas=arenas, page_table=page_table)
+        state = self.attach(canvas, active=active, n_masked=n_masked,
+                            use_cache=use_cache, kv_len=kv_len,
+                            arenas=arenas, page_table=page_table, rng=rng)
+        self._gen_span = (prompt.shape[1], n)
+        return state
 
     def attach(self, tokens: torch.Tensor, *,
                active: Optional[torch.Tensor] = None,
@@ -107,7 +118,7 @@ class DecodeSession:
                use_cache: bool = True,
                kv_len: Optional[torch.Tensor] = None, arenas=None,
                page_table: Optional[torch.Tensor] = None,
-               shared=None) -> DecodeState:
+               shared=None, rng=None) -> DecodeState:
         """Adopt an externally built canvas (the serving engine's path).
 
         Paged mode: pass pooled ``arenas`` ({kind: {name: [Lk, P, page,
@@ -142,10 +153,27 @@ class DecodeSession:
             committed=torch.full((b, self.settings.commit_ring), -1,
                                  dtype=torch.int32, device=self.device),
             n_masked=torch.as_tensor(n_masked).to(self.device, torch.int32),
-            active=active, kv_len=kv_len)
+            active=active, kv_len=kv_len, rng=self._as_rng(rng))
         self.steps_taken = 0
         self.refresh_count = 0
+        self._gen_span = None     # run_blocks needs a prefill()'d canvas
         return self.state
+
+    def _as_rng(self, rng) -> Optional[Draws]:
+        """Normalize the rng argument: ints seed a generator on the
+        session's device; stochastic schedulers get seed 0 by default."""
+        if rng is None:
+            rng = 0 if self.scheduler.uses_rng else None
+        if rng is None or isinstance(rng, Draws):
+            return rng
+        if isinstance(rng, (int, np.integer)):
+            gen = torch.Generator(device=self.device)
+            gen.manual_seed(int(rng))
+            rng = gen
+        if isinstance(rng, torch.Generator):
+            return GeneratorDraws(rng)
+        raise TypeError(f"rng must be an int, a torch.Generator, a Draws "
+                        f"source or None, got {type(rng).__name__}")
 
     def _build_cache(self, tokens, kv_len=None):
         return self.strategy.refresh_cache(self.params, self.cfg, tokens,
@@ -222,6 +250,41 @@ class DecodeSession:
             self.step()
             n += 1
         return self.state.tokens, {"steps": n,
+                                   "refreshes": self.refresh_count}
+
+    def set_active(self, active: torch.Tensor) -> None:
+        """Replace the commit mask; recounts open slots from the canvas."""
+        assert self.state is not None
+        active = torch.as_tensor(active).to(self.device, torch.bool)
+        n_masked = ((self.state.tokens == self.cfg.mask_id) & active).sum(
+            dim=-1).to(torch.int32)
+        self.state = self.state._replace(active=active, n_masked=n_masked)
+
+    def set_active_span(self, start: int, stop: int) -> None:
+        active = torch.zeros_like(self.state.tokens, dtype=torch.bool)
+        active[:, start:stop] = True
+        self.set_active(active)
+
+    def run_blocks(self, block_len: int,
+                   max_steps_per_block: Optional[int] = None
+                   ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """Semi-AR block schedule: activate ``block_len``-wide windows left
+        to right over the generation span, refreshing the cache at each
+        block boundary (the committed block changes every row's
+        context)."""
+        assert self._gen_span is not None, "run_blocks needs prefill()"
+        start, stop = self._gen_span
+        total = 0
+        for blk_start in range(start, stop, block_len):
+            blk_end = min(blk_start + block_len, stop)
+            self.set_active_span(blk_start, blk_end)
+            if blk_start > start:
+                self.refresh()
+            cap = max_steps_per_block or 2 * block_len
+            _, info = self.run(max_steps=cap)
+            total += info["steps"]
+        self.set_active_span(start, stop)
+        return self.state.tokens, {"steps": total,
                                    "refreshes": self.refresh_count}
 
     # ------------------------------------------------------------------

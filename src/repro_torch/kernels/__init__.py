@@ -1,8 +1,10 @@
 """Hand-written Hopper kernels of the SPA hot path (CUDA C++ in ``csrc/``).
 
   proxy_score      — fused rank-r projection + cosine drift scores (dense
-                     or through a page table), and ``gather_norm``, the
-                     fused gather + rms_norm epilogue
+                     or through a page table; a projection kernel first
+                     above rank 256), the projection-free
+                     ``cosine_drift`` (dense or paged), and
+                     ``gather_norm``, the fused gather + rms_norm epilogue
   sparse_attention — gathered-query attention vs the full KV cache
                      (dense grid; also serves prefill)
   scatter_update   — in-place multi-buffer row commits, and the paged

@@ -32,7 +32,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 KERNELS = ("proxy_score", "gather_norm", "sparse_attention",
            "scatter_update_multi", "gather_pages", "scatter_pages",
-           "scatter_rows_paged", "proxy_score_paged")
+           "scatter_rows_paged", "proxy_score_paged", "cosine_drift",
+           "cosine_drift_paged", "proxy_score_wide")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
@@ -54,6 +55,10 @@ _SIGNATURES = {
     "spa_scatter_pages": [_P, _P, _P, _I, _I, _I, _I, _L, _P],
     "spa_scatter_rows_paged": [_P, _P, _P, _P, _I, _I, _I, _I, _L, _L, _L,
                                _P],
+    "spa_proxy_project": [_P, _P, _P, _I, _I, _I, _I, _I, _P],
+    "spa_cosine_drift": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    "spa_cosine_drift_paged": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                               _F, _P],
 }
 
 _state: Dict[str, object] = {"lib": None, "build_seconds": None,

@@ -12,15 +12,17 @@ dataclass field), exactly as in the JAX package.
                      has no fallback: a kernel that cannot build or launch
                      raises.
 
-Dispatch rules follow the JAX package: selection (top-k) stays plain
-tensor code, and the fused identification kernel engages only when the
-strategy's projection is a plain matrix and its score is the base cosine.
-With a page table (paged serving) the cached identifiers are a pooled page
-arena [P, page, r]: a plain matrix goes to ``proxy_score_paged`` and
-anything but an identity projection gathers the pages dense and scores
-them with the strategy's own ops.  Stages not ported yet (the identity
-projection's ``cosine_drift_paged``, ``score_drift``) raise
-``NotImplementedError``.
+Dispatch rules follow the JAX package's ``PallasBackend``: selection
+(top-k) stays plain tensor code, and the identification kernels engage
+only when the strategy keeps the base cosine ``score``.  Then a plain
+matrix projection goes to ``proxy_score`` (any rank), the identity
+projection (attn_in) to the score-only ``cosine_drift``, and any other
+projection runs the strategy's own ops.  With a page table (paged
+serving) the cached identifiers are a pooled page arena [P, page, r]: the
+same three routes become ``proxy_score_paged``, ``cosine_drift_paged`` and
+a dense gather of the pages.  ``score_drift`` (the incremental rescore,
+the attn_out momentum) is ``cosine_drift`` / ``cosine_drift_paged``.  A
+strategy that overrides ``score`` runs its own ops on every route.
 """
 from __future__ import annotations
 
@@ -34,9 +36,6 @@ from repro_torch.kernels import scatter_update as sc
 from repro_torch.kernels import sparse_attention as sa
 
 Params = Dict[str, Any]
-
-_LATER_SCORE = ("score-only drift (cosine_drift: the incremental and "
-                "attn_in identifiers) waits for a later slice")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,7 +53,9 @@ class KernelBackend:
         raise NotImplementedError
 
     def score_drift(self, strategy, p_now, p_cached, page_table=None):
-        raise NotImplementedError(_LATER_SCORE)
+        """Score-only drift (incremental rescore, attn_out momentum);
+        ``page_table`` as in :meth:`identifier_scores`."""
+        raise NotImplementedError
 
     def gather_norm(self, h, idx, weight, eps):
         """Phase-1 epilogue: returns (rows [B,k,d], rms-normed rows)."""
@@ -90,13 +91,10 @@ class KernelBackend:
         raise NotImplementedError
 
     @staticmethod
-    def _fused_matrix(strategy, bp, proxy_mat) -> Optional[torch.Tensor]:
-        """The [d, r] matrix of the fused identification, or None when the
-        strategy overrides ``score`` or its projection is no matmul."""
+    def _base_score(strategy) -> bool:
+        """Whether the strategy keeps the protocol's cosine ``score``."""
         from repro_torch.core.strategy import CacheStrategy
-        if type(strategy).score is not CacheStrategy.score:
-            return None
-        return strategy.projection_matrix(bp, proxy_mat)
+        return type(strategy).score is CacheStrategy.score
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,11 +107,17 @@ class TorchBackend(KernelBackend):
                           page_table=None):
         if page_table is not None:
             p_cached = self.gather_pages(p_cached[None], page_table)[0]
-        mat = self._fused_matrix(strategy, bp, proxy_mat)
+        mat = (strategy.projection_matrix(bp, proxy_mat)
+               if self._base_score(strategy) else None)
         if mat is None:
             p_now = strategy.project(x, bp, proxy_mat)
             return strategy.score(p_now, p_cached), p_now
         return ps.proxy_score_plain(x, mat, p_cached)
+
+    def score_drift(self, strategy, p_now, p_cached, page_table=None):
+        if page_table is not None:
+            p_cached = self.gather_pages(p_cached[None], page_table)[0]
+        return strategy.score(p_now, p_cached)
 
     def gather_norm(self, h, idx, weight, eps):
         return ps.gather_norm_plain(h, idx, weight, eps)
@@ -153,18 +157,34 @@ class CudaBackend(KernelBackend):
 
     def identifier_scores(self, strategy, bp, proxy_mat, x, p_cached,
                           page_table=None):
-        mat = self._fused_matrix(strategy, bp, proxy_mat)
-        if page_table is None:
-            if mat is None:
-                raise NotImplementedError(_LATER_SCORE)
-            return ps.proxy_score(x, mat, p_cached)
+        if not self._base_score(strategy):
+            return TORCH_BACKEND.identifier_scores(
+                strategy, bp, proxy_mat, x, p_cached, page_table=page_table)
+        mat = strategy.projection_matrix(bp, proxy_mat)
+        if page_table is not None:
+            if mat is not None:
+                return ps.proxy_score_paged(x, mat, p_cached, page_table)
+            p_now = strategy.project(x, bp, proxy_mat)
+            if p_now is x:  # identity projection: paged score-only
+                return ps.cosine_drift_paged(x, p_cached, page_table), p_now
+            p_dense = self.gather_pages(p_cached[None], page_table)[0]
+            return strategy.score(p_now, p_dense), p_now
         if mat is not None:
-            return ps.proxy_score_paged(x, mat, p_cached, page_table)
+            return ps.proxy_score(x, mat, p_cached)
         p_now = strategy.project(x, bp, proxy_mat)
-        if p_now is x:      # identity projection: cosine_drift_paged
-            raise NotImplementedError(_LATER_SCORE)
-        p_dense = self.gather_pages(p_cached[None], page_table)[0]
-        return strategy.score(p_now, p_dense), p_now
+        if p_now is x:      # identity projection (attn_in): score-only
+            return ps.cosine_drift(x, p_cached), p_now
+        # a projection that is no plain matrix: the strategy's own ops
+        return strategy.score(p_now, p_cached), p_now
+
+    def score_drift(self, strategy, p_now, p_cached, page_table=None):
+        if not self._base_score(strategy):
+            if page_table is not None:
+                p_cached = self.gather_pages(p_cached[None], page_table)[0]
+            return strategy.score(p_now, p_cached)
+        if page_table is not None:
+            return ps.cosine_drift_paged(p_now, p_cached, page_table)
+        return ps.cosine_drift(p_now, p_cached)
 
     def gather_norm(self, h, idx, weight, eps):
         return ps.gather_norm(h, idx, weight, eps)

@@ -12,6 +12,19 @@ from a pooled page arena [P, page, r] through a page table [B, n_log]
 (``csrc/proxy_score.cu`` shares one kernel body between the two, so the
 paged result is bitwise the dense result on the gathered pages).
 
+A rank wider than a block holds (r > ``FUSED_R_MAX``: the value, query and
+key identifiers project onto kv_dim or q_dim) runs as two launches: the
+projection kernel writes the rounded ``p_now`` (counted as
+``proxy_score_wide``), and ``cosine_drift`` / ``cosine_drift_paged``
+scores it, which is the same function.
+
+``cosine_drift`` replaces ``repro/kernels/proxy_score.py:cosine_drift``:
+the projection-free score, the rowwise cosine of x against the cached
+identifiers (the attn_in and attn_out identifiers, the incremental
+identifier's rescore).  x and the cache may differ in dtype (f32 / bf16).
+``cosine_drift_paged`` replaces ``cosine_drift_paged``: the cache read
+through a page table, bitwise ``cosine_drift`` on the gathered pages.
+
 ``gather_norm`` replaces ``repro/kernels/proxy_score.py:gather_norm``:
 the k selected rows of ``h`` (indices clamped to ``[0, N)``) are emitted
 raw and rms-normed, ``row * rsqrt(mean(row^2) + eps) * (1 + w)``, in one
@@ -40,6 +53,84 @@ def cosine(p: torch.Tensor, pc: torch.Tensor, eps: float) -> torch.Tensor:
     return num / torch.clamp(den, min=eps)
 
 
+FUSED_R_MAX = 256     # widest rank the fused kernel holds in one block
+
+
+def cosine_drift_plain(x: torch.Tensor, p_cached: torch.Tensor, *,
+                       eps: float = 1e-8) -> torch.Tensor:
+    """x, p_cached: [B, N, r] (any float dtypes).  Returns [B, N] f32."""
+    return cosine(x, p_cached, eps)
+
+
+def _drift_operands(x, pc):
+    """Contiguous operands the cosine kernel takes, or raise."""
+    x, pc = x.contiguous(), pc.contiguous()
+    if x.shape[-1] % 8 or x.data_ptr() % 16 or pc.data_ptr() % 16:
+        raise ValueError("the cosine_drift kernel needs r % 8 == 0 and "
+                         "16-byte aligned operands")
+    return x, pc
+
+
+def cosine_drift(x: torch.Tensor, p_cached: torch.Tensor, *,
+                 eps: float = 1e-8) -> torch.Tensor:
+    """Projection-free drift scores (see module docstring)."""
+    if x.device.type == "cpu":
+        return cosine_drift_plain(x, p_cached, eps=eps)
+    _lib.require_cuda(x, p_cached)
+    if x.dim() != 3 or p_cached.shape != x.shape:
+        raise ValueError(f"shapes x {tuple(x.shape)}, p_cached "
+                         f"{tuple(p_cached.shape)}")
+    x, p_cached = _drift_operands(x, p_cached)
+    b, n, r = x.shape
+    scores = torch.empty((b, n), dtype=torch.float32, device=x.device)
+    lib = _lib.load()
+    _lib.check(lib.spa_cosine_drift(
+        x.data_ptr(), p_cached.data_ptr(), scores.data_ptr(), b, n, r,
+        _lib.dtype_code(x.dtype), _lib.dtype_code(p_cached.dtype), eps,
+        _lib.stream_ptr(x)), "cosine_drift")
+    _lib.LAUNCHES["cosine_drift"] += 1
+    return scores
+
+
+def cosine_drift_paged_plain(x: torch.Tensor, arena: torch.Tensor,
+                             pt: torch.Tensor, *, eps: float = 1e-8
+                             ) -> torch.Tensor:
+    """Gather the pages dense, then :func:`cosine_drift_plain`."""
+    return cosine_drift_plain(x, gather_pages_plain(arena[None], pt)[0],
+                              eps=eps)
+
+
+def cosine_drift_paged(x: torch.Tensor, arena: torch.Tensor,
+                       pt: torch.Tensor, *, eps: float = 1e-8
+                       ) -> torch.Tensor:
+    """x: [B, N, r]; arena: [P, page, r] (one layer, contiguous); pt:
+    [B, n_log] with N == n_log * page.  Returns [B, N] f32, bitwise
+    :func:`cosine_drift` on the gathered pages."""
+    if x.device.type == "cpu":
+        return cosine_drift_paged_plain(x, arena, pt, eps=eps)
+    _lib.require_cuda(x, arena, pt)
+    b, n, r = x.shape
+    page = arena.shape[1]
+    n_log = pt.shape[1]
+    if (arena.dim() != 3 or arena.shape[2] != r or pt.shape[0] != b
+            or n != n_log * page):
+        raise ValueError(f"shapes x {tuple(x.shape)}, arena "
+                         f"{tuple(arena.shape)}, pt {tuple(pt.shape)}")
+    if not arena.is_contiguous():
+        raise ValueError("the proxy arena must be contiguous")
+    x, arena = _drift_operands(x, arena)
+    pt = pt.to(torch.int32).contiguous()
+    scores = torch.empty((b, n), dtype=torch.float32, device=x.device)
+    lib = _lib.load()
+    _lib.check(lib.spa_cosine_drift_paged(
+        x.data_ptr(), arena.data_ptr(), pt.data_ptr(), scores.data_ptr(),
+        b, n, r, page, n_log, _lib.dtype_code(x.dtype),
+        _lib.dtype_code(arena.dtype), eps, _lib.stream_ptr(x)),
+        "cosine_drift_paged")
+    _lib.LAUNCHES["cosine_drift_paged"] += 1
+    return scores
+
+
 def proxy_score_plain(x: torch.Tensor, proxy_mat: torch.Tensor,
                       p_cached: torch.Tensor, *, eps: float = 1e-8
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -51,8 +142,6 @@ def proxy_score_plain(x: torch.Tensor, proxy_mat: torch.Tensor,
 
 def _check_operands(x, proxy_mat, r, d):
     """Contiguous x and proxy_mat that the kernel takes, or raise."""
-    if r > 256:
-        raise ValueError(f"proxy_score kernel takes rank <= 256, got {r}")
     x, proxy_mat = x.contiguous(), proxy_mat.contiguous()
     if x.dtype == torch.bfloat16 and (
             r % 16 or d % 8 or x.data_ptr() % 16
@@ -60,6 +149,20 @@ def _check_operands(x, proxy_mat, r, d):
         raise ValueError("the bf16 proxy_score kernel needs rank % 16 == 0, "
                          "d % 8 == 0 and 16-byte aligned x and proxy_mat")
     return x, proxy_mat
+
+
+def _project_wide(x: torch.Tensor, proxy_mat: torch.Tensor) -> torch.Tensor:
+    """p_now = x @ proxy_mat rounded to x.dtype, for r > FUSED_R_MAX (the
+    projection kernel alone; the caller scores p_now)."""
+    b, n, d = x.shape
+    r = proxy_mat.shape[1]
+    p_now = torch.empty((b, n, r), dtype=x.dtype, device=x.device)
+    lib = _lib.load()
+    _lib.check(lib.spa_proxy_project(
+        x.data_ptr(), proxy_mat.data_ptr(), p_now.data_ptr(), b, n, d, r,
+        _lib.dtype_code(x.dtype), _lib.stream_ptr(x)), "proxy_score (wide)")
+    _lib.LAUNCHES["proxy_score_wide"] += 1
+    return p_now
 
 
 def proxy_score(x: torch.Tensor, proxy_mat: torch.Tensor,
@@ -78,6 +181,9 @@ def proxy_score(x: torch.Tensor, proxy_mat: torch.Tensor,
     if proxy_mat.dtype != x.dtype or p_cached.dtype != x.dtype:
         raise TypeError("x, proxy_mat and p_cached must share one dtype")
     x, proxy_mat = _check_operands(x, proxy_mat, r, d)
+    if r > FUSED_R_MAX:
+        p_now = _project_wide(x, proxy_mat)
+        return cosine_drift(p_now, p_cached, eps=eps), p_now
     p_cached = p_cached.contiguous()
     scores = torch.empty((b, n), dtype=torch.float32, device=x.device)
     p_now = torch.empty((b, n, r), dtype=x.dtype, device=x.device)
@@ -125,6 +231,9 @@ def proxy_score_paged(x: torch.Tensor, proxy_mat: torch.Tensor,
     if not arena.is_contiguous():
         raise ValueError("the proxy arena must be contiguous")
     x, proxy_mat = _check_operands(x, proxy_mat, r, d)
+    if r > FUSED_R_MAX:
+        p_now = _project_wide(x, proxy_mat)
+        return cosine_drift_paged(p_now, arena, pt, eps=eps), p_now
     pt = pt.to(torch.int32).contiguous()
     scores = torch.empty((b, n), dtype=torch.float32, device=x.device)
     p_now = torch.empty((b, n, r), dtype=x.dtype, device=x.device)

@@ -13,7 +13,10 @@ The queue is partitioned into lanes keyed on the
 ``(DecodeSettings, CacheStrategy, UnmaskScheduler)`` triple: a lane's batch
 only admits requests with an identical triple (one session per lane).
 Within a lane rows are independent, so for deterministic schedulers
-continuous batching gives the same outputs as static batches.
+continuous batching gives the same outputs as static batches.  Stochastic
+schedulers (``uses_rng``) draw from one generator per lane, seeded anew
+each time the lane's batch is attached, so their outputs depend on batch
+composition and swap order (reproducible per engine configuration).
 
 Paged mode (``pool_pages > 0``): a :class:`~repro_torch.serving.pool.PagePool`
 owns one device arena of fixed-size pages per cache buffer; each request
@@ -265,7 +268,7 @@ class ServingEngine:
 
     def _lane_of(self, req: Request) -> LaneKey:
         """Per-request overrides win wholesale, engine defaults fill the
-        gaps; the legacy parallel knob is normalized out of the keyed
+        gaps; the legacy parallel knobs are normalized out of the keyed
         settings once the scheduler is resolved."""
         settings = req.settings or self.settings
         strategy = req.strategy or self.strategy
@@ -275,7 +278,8 @@ class ServingEngine:
             scheduler = resolve_scheduler(req.settings)
         else:
             scheduler = resolve_scheduler(self.settings, self.scheduler)
-        settings = dataclasses.replace(settings, parallel_threshold=0.0)
+        settings = dataclasses.replace(settings, parallel_threshold=0.0,
+                                       max_parallel=0)
         return settings, strategy, scheduler
 
     def _proxies_for(self, strategy: CacheStrategy):

@@ -42,6 +42,52 @@ def np32(x):
     return np.asarray(x).astype(np.float32)
 
 
+def decode_both(cfg, params, prompt, gen, jstrat, tstrat, *, backend=None,
+                jsched=None, tsched=None, jrng=None, trng=None,
+                settings=None, tsettings=None):
+    """Decode ``prompt`` (numpy [B, P]) + ``gen`` [MASK] slots through the
+    JAX ``DecodeSession.run`` (XlaBackend) and the port's (CPU), with the
+    same weights and proxies.  Returns (JAX tokens, JAX info, JAX cache as
+    numpy, port tokens as numpy, port info, port session)."""
+    import jax.numpy as jnp
+    from repro.dlm.session import DecodeSession as JSession
+    from repro_torch.dlm.session import DecodeSession as TSession
+    from repro_torch.kernels.backend import TORCH_BACKEND
+    js = JSession(params, cfg, strategy=jstrat, scheduler=jsched,
+                  settings=settings)
+    js.prefill(jnp.asarray(prompt), gen, rng=jrng)
+    j_toks, j_info = js.run()
+    tcfg = port_cfg(cfg)
+    proxies = (port_proxies(js.spa_proxies, tcfg)
+               if js.spa_proxies is not None else None)
+    ts = TSession(port_params(params, tcfg), tcfg, strategy=tstrat,
+                  spa_proxies=proxies, backend=backend or TORCH_BACKEND,
+                  scheduler=tsched, settings=tsettings, device="cpu")
+    ts.prefill(torch.from_numpy(np.asarray(prompt)), gen, rng=trng)
+    t_toks, t_info = ts.run()
+    return (np.asarray(j_toks), j_info,
+            jax.tree.map(np.asarray, js.state.cache), t_toks.numpy(),
+            t_info, ts)
+
+
+def assert_caches_close(j_cache, t_cache):
+    """The same buffers; float ones within rtol/atol 1e-4 (f32 sums in
+    another order, ~1e-6 after a decode), int8 codes within 1."""
+    assert sorted(j_cache) == sorted(t_cache)
+    for kind, bufs in j_cache.items():
+        assert sorted(bufs) == sorted(t_cache[kind])
+        for name, a in bufs.items():
+            t = t_cache[kind][name]
+            if a.dtype == np.int8:
+                assert np.abs(a.astype(np.int32)
+                              - t.numpy().astype(np.int32)).max() <= 1, name
+            else:
+                np.testing.assert_allclose(t.float().numpy(),
+                                           a.astype(np.float32),
+                                           rtol=1e-4, atol=1e-4,
+                                           err_msg=f"{kind}/{name}")
+
+
 def serve_both(cfg, params, requests, *, strategies, on_step=None, **kw):
     """Serve the same requests through the JAX engine and the port's.
 

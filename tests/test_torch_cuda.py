@@ -19,7 +19,12 @@ the plain version sum in different orders before rounding:
 
 The paged kernels are copies and must match their plain versions exactly,
 drop rules included; ``proxy_score_paged`` shares its kernel body with
-``proxy_score`` and must equal it bit for bit on the gathered pages.
+``proxy_score`` and must equal it bit for bit on the gathered pages, and
+so must ``cosine_drift_paged`` with ``cosine_drift``.  ``cosine_drift``
+sums in f32 like its plain version, in another order: 1e-5 absolute for
+every pairing of f32 and bf16 operands (the inputs are the same values).
+The wide-rank ``proxy_score`` (r > 256: projection kernel, then
+``cosine_drift``) keeps ``proxy_score``'s tolerances.
 """
 import pytest
 import torch
@@ -167,3 +172,68 @@ def test_cuda_proxy_score_paged_bitwise(dtype):
     torch.testing.assert_close(p_k.float(), p_p.float(),
                                rtol=1e-5 if f32 else 2 ** -7, atol=1e-5)
     torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [8, 128, 4096])
+def test_cuda_cosine_drift_matches_plain(r):
+    """cosine_drift for every dtype pairing and cosine_drift_paged bitwise
+    equal to it on the gathered pages (ragged N, zero page, short rows)."""
+    _cuda_or_skip()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(r)
+    page, n_log = 16, 5
+    n = page * n_log
+    x32 = torch.randn(3, n, r, generator=g, device=dev)
+    pc32 = torch.randn(3, n, r, generator=g, device=dev)
+    pc32[:, :4] = x32[:, :4]                   # unchanged rows score 1
+    pt = torch.tensor([[1, 2, 3, 0, 0], [4, 5, 6, 7, 10], [9, 8, 0, 0, 0]],
+                      dtype=torch.int32, device=dev)
+    for xd in (torch.float32, torch.bfloat16):
+        for cd in (torch.float32, torch.bfloat16):
+            x, pc = x32.to(xd), pc32.to(cd)
+            got = tps.cosine_drift(x[:, :n - 3], pc[:, :n - 3])   # ragged
+            torch.testing.assert_close(
+                got, tps.cosine_drift_plain(x[:, :n - 3], pc[:, :n - 3]),
+                rtol=0, atol=1e-5)
+            arena = torch.randn(11, page, r, generator=g,
+                                device=dev).to(cd)
+            arena[0] = 0
+            s_k = tps.cosine_drift_paged(x, arena, pt)
+            s_d = tps.cosine_drift(x, tsc.gather_pages(arena[None], pt)[0])
+            assert torch.equal(s_k, s_d), (xd, cd)
+            torch.testing.assert_close(
+                s_k, tps.cosine_drift_paged_plain(x, arena, pt), rtol=0,
+                atol=1e-5)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_wide_proxy_score_matches_plain(dtype):
+    """r = 4096 > 256: proxy_score and proxy_score_paged through the
+    projection kernel, within proxy_score's tolerances of the plain
+    versions, and the paged result bitwise the dense one."""
+    _cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(3)
+    page, n_log, d, r = 16, 3, 512, 4096
+    n = page * n_log
+    x = torch.randn(2, n, d, generator=g, device=dev).to(dtype)
+    w = (torch.randn(d, r, generator=g, device=dev) * 0.05).to(dtype)
+    pc = torch.randn(2, n, r, generator=g, device=dev).to(dtype)
+    f32 = dtype == torch.float32
+    s_k, p_k = tps.proxy_score(x, w, pc)
+    s_p, p_p = tps.proxy_score_plain(x, w, pc)
+    torch.testing.assert_close(s_k, s_p, rtol=0, atol=1e-5 if f32 else 5e-3)
+    torch.testing.assert_close(p_k.float(), p_p.float(),
+                               rtol=1e-5 if f32 else 2 ** -7, atol=1e-5)
+    arena = torch.randn(7, page, r, generator=g, device=dev).to(dtype)
+    arena[0] = 0
+    pt = torch.tensor([[1, 2, 0], [4, 5, 6]], dtype=torch.int32, device=dev)
+    s_pg, p_pg = tps.proxy_score_paged(x, w, arena, pt)
+    s_d, p_d = tps.proxy_score(x, w, tsc.gather_pages(arena[None], pt)[0])
+    assert torch.equal(s_pg, s_d) and torch.equal(p_pg, p_d)
+    torch.cuda.synchronize()
+

@@ -16,7 +16,6 @@ buckets so the buckets really merge layers of different k.
 import dataclasses
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -24,10 +23,10 @@ import torch
 from repro.configs import get_arch, reduced
 from repro.core.strategy import NoCache as JNoCache
 from repro.core.strategy import SPACache as JSPACache
-from repro.dlm.session import DecodeSession as JSession
 from repro.models import transformer as jt
 
-from _torch_parity import port_cfg, port_params, port_proxies
+from _torch_parity import (assert_caches_close, decode_both, port_cfg,
+                           port_params)
 from repro_torch.core import spa_layer as tspa_layer
 from repro_torch.core.strategy import NoCache as TNoCache
 from repro_torch.core.strategy import SPACache as TSPACache
@@ -62,35 +61,11 @@ def regimes():
 
 def _decode_both(cfg, params, prompt, gen, jstrat, tstrat,
                  backend=TORCH_BACKEND):
-    js = JSession(params, cfg, strategy=jstrat)
-    js.prefill(jnp.asarray(prompt), gen)
-    j_toks, j_info = js.run()
-    tcfg = port_cfg(cfg)
-    proxies = (port_proxies(js.spa_proxies, tcfg)
-               if js.spa_proxies is not None else None)
-    ts = TSession(port_params(params, tcfg), tcfg, strategy=tstrat,
-                  spa_proxies=proxies, backend=backend, device="cpu")
-    ts.prefill(torch.from_numpy(prompt), gen)
-    t_toks, t_info = ts.run()
-    return (np.asarray(j_toks), j_info, jax.tree.map(np.asarray,
-                                                     js.state.cache),
-            t_toks.numpy(), t_info, ts)
+    return decode_both(cfg, params, prompt, gen, jstrat, tstrat,
+                       backend=backend)
 
 
-def _assert_caches_close(j_cache, t_cache):
-    assert sorted(j_cache) == sorted(t_cache)
-    for kind, bufs in j_cache.items():
-        assert sorted(bufs) == sorted(t_cache[kind])
-        for name, a in bufs.items():
-            t = t_cache[kind][name]
-            if a.dtype == np.int8:
-                assert np.abs(a.astype(np.int32)
-                              - t.numpy().astype(np.int32)).max() <= 1, name
-            else:
-                np.testing.assert_allclose(t.float().numpy(),
-                                           a.astype(np.float32),
-                                           rtol=1e-4, atol=1e-4,
-                                           err_msg=f"{kind}/{name}")
+_assert_caches_close = assert_caches_close
 
 
 @pytest.mark.parametrize("strategy", sorted(STRATEGIES))

@@ -224,6 +224,7 @@ def test_scatter_update_multi_matches_pallas():
 def test_backends_agree_on_cpu():
     """On CPU tensors CudaBackend's wrappers take the plain versions, so
     both backends give identical stage outputs."""
+    from repro_torch.core.strategy import AttnOutCache
     rng = np.random.default_rng(5)
     h = torch.from_numpy(rng.standard_normal((2, 30, 32)).astype(np.float32))
     w = torch.from_numpy(rng.standard_normal((32,)).astype(np.float32))
@@ -231,9 +232,12 @@ def test_backends_agree_on_cpu():
     a = tbackend.TORCH_BACKEND.gather_norm(h, idx, w, 1e-6)
     b = tbackend.CUDA_BACKEND.gather_norm(h, idx, w, 1e-6)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
-    for be in (tbackend.TORCH_BACKEND, tbackend.CUDA_BACKEND):
-        with pytest.raises(NotImplementedError):
-            be.score_drift(None, h, h)
+    # score-only drift (cosine_drift), an f32 x against a bf16 cache too
+    pc = h.flip(1).to(torch.bfloat16)
+    drift = [be.score_drift(AttnOutCache(), h, pc)
+             for be in (tbackend.TORCH_BACKEND, tbackend.CUDA_BACKEND)]
+    assert torch.equal(drift[0], drift[1])
+    assert torch.equal(drift[0], tps.cosine_drift_plain(h, pc))
     # the paged stages: an arena [L=2, P=5, page=3, 32], rows of 6
     arena = h[:, :15].reshape(2, 5, 3, 32).clone()
     pt = torch.tensor([[1, 4], [2, 0]], dtype=torch.int32)
@@ -243,5 +247,6 @@ def test_backends_agree_on_cpu():
         dense = be.gather_pages(a, pt)
         be.scatter_pages(a, pt, dense * 2)
         be.scatter_rows_paged(a[1], pt, idx, h[:, :3])
-        outs.append((dense, a))
+        outs.append((dense, a,
+                     be.score_drift(AttnOutCache(), h[:, :6], a[0], pt)))
     assert all(torch.equal(x, y) for x, y in zip(*outs))

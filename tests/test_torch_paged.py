@@ -151,7 +151,8 @@ def test_proxy_score_paged_plain_matches_jax(dtype):
 def test_paged_identification_dispatch():
     """CudaBackend's paged identification: a plain matrix takes
     proxy_score_paged, another projection is scored dense on the gathered
-    pages, an identity projection (cosine_drift_paged) raises."""
+    pages, an identity projection takes cosine_drift_paged (equal to its
+    plain version)."""
     rng = np.random.default_rng(3)
     x = torch.randn(2, CANVAS, 16, generator=torch.Generator().manual_seed(0))
     w = torch.randn(16, 8, generator=torch.Generator().manual_seed(1))
@@ -179,9 +180,11 @@ def test_paged_identification_dispatch():
         def project(self, h, bp, proxy_mat=None):
             return h
 
-    with pytest.raises(NotImplementedError, match="cosine_drift"):
-        cuda.identifier_scores(Identity(rank=8), {}, w, x[..., :8], arena,
-                               page_table=pt)
+    xi = x[..., :8]
+    s_i, p_i = cuda.identifier_scores(Identity(rank=8), {}, w, xi, arena,
+                                      page_table=pt)
+    assert p_i is xi
+    assert torch.equal(s_i, tps.cosine_drift_paged_plain(xi, arena, pt))
 
 
 def test_pool_allocator_matches_jax(tiny_cfg):
