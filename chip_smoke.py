@@ -20,7 +20,12 @@ Phases (each asserts; any failure exits non-zero):
    f32 x against bf16 at r=128, ragged N, f32) and cosine_drift_paged
    (bitwise cosine_drift on the gathered pages), and proxy_score /
    proxy_score_paged at r=4096 (the value identifier's width: projection
-   kernel + cosine_drift; paged bitwise dense);
+   kernel + cosine_drift; paged bitwise dense); at RecurrentGemma-9B's
+   shapes (B=2, N=16384, 16 query heads on one kv head of 256, window
+   2048) the banded sparse_attention grid (decode kq=4096 and prefill
+   kq=N, bit for bit equal to the dense grid, plus f32 and int8 edges),
+   the bf16 dense grid at head_dim 256, and rglru_scan in bf16 and f32,
+   forward and flipped, ragged T and d;
 4. decode parity: a 2-layer, full-width LLaDA, in f32 and in bf16 (the
    main path's kernel variants), through ``CudaBackend`` and
    ``TorchBackend`` must give identical tokens and step counts, for
@@ -46,13 +51,24 @@ Phases (each asserts; any failure exits non-zero):
    must preempt; all complete, the pool drains, every paged kernel
    launched, with a ``torch.profiler`` window over a few engine steps;
    then paged lanes of attn_in, the incremental identifier and attn_out
-   (five mixed requests each), which launch cosine_drift_paged.
+   (five mixed requests each), which launch cosine_drift_paged;
+8. hybrid parity: a 3-layer, full-width RecurrentGemma (rglru, rglru,
+   local) at B=2, N=16384, whose local layer runs the banded grid,
+   through ``CudaBackend`` and ``TorchBackend``: f32 free-running with
+   identical tokens, bf16 in lockstep (strict);
+9. the hybrid main path: RecurrentGemma-9B (38 layers, bf16, random
+   weights), B=2, prompt 16128 + gen 256, ``DecodeSession.run`` with
+   ``SPACache`` and ``CudaBackend`` for 32 steps (hidden states finite;
+   the banded grid, the dense grid and rglru_scan launched, counted per
+   step), a profiled window, then NoCache steps (SPA/NoCache on wall and
+   device time).
 
 The last lines are the kernels' JSON record (each kernel's launches are
 those of its path: phase 5 for the session kernels, phase 6 for
 cosine_drift and the wide proxy_score, phase 7's first server for the
-paged kernels and its drift lanes for cosine_drift_paged), the card line
-and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
+paged kernels and its drift lanes for cosine_drift_paged, phase 9 for
+the banded grid and rglru_scan), the card line and
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the repository's ``src/`` beside it, the script exits non-zero before
 printing any result.
 """
@@ -73,6 +89,8 @@ BF16_FLOPS = 989e12
 F32_FLOPS = 67e12
 
 SLICE = dict(B=4, N=512, d=4096, r=128, H=32, KVH=32, hd=128)
+# RecurrentGemma-9B's decode: B=2, canvas 16128 + 256
+HYBRID = dict(B=2, N=16384, d=4096, H=16, KVH=1, hd=256, window=2048)
 PAGE = 16                 # rows per cache page of the serving pool
 # kernels of the main path (DecodeSession.run) and of the serving path
 # (ServingEngine over the paged pool); each path's launches are counted
@@ -86,6 +104,7 @@ SERVING_KERNELS = ("gather_pages", "scatter_pages", "scatter_rows_paged",
 # strategy) and of the server's drift lanes
 BASELINE_KERNELS = ("cosine_drift", "proxy_score_wide")
 DRIFT_LANE_KERNELS = ("cosine_drift_paged",)
+HYBRID_ONLY_KERNELS = ("sparse_attention_banded", "rglru_scan")
 BASELINES = ("value", "query", "key", "attn_in", "window", "attn_out",
              "singular_incremental")
 # the kernels each baseline's decode must launch (gather_norm and the
@@ -98,6 +117,12 @@ BASELINE_NEEDS = {"value": ("proxy_score_wide", "cosine_drift"),
                   "attn_out": ("cosine_drift", "sparse_attention"),
                   "singular_incremental": ("cosine_drift", "gather_norm")}
 BASELINE_STEPS = 64       # steps of the baselines not run to completion
+# kernels of the hybrid path (RecurrentGemma-9B, DecodeSession.run)
+HYBRID_KERNELS = ("proxy_score", "gather_norm", "sparse_attention",
+                  "sparse_attention_banded", "scatter_update_multi",
+                  "rglru_scan")
+HYBRID_STEPS = 32         # SPA steps of the hybrid main path
+HYBRID_GEN = 256          # hybrid: prompt 16128 + gen 256 = N
 GEN_LEN = 256             # main path: prompt 256 + gen 256 = N
 SPIN_CYCLES = 4_000_000   # ~2 ms of a spin kernel at H100 clocks
 
@@ -381,6 +406,8 @@ def check_kernels(torch, flush):
                                        assert_close))
     records.update(check_drift_kernels(torch, flush, gen, randn,
                                        assert_close))
+    records.update(check_hybrid_kernels(torch, flush, gen, randn, randint,
+                                        assert_close))
     for name, rec in records.items():
         lib = ("-" if rec["library_ms"] is None
                else f"{rec['library_ms']:.4f}")
@@ -694,6 +721,212 @@ def check_drift_kernels(torch, flush, gen, randn, assert_close):
     return records
 
 
+def _stratified_positions(torch, gen, b: int, n: int, k: int, nb: int):
+    """Sorted positions like ``select_stratified``'s: k // nb random rows
+    in each of nb equal strata, per batch row."""
+    dev = torch.device("cuda")
+    size, per = n // nb, k // nb
+    rows = []
+    for _ in range(b):
+        rows.append(torch.cat([
+            torch.sort(torch.randperm(size, generator=gen, device=dev)[:per]
+                       ).values + j * size for j in range(nb)]))
+    return torch.stack(rows).to(torch.int32).contiguous()
+
+
+def window_keys(torch, pos, n: int, window: int, band=None) -> int:
+    """The keys the attention needs, summed over all queries of pos [B, kq]:
+    for each query those within its window of the n keys, and within its
+    q block's band on the banded grid (band from ``band_for``)."""
+    p = pos.long()
+    lo, hi = (p - window).clamp(min=0), (p + window).clamp(max=n - 1)
+    if band is not None:
+        starts, n_band, bq = band
+        bk = min(512, n)
+        st = starts.long().repeat_interleave(bq)[:p.shape[1]][None] * bk
+        lo = torch.maximum(lo, st)
+        hi = torch.minimum(hi, (st + n_band * bk).clamp(max=n) - 1)
+    return int((hi - lo + 1).clamp(min=0).sum())
+
+
+def check_hybrid_kernels(torch, flush, gen, randn, randint, assert_close):
+    """The banded sparse_attention grid, the bf16 tensor-core attention at
+    head_dim 256 and rglru_scan, at RecurrentGemma-9B's decode shapes (B=2,
+    N=16384, 16 query heads on one kv head of 256, window 2048; a, b of the
+    recurrence [2, 16384, 4096]) and at edges.
+
+    Banded: decode (kq = 4096 stratified rows, q_span 8192, 26 kv blocks a
+    q block) and prefill (kq = N contiguous, 11 blocks) in bf16 against the
+    plain banded version (2^-7 of the largest output, as the dense grid),
+    and bit for bit equal to the dense grid on the same inputs, since the
+    band covers the window; f32 and int8 K/V at a ragged kq and N (f32
+    1e-5).  The dense grid at head_dim 256 in bf16 (kq = 1744, the widest
+    dense-grid layer) against plain.  rglru_scan in bf16 (one bf16 ulp of
+    each element) and f32 (1e-5: the chunk carries reassociate), forward
+    and flipped, and at a ragged T and d."""
+    import torch.nn.functional as F
+    from repro_torch.core.spa_layer import q_span_bound
+    from repro_torch.kernels import rglru_scan as rs
+    from repro_torch.kernels import sparse_attention as sa
+
+    dev = torch.device("cuda")
+    bf16, f32 = torch.bfloat16, torch.float32
+    B, N, H, KVH, hd, W = (HYBRID[k] for k in ("B", "N", "H", "KVH", "hd",
+                                               "window"))
+    records = {}
+    bf16_attn_tol = dict(atol=0, rtol=2 ** -7)
+
+    print("sparse_attention, banded grid (RecurrentGemma-9B shapes)")
+    k = randn(B, N, KVH, hd)
+    v = randn(B, N, KVH, hd)
+    kq = 4096
+    span = q_span_bound(N, kq, 4)
+    pos = _stratified_positions(torch, gen, B, N, kq, 4)
+    q = randn(B, kq, H, hd)
+    assert sa.banded_engages(N, W, True, span)
+    band = sa.band_for(pos, N, W, span)
+    got = sa.sparse_attention(q, k, v, pos, window=W, banded=True,
+                              q_span=span)
+    err = assert_close(f"decode kq={kq} q_span={span} n_band={band[1]}",
+                       got, sa.sparse_attention_plain(q, k, v, pos, window=W,
+                                                      band=band),
+                       **bf16_attn_tol)
+    assert torch.equal(got, sa.sparse_attention(q, k, v, pos, window=W)), \
+        "banded decode differs from the dense grid"
+    print("  decode: bit for bit equal to the dense grid")
+    q_pf = randn(B, N, H, hd)
+    pos_pf = torch.arange(N, device=dev, dtype=torch.int32).expand(B, N)
+    got_pf = sa.sparse_attention(q_pf, k, v, pos_pf, window=W, banded=True,
+                                 q_span=512)
+    band_pf = sa.band_for(pos_pf, N, W, 512)
+    assert_close(f"prefill kq={N} n_band={band_pf[1]}", got_pf,
+                 sa.sparse_attention_plain(q_pf, k, v, pos_pf, window=W,
+                                           band=band_pf), **bf16_attn_tol)
+    assert torch.equal(got_pf, sa.sparse_attention(q_pf, k, v, pos_pf,
+                                                   window=W)), \
+        "banded prefill differs from the dense grid"
+    print("  prefill: bit for bit equal to the dense grid")
+    ms_pf = median_ms(lambda: sa.sparse_attention(
+        q_pf, k, v, pos_pf, window=W, banded=True, q_span=512), torch, flush,
+        runs=5, warmup=1)
+    flops_pf = 4 * H * hd * window_keys(torch, pos_pf, N, W, band_pf)
+    print(f"  prefill kernel {ms_pf:.3f} ms, bound {bound(0, flops_pf)[0]:.3f}"
+          f" ms, {flops_pf / ms_pf / 1e9:.1f} TFLOP/s over the window's keys")
+    del q_pf, got_pf
+    for dt in (f32, torch.int8):
+        b_, n_, kq_, h_ = 2, 4100, 700, 4
+        qe = randn(b_, kq_, h_, hd, dtype=f32)
+        if dt == torch.int8:
+            ke = randint(-127, 128, b_, n_, 1, hd).to(torch.int8)
+            ve = randint(-127, 128, b_, n_, 1, hd).to(torch.int8)
+            kse = torch.rand((b_, n_, 1), generator=gen, device=dev) * 0.02
+            vse = torch.rand((b_, n_, 1), generator=gen, device=dev) * 0.02
+        else:
+            ke, ve = randn(b_, n_, 1, hd, dtype=f32), randn(b_, n_, 1, hd,
+                                                            dtype=f32)
+            kse = vse = None
+        pe = torch.cat([
+            torch.sort(randint(0, 1500, b_, 512)).values,
+            torch.sort(randint(2000, 3000, b_, kq_ - 512)).values], dim=1)
+        kw = dict(k_scale=kse, v_scale=vse, window=64, soft_cap=30.0,
+                  kv_len=torch.tensor([n_, 2600], device=dev))
+        ge = sa.sparse_attention(qe, ke, ve, pe, banded=True, q_span=1500,
+                                 **kw)
+        assert_close(f"{dt} K/V ragged kq={kq_} N={n_} kv_len soft_cap", ge,
+                     sa.sparse_attention_plain(
+                         qe, ke, ve, pe,
+                         band=sa.band_for(pe, n_, 64, 1500), **kw),
+                     1e-5, 0)
+        assert torch.equal(ge, sa.sparse_attention(qe, ke, ve, pe, **kw)), \
+            f"{dt} banded differs from the dense grid"
+    qt = q.transpose(1, 2)
+    kt = k.transpose(1, 2).expand(B, H, N, hd)
+    vt = v.transpose(1, 2).expand(B, H, N, hd)
+    wmask = ((pos[:, :, None].long()
+              - torch.arange(N, device=dev)[None, None, :]).abs()
+             <= W)[:, None]
+    flops = 4 * H * hd * window_keys(torch, pos, N, W, band)
+    records["sparse_attention_banded"] = dict(
+        source="src/repro_torch/csrc/sparse_attention.cu",
+        replaces="src/repro/kernels/sparse_attention.py:210",
+        max_abs_err=err,
+        ms=median_ms(lambda: sa.sparse_attention(
+            q, k, v, pos, window=W, banded=True, q_span=span), torch, flush,
+            runs=10),
+        plain_ms=median_ms(lambda: sa.sparse_attention_plain(
+            q, k, v, pos, window=W, band=sa.band_for(pos, N, W, span)),
+            torch, flush, runs=3, warmup=1),
+        library_ms=median_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=wmask), torch, flush, runs=5, warmup=1),
+        bound=bound(2 * (2 * B * N * KVH * hd + 2 * B * kq * H * hd)
+                    + 4 * B * kq, flops))
+    rec = records["sparse_attention_banded"]
+    print(f"  decode kernel {rec['ms']:.3f} ms, {flops / rec['ms'] / 1e9:.1f}"
+          f" TFLOP/s over the window's keys (the band of {band[1]} blocks "
+          f"would be {4 * B * kq * H * band[1] * 512 * hd / 1e12:.2f} TFLOP);"
+          f" SDPA with the window mask (all {N} keys) "
+          f"{rec['library_ms']:.3f} ms")
+    del qt, kt, vt, wmask
+
+    print("sparse_attention, dense grid at head_dim 256 (bf16 tensor cores)")
+    kq_d = 1744
+    pos_d = _stratified_positions(torch, gen, B, N, kq_d, 4)
+    q_d = randn(B, kq_d, H, hd)
+    got_d = sa.sparse_attention(q_d, k, v, pos_d, window=W, banded=True,
+                                q_span=q_span_bound(N, kq_d, 4))
+    assert_close(f"dense grid kq={kq_d} (q_span "
+                 f"{q_span_bound(N, kq_d, 4)}: no band)", got_d,
+                 sa.sparse_attention_plain(q_d, k, v, pos_d, window=W),
+                 **bf16_attn_tol)
+    ms_d = median_ms(lambda: sa.sparse_attention(q_d, k, v, pos_d, window=W),
+                     torch, flush, runs=10)
+    flops_d = 4 * H * hd * window_keys(torch, pos_d, N, W)
+    print(f"  dense grid hd=256 kq={kq_d}: {ms_d:.3f} ms, bound "
+          f"{bound(0, flops_d)[0]:.3f} ms, {flops_d / ms_d / 1e9:.1f} "
+          "TFLOP/s over the window's keys")
+    del q_d, got_d, k, v, q
+
+    print("rglru_scan (a, b [2, 16384, 4096])")
+    # decays in [0.9, 1): a chunk of 64 steps keeps 0.1-100% of its start
+    # state, so the carries between chunks decide the result
+    T, dr = N, HYBRID["d"]
+    a = 1.0 - 0.1 * torch.rand((B, T, dr), generator=gen, device=dev)
+    x = torch.randn((B, T, dr), generator=gen, device=dev) * 0.1
+    tol = {bf16: (1e-5, 2 ** -7), f32: (1e-5, 1e-5)}
+    for dt in (bf16, f32):
+        ad, xd = a.to(dt), x.to(dt)
+        for flip in (False, True):
+            aa = torch.flip(ad, dims=(1,)) if flip else ad
+            xx = torch.flip(xd, dims=(1,)) if flip else xd
+            got = rs.rglru_scan(aa, xx)
+            want = rs.rglru_scan_plain(aa, xx)
+            atol, rtol = tol[dt]
+            e = float(((got.float() - want.float()).abs()
+                       - rtol * want.float().abs()).max())
+            print(f"  {dt} {'flipped' if flip else 'forward'}: max_abs_err "
+                  f"{max_err(got, want):.3e} (limit {atol:.0e} + {rtol:.1e} "
+                  "x |element|)")
+            assert e <= atol, f"rglru_scan {dt}: {e} over {atol}"
+            if dt == bf16 and not flip:
+                err_rs = max_err(got, want)
+    for b_, t_, d_ in ((3, 1001, 77), (1, 64, 8)):
+        ae = 1.0 - 0.1 * torch.rand((b_, t_, d_), generator=gen, device=dev)
+        xe = torch.randn((b_, t_, d_), generator=gen, device=dev) * 0.1
+        assert_close(f"f32 ragged B={b_} T={t_} d={d_}", rs.rglru_scan(ae, xe),
+                     rs.rglru_scan_plain(ae, xe), 1e-5, 1e-5)
+    ab, xb = a.to(bf16), x.to(bf16)
+    records["rglru_scan"] = dict(
+        source="src/repro_torch/csrc/rglru_scan.cu",
+        replaces="src/repro/kernels/rglru_scan.py:51", max_abs_err=err_rs,
+        ms=median_ms(lambda: rs.rglru_scan(ab, xb), torch, flush),
+        plain_ms=median_ms(lambda: rs.rglru_scan_plain(ab, xb), torch, flush,
+                           runs=3, warmup=1),
+        library_ms=None,
+        bound=bound(3 * 2 * B * T * dr, 2 * B * T * dr, F32_FLOPS))
+    del a, x, ab, xb
+    return records
+
+
 # ---------------------------------------------------------------------------
 # Phases 4 and 5: decode
 # ---------------------------------------------------------------------------
@@ -957,7 +1190,10 @@ KERNEL_GROUPS = (("gather_pages + scatter_pages", ("page_copy_kernel",)),
                                                     "false>"),)),
                  ("proxy_score", ("proxy_score",)),
                  ("gather_norm", ("gather_norm",)),
-                 ("sparse_attention", ("attention_bf16_tc", "attention_kernel")),
+                 ("sparse_attention (dense + banded)",
+                  ("attention_bf16_tc", "attention_kernel")),
+                 ("rglru_scan", ("chunk_summary", "chunk_carry",
+                                 "chunk_rewrite")),
                  ("scatter_update_multi", ("scatter_kernel",)),
                  ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_",
                                       "nvjet")))
@@ -968,9 +1204,10 @@ def new_profiler(torch):
     return profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
 
-def profile_steps(torch, step, n_steps: int, label: str) -> None:
+def profile_steps(torch, step, n_steps: int, label: str):
     """Device time by kernel group and the device-busy share of a window of
-    ``n_steps`` steps, from a ``torch.profiler`` trace."""
+    ``n_steps`` steps, from a ``torch.profiler`` trace.  Returns (wall
+    ms/step, device ms/step), device None where the trace shows none."""
     torch.cuda.synchronize()
     with new_profiler(torch) as prof:
         t0 = time.perf_counter()
@@ -978,7 +1215,7 @@ def profile_steps(torch, step, n_steps: int, label: str) -> None:
             step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    report_profile(prof, n_steps, wall_us, label)
+    return report_profile(prof, n_steps, wall_us, label)
 
 
 def _matches(name: str, key) -> bool:
@@ -1007,7 +1244,7 @@ def report_profile(prof, n_steps: int, wall_us: float, label: str) -> None:
             others[ev.key] = others.get(ev.key, 0.0) + t
     if busy == 0:
         print(f"  {label} profile: the trace shows no device time")
-        return
+        return wall_us / n_steps / 1e3, None
     print(f"  {label} profile over {n_steps} steps: {wall_us / n_steps / 1e3:.2f}"
           f" ms/step wall, device busy {busy / wall_us:.1%}")
     for name, t in sorted(groups.items(), key=lambda kv: -kv[1]):
@@ -1015,6 +1252,7 @@ def report_profile(prof, n_steps: int, wall_us: float, label: str) -> None:
               f"({t / busy:.1%} of device time)")
     for name, t in sorted(others.items(), key=lambda kv: -kv[1])[:6]:
         print(f"      other: {t / n_steps / 1e3:8.3f} ms/step  {name[:90]}")
+    return wall_us / n_steps / 1e3, busy / n_steps / 1e3
 
 
 def main_path(torch):
@@ -1092,6 +1330,146 @@ def main_path(torch):
     profile_steps(torch, base.step, 2, "NoCache")
     del base
     return launches, cfg, params, strat, proxies
+
+
+# ---------------------------------------------------------------------------
+# Phases 8 and 9: the RecurrentGemma-9B hybrid
+# ---------------------------------------------------------------------------
+
+def _hybrid_setup(torch, dtype: str):
+    """A full-width RecurrentGemma of 3 layers (one period: rglru, rglru,
+    local), its proxies and a B=2 prompt of N - 16 = 16368 rows, so the
+    local layer (k = 2144, q_span 8192) runs the banded grid."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.strategy import SPACache
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(get_arch("recurrentgemma-9b"), n_layers=3,
+                              param_dtype=dtype)
+    params = transformer.init_params(cfg, seed=7)
+    strat = SPACache.from_spec(cfg.spa)
+    proxies = strat.build_proxies(params, cfg)
+    gen = torch.Generator().manual_seed(5)
+    prompt = torch.randint(0, cfg.vocab_size - 1,
+                           (HYBRID["B"], HYBRID["N"] - 16), generator=gen)
+    return cfg, params, strat, proxies, prompt
+
+
+def hybrid_parity(torch):
+    """Phase 8: the 3-layer full-width hybrid through CudaBackend and
+    TorchBackend: f32 free-running (identical tokens), bf16 in lockstep
+    (strict: identical tokens from the same state every step)."""
+    from repro_torch.core import spa_layer
+    from repro_torch.kernels import _lib
+
+    setup = _hybrid_setup(torch, "float32")
+    ks = spa_layer.layer_ks(setup[0], setup[2], HYBRID["N"])
+    print(f"  per-layer k {ks}; the local layer's q_span "
+          f"{spa_layer.q_span_bound(HYBRID['N'], ks[2], 4)}")
+    _lib.reset_launch_counts()
+    decode_parity(torch, 1e-5, setup, setup[2], "hybrid singular")
+    counts = _lib.launch_counts()
+    assert counts["sparse_attention_banded"] > 0 and counts["rglru_scan"] > 0
+    del setup
+    torch.cuda.empty_cache()
+    setup = _hybrid_setup(torch, "bfloat16")
+    lockstep_parity(torch, 2 ** -5, 2 ** -5, setup, setup[2],
+                    "hybrid singular")
+    del setup
+    torch.cuda.empty_cache()
+
+
+def hybrid_main_path(torch):
+    """Phase 9: RecurrentGemma-9B (38 layers, bf16, random weights), B=2,
+    prompt 16128 + gen 256 (N = 16384), DecodeSession.run with SPACache,
+    the confidence scheduler and CudaBackend for HYBRID_STEPS steps; then
+    a profiled window and a few NoCache steps.  Returns the launches of
+    the SPA run (prefill and steps)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import spa_layer
+    from repro_torch.core.strategy import NoCache, SPACache
+    from repro_torch.dlm.session import DecodeSession
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels.sparse_attention import banded_engages
+    from repro_torch.models import transformer
+
+    cfg = get_arch("recurrentgemma-9b")
+    b, n = HYBRID["B"], HYBRID["N"]
+    p_len = n - HYBRID_GEN
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    print(f"  init {cfg.name} bf16 weights ({cfg.param_count() / 1e9:.2f} B "
+          f"parameters): {time.perf_counter() - t0:.2f} s")
+    strat = SPACache.from_spec(cfg.spa)
+    proxies = strat.build_proxies(params, cfg)
+    ks = spa_layer.layer_ks(cfg, strat, n)
+    attn = [l for l in range(cfg.n_layers)
+            if cfg.kind_of_layer(l) == "local"]
+    banded = [l for l in attn if banded_engages(
+        n, cfg.window, True, spa_layer.q_span_bound(
+            n, ks[l], spa_layer.stratify_blocks_for(n, ks[l])))]
+    print(f"  attention layers {attn}: k {[ks[l] for l in attn]}, banded "
+          f"{banded}")
+    gen = torch.Generator().manual_seed(13)
+    prompt = torch.randint(0, cfg.vocab_size - 1, (b, p_len), generator=gen)
+
+    _lib.reset_launch_counts()
+    sess = DecodeSession(params, cfg, strategy=strat, backend="cuda",
+                         spa_proxies=proxies)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess.prefill(prompt, HYBRID_GEN)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    at_prefill = _lib.launch_counts()
+    t0 = time.perf_counter()
+    _, info = sess.run(HYBRID_STEPS)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = _lib.launch_counts()
+    steps = info["steps"]
+    assert steps == HYBRID_STEPS, f"hybrid ran {steps} steps"
+    assert bool(sess.last_info["row_finite"].all()), "non-finite hidden"
+    for name in HYBRID_KERNELS:
+        assert launches[name] > 0, \
+            f"kernel {name} never launched on the hybrid path"
+    per_step = {k: (launches[k] - at_prefill[k]) / steps
+                for k in HYBRID_KERNELS}
+    assert per_step["sparse_attention_banded"] == len(banded)
+    assert per_step["sparse_attention"] == len(attn) - len(banded)
+    assert per_step["rglru_scan"] == 2 * (cfg.n_layers - len(attn))
+    spa_ms = t_run / steps * 1e3
+    print(f"  SPA: prefill {t_prefill:.3f} s, {steps} steps in {t_run:.3f} s"
+          f", {spa_ms:.2f} ms/step; committed "
+          f"{int((sess.state.tokens[:, p_len:] != cfg.mask_id).sum())} of "
+          f"{b * HYBRID_GEN} slots")
+    print(f"  launches at prefill: "
+          f"{ {k: at_prefill[k] for k in HYBRID_KERNELS} }")
+    print(f"  launches per step: {per_step}")
+    spa_wall, spa_dev = profile_steps(torch, sess.step, 3, "hybrid SPA")
+    del sess
+    torch.cuda.empty_cache()
+
+    base = DecodeSession(params, cfg, strategy=NoCache(), backend="cuda")
+    base.prefill(prompt, HYBRID_GEN, use_cache=False)
+    base.step()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(4):
+        base.step()
+    torch.cuda.synchronize()
+    base_ms = (time.perf_counter() - t0) / 4 * 1e3
+    base_wall, base_dev = profile_steps(torch, base.step, 2,
+                                        "hybrid NoCache")
+    print(f"  NoCache: {base_ms:.2f} ms/step over 4 steps; SPA/NoCache "
+          f"wall {spa_ms / base_ms:.3f} (profiled windows "
+          f"{spa_wall / base_wall:.3f})"
+          + (f", device time {spa_dev:.2f} / {base_dev:.2f} ms/step = "
+             f"{spa_dev / base_dev:.3f}" if spa_dev and base_dev else ""))
+    del base, params, proxies
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -1430,9 +1808,12 @@ def main() -> int:
     _lib.load()
     print(f"  kernels built in {_lib.build_seconds():.1f} s")
     (_lib.BUILD_DIR / "nvcc.log").write_text(_lib.build_log())
+    entry = "?"
     for line in _lib.build_log().splitlines():
-        if "registers" in line or "spill" in line:
-            print("  " + line.strip())
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]  # the mangled name
+        elif "registers" in line or "spill" in line:
+            print(f"  {entry}: {line.strip()}")
 
     flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
     records = check_kernels(torch, flush)
@@ -1481,11 +1862,21 @@ def main() -> int:
     lanes = serve_drift_lanes(torch, cfg, params, proxies)
     for name in DRIFT_LANE_KERNELS:
         assert lanes[name] > 0, f"kernel {name} never launched (lanes)"
+    del cfg, params, strat, proxies
+    torch.cuda.empty_cache()
+    print("hybrid decode parity (3-layer full-width RecurrentGemma, B=2, "
+          f"N={HYBRID['N']}, CudaBackend vs TorchBackend)")
+    hybrid_parity(torch)
+    print(f"hybrid main path (RecurrentGemma-9B bf16, B=2, prompt "
+          f"{HYBRID['N'] - HYBRID_GEN} + gen {HYBRID_GEN}, {HYBRID_STEPS} "
+          "SPA steps)")
+    hybrid = hybrid_main_path(torch)
 
     kernels = []
     for name, rec in records.items():
         bound_ms, bound_by = rec.pop("bound")
         path = (launches if name in SESSION_KERNELS
+                else hybrid if name in HYBRID_ONLY_KERNELS
                 else base if name in BASELINE_KERNELS
                 else lanes if name in DRIFT_LANE_KERNELS else served)
         kernels.append(dict(name=name, route="cuda", launches=path[name],

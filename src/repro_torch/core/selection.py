@@ -1,5 +1,8 @@
 """Top-k update selection and batched gather/scatter (Algorithm 2, Phase 1).
 
+``select_topk_drift`` is the paper's global top-k; ``select_stratified``
+the per-sequence-block top-(k/nb) of windowed layers on a long canvas.
+
 ``select_topk_drift`` keeps the JAX package's semantics exactly: scores
 are quantized by ``_SCORE_QUANTUM`` and, among equal quantized scores, the
 LOWEST index wins (``jax.lax.top_k``'s order).  ``torch.topk`` promises no
@@ -36,6 +39,27 @@ def select_topk_drift(scores: torch.Tensor, k: int, *,
     if sort_positions:
         idx = torch.sort(idx, dim=-1).values
     return idx.to(torch.int32)
+
+
+def select_stratified(scores: torch.Tensor, k: int,
+                      n_blocks: int) -> torch.Tensor:
+    """Per-block top-(k / n_blocks) over n_blocks equal sequence blocks
+    (the long-context windowed selection, so a q block of the gathered
+    rows spans a bounded range of positions).  Same quantum and ties as
+    ``select_topk_drift``.  Returns globally sorted [B, k'] int32 with
+    k' = (k // n_blocks) * n_blocks (at least n_blocks)."""
+    b, n = scores.shape
+    n_blocks = max(1, min(n_blocks, n))
+    while n % n_blocks:
+        n_blocks -= 1
+    per = max(1, k // n_blocks)
+    size = n // n_blocks
+    blocked = _stable(scores).reshape(b, n_blocks, size)
+    idx = topk_lowest_first(-blocked, min(per, size))
+    offset = (torch.arange(n_blocks, device=scores.device)
+              * size)[None, :, None]
+    idx = (idx + offset).reshape(b, -1)
+    return torch.sort(idx, dim=-1).values.to(torch.int32)
 
 
 def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -16,13 +16,21 @@ is its page arena [P, page, r] (identification and the proxy commit go
 through the page table), and ``kv_len`` [B] marks each row's valid canvas
 length: rows past it never select and are never attended.
 
+Windowed layers on a canvas longer than 8192 select per stratum
+(``select_stratified``), so the gathered queries of a q block span at most
+``q_span_bound`` positions and attention runs the banded grid where that
+bound makes it engage; the selection then holds ``k_eff`` = (k // nb) * nb
+rows.  Hybrid stacks run their recurrent blocks densely
+(``apply_block_dense``).
+
 Identification variants, as in the JAX package: ``scores_override``
 (the window strategy's locality scores, computed before the layer stack)
 replaces identification; the incremental identifier re-projects only the
 rows whose inputs changed (the previous layer's selection, the step's
-newly committed tokens at layer 0) into ``proxy_now`` and rescores every
-row with the backend's score-only pass; ``AttnOutCache`` runs full
-attention for identification and a sparse FFN.
+newly committed tokens at layer 0; after a recurrent block every row, so
+the next attention layer identifies in full) into ``proxy_now`` and
+rescores every row with the backend's score-only pass; ``AttnOutCache``
+runs full attention for identification and a sparse FFN.
 
 k per layer: the JAX package runs homogeneous all-attention models of
 8 layers or more as a layer scan whose segments share the bucketed k of
@@ -47,6 +55,28 @@ from repro_torch.models.transformer import (apply_block_dense,
                                             layer_window, qkv_project)
 
 Params = Dict[str, Any]
+
+
+def stratify_blocks_for(n: int, k: int) -> int:
+    """Number of strata so that every q block's position span is bounded
+    (windowed layers, n > 8192): each stratum is about 4096 positions."""
+    if n <= 8192:
+        return 0
+    nb = max(1, n // 4096)
+    while n % nb:
+        nb -= 1
+    return nb
+
+
+def q_span_bound(n: int, k: int, nb: int, block_q: int = 512) -> int:
+    """With per-stratum top-(k/nb) selection, any ``block_q`` consecutive
+    selected rows span at most this many positions (0: no bound)."""
+    if nb <= 1:
+        return 0
+    per = max(1, k // nb)
+    stratum = n // nb
+    n_strata_per_block = (block_q + per - 1) // per + 1
+    return n_strata_per_block * stratum
 
 
 def _mask_tail_scores(scores: torch.Tensor, n: int,
@@ -108,10 +138,6 @@ def spa_attn_block(cfg: ModelConfig, kind: str, bp: Params,
     strategy = resolve_strategy(cfg, strategy)
     b, n, d = h.shape
     w = layer_window(cfg, kind)
-    if w > 0 and n > 8192:
-        raise NotImplementedError(
-            "stratified selection for windowed long context waits for a "
-            "later slice")
     if strategy.full_attn_ident:
         return _attn_out_identifier_block(cfg, kind, bp, cache_sl, h, k_upd,
                                           policy, strategy, kv_len=kv_len,
@@ -125,7 +151,15 @@ def spa_attn_block(cfg: ModelConfig, kind: str, bp: Params,
         strategy, bp, proxy_mat, ident_in, cache_sl, scores_override,
         prev_idx, page_table)
     scores = _mask_tail_scores(scores, n, kv_len)
-    idx = selection.select_topk_drift(scores, k_upd)
+    # windowed layers on a long canvas select per stratum, which bounds the
+    # span of a q block and lets attention run the banded grid
+    nb = stratify_blocks_for(n, k_upd) if w > 0 else 0
+    if nb > 1:
+        idx = selection.select_stratified(scores, k_upd, nb)
+        span = q_span_bound(n, k_upd, nb)
+    else:
+        idx = selection.select_topk_drift(scores, k_upd)
+        span = 0
     k_eff = idx.shape[1]
     h_rows, x_rows = strategy.backend.gather_norm(h, idx, bp["norm1"],
                                                   cfg.norm_eps)
@@ -137,7 +171,8 @@ def spa_attn_block(cfg: ModelConfig, kind: str, bp: Params,
     kf, vf, ks, vs = cache_lib.read_kv_for_attention(cache_sl, policy)
     attn = strategy.backend.attention(
         q, kf, vf, k_scale=ks, v_scale=vs, q_positions=idx, window=w,
-        soft_cap=cfg.attn_softcap, banded=False, q_span=0, kv_len=kv_len)
+        soft_cap=cfg.attn_softcap, banded=(w > 0 and span > 0),
+        q_span=span, kv_len=kv_len)
     attn_out = attn.reshape(b, k_eff, cfg.q_dim) @ bp["wo"]
     if cfg.post_norms:
         attn_out = common.rms_norm(attn_out, bp["norm_post_attn"],
@@ -278,4 +313,8 @@ def spa_forward(params: Params, cfg: ModelConfig,
         else:
             h, _ = apply_block_dense(cfg, kind, bp, h, strategy=strategy,
                                      kv_len=kv_len)
+            # a recurrent block recomputes every row, so every input of
+            # the next attention layer changed: full identification there
+            if incremental and kind not in ATTENTION_KINDS:
+                prev = None
     return h, cache

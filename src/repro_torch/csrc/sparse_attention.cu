@@ -1,10 +1,14 @@
-// Gathered-query attention against the whole KV cache (dense grid), with the
-// f32 online softmax of the JAX kernel's _attn_step.  Also serves prefill
-// (contiguous query positions).
+// Gathered-query attention against the KV cache, with the f32 online softmax
+// of the JAX kernel's _attn_step: the dense grid (every kv block) and the
+// banded grid (each q block visits only n_band kv blocks).  Also serves
+// prefill (contiguous query positions).
 //
 // Replaces: src/repro/kernels/sparse_attention.py:sparse_attention, dense grid
 //   (_dense_kernel -> _attn_step), a grid over (batch, head, q block, kv
-//   block) whose sequential kv axis carries (m, l, acc) in VMEM scratch.
+//   block) whose sequential kv axis carries (m, l, acc) in VMEM scratch, and
+//   its banded grid (_banded_kernel): JAX q block i (bq queries) visits kv
+//   blocks starts[i] .. starts[i] + n_band - 1 (of bk keys) only, keys
+//   outside that range dropped besides the masks.
 // Semantics, term for term: s = (q . k) * scale, then soft_cap * tanh(s /
 //   soft_cap) when soft_cap > 0; masked keys (kv_pos >= N or >= kv_len[b], or
 //   |q_pos - kv_pos| > window when window > 0) score NEG_INF = -1e30 and get
@@ -16,11 +20,28 @@
 //   to read K/V once against about 4 us of tensor-core work.  Prefill
 //   (kq = N = 512) needs 17 GFLOP against 67 MB: 20 us of bytes, 17 us of
 //   operations.
+// Bound of the banded grid at RecurrentGemma-9B's decode (B=2, N=16384, 16
+//   query heads on one kv head of 256, window 2048, kq = 4096 stratified
+//   queries, n_band = 26 blocks of 512): operations.  K/V are 33.5 MB, but
+//   every query needs the keys of its window, 2 * 2048 + 1 = 4097 (fewer
+//   at the canvas edges), in 16 heads: 4 * B * kq * H * 4097 * hd = 0.55
+//   TFLOP, 0.56 ms at the bf16 peak against 0.01 ms of bytes.  (The band of
+//   26 blocks is 13312 keys a query, 3.25x what the function needs.)
+//   Prefill (kq = N) is 2.2 TFLOP.
 // Design: a block owns a tile of queries of one head and one batch row and
 //   loops over kv tiles inside the block (the sequential grid axis of the
-//   TPU becomes this loop), so no state crosses blocks.  Two variants:
-//   - bf16 K/V with head_dim 32, 64 or 128 (the main path): 64 queries per
-//     block, one warp per 16; a 64-key K/V tile is staged once in shared
+//   TPU becomes this loop), so no state crosses blocks.  The banded grid is
+//   the same body with the loop bounded to [starts[i] * bk, (starts[i] +
+//   n_band) * bk): a block's 64 (or 16) queries lie inside one JAX q block
+//   (bq is 512, or kq when there is one q block).  Both grids also skip
+//   the tiles past kv_len and, with a window, the tiles outside [least
+//   query position - window, greatest + window] of the block's queries
+//   (kv_range).  A skipped tile is fully masked, and a fully masked tile
+//   leaves (m, l, acc) as they were, so the skip changes no bit and,
+//   where the band covers the window, banded equals dense bit for bit.
+//   Two variants:
+//   - bf16 K/V with head_dim 32, 64, 128 or 256 (the main path): 64 queries
+//     per block, one warp per 16; a 64-key K/V tile is staged once in shared
 //     memory for the 4 warps; S and P V are warp-level tensor-core MMAs
 //     (wmma, f32 accumulators); softmax state and the running output stay
 //     f32; P enters P V as a bf16 hi/lo pair (two MMAs), so it keeps f32
@@ -29,9 +50,12 @@
 //     up to 256: 16 queries per block, 32-key tiles dequantized to f32 in
 //     shared memory, exact f32 FMAs on the CUDA cores.
 //   bf16 K/V of another head_dim, with scales, or not 16-byte aligned are
-//   refused (cudaErrorInvalidValue), never run on a slower path.
+//   refused (cudaErrorInvalidValue), never run on a slower path.  At
+//   head_dim 256 a block takes about 205 KB of shared memory (one block an
+//   SM) and holds 16 Q fragments a warp in registers.
 //   K/V tiles are re-read by every query tile and every head of a GQA group
 //   (from L2 at decode sizes); wgmma/TMA pipelines are later work.
+#include <climits>
 #include <mma.h>
 
 #include "common.cuh"
@@ -41,6 +65,31 @@ namespace {
 constexpr int kBQ = 16;        // queries per block
 constexpr int kBK = 32;        // keys per tile (one warp lane per key)
 constexpr int kThreads = 128;  // 4 warps
+
+// The keys [*lo, *hi) a tile of queries at positions [qmin, qmax] visits:
+// its q block's band on the banded grid (band_start >= 0), else every key,
+// cut to kv_limit and, with a window, to [qmin - window, qmax + window].
+// Every tile outside that range is fully masked for all the tile's
+// queries and would leave (m, l, acc) as they were, so skipping it changes
+// no bit.  *lo is rounded down to a multiple of the tile, so the tiles
+// visited are the dense grid's (band starts are multiples of bk, itself a
+// multiple of the tile).
+__device__ __forceinline__ void kv_range(int band_start, int n_band, int bk,
+                                         int N, int kv_limit, int window,
+                                         int qmin, int qmax, int tile,
+                                         int* lo, int* hi) {
+  long long l = 0, h = min(N, kv_limit);
+  if (band_start >= 0) {
+    l = (long long)band_start * bk;
+    h = min(h, l + (long long)n_band * bk);
+  }
+  if (window > 0) {
+    l = max(l, (long long)qmin - window);
+    h = min(h, (long long)qmax + window + 1);
+  }
+  *lo = (int)(l / tile * tile);
+  *hi = (int)max(h, 0LL);
+}
 
 template <typename T>
 __device__ __forceinline__ float load_kv(const void* p, size_t i) {
@@ -53,7 +102,8 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(
     const void* __restrict__ v, const int* __restrict__ qpos,
     const float* __restrict__ ks, const float* __restrict__ vs,
     const int* __restrict__ kvlen, T* __restrict__ out, int kq, int H, int N,
-    int KVH, int hd, int window, float scale, float soft_cap) {
+    int KVH, int hd, int window, float scale, float soft_cap,
+    const int* __restrict__ starts, int n_band, int bq, int bk) {
   extern __shared__ float smem[];
   float* qs = smem;                        // [kBQ][hd]
   float* kt = qs + kBQ * hd;               // [kBK][hd + 1]
@@ -83,7 +133,15 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(
   }
   __syncthreads();
 
-  for (int kv0 = 0; kv0 < N; kv0 += kBK) {
+  int qmin = INT_MAX, qmax = INT_MIN;
+  for (int i = 0; i < kBQ && q0 + i < kq; ++i) {
+    qmin = min(qmin, qp_s[i]);
+    qmax = max(qmax, qp_s[i]);
+  }
+  int kv_lo, kv_hi;
+  kv_range(starts ? starts[q0 / bq] : -1, n_band, bk, N, kv_limit, window,
+           qmin, qmax, kBK, &kv_lo, &kv_hi);
+  for (int kv0 = kv_lo; kv0 < kv_hi; kv0 += kBK) {
     for (int e = tid; e < kBK * hd; e += kThreads) {
       const int j = e / hd, c = e % hd, p = kv0 + j;
       float kf = 0.f, vf = 0.f;
@@ -160,9 +218,9 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(
 // P_lo = bf16(P - P_hi), and O = P_hi V + P_lo V: V is bf16 already, so
 // the products are exact and P is off by at most 2^-17 of itself, where a
 // single bf16 P would be off by 2^-9 while l sums the unrounded P.
-// head_dim is a compile-time 32, 64 or 128; 16-byte aligned q/k/v; no
-// dequant scales.  About 110 KB of shared memory at head_dim 128: two
-// blocks per SM.
+// head_dim is a compile-time 32, 64, 128 or 256; 16-byte aligned q/k/v; no
+// dequant scales.  About 110 KB of shared memory at head_dim 128 (two
+// blocks per SM), 205 KB at 256 (one).
 constexpr int kWarpsT = 4;
 constexpr int kBQT = 16 * kWarpsT;  // queries per block
 constexpr int kBKT = 64;            // keys per tile
@@ -187,7 +245,8 @@ __global__ void __launch_bounds__(kThreadsT) attention_bf16_tc(
     const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
     const __nv_bfloat16* __restrict__ v, const int* __restrict__ qpos,
     const int* __restrict__ kvlen, __nv_bfloat16* __restrict__ out, int kq,
-    int H, int N, int KVH, int window, float scale, float soft_cap) {
+    int H, int N, int KVH, int window, float scale, float soft_cap,
+    const int* __restrict__ starts, int n_band, int bq, int bk) {
   using namespace nvcuda;
   using bf16 = __nv_bfloat16;
   using L = TcLayout<HD>;
@@ -237,7 +296,21 @@ __global__ void __launch_bounds__(kThreadsT) attention_bf16_tc(
     qp_s[lane] = q0 + lane < kq ? qpos[(size_t)b * kq + q0 + lane] : (1 << 30);
   }
 
-  for (int kv0 = 0; kv0 < N; kv0 += kBKT) {
+  __shared__ int q_rng[2];  // the block's least and greatest query position
+  if (tid == 0) {
+    q_rng[0] = INT_MAX;
+    q_rng[1] = INT_MIN;
+  }
+  __syncthreads();
+  if (lane < 16 && q0 + lane < kq) {
+    atomicMin(&q_rng[0], qp_s[lane]);
+    atomicMax(&q_rng[1], qp_s[lane]);
+  }
+  __syncthreads();
+  int kv_lo, kv_hi;
+  kv_range(starts ? starts[blockIdx.x * kBQT / bq] : -1, n_band, bk, N,
+           kv_limit, window, q_rng[0], q_rng[1], kBKT, &kv_lo, &kv_hi);
+  for (int kv0 = kv_lo; kv0 < kv_hi; kv0 += kBKT) {
     __syncthreads();  // every warp is done with the previous tile
     for (int e = tid; e < kBKT * kHd8; e += kThreadsT) {
       const int j = e / kHd8, c = (e % kHd8) * 8, p = kv0 + j;
@@ -362,7 +435,7 @@ template <int HD>
 int launch_tc(const void* q, const void* k, const void* v, const int* qpos,
               const int* kvlen, void* out, int B, int kq, int H, int N,
               int KVH, int window, float scale, float soft_cap,
-              cudaStream_t s) {
+              const int* starts, int n_band, int bq, int bk, cudaStream_t s) {
   using bf16 = __nv_bfloat16;
   const size_t bytes = TcLayout<HD>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
@@ -373,7 +446,7 @@ int launch_tc(const void* q, const void* k, const void* v, const int* qpos,
   attention_bf16_tc<HD><<<grid, kThreadsT, bytes, s>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), qpos, kvlen, static_cast<bf16*>(out), kq,
-      H, N, KVH, window, scale, soft_cap);
+      H, N, KVH, window, scale, soft_cap, starts, n_band, bq, bk);
   return (int)cudaGetLastError();
 }
 
@@ -386,7 +459,8 @@ template <typename T, typename KV>
 int launch(const void* q, const void* k, const void* v, const int* qpos,
            const float* ks, const float* vs, const int* kvlen, void* out,
            int B, int kq, int H, int N, int KVH, int hd, int window,
-           float scale, float soft_cap, cudaStream_t s) {
+           float scale, float soft_cap, const int* starts, int n_band, int bq,
+           int bk, cudaStream_t s) {
   const size_t bytes = smem_bytes(hd);
   auto kern = attention_kernel<T, KV>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -395,7 +469,8 @@ int launch(const void* q, const void* k, const void* v, const int* qpos,
   const dim3 grid((kq + kBQ - 1) / kBQ, H, B);
   kern<<<grid, kThreads, bytes, s>>>(
       static_cast<const T*>(q), k, v, qpos, ks, vs, kvlen,
-      static_cast<T*>(out), kq, H, N, KVH, hd, window, scale, soft_cap);
+      static_cast<T*>(out), kq, H, N, KVH, hd, window, scale, soft_cap,
+      starts, n_band, bq, bk);
   return (int)cudaGetLastError();
 }
 
@@ -404,6 +479,9 @@ int launch(const void* q, const void* k, const void* v, const int* qpos,
 // q [B,kq,H,hd]; k/v [B,N,KVH,hd] (q's dtype, or int8 with ks/vs [B,N,KVH]
 // f32 scales; ks == vs == nullptr means unit scales); qpos [B,kq] int32;
 // kvlen [B] int32 or nullptr (= N); out [B,kq,H,hd] in q's dtype.
+// starts == nullptr: the dense grid.  Else the banded grid: starts
+// [ceil(kq / bq)] int32 kv-block indices (of bk keys), n_band blocks each;
+// bq must be a multiple of 64 or at least kq, bk a multiple of 64.
 extern "C" int spa_sparse_attention(const void* q, const void* k,
                                     const void* v, const void* qpos,
                                     const void* ks, const void* vs,
@@ -411,10 +489,15 @@ extern "C" int spa_sparse_attention(const void* q, const void* k,
                                     int kq, int H, int N, int KVH, int hd,
                                     int dtype, int quant, int window,
                                     float scale, float soft_cap,
-                                    void* stream) {
+                                    const void* starts, int n_band, int bq,
+                                    int bk, void* stream) {
   if (B <= 0 || kq <= 0) return 0;
   if (N <= 0 || KVH <= 0 || H % KVH || hd <= 0 || hd > 256 ||
       (quant && (!ks || !vs)))
+    return (int)cudaErrorInvalidValue;
+  const int* st = static_cast<const int*>(starts);
+  if (st && (n_band <= 0 || bq <= 0 || bk <= 0 || bk % kBKT ||
+             (bq % kBQT && bq < kq)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* qp = static_cast<const int*>(qpos);
@@ -425,24 +508,28 @@ extern "C" int spa_sparse_attention(const void* q, const void* k,
     if (quant)
       return launch<__nv_bfloat16, int8_t>(q, k, v, qp, kss, vss, kvl, out,
                                            B, kq, H, N, KVH, hd, window,
-                                           scale, soft_cap, s);
+                                           scale, soft_cap, st, n_band, bq,
+                                           bk, s);
     const bool aligned = ((reinterpret_cast<uintptr_t>(q) |
                            reinterpret_cast<uintptr_t>(k) |
                            reinterpret_cast<uintptr_t>(v)) & 15) == 0;
-    if (ks || !aligned || !(hd == 32 || hd == 64 || hd == 128))
+    if (ks || !aligned ||
+        !(hd == 32 || hd == 64 || hd == 128 || hd == 256))
       return (int)cudaErrorInvalidValue;
-    auto tc = hd == 32 ? launch_tc<32> : hd == 64 ? launch_tc<64>
-                                                  : launch_tc<128>;
+    auto tc = hd == 32    ? launch_tc<32>
+              : hd == 64  ? launch_tc<64>
+              : hd == 128 ? launch_tc<128>
+                          : launch_tc<256>;
     return tc(q, k, v, qp, kvl, out, B, kq, H, N, KVH, window, scale,
-              soft_cap, s);
+              soft_cap, st, n_band, bq, bk, s);
   }
   if (dtype == spa::kF32) {
     return quant ? launch<float, int8_t>(q, k, v, qp, kss, vss, kvl, out, B,
                                          kq, H, N, KVH, hd, window, scale,
-                                         soft_cap, s)
+                                         soft_cap, st, n_band, bq, bk, s)
                  : launch<float, float>(q, k, v, qp, kss, vss, kvl, out, B, kq,
                                         H, N, KVH, hd, window, scale, soft_cap,
-                                        s);
+                                        st, n_band, bq, bk, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -5,8 +5,10 @@
                      above rank 256), the projection-free
                      ``cosine_drift`` (dense or paged), and
                      ``gather_norm``, the fused gather + rms_norm epilogue
-  sparse_attention — gathered-query attention vs the full KV cache
-                     (dense grid; also serves prefill)
+  sparse_attention — gathered-query attention vs the KV cache (dense
+                     grid, and the banded grid of windowed layers on a
+                     long canvas; also serves prefill)
+  rglru_scan       — the RG-LRU linear recurrence (a chunked scan)
   scatter_update   — in-place multi-buffer row commits, and the paged
                      cache copies (gather/scatter pages, paged row commits)
 

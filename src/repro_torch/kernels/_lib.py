@@ -33,7 +33,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 KERNELS = ("proxy_score", "gather_norm", "sparse_attention",
            "scatter_update_multi", "gather_pages", "scatter_pages",
            "scatter_rows_paged", "proxy_score_paged", "cosine_drift",
-           "cosine_drift_paged", "proxy_score_wide")
+           "cosine_drift_paged", "proxy_score_wide",
+           "sparse_attention_banded", "rglru_scan")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
@@ -46,7 +47,7 @@ _SIGNATURES = {
     "spa_gather_norm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "spa_sparse_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _I, _I,
-                             _F, _F, _P],
+                             _F, _F, _P, _I, _I, _I, _P],
     "spa_scatter_update_multi": [_P, _I, _I, _I, _I,
                                  _P, _P, _P, _P, _P, _P, _P, _P],
     "spa_proxy_score_paged": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
@@ -59,6 +60,8 @@ _SIGNATURES = {
     "spa_cosine_drift": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "spa_cosine_drift_paged": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _F, _P],
+    "spa_rglru_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "spa_rglru_chunk": [],
 }
 
 _state: Dict[str, object] = {"lib": None, "build_seconds": None,

@@ -64,7 +64,9 @@ class KernelBackend:
     def attention(self, q, k, v, *, k_scale=None, v_scale=None,
                   q_positions=None, window: int = 0, soft_cap: float = 0.0,
                   banded: bool = False, q_span: int = 0, kv_len=None):
-        """Phase 2: (gathered-)query attention vs the KV cache."""
+        """Phase 2: (gathered-)query attention vs the KV cache; the banded
+        grid where ``banded`` and ``q_span`` make it engage (``q_positions``
+        None: a contiguous canvas, whose q blocks span ``min(512, Sq)``)."""
         raise NotImplementedError
 
     def scatter_multi(self, buffers: Dict[str, torch.Tensor], idx,
@@ -126,12 +128,11 @@ class TorchBackend(KernelBackend):
                   q_positions=None, window=0, soft_cap=0.0, banded=False,
                   q_span=0, kv_len=None):
         q_positions, q_span = _positions(q, q_positions, q_span)
-        if sa.banded_engages(k.shape[1], window, banded, q_span):
-            raise NotImplementedError(
-                "the banded attention grid waits for a later slice")
+        band = sa.band_for(q_positions, k.shape[1], window, q_span,
+                           banded=banded)
         return sa.sparse_attention_plain(
             q, k, v, q_positions, k_scale=k_scale, v_scale=v_scale,
-            window=window, soft_cap=soft_cap, kv_len=kv_len)
+            window=window, soft_cap=soft_cap, kv_len=kv_len, band=band)
 
     def scatter_multi(self, buffers, idx, rows):
         names = sorted(rows)
@@ -220,7 +221,7 @@ def _positions(q, q_positions, q_span):
         return q_positions, q_span
     b, sq = q.shape[:2]
     pos = torch.arange(sq, device=q.device, dtype=torch.int32)
-    return pos.expand(b, sq), min(sa.BLOCK_K, sq)
+    return pos.expand(b, sq), min(sa.BLOCK_Q, sq)
 
 
 TORCH_BACKEND = TorchBackend()

@@ -1,7 +1,8 @@
-"""Phase-2 kernel: gathered-query attention against the whole KV cache.
+"""Phase-2 kernel: gathered-query attention against the KV cache.
 
-Replaces the dense grid of ``repro/kernels/sparse_attention.py:
-sparse_attention`` (``_dense_kernel`` -> ``_attn_step``).  Queries at
+Replaces both grids of ``repro/kernels/sparse_attention.py:
+sparse_attention``: the dense grid (``_dense_kernel`` -> ``_attn_step``)
+and the banded grid (``_banded_kernel``).  Queries at
 arbitrary positions ``q_pos`` attend to every cached key with an f32
 online softmax: GQA (kv head = q head // G), the scale applied after the
 QK dot, optional ``soft_cap * tanh``, masks for per-row ``kv_len`` and
@@ -10,26 +11,39 @@ QK dot, optional ``soft_cap * tanh``, masks for per-row ``kv_len`` and
 ``NEG_INF``, masked probabilities forced to 0 and ``l == 0`` rows output 0.
 
 The same function serves prefill (contiguous ``q_pos = arange``), so the
-port has one attention implementation and no library call.  The banded
-grid (windowed, n > 8192) waits for a later slice: the wrapper raises when
-it would engage.
+port has one attention implementation and no library call.
+
+Banded grid (``banded`` with a ``q_span`` bound, windowed layers on a long
+canvas, where :func:`banded_engages` holds, as in the JAX kernel): the
+queries form JAX q blocks of ``bq = min(512, kq)`` and the keys kv blocks
+of ``bk = min(512, N)``; q block ``i`` visits only the ``n_band =
+band_width(q_span, window, bk, n_kb)`` kv blocks from ``starts[i] =
+banded_starts(...)`` (the start is the minimum over the whole ``[B, bq]``
+tile, so the batch rows share it).  Keys outside that range are dropped
+even where the window would admit them (a q block wider than ``q_span``),
+exactly as in JAX; where the band covers the window the result is the
+dense grid's.
 
 ``sparse_attention_plain`` is the block-structured PyTorch version
-(``flash_attention``'s kv-block loop, ``block_k = 512``); the wrapper takes
-it for CPU tensors and launches ``csrc/sparse_attention.cu`` for CUDA ones.
-On the card, bf16 K/V take head_dim 32, 64 or 128 (tensor-core tiles);
-other bf16 shapes raise.
+(``flash_attention``'s kv-block loop, ``block_k = 512``, per q block on the
+banded grid); the wrapper takes it for CPU tensors and launches
+``csrc/sparse_attention.cu`` for CUDA ones, counted as
+``sparse_attention`` (dense grid) or ``sparse_attention_banded``.  On the
+card, bf16 K/V take head_dim 32, 64, 128 or 256 (tensor-core tiles); other
+bf16 shapes raise.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _lib
 
 NEG_INF = -1e30
+BLOCK_Q = 512          # the JAX q block (the banded grid's start unit)
 BLOCK_K = 512          # the JAX kv block; selects the banded condition
+Band = Tuple[torch.Tensor, int, int]   # (starts [n_qb] int32, n_band, bq)
 
 
 def _deq(x: torch.Tensor, scale: Optional[torch.Tensor]) -> torch.Tensor:
@@ -45,25 +59,48 @@ def sparse_attention_plain(q: torch.Tensor, k: torch.Tensor,
                            v_scale: Optional[torch.Tensor] = None,
                            window: int = 0, soft_cap: float = 0.0,
                            kv_len: Optional[torch.Tensor] = None,
-                           block_k: int = BLOCK_K) -> torch.Tensor:
+                           block_k: int = BLOCK_K,
+                           band: Optional[Band] = None) -> torch.Tensor:
     """q: [B, kq, H, hd]; k/v: [B, N, KVH, hd]; q_pos: [B, kq];
     k_scale/v_scale: [B, N, KVH] or None; kv_len: [B] or None.
-    Returns [B, kq, H, hd] in q.dtype."""
+    ``band`` (from :func:`band_for`) runs the banded grid: q block ``i``
+    (``bq`` queries) sees only kv blocks ``starts[i] .. starts[i] + n_band
+    - 1``.  Returns [B, kq, H, hd] in q.dtype."""
     b, sq, h, d = q.shape
     skv, kvh = k.shape[1], k.shape[2]
     assert h % kvh == 0, (h, kvh)
-    g = h // kvh
-    scale = 1.0 / (d ** 0.5)
-    qr = q.reshape(b, sq, kvh, g, d).float()
-    qpos = q_pos.long()
-    m = torch.full((b, sq, kvh, g), NEG_INF, dtype=torch.float32,
-                   device=q.device)
-    l = torch.zeros((b, sq, kvh, g), dtype=torch.float32, device=q.device)
-    acc = torch.zeros((b, sq, kvh, g, d), dtype=torch.float32,
-                      device=q.device)
     bk = min(block_k, skv)
-    for s0 in range(0, skv, bk):
-        s1 = min(s0 + bk, skv)
+    qr = q.reshape(b, sq, kvh, h // kvh, d).float()
+    qpos = q_pos.long()
+    if band is None:
+        out = _attend_plain(qr, qpos, k, v, k_scale, v_scale, 0, skv, bk,
+                            window, soft_cap, kv_len)
+    else:
+        starts, n_band, bq = band
+        outs = []
+        for i, st in enumerate(starts.tolist()):
+            q0, q1 = i * bq, min((i + 1) * bq, sq)
+            lo = st * bk
+            outs.append(_attend_plain(
+                qr[:, q0:q1], qpos[:, q0:q1], k, v, k_scale, v_scale, lo,
+                min(skv, lo + n_band * bk), bk, window, soft_cap, kv_len))
+        out = torch.cat(outs, dim=1)
+    return out.reshape(b, sq, h, d).to(q.dtype)
+
+
+def _attend_plain(qr, qpos, k, v, k_scale, v_scale, kv_lo: int, kv_hi: int,
+                  bk: int, window: int, soft_cap: float, kv_len):
+    """Online softmax of qr [B, sq, KVH, G, hd] (f32) over the keys
+    [kv_lo, kv_hi) in blocks of bk.  Returns [B, sq, KVH, G, hd] f32."""
+    b, sq, kvh, g, d = qr.shape
+    scale = 1.0 / (d ** 0.5)
+    m = torch.full((b, sq, kvh, g), NEG_INF, dtype=torch.float32,
+                   device=qr.device)
+    l = torch.zeros((b, sq, kvh, g), dtype=torch.float32, device=qr.device)
+    acc = torch.zeros((b, sq, kvh, g, d), dtype=torch.float32,
+                      device=qr.device)
+    for s0 in range(kv_lo, kv_hi, bk):
+        s1 = min(s0 + bk, kv_hi)
         kf = _deq(k[:, s0:s1], None if k_scale is None
                   else k_scale[:, s0:s1])
         vf = _deq(v[:, s0:s1], None if v_scale is None
@@ -71,9 +108,9 @@ def sparse_attention_plain(q: torch.Tensor, k: torch.Tensor,
         scores = torch.einsum("bqhgd,bkhd->bqhgk", qr, kf) * scale
         if soft_cap > 0.0:
             scores = soft_cap * torch.tanh(scores / soft_cap)
-        kpos = torch.arange(s0, s1, device=q.device)
+        kpos = torch.arange(s0, s1, device=qr.device)
         mask = torch.ones((b, sq, s1 - s0), dtype=torch.bool,
-                          device=q.device)
+                          device=qr.device)
         if kv_len is not None:
             mask = mask & (kpos[None, None, :] < kv_len.long()[:, None, None])
         if window > 0:
@@ -82,7 +119,9 @@ def sparse_attention_plain(q: torch.Tensor, k: torch.Tensor,
         mask5 = mask[:, :, None, None, :]
         scores = torch.where(mask5, scores, NEG_INF)
         m_new = torch.maximum(m, scores.amax(dim=-1))
-        p = torch.exp(scores - m_new[..., None])
+        # masked entries enter exp as 0, not as -1e30 (the CPU's exp is
+        # several times slower where it underflows); they are zeroed below
+        p = torch.exp(torch.where(mask5, scores - m_new[..., None], 0.0))
         p = torch.where(mask5, p, 0.0)
         alpha = torch.exp(m - m_new)
         alpha = torch.where(m <= NEG_INF / 2, 0.0, alpha)
@@ -91,8 +130,7 @@ def sparse_attention_plain(q: torch.Tensor, k: torch.Tensor,
                                                     p, vf)
         m = m_new
     l_safe = torch.where(l == 0.0, 1.0, l)
-    out = acc / l_safe[..., None]
-    return out.reshape(b, sq, h, d).to(q.dtype)
+    return acc / l_safe[..., None]
 
 
 def banded_engages(n: int, window: int, banded: bool, q_span: int,
@@ -103,6 +141,43 @@ def banded_engages(n: int, window: int, banded: bool, q_span: int,
             and n > q_span + 2 * window + 2 * bk)
 
 
+def band_width(q_span: int, window: int, block_k: int, n_kb: int) -> int:
+    """Number of kv blocks a banded q block must visit (static)."""
+    return min((q_span + 2 * window) // block_k + 2, n_kb)
+
+
+def banded_starts(qpos_r: torch.Tensor, window: int, skv_p: int,
+                  n_band: int, block_k: int) -> torch.Tensor:
+    """First kv-block index per q block for the banded grid.
+
+    qpos_r: [B, n_qb, bq] padded query positions (pad value >= 2**30).
+    The start is per q BLOCK: the minimum over the whole [B, bq] tile.
+    Pads never win the minimum; an all-pad block clips to the last valid
+    start (its rows are discarded).  Returns [n_qb] int32."""
+    pmin = qpos_r.amin(dim=(0, 2)).long()
+    start = torch.clamp(pmin - window, 0, skv_p - n_band * block_k)
+    return torch.div(start, block_k, rounding_mode="floor").to(torch.int32)
+
+
+def band_for(q_pos: torch.Tensor, n: int, window: int, q_span: int, *,
+             banded: bool = True, block_q: int = BLOCK_Q,
+             block_k: int = BLOCK_K) -> Optional[Band]:
+    """The banded grid's (starts, n_band, bq) for q_pos [B, kq], with the
+    JAX kernel's padding (pad positions 2^30) and formulas; None where
+    the banded grid does not engage (:func:`banded_engages`)."""
+    if not banded_engages(n, window, banded, q_span, block_k):
+        return None
+    b, kq = q_pos.shape
+    bq, bk = min(block_q, kq), min(block_k, n)
+    n_qb, n_kb = -(-kq // bq), -(-n // bk)
+    qp = torch.nn.functional.pad(q_pos.to(torch.int32),
+                                 (0, n_qb * bq - kq), value=2 ** 30)
+    n_band = band_width(q_span, window, bk, n_kb)
+    starts = banded_starts(qp.reshape(b, n_qb, bq), window, n_kb * bk,
+                           n_band, bk)
+    return starts, n_band, bq
+
+
 def sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      q_pos: torch.Tensor, *,
                      k_scale: Optional[torch.Tensor] = None,
@@ -110,18 +185,16 @@ def sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      window: int = 0, soft_cap: float = 0.0,
                      banded: bool = False, q_span: int = 0,
                      kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Gathered-query attention, dense grid (see module docstring)."""
+    """Gathered-query attention, dense or banded grid (module docstring)."""
     if (k_scale is None) != (v_scale is None):
         raise ValueError("pass both k_scale and v_scale, or neither")
     n = k.shape[1]
-    if banded_engages(n, window, banded, q_span):
-        raise NotImplementedError(
-            "the banded sparse_attention grid (windowed, long context) is "
-            "not ported yet; it waits for a later slice")
+    band = band_for(q_pos, n, window, q_span, banded=banded)
     if q.device.type == "cpu":
         return sparse_attention_plain(q, k, v, q_pos, k_scale=k_scale,
                                       v_scale=v_scale, window=window,
-                                      soft_cap=soft_cap, kv_len=kv_len)
+                                      soft_cap=soft_cap, kv_len=kv_len,
+                                      band=band)
     _lib.require_cuda(q, k, v, q_pos, k_scale, v_scale, kv_len)
     b, kq, h, hd = q.shape
     kvh = k.shape[2]
@@ -147,14 +220,17 @@ def sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         vs = v_scale.to(torch.float32).contiguous()
     if q.dtype == torch.bfloat16 and not quant:
         # bf16 K/V run only on the tensor-core tiles
-        if hd not in (32, 64, 128) or ks is not None:
-            raise ValueError("bf16 K/V attention takes head_dim 32, 64 or "
-                             f"128 and no scales, got head_dim {hd}, "
+        if hd not in (32, 64, 128, 256) or ks is not None:
+            raise ValueError("bf16 K/V attention takes head_dim 32, 64, 128 "
+                             f"or 256 and no scales, got head_dim {hd}, "
                              f"scales {ks is not None}")
         if any(t.data_ptr() % 16 for t in (q, k, v)):
             raise ValueError("bf16 K/V attention needs 16-byte aligned "
                              "q, k and v")
     kvl = None if kv_len is None else kv_len.to(torch.int32).contiguous()
+    starts, n_band, bq = (None, 0, 0) if band is None else band
+    if starts is not None:
+        starts = starts.to(torch.int32).contiguous()
     out = torch.empty((b, kq, h, hd), dtype=q.dtype, device=q.device)
     lib = _lib.load()
     _lib.check(lib.spa_sparse_attention(
@@ -164,6 +240,8 @@ def sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         None if kvl is None else kvl.data_ptr(), out.data_ptr(),
         b, kq, h, n, kvh, hd, _lib.dtype_code(q.dtype), int(quant),
         int(window), 1.0 / (hd ** 0.5), float(soft_cap),
-        _lib.stream_ptr(q)), "sparse_attention")
-    _lib.LAUNCHES["sparse_attention"] += 1
+        None if starts is None else starts.data_ptr(), n_band, bq,
+        min(BLOCK_K, n), _lib.stream_ptr(q)), "sparse_attention")
+    _lib.LAUNCHES["sparse_attention" if band is None
+                  else "sparse_attention_banded"] += 1
     return out

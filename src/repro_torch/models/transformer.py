@@ -1,12 +1,14 @@
 """Dense masked-diffusion transformer assembled from a ``ModelConfig``.
 
 The port of the JAX package's ``models/transformer.py`` for attention
-layer kinds with a dense FFN (LLaDA / InternLM2 shapes).  Parameters keep
-the JAX layout: a plain dict with ``embed``, ``final_norm``, ``lm_head``
-(when untied) and per-kind STACKED blocks ``blocks[kind][name]`` with a
-leading ``[L_kind]`` axis, so the JAX package's weights carry over leaf for
-leaf (``repro_torch.weights``).  MoE, the recurrent mixers and the stub
-frontends wait for later slices.
+layer kinds with a dense FFN (LLaDA / InternLM2 shapes) and the RG-LRU
+hybrid (RecurrentGemma).  Parameters keep the JAX layout: a plain dict
+with ``embed``, ``final_norm``, ``lm_head`` (when untied) and per-kind
+STACKED blocks ``blocks[kind][name]`` with a leading ``[L_kind]`` axis, so
+the JAX package's weights carry over leaf for leaf
+(``repro_torch.weights``).  MoE, the SSD mixer and the stub frontends wait
+for later slices.  The layer loop is unrolled, so a hybrid needs no period
+plan (JAX scans a period only to compile it as one loop).
 
 Attention goes through the strategy's ``KernelBackend`` (the CUDA kernel on
 the card) with contiguous query positions, so prefill and the SPA step
@@ -20,9 +22,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import (ATTENTION_KINDS, ATTN_LOCAL, ATTN_SWA,
-                                      ModelConfig)
+                                      RGLRU, ModelConfig)
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
-from repro_torch.models import common, ffn
+from repro_torch.models import common, ffn, rglru
 
 Params = Dict[str, Any]
 
@@ -33,10 +35,10 @@ def layer_window(cfg: ModelConfig, kind: str) -> int:
 
 def _check_supported(cfg: ModelConfig) -> None:
     kinds = set(cfg.layer_kinds)
-    if not kinds <= set(ATTENTION_KINDS):
+    if not kinds <= set(ATTENTION_KINDS) | {RGLRU}:
         raise NotImplementedError(
-            f"layer kinds {sorted(kinds - set(ATTENTION_KINDS))} wait for a "
-            "later slice (recurrent mixers)")
+            f"layer kinds {sorted(kinds - set(ATTENTION_KINDS) - {RGLRU})} "
+            "wait for a later slice (the SSD mixer)")
     if cfg.moe is not None:
         raise NotImplementedError("MoE blocks wait for a later slice")
     if cfg.frontend is not None or cfg.max_position:
@@ -78,14 +80,20 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     for kind in sorted(set(cfg.layer_kinds)):
         lk = cfg.n_layers_of_kind(kind)
         gen.manual_seed(seed + zlib.crc32(kind.encode()) % (2 ** 31))
-        bp: Params = {
-            "norm1": zeros(lk, d),
-            "wq": common.dense_init_(empty(lk, d, cfg.q_dim), gen),
-            "wk": common.dense_init_(empty(lk, d, cfg.kv_dim), gen),
-            "wv": common.dense_init_(empty(lk, d, cfg.kv_dim), gen),
-            "wo": common.dense_init_(empty(lk, cfg.q_dim, d), gen),
-            "norm2": zeros(lk, d),
-        }
+        if kind == RGLRU:
+            bp: Params = {
+                "norm1": zeros(lk, d),
+                "mixer": rglru.init_rglru_params(cfg, lk, dtype, dev, gen),
+                "norm2": zeros(lk, d)}
+        else:
+            bp = {
+                "norm1": zeros(lk, d),
+                "wq": common.dense_init_(empty(lk, d, cfg.q_dim), gen),
+                "wk": common.dense_init_(empty(lk, d, cfg.kv_dim), gen),
+                "wv": common.dense_init_(empty(lk, d, cfg.kv_dim), gen),
+                "wo": common.dense_init_(empty(lk, cfg.q_dim, d), gen),
+                "norm2": zeros(lk, d),
+            }
         if cfg.d_ff > 0:
             f = cfg.d_ff
             if cfg.act in ("silu", "gelu"):
@@ -166,9 +174,12 @@ def apply_block_dense(cfg: ModelConfig, kind: str, bp: Params,
                       kv_len: Optional[torch.Tensor] = None
                       ) -> Tuple[torch.Tensor,
                                  Optional[Dict[str, torch.Tensor]]]:
-    """One attention block over the full sequence.  Returns (h_out,
-    cache entries or None); entries hold the raw k/v/h (+ proxy) tensors."""
+    """One block over the full sequence.  Returns (h_out, cache entries or
+    None); an attention block's entries hold the raw k/v/h (+ proxy)
+    tensors, a recurrent block keeps no cache."""
     from repro_torch.core.strategy import resolve_strategy
+    if kind == RGLRU:
+        return _apply_rglru_block(cfg, bp, h), None
     if kind not in ATTENTION_KINDS:
         raise NotImplementedError(f"layer kind {kind!r}")
     strat = resolve_strategy(cfg, strategy)
@@ -197,6 +208,23 @@ def apply_block_dense(cfg: ModelConfig, kind: str, bp: Params,
         if prox is not None:
             entries["proxy"] = prox
     return h_out, entries
+
+
+def _apply_rglru_block(cfg: ModelConfig, bp: Params,
+                       h: torch.Tensor) -> torch.Tensor:
+    """norm1 -> RG-LRU mixer -> post-attn norm -> residual -> norm2 ->
+    FFN -> post-FFN norm -> residual."""
+    x = common.rms_norm(h, bp["norm1"], cfg.norm_eps)
+    mix = rglru.apply_rglru(bp["mixer"], x, cfg)
+    if cfg.post_norms:
+        mix = common.rms_norm(mix, bp["norm_post_attn"], cfg.norm_eps)
+    h_mid = h + mix
+    y = common.rms_norm(h_mid, bp["norm2"], cfg.norm_eps)
+    ffn_out = ffn.apply_ffn(bp["ffn"], y, cfg.act)
+    if cfg.post_norms:
+        ffn_out = common.rms_norm(ffn_out, bp["norm_post_ffn"],
+                                  cfg.norm_eps)
+    return h_mid + ffn_out
 
 
 def forward_hidden(params: Params, cfg: ModelConfig, h: torch.Tensor, *,

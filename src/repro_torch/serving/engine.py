@@ -36,6 +36,10 @@ slot and pages.
 The prefix cache, the host-RAM tier, fault injection and supervision, SLO
 scheduling, telemetry, profiling and the streaming front end wait for
 later slices: their constructor arguments raise ``NotImplementedError``.
+So does a model with recurrent layers (the RG-LRU hybrid): serving it in
+lanes waits for a later slice, since its bidirectional recurrence reaches
+past a short row's ``kv_len`` and stratified selection spends its quotas
+there.
 """
 from __future__ import annotations
 
@@ -47,7 +51,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTENTION_KINDS, ModelConfig
 from repro_torch.core.cache import PagedCache, n_logical_pages
 from repro_torch.core.strategy import CacheStrategy, resolve_strategy
 from repro_torch.device import DeviceLike, check_device, resolve_device
@@ -146,6 +150,12 @@ class ServingEngine:
                 raise NotImplementedError(
                     f"{name}= belongs to a part of the serving engine that "
                     f"waits for a later slice of the port")
+        recurrent = sorted(set(cfg.layer_kinds) - set(ATTENTION_KINDS))
+        if recurrent:
+            raise NotImplementedError(
+                f"serving a model with {recurrent} layers ({cfg.name}) waits "
+                "for a later slice of the port; decode it through "
+                "DecodeSession")
         self.device = resolve_device(device)
         check_device(params["embed"], self.device, "params")
         self.cfg = cfg

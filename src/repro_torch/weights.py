@@ -3,7 +3,8 @@
 The JAX package's parameter pytree, mapped to numpy
 (``jax.tree.map(np.asarray, params)``), has the layout the port uses:
 ``embed``, ``final_norm``, ``lm_head`` (untied models) and per-kind
-stacked blocks ``blocks[kind][name]`` with a leading ``[L_kind]`` axis.
+stacked blocks ``blocks[kind][name]`` with a leading ``[L_kind]`` axis
+(nested dicts too: an RG-LRU block's ``mixer`` and every block's ``ffn``).
 ``from_numpy_params`` turns it into the port's parameters leaf for leaf
 (dtype kept, bfloat16 included), so both packages run the same weights;
 ``from_numpy_proxies`` does the same for a ``{kind: [Lk, d, r]}`` stack of
@@ -16,7 +17,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTENTION_KINDS, RGLRU, ModelConfig
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
 
 _NUMPY_DTYPES = {"float32": torch.float32, "float16": torch.float16,
@@ -58,10 +59,19 @@ def from_numpy_params(tree: Dict[str, Any], cfg: ModelConfig,
                         f"says {want}")
     for kind, bp in params["blocks"].items():
         lk = cfg.n_layers_of_kind(kind)
-        if bp["wq"].shape != (lk, cfg.d_model, cfg.q_dim):
-            raise ValueError(f"blocks[{kind!r}].wq "
-                             f"{tuple(bp['wq'].shape)} does not match "
-                             f"{cfg.name}")
+        if kind in ATTENTION_KINDS:
+            leaf, want_shape = "wq", (lk, cfg.d_model, cfg.q_dim)
+            got = bp["wq"]
+        elif kind == RGLRU:
+            d_rnn = (cfg.rglru.d_rnn if cfg.rglru else None) or cfg.d_model
+            leaf, want_shape = "mixer.w_in", (lk, cfg.d_model, d_rnn)
+            got = bp["mixer"]["w_in"]
+        else:
+            raise NotImplementedError(f"layer kind {kind!r} waits for a "
+                                      "later slice of the port")
+        if got.shape != want_shape:
+            raise ValueError(f"blocks[{kind!r}].{leaf} {tuple(got.shape)} "
+                             f"does not match {cfg.name}")
     return params
 
 

@@ -24,12 +24,17 @@ so must ``cosine_drift_paged`` with ``cosine_drift``.  ``cosine_drift``
 sums in f32 like its plain version, in another order: 1e-5 absolute for
 every pairing of f32 and bf16 operands (the inputs are the same values).
 The wide-rank ``proxy_score`` (r > 256: projection kernel, then
-``cosine_drift``) keeps ``proxy_score``'s tolerances.
+``cosine_drift``) keeps ``proxy_score``'s tolerances.  The banded
+attention grid keeps the attention tolerances and equals the dense grid
+bit for bit where its band covers the window; ``rglru_scan`` agrees with
+the sequential loop within 1e-5 in f32 (its chunk carries reassociate)
+and one bf16 ulp of each element in bf16.
 """
 import pytest
 import torch
 
 from repro_torch.kernels import proxy_score as tps
+from repro_torch.kernels import rglru_scan as trs
 from repro_torch.kernels import scatter_update as tsc
 from repro_torch.kernels import sparse_attention as tsa
 
@@ -237,3 +242,118 @@ def test_cuda_wide_proxy_score_matches_plain(dtype):
     assert torch.equal(s_pg, s_d) and torch.equal(p_pg, p_d)
     torch.cuda.synchronize()
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.int8])
+def test_cuda_banded_attention_matches_plain(dtype):
+    """The banded grid against the plain banded version (MQA at head_dim
+    256, GQA at 64, int8 K/V with scales at 256, ragged kq and N), bit for
+    bit equal to the dense grid where the band covers the window, and
+    counted as ``sparse_attention_banded``."""
+    _cuda_or_skip()
+    from repro_torch.kernels import _lib
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(4)
+    qdt = torch.float32 if dtype == torch.int8 else dtype
+    for b, n, kq, h, kvh, hd in ((2, 4100, 700, 4, 1, 256),
+                                 (1, 4096, 1024, 4, 2, 64)):
+        q = torch.randn(b, kq, h, hd, generator=g, device=dev).to(qdt)
+        if dtype == torch.int8:
+            k = torch.randint(-127, 128, (b, n, kvh, hd), generator=g,
+                              device=dev, dtype=torch.int8)
+            v = torch.randint(-127, 128, (b, n, kvh, hd), generator=g,
+                              device=dev, dtype=torch.int8)
+            ks = torch.rand(b, n, kvh, generator=g, device=dev) * 0.02
+            vs = torch.rand(b, n, kvh, generator=g, device=dev) * 0.02
+        else:
+            k = torch.randn(b, n, kvh, hd, generator=g, device=dev).to(dtype)
+            v = torch.randn(b, n, kvh, hd, generator=g, device=dev).to(dtype)
+            ks = vs = None
+        n0 = min(512, kq)
+        pos = torch.cat([
+            torch.sort(torch.randint(0, 1500, (b, n0), generator=g,
+                                     device=dev)).values,
+            torch.sort(torch.randint(2000, 3000, (b, kq - n0), generator=g,
+                                     device=dev)).values], dim=1)
+        kw = dict(k_scale=ks, v_scale=vs, window=64, soft_cap=20.0,
+                  kv_len=torch.tensor([n, 2600][:b], device=dev))
+        before = _lib.launch_counts()
+        got = tsa.sparse_attention(q, k, v, pos, banded=True, q_span=1500,
+                                   **kw)
+        after = _lib.launch_counts()
+        assert after["sparse_attention_banded"] == \
+            before["sparse_attention_banded"] + 1
+        assert after["sparse_attention"] == before["sparse_attention"]
+        band = tsa.band_for(pos, n, 64, 1500)
+        want = tsa.sparse_attention_plain(q, k, v, pos, band=band, **kw)
+        torch.testing.assert_close(
+            got.float(), want.float(), rtol=0,
+            atol=1e-5 if qdt == torch.float32
+            else 2 ** -7 * float(want.float().abs().max()))
+        assert torch.equal(got, tsa.sparse_attention(q, k, v, pos, **kw))
+    # q blocks far wider than q_span: the band does not cover the window,
+    # and the keys the window admits past the band are dropped, as in JAX
+    pos = torch.sort(torch.randint(0, n, (b, kq), generator=g,
+                                   device=dev)).values
+    band = tsa.band_for(pos, n, 64, 64)
+    assert band is not None
+    got = tsa.sparse_attention(q, k, v, pos, banded=True, q_span=64, **kw)
+    want = tsa.sparse_attention_plain(q, k, v, pos, band=band, **kw)
+    torch.testing.assert_close(
+        got.float(), want.float(), rtol=0,
+        atol=1e-5 if qdt == torch.float32
+        else 2 ** -7 * float(want.float().abs().max()))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_attention_head_dim_256():
+    """The tensor-core tiles at head_dim 256 (RecurrentGemma's heads), MQA,
+    dense grid with a window, against the plain version."""
+    _cuda_or_skip()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(5)
+    bf16 = torch.bfloat16
+    q = torch.randn(2, 130, 16, 256, generator=g, device=dev).to(bf16)
+    kv = torch.randn(2, 1000, 1, 256, generator=g, device=dev).to(bf16)
+    pos = torch.randint(0, 1000, (2, 130), generator=g, device=dev)
+    for window in (0, 100):
+        got = tsa.sparse_attention(q, kv, kv, pos, window=window).float()
+        want = tsa.sparse_attention_plain(q, kv, kv, pos,
+                                          window=window).float()
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=2 ** -7 * float(want.abs().max()))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_rglru_scan_matches_plain(dtype):
+    """The chunked scan against the sequential plain loop: f32 within
+    1e-5 (the chunk carries reassociate), bf16 outputs within one bf16
+    ulp (2^-7 of each element); ragged T and d (the scalar path), 16-byte
+    vectors, and a flipped (reverse-direction) input."""
+    _cuda_or_skip()
+    from repro_torch.kernels import _lib
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
+           else dict(rtol=2 ** -7, atol=1e-5))
+    for b, t, d in ((2, 1000, 256), (3, 333, 77), (1, 64, 8)):
+        # decays in [0.9, 1): the carries between chunks of 64 matter
+        a = (1.0 - 0.1 * torch.rand(b, t, d, generator=g, device=dev)
+             ).to(dtype)
+        x = (torch.randn(b, t, d, generator=g, device=dev) * 0.1).to(dtype)
+        for flip in (False, True):
+            aa = torch.flip(a, dims=(1,)) if flip else a
+            xx = torch.flip(x, dims=(1,)) if flip else x
+            before = _lib.launch_counts()["rglru_scan"]
+            got = trs.rglru_scan(aa, xx)
+            assert _lib.launch_counts()["rglru_scan"] == before + 1
+            assert got.dtype == dtype
+            torch.testing.assert_close(got.float(),
+                                       trs.rglru_scan_plain(aa, xx).float(),
+                                       **tol)
+    torch.cuda.synchronize()

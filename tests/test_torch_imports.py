@@ -33,7 +33,9 @@ def test_port_imports_neither_jax_nor_repro():
     assert {"repro_torch.kernels.backend", "repro_torch.dlm.session",
             "repro_torch.weights", "repro_torch.serving.pool",
             "repro_torch.serving.engine",
-            "repro_torch.launch.serve"} <= set(mods)
+            "repro_torch.launch.serve", "repro_torch.models.rglru",
+            "repro_torch.kernels.rglru_scan",
+            "repro_torch.configs.recurrentgemma_9b"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -78,7 +80,8 @@ def test_default_device_raises_without_cuda(monkeypatch):
 def test_kernel_wrappers_build_nothing_on_cpu(monkeypatch):
     """CPU tensors take the plain versions: no library is built or
     loaded and no launch is counted."""
-    from repro_torch.kernels import _lib, proxy_score, scatter_update
+    from repro_torch.kernels import (_lib, proxy_score, rglru_scan,
+                                     scatter_update, sparse_attention)
 
     def no_build():
         raise AssertionError("a CPU call must not build the kernels")
@@ -94,4 +97,9 @@ def test_kernel_wrappers_build_nothing_on_cpu(monkeypatch):
     scatter_update.scatter_pages(arena, pt, dense)
     scatter_update.scatter_rows_paged(arena[0], pt, torch.tensor([[0, 5]]),
                                       torch.randn(1, 2, 4))
+    rglru_scan.rglru_scan(torch.rand(1, 6, 8), torch.randn(1, 6, 8))
+    kv = torch.randn(1, 2000, 1, 8)
+    sparse_attention.sparse_attention(     # the banded grid
+        torch.randn(1, 4, 2, 8), kv, kv, torch.tensor([[0, 1, 2, 3]]),
+        window=16, banded=True, q_span=4)
     assert _lib.launch_counts() == before

@@ -176,18 +176,29 @@ def test_prefill_attention_matches_flash():
 
 
 def test_banded_grid_raises_instead_of_dense():
-    """Where the JAX kernel would take its banded grid the port raises
-    (a later slice) rather than silently running the dense grid."""
+    """Where the JAX kernel takes its banded grid, the port takes it too,
+    never the dense grid in its place: with a band narrower than the
+    queries' spread (q_span 600 declared, positions 0 and 2000 in one q
+    block) the keys past the band drop (the rows at 2000 see none and
+    output 0), so the result differs from the dense grid's, and both
+    backends give the plain banded version's numbers."""
     assert tsa.banded_engages(9000, 64, True, 600)
     assert not tsa.banded_engages(9000, 64, False, 600)
     assert not tsa.banded_engages(600, 64, True, 600)
-    q = torch.zeros((1, 4, 1, 8))
-    kv = torch.zeros((1, 9000, 1, 8))
-    pos = torch.zeros((1, 4), dtype=torch.int32)
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn((1, 4, 1, 8), generator=g)
+    kv = torch.randn((1, 9000, 1, 8), generator=g)
+    pos = torch.tensor([[0, 10, 2000, 2010]], dtype=torch.int32)
+    dense = tsa.sparse_attention_plain(q, kv, kv, pos, window=64)
+    band = tsa.band_for(pos, 9000, 64, 600)
+    assert band[1] == 3 and band[0].tolist() == [0]   # keys [0, 1536)
+    want = tsa.sparse_attention_plain(q, kv, kv, pos, window=64, band=band)
+    assert torch.equal(want[:, :2], dense[:, :2])
+    assert float((want[:, 2:] - dense[:, 2:]).abs().max()) > 1e-3
     for backend in (tbackend.TORCH_BACKEND, tbackend.CUDA_BACKEND):
-        with pytest.raises(NotImplementedError):
-            backend.attention(q, kv, kv, q_positions=pos, window=64,
-                              banded=True, q_span=600)
+        got = backend.attention(q, kv, kv, q_positions=pos, window=64,
+                                banded=True, q_span=600)
+        assert torch.equal(got, want)
 
 
 def test_scatter_update_multi_matches_pallas():

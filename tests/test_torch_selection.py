@@ -102,3 +102,17 @@ def test_gather_clamps_and_scatter_drops_like_jax():
     got = tsel.scatter_rows(torch.from_numpy(x.copy()),
                             torch.from_numpy(sidx), torch.from_numpy(rows))
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("n,k,nb", [(64, 16, 4), (64, 18, 4), (60, 7, 8),
+                                    (64, 3, 4), (64, 64, 2)])
+def test_select_stratified_ties_match_jax(n, k, nb):
+    """Per-stratum top-(k // nb) with the drift quantum and lowest index
+    first among ties: a k that nb does not divide gives (k // nb) * nb
+    rows, an nb that does not divide n shrinks to one that does, and
+    k < nb still takes one row a stratum."""
+    s = _tied_scores(n=n, seed=n + k)
+    want = np.asarray(jsel.select_stratified(jnp.asarray(s), k, nb))
+    got = tsel.select_stratified(torch.from_numpy(s), k, nb)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), want)
