@@ -25,7 +25,9 @@ Phases (each asserts; any failure exits non-zero):
    2048) the banded sparse_attention grid (decode kq=4096 and prefill
    kq=N, bit for bit equal to the dense grid, plus f32 and int8 edges),
    the bf16 dense grid at head_dim 256, and rglru_scan in bf16 and f32,
-   forward and flipped, ragged T and d;
+   forward and flipped, ragged T and d; ssd_chunk_scan at Mamba2-370m's
+   shapes (x [4, 4096, 32, 64], d_state 128, chunk 256) in bf16 and f32,
+   and with T = 200 < chunk;
 4. decode parity: a 2-layer, full-width LLaDA, in f32 and in bf16 (the
    main path's kernel variants), through ``CudaBackend`` and
    ``TorchBackend`` must give identical tokens and step counts, for
@@ -61,14 +63,24 @@ Phases (each asserts; any failure exits non-zero):
    ``SPACache`` and ``CudaBackend`` for 32 steps (hidden states finite;
    the banded grid, the dense grid and rglru_scan launched, counted per
    step), a profiled window, then NoCache steps (SPA/NoCache on wall and
-   device time).
+   device time);
+10. Mamba2 parity: a 3-layer, full-width Mamba2 (SSD blocks only, NoCache)
+   at B=4, N=4096, through ``CudaBackend`` and ``TorchBackend``: f32
+   free-running with identical tokens and the final hidden states within
+   1e-5 of their largest value, bf16 in lockstep;
+11. the Mamba2 main path: Mamba2-370m (48 SSD layers, bf16, random
+   weights), B=4, prompt 3840 + gen 256, ``DecodeSession.run`` with the
+   config's ``NoCache`` and ``CudaBackend`` for 32 steps: exactly two
+   ssd_chunk_scan launches a layer a step, hidden states finite, ms/step,
+   generated tokens/s and a profiled window (cuBLAS, ssd_chunk_scan, other
+   kernels, device-busy share).
 
 The last lines are the kernels' JSON record (each kernel's launches are
 those of its path: phase 5 for the session kernels, phase 6 for
 cosine_drift and the wide proxy_score, phase 7's first server for the
 paged kernels and its drift lanes for cosine_drift_paged, phase 9 for
-the banded grid and rglru_scan), the card line and
-``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
+the banded grid and rglru_scan, phase 11 for ssd_chunk_scan), the card
+line and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
 the repository's ``src/`` beside it, the script exits non-zero before
 printing any result.
 """
@@ -122,6 +134,11 @@ HYBRID_KERNELS = ("proxy_score", "gather_norm", "sparse_attention",
                   "sparse_attention_banded", "scatter_update_multi",
                   "rglru_scan")
 HYBRID_STEPS = 32         # SPA steps of the hybrid main path
+# Mamba2-370m's decode: B=4, prompt 3840 + gen 256 = N (16 chunks of 256)
+MAMBA = dict(B=4, N=4096, H=32, hd=64, ds=128, chunk=256)
+MAMBA_KERNELS = ("ssd_chunk_scan",)
+MAMBA_GEN = 256
+MAMBA_STEPS = 32          # NoCache steps of the Mamba2 main path
 HYBRID_GEN = 256          # hybrid: prompt 16128 + gen 256 = N
 GEN_LEN = 256             # main path: prompt 256 + gen 256 = N
 SPIN_CYCLES = 4_000_000   # ~2 ms of a spin kernel at H100 clocks
@@ -408,6 +425,7 @@ def check_kernels(torch, flush):
                                        assert_close))
     records.update(check_hybrid_kernels(torch, flush, gen, randn, randint,
                                         assert_close))
+    records.update(check_ssd_kernel(torch, flush, gen))
     for name, rec in records.items():
         lib = ("-" if rec["library_ms"] is None
                else f"{rec['library_ms']:.4f}")
@@ -927,6 +945,78 @@ def check_hybrid_kernels(torch, flush, gen, randn, randint, assert_close):
     return records
 
 
+def check_ssd_kernel(torch, flush, gen):
+    """ssd_chunk_scan at Mamba2-370m's decode shape (x [4, 4096, 32, 64],
+    ds 128, chunk 256: 16 chunks) in bf16 and f32, and with T < chunk (one
+    chunk of 200 rows, ragged 64-row tiles), against the plain chunked
+    einsums: f32 within 1e-4 of the largest output (f32 sums in another
+    order), bf16 within two ulps of the largest output.  Inputs as the
+    model makes them: dt = softplus(N(0,1) - 3), a = -[1..16] over the
+    heads, la the in-chunk cumulative sum of dt * a."""
+    import math
+    from repro_torch.kernels import ssd_chunk as sc
+
+    dev = torch.device("cuda")
+    t0 = time.perf_counter()
+    B, N, H, hd, ds, cs = (MAMBA[k] for k in ("B", "N", "H", "hd", "ds",
+                                              "chunk"))
+    print(f"ssd_chunk_scan (x [{B}, {N}, {H}, {hd}], ds {ds}, chunk {cs})")
+
+    def inputs(t, dtype):
+        x = torch.randn((B, t, H, hd), generator=gen, device=dev).to(dtype)
+        bm = torch.randn((B, t, ds), generator=gen, device=dev).to(dtype)
+        cm = torch.randn((B, t, ds), generator=gen, device=dev).to(dtype)
+        dt = torch.nn.functional.softplus(
+            torch.randn((B, t, H), generator=gen, device=dev) - 3.0)
+        a = -torch.linspace(1.0, 16.0, H, device=dev)
+        c = min(cs, t)
+        la = torch.cumsum((dt * a).reshape(B, t // c, c, H),
+                          dim=2).reshape(B, t, H)
+        return x, dt, la, bm, cm
+
+    errs = {}
+    for t, dtype in ((N, torch.bfloat16), (N, torch.float32),
+                     (200, torch.bfloat16), (200, torch.float32)):
+        args = inputs(t, dtype)
+        got = sc.ssd_chunk_scan(*args, cs)
+        want = sc.ssd_chunk_scan_plain(*args, cs).float()
+        assert bool(torch.isfinite(got).all()), "non-finite ssd output"
+        top = float(want.abs().max())
+        lim = (1e-4 * top if dtype == torch.float32
+               else 2 * 2.0 ** (math.floor(math.log2(top)) - 7))
+        err = max_err(got, want)
+        print(f"  {dtype} T={t}: max_abs_err {err:.3e} (limit {lim:.3e}, "
+              f"max |y| {top:.3e})")
+        assert err <= lim, f"ssd_chunk_scan {dtype} T={t}: {err} over {lim}"
+        errs[(t, dtype)] = err
+        del args, got, want
+    args = inputs(N, torch.bfloat16)
+    nbytes = 2 * 2 * B * N * H * hd + 2 * 2 * B * N * ds + 2 * 4 * B * N * H
+    # the work the data needs: C B^T once per (batch row, chunk), then per
+    # head the causal half of M X (j <= i), C S^T and X^T (w o B)
+    n_chunks = N // cs
+    tri = cs * (cs + 1) // 2
+    flops = (2 * B * n_chunks * cs * cs * ds
+             + 2 * B * n_chunks * H * (tri * hd + 2 * cs * ds * hd))
+    rec = dict(
+        source="src/repro_torch/csrc/ssd_chunk.cu",
+        replaces="src/repro/kernels/ssd_chunk.py:75",
+        max_abs_err=errs[(N, torch.bfloat16)],
+        ms=median_ms(lambda: sc.ssd_chunk_scan(*args, cs), torch, flush,
+                     runs=10),
+        plain_ms=median_ms(lambda: sc.ssd_chunk_scan_plain(*args, cs), torch,
+                           flush, runs=5, warmup=1),
+        library_ms=None,
+        bound=bound(nbytes, flops))
+    print(f"  kernel {rec['ms']:.3f} ms ({flops / rec['ms'] / 1e9:.1f} "
+          f"TFLOP/s of the {flops / 1e9:.1f} GFLOP the data needs, "
+          f"{nbytes / rec['ms'] / 1e6:.1f} GB/s of {nbytes / 1e6:.1f} MB), "
+          f"plain {rec['plain_ms']:.3f} ms; this check took "
+          f"{time.perf_counter() - t0:.1f} s")
+    del args
+    return {"ssd_chunk_scan": rec}
+
+
 # ---------------------------------------------------------------------------
 # Phases 4 and 5: decode
 # ---------------------------------------------------------------------------
@@ -1194,6 +1284,7 @@ KERNEL_GROUPS = (("gather_pages + scatter_pages", ("page_copy_kernel",)),
                   ("attention_bf16_tc", "attention_kernel")),
                  ("rglru_scan", ("chunk_summary", "chunk_carry",
                                  "chunk_rewrite")),
+                 ("ssd_chunk_scan", ("ssd_chunk_kernel",)),
                  ("scatter_update_multi", ("scatter_kernel",)),
                  ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_",
                                       "nvjet")))
@@ -1468,6 +1559,144 @@ def hybrid_main_path(torch):
           + (f", device time {spa_dev:.2f} / {base_dev:.2f} ms/step = "
              f"{spa_dev / base_dev:.3f}" if spa_dev and base_dev else ""))
     del base, params, proxies
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# Phases 10 and 11: Mamba2-370m (SSD blocks only, NoCache)
+# ---------------------------------------------------------------------------
+
+def _mamba_setup(torch, dtype: str, n_layers: int = 3):
+    """A full-width Mamba2 of ``n_layers`` SSD blocks and a B=4 prompt of
+    N - 16 = 4080 rows (its spa identifier is "none": NoCache)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.strategy import resolve_strategy
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(get_arch("mamba2-370m"), n_layers=n_layers,
+                              param_dtype=dtype)
+    params = transformer.init_params(cfg, seed=7)
+    gen = torch.Generator().manual_seed(9)
+    prompt = torch.randint(0, cfg.vocab_size - 1,
+                           (MAMBA["B"], MAMBA["N"] - 16), generator=gen)
+    return cfg, params, resolve_strategy(cfg), None, prompt
+
+
+def mamba_parity(torch):
+    """Phase 10: the 3-layer full-width Mamba2 through CudaBackend and
+    TorchBackend.  f32 free-running: identical tokens and step counts, and
+    the final canvas's hidden states within 1e-5 of their largest value.
+    bf16 in lockstep (logits within 2^-5 of their largest value; a step
+    that commits another slot must be explained by a tie)."""
+    from repro_torch.core.strategy import NoCache
+    from repro_torch.dlm.session import DecodeSession
+    from repro_torch.kernels import _lib
+    from repro_torch.models import transformer
+
+    setup = _mamba_setup(torch, "float32")
+    cfg, params, strat, _, prompt = setup
+    assert isinstance(strat, NoCache), type(strat).__name__
+    _lib.reset_launch_counts()
+    out = {}
+    for name in ("cuda", "torch"):
+        sess = DecodeSession(params, cfg, backend=name)
+        sess.prefill(prompt, 16)
+        toks, info = sess.run()
+        h = transformer.embed_inputs(params, cfg, {"tokens": toks})
+        h, _ = transformer.forward_hidden(params, cfg, h,
+                                          strategy=strat.with_backend(name))
+        torch.cuda.synchronize()
+        out[name] = (toks.cpu(), info["steps"], h)
+        if name == "cuda":
+            launches = _lib.launch_counts()["ssd_chunk_scan"]
+    assert launches > 0, "ssd_chunk_scan never launched (mamba2 parity)"
+    assert _lib.launch_counts()["ssd_chunk_scan"] == launches, \
+        "the TorchBackend decode launched ssd_chunk_scan"
+    n_diff = int((out["cuda"][0] != out["torch"][0]).sum())
+    assert n_diff == 0, f"mamba2 float32: backends differ in {n_diff} tokens"
+    assert out["cuda"][1] == out["torch"][1] == 16, "step counts differ"
+    h_c, h_t = out["cuda"][2], out["torch"][2]
+    h_diff = max_err(h_c, h_t) / float(h_t.abs().max())
+    print(f"  mamba2 float32: tokens identical, steps {out['cuda'][1]}, "
+          f"ssd_chunk_scan launches {launches}, final hidden states differ "
+          f"by {h_diff:.3e} of their largest value")
+    assert h_diff <= 1e-5, f"mamba2 float32 hidden states differ by {h_diff}"
+    del setup, params, out, h_c, h_t
+    torch.cuda.empty_cache()
+    setup = _mamba_setup(torch, "bfloat16")
+    lockstep_parity(torch, 2 ** -5, 2 ** -5, setup, setup[2], "mamba2",
+                    strict=False)
+    # the bf16 stack rounds most one-ulp differences of the scan away; show
+    # how far one forward of the canvas moves between the two backends
+    cfg, params, strat, _, prompt = setup
+    canvas = torch.cat([prompt, torch.full((prompt.shape[0], 16),
+                                           cfg.mask_id)], 1)
+    h0 = transformer.embed_inputs(
+        params, cfg, {"tokens": canvas.to(params["embed"].device)})
+    hs = {name: transformer.forward_hidden(
+        params, cfg, h0, strategy=strat.with_backend(name))[0]
+        for name in ("cuda", "torch")}
+    rel = max_err(hs["cuda"], hs["torch"]) / float(hs["torch"].abs().max())
+    print(f"  mamba2 bfloat16 forward of the canvas: hidden states differ by "
+          f"{rel:.3e} of their largest value")
+    del setup, params, hs, h0
+    torch.cuda.empty_cache()
+
+
+def mamba_main_path(torch):
+    """Phase 11: Mamba2-370m (48 SSD layers, bf16, random weights), B=4,
+    prompt 3840 + gen 256 (N = 4096), DecodeSession.run with the config's
+    NoCache, the confidence scheduler and CudaBackend for MAMBA_STEPS steps
+    (two ssd_chunk_scan launches a layer a step, hidden states finite),
+    then a profiled window.  Returns the launches of the run (prefill and
+    steps)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.strategy import NoCache
+    from repro_torch.dlm.session import DecodeSession
+    from repro_torch.kernels import _lib
+    from repro_torch.models import transformer
+
+    cfg = get_arch("mamba2-370m")
+    b, n = MAMBA["B"], MAMBA["N"]
+    p_len = n - MAMBA_GEN
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    print(f"  init {cfg.name} bf16 weights ({cfg.param_count() / 1e9:.3f} B "
+          f"parameters): {time.perf_counter() - t0:.2f} s")
+    gen = torch.Generator().manual_seed(17)
+    prompt = torch.randint(0, cfg.vocab_size - 1, (b, p_len), generator=gen)
+
+    _lib.reset_launch_counts()
+    sess = DecodeSession(params, cfg, backend="cuda")
+    assert isinstance(sess.strategy, NoCache)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess.prefill(prompt, MAMBA_GEN)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    at_prefill = _lib.launch_counts()["ssd_chunk_scan"]
+    t0 = time.perf_counter()
+    _, info = sess.run(MAMBA_STEPS)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = _lib.launch_counts()
+    steps = info["steps"]
+    assert steps == MAMBA_STEPS, f"mamba2 ran {steps} steps"
+    assert bool(sess.last_info["row_finite"].all()), "non-finite hidden"
+    per_step = (launches["ssd_chunk_scan"] - at_prefill) / steps
+    assert per_step == 2 * cfg.n_layers, \
+        f"{per_step} ssd_chunk_scan launches a step"
+    committed = int((sess.state.tokens[:, p_len:] != cfg.mask_id).sum())
+    ms = t_run / steps * 1e3
+    print(f"  NoCache: prefill {t_prefill:.4f} s ({at_prefill} launches: "
+          f"a cache-less prefill builds the canvas only), {steps} steps in "
+          f"{t_run:.3f} s, {ms:.2f} ms/step, committed {committed} of "
+          f"{b * MAMBA_GEN} slots, {committed / t_run:.1f} generated "
+          f"tokens/s; ssd_chunk_scan launches a step {per_step:.0f}")
+    profile_steps(torch, sess.step, 3, "mamba2 NoCache")
+    del sess, params
     torch.cuda.empty_cache()
     return launches
 
@@ -1871,12 +2100,25 @@ def main() -> int:
           f"{HYBRID['N'] - HYBRID_GEN} + gen {HYBRID_GEN}, {HYBRID_STEPS} "
           "SPA steps)")
     hybrid = hybrid_main_path(torch)
+    torch.cuda.empty_cache()
+    print(f"mamba2 decode parity (3-layer full-width Mamba2, B={MAMBA['B']}, "
+          f"N={MAMBA['N']}, CudaBackend vs TorchBackend)")
+    t0 = time.perf_counter()
+    mamba_parity(torch)
+    print(f"  phase 10: {time.perf_counter() - t0:.1f} s")
+    print(f"mamba2 main path (Mamba2-370m bf16, B={MAMBA['B']}, prompt "
+          f"{MAMBA['N'] - MAMBA_GEN} + gen {MAMBA_GEN}, {MAMBA_STEPS} NoCache "
+          "steps)")
+    t0 = time.perf_counter()
+    mamba = mamba_main_path(torch)
+    print(f"  phase 11: {time.perf_counter() - t0:.1f} s")
 
     kernels = []
     for name, rec in records.items():
         bound_ms, bound_by = rec.pop("bound")
         path = (launches if name in SESSION_KERNELS
                 else hybrid if name in HYBRID_ONLY_KERNELS
+                else mamba if name in MAMBA_KERNELS
                 else base if name in BASELINE_KERNELS
                 else lanes if name in DRIFT_LANE_KERNELS else served)
         kernels.append(dict(name=name, route="cuda", launches=path[name],

@@ -9,6 +9,7 @@
                      grid, and the banded grid of windowed layers on a
                      long canvas; also serves prefill)
   rglru_scan       — the RG-LRU linear recurrence (a chunked scan)
+  ssd_chunk        — the Mamba-2 SSD chunked scan (state [hd, ds] per head)
   scatter_update   — in-place multi-buffer row commits, and the paged
                      cache copies (gather/scatter pages, paged row commits)
 

@@ -34,7 +34,7 @@ KERNELS = ("proxy_score", "gather_norm", "sparse_attention",
            "scatter_update_multi", "gather_pages", "scatter_pages",
            "scatter_rows_paged", "proxy_score_paged", "cosine_drift",
            "cosine_drift_paged", "proxy_score_wide",
-           "sparse_attention_banded", "rglru_scan")
+           "sparse_attention_banded", "rglru_scan", "ssd_chunk_scan")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
@@ -62,6 +62,8 @@ _SIGNATURES = {
                                _F, _P],
     "spa_rglru_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "spa_rglru_chunk": [],
+    "spa_ssd_chunk_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                           _P],
 }
 
 _state: Dict[str, object] = {"lib": None, "build_seconds": None,

@@ -1,8 +1,9 @@
-"""KernelBackend — the eight hot-path stages of ``repro/kernels/backend.py``.
+"""KernelBackend — the hot-path stages of ``repro/kernels/backend.py``.
 
 A SPA layer step has four kernel-shaped stages on the dense path
 (identification, the gather + norm epilogue, gathered-query attention and
-the cache commits) plus a score-only pass and three paged stages.  A
+the cache commits) plus a score-only pass and three paged stages; the
+Mamba-2 mixer adds a ninth, the SSD chunked scan (``ssd_scan``).  A
 backend owns all of them and rides on the ``CacheStrategy`` (a frozen
 dataclass field), exactly as in the JAX package.
 
@@ -34,6 +35,7 @@ import torch
 from repro_torch.kernels import proxy_score as ps
 from repro_torch.kernels import scatter_update as sc
 from repro_torch.kernels import sparse_attention as sa
+from repro_torch.kernels import ssd_chunk
 
 Params = Dict[str, Any]
 
@@ -92,6 +94,12 @@ class KernelBackend:
         rows drop).  Returns the arena."""
         raise NotImplementedError
 
+    def ssd_scan(self, x, dt, la, b, c, chunk: int):
+        """The SSD chunked scan: x [B, T, H, hd], dt and la [B, T, H] f32
+        (la the in-chunk cumulative sum of dt * a), b, c [B, T, ds] ->
+        y [B, T, H, hd] in x's dtype."""
+        raise NotImplementedError
+
     @staticmethod
     def _base_score(strategy) -> bool:
         """Whether the strategy keeps the protocol's cosine ``score``."""
@@ -148,6 +156,9 @@ class TorchBackend(KernelBackend):
 
     def scatter_rows_paged(self, arena, page_table, idx, rows):
         return sc.scatter_rows_paged_plain(arena, page_table, idx, rows)
+
+    def ssd_scan(self, x, dt, la, b, c, chunk):
+        return ssd_chunk.ssd_chunk_scan_plain(x, dt, la, b, c, chunk)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -213,6 +224,9 @@ class CudaBackend(KernelBackend):
 
     def scatter_rows_paged(self, arena, page_table, idx, rows):
         return sc.scatter_rows_paged(arena, page_table, idx, rows)
+
+    def ssd_scan(self, x, dt, la, b, c, chunk):
+        return ssd_chunk.ssd_chunk_scan(x, dt, la, b, c, chunk)
 
 
 def _positions(q, q_positions, q_span):

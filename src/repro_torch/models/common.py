@@ -34,6 +34,18 @@ def act_fn(name: str):
     raise ValueError(f"unknown activation {name!r}")
 
 
+def causal_conv(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv along T as a sum of shifted products in x's
+    dtype, taps in the JAX reference's order (no ``F.conv1d``: cuDNN's f32
+    convolution is TF32 by default).  x: [B, T, C], kernel: [W, C]."""
+    w, t = kernel.shape[0], x.shape[1]
+    pads = F.pad(x, (0, 0, w - 1, 0))
+    out = torch.zeros_like(x)
+    for i in range(w):
+        out = out + pads[:, i:i + t] * kernel[w - 1 - i]
+    return out
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embeddings
 # ---------------------------------------------------------------------------

@@ -22,7 +22,6 @@ from __future__ import annotations
 from typing import Dict
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels.rglru_scan import rglru_scan
@@ -69,16 +68,7 @@ def init_rglru_params(cfg: ModelConfig, lk: int, dtype: torch.dtype,
     }
 
 
-def _temporal_conv(x: torch.Tensor, kernel: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv along T as a sum of shifted products (no
-    ``F.conv1d``: cuDNN's f32 convolution is TF32 by default).
-    x: [B, T, dr], kernel: [W, dr]."""
-    w, t = kernel.shape[0], x.shape[1]
-    pads = F.pad(x, (0, 0, w - 1, 0))
-    out = torch.zeros_like(x)
-    for i in range(w):
-        out = out + pads[:, i:i + t] * kernel[w - 1 - i]
-    return out
+_temporal_conv = common.causal_conv   # x: [B, T, dr], kernel: [W, dr]
 
 
 def _block_gate(xf: torch.Tensor, w: torch.Tensor,

@@ -1,18 +1,19 @@
 """Dense masked-diffusion transformer assembled from a ``ModelConfig``.
 
 The port of the JAX package's ``models/transformer.py`` for attention
-layer kinds with a dense FFN (LLaDA / InternLM2 shapes) and the RG-LRU
-hybrid (RecurrentGemma).  Parameters keep the JAX layout: a plain dict
-with ``embed``, ``final_norm``, ``lm_head`` (when untied) and per-kind
-STACKED blocks ``blocks[kind][name]`` with a leading ``[L_kind]`` axis, so
-the JAX package's weights carry over leaf for leaf
-(``repro_torch.weights``).  MoE, the SSD mixer and the stub frontends wait
-for later slices.  The layer loop is unrolled, so a hybrid needs no period
-plan (JAX scans a period only to compile it as one loop).
+layer kinds with a dense FFN (LLaDA / InternLM2 shapes), the RG-LRU
+hybrid (RecurrentGemma) and the attention-free SSD stack (Mamba2).
+Parameters keep the JAX layout: a plain dict with ``embed``,
+``final_norm``, ``lm_head`` (when untied) and per-kind STACKED blocks
+``blocks[kind][name]`` with a leading ``[L_kind]`` axis, so the JAX
+package's weights carry over leaf for leaf (``repro_torch.weights``).
+MoE and the stub frontends wait for later slices.  The layer loop is
+unrolled, so a hybrid needs no period plan (JAX scans a period only to
+compile it as one loop).
 
-Attention goes through the strategy's ``KernelBackend`` (the CUDA kernel on
-the card) with contiguous query positions, so prefill and the SPA step
-share one attention implementation.
+Attention and the SSD scan go through the strategy's ``KernelBackend`` (the
+CUDA kernels on the card); attention with contiguous query positions, so
+prefill and the SPA step share one attention implementation.
 """
 from __future__ import annotations
 
@@ -22,9 +23,9 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import (ATTENTION_KINDS, ATTN_LOCAL, ATTN_SWA,
-                                      RGLRU, ModelConfig)
+                                      RGLRU, SSD, ModelConfig)
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
-from repro_torch.models import common, ffn, rglru
+from repro_torch.models import common, ffn, rglru, ssd
 
 Params = Dict[str, Any]
 
@@ -34,11 +35,11 @@ def layer_window(cfg: ModelConfig, kind: str) -> int:
 
 
 def _check_supported(cfg: ModelConfig) -> None:
+    ported = set(ATTENTION_KINDS) | {RGLRU, SSD}
     kinds = set(cfg.layer_kinds)
-    if not kinds <= set(ATTENTION_KINDS) | {RGLRU}:
+    if not kinds <= ported:
         raise NotImplementedError(
-            f"layer kinds {sorted(kinds - set(ATTENTION_KINDS) - {RGLRU})} "
-            "wait for a later slice (the SSD mixer)")
+            f"layer kinds {sorted(kinds - ported)} wait for a later slice")
     if cfg.moe is not None:
         raise NotImplementedError("MoE blocks wait for a later slice")
     if cfg.frontend is not None or cfg.max_position:
@@ -85,6 +86,11 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
                 "norm1": zeros(lk, d),
                 "mixer": rglru.init_rglru_params(cfg, lk, dtype, dev, gen),
                 "norm2": zeros(lk, d)}
+        elif kind == SSD:     # norm2 + FFN only when d_ff > 0
+            bp = {"norm1": zeros(lk, d),
+                  "mixer": ssd.init_ssd_params(cfg, lk, dtype, dev, gen)}
+            if cfg.d_ff > 0:
+                bp["norm2"] = zeros(lk, d)
         else:
             bp = {
                 "norm1": zeros(lk, d),
@@ -107,7 +113,7 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
                     "b_up": zeros(lk, f),
                     "w_down": common.dense_init_(empty(lk, f, d), gen),
                     "b_down": zeros(lk, d)}
-        if cfg.post_norms:
+        if cfg.post_norms and kind != SSD:
             bp["norm_post_attn"] = zeros(lk, d)
             bp["norm_post_ffn"] = zeros(lk, d)
         blocks[kind] = bp
@@ -180,9 +186,11 @@ def apply_block_dense(cfg: ModelConfig, kind: str, bp: Params,
     from repro_torch.core.strategy import resolve_strategy
     if kind == RGLRU:
         return _apply_rglru_block(cfg, bp, h), None
+    strat = resolve_strategy(cfg, strategy)
+    if kind == SSD:
+        return _apply_ssd_block(cfg, bp, h, strat.backend), None
     if kind not in ATTENTION_KINDS:
         raise NotImplementedError(f"layer kind {kind!r}")
-    strat = resolve_strategy(cfg, strategy)
     b, n, _ = h.shape
     x = common.rms_norm(h, bp["norm1"], cfg.norm_eps)
     positions = torch.arange(n, device=h.device).expand(b, n)
@@ -225,6 +233,18 @@ def _apply_rglru_block(cfg: ModelConfig, bp: Params,
         ffn_out = common.rms_norm(ffn_out, bp["norm_post_ffn"],
                                   cfg.norm_eps)
     return h_mid + ffn_out
+
+
+def _apply_ssd_block(cfg: ModelConfig, bp: Params, h: torch.Tensor,
+                     backend) -> torch.Tensor:
+    """norm1 -> SSD mixer -> residual (-> norm2 -> FFN -> residual when
+    d_ff > 0); the scan on ``backend``."""
+    x = common.rms_norm(h, bp["norm1"], cfg.norm_eps)
+    h_out = h + ssd.apply_ssd(bp["mixer"], x, cfg, backend=backend)
+    if cfg.d_ff > 0:
+        y = common.rms_norm(h_out, bp["norm2"], cfg.norm_eps)
+        h_out = h_out + ffn.apply_ffn(bp["ffn"], y, cfg.act)
+    return h_out
 
 
 def forward_hidden(params: Params, cfg: ModelConfig, h: torch.Tensor, *,

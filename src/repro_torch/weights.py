@@ -4,7 +4,8 @@ The JAX package's parameter pytree, mapped to numpy
 (``jax.tree.map(np.asarray, params)``), has the layout the port uses:
 ``embed``, ``final_norm``, ``lm_head`` (untied models) and per-kind
 stacked blocks ``blocks[kind][name]`` with a leading ``[L_kind]`` axis
-(nested dicts too: an RG-LRU block's ``mixer`` and every block's ``ffn``).
+(nested dicts too: an RG-LRU or SSD block's ``mixer`` and every block's
+``ffn``).
 ``from_numpy_params`` turns it into the port's parameters leaf for leaf
 (dtype kept, bfloat16 included), so both packages run the same weights;
 ``from_numpy_proxies`` does the same for a ``{kind: [Lk, d, r]}`` stack of
@@ -17,7 +18,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ATTENTION_KINDS, RGLRU, ModelConfig
+from repro_torch.configs.base import (ATTENTION_KINDS, RGLRU, SSD, ModelConfig,
+                                      SSMConfig)
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
 
 _NUMPY_DTYPES = {"float32": torch.float32, "float16": torch.float16,
@@ -65,6 +67,12 @@ def from_numpy_params(tree: Dict[str, Any], cfg: ModelConfig,
         elif kind == RGLRU:
             d_rnn = (cfg.rglru.d_rnn if cfg.rglru else None) or cfg.d_model
             leaf, want_shape = "mixer.w_in", (lk, cfg.d_model, d_rnn)
+            got = bp["mixer"]["w_in"]
+        elif kind == SSD:
+            ssm = cfg.ssm or SSMConfig()
+            di, nh = ssm.d_inner(cfg.d_model), ssm.n_heads(cfg.d_model)
+            leaf = "mixer.w_in"
+            want_shape = (lk, cfg.d_model, 2 * di + 2 * ssm.d_state + nh)
             got = bp["mixer"]["w_in"]
         else:
             raise NotImplementedError(f"layer kind {kind!r} waits for a "

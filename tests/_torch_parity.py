@@ -18,13 +18,15 @@ def port_cfg(cfg):
     """The JAX package's ModelConfig -> the port's (same field values)."""
     from repro_torch.configs.base import RGLRUConfig as TRGLRU
     from repro_torch.configs.base import SPAConfig as TSPA
+    from repro_torch.configs.base import SSMConfig as TSSM
     fields = {f.name: getattr(cfg, f.name)
               for f in dataclasses.fields(cfg)}
     fields["spa"] = TSPA(**dataclasses.asdict(cfg.spa))
     if cfg.rglru is not None:
         fields["rglru"] = TRGLRU(**dataclasses.asdict(cfg.rglru))
-    for name in ("moe", "ssm"):
-        assert fields[name] is None, f"{name} configs are not ported yet"
+    if cfg.ssm is not None:
+        fields["ssm"] = TSSM(**dataclasses.asdict(cfg.ssm))
+    assert fields["moe"] is None, "moe configs are not ported yet"
     return tconfigs.ModelConfig(**fields)
 
 

@@ -28,8 +28,12 @@ The wide-rank ``proxy_score`` (r > 256: projection kernel, then
 attention grid keeps the attention tolerances and equals the dense grid
 bit for bit where its band covers the window; ``rglru_scan`` agrees with
 the sequential loop within 1e-5 in f32 (its chunk carries reassociate)
-and one bf16 ulp of each element in bf16.
+and one bf16 ulp of each element in bf16.  ``ssd_chunk_scan`` sums its
+f32 products in another order than the plain einsums: f32 within 1e-4 of
+the largest output, bf16 within two ulps of the largest output.
 """
+import math
+
 import pytest
 import torch
 
@@ -37,6 +41,7 @@ from repro_torch.kernels import proxy_score as tps
 from repro_torch.kernels import rglru_scan as trs
 from repro_torch.kernels import scatter_update as tsc
 from repro_torch.kernels import sparse_attention as tsa
+from repro_torch.kernels import ssd_chunk as tssd
 
 
 def _cuda_or_skip():
@@ -356,4 +361,47 @@ def test_cuda_rglru_scan_matches_plain(dtype):
             torch.testing.assert_close(got.float(),
                                        trs.rglru_scan_plain(aa, xx).float(),
                                        **tol)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_ssd_chunk_scan_matches_plain(dtype):
+    """The SSD chunked scan against the plain chunked einsums: Mamba2-370m's
+    widths (hd 64, ds 128, chunk 256) over several chunks, one chunk
+    shorter than 256 (T < chunk: ragged 64-row tiles), narrow and odd
+    widths, and steps large enough that exp(la_i - la_j) for j > i would
+    overflow f32 if the kernel formed it (the output must stay finite)."""
+    _cuda_or_skip()
+    from repro_torch.kernels import _lib
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+    for b, t, h, hd, ds, chunk, dt_scale in (
+            (2, 768, 4, 64, 128, 256, 0.1), (1, 100, 3, 64, 128, 256, 0.1),
+            (2, 96, 5, 16, 16, 16, 0.1), (1, 192, 2, 40, 72, 64, 0.1),
+            (1, 256, 2, 64, 128, 256, 10.0)):
+        cs = min(chunk, t)
+        x = torch.randn(b, t, h, hd, generator=g, device=dev).to(dtype)
+        bm = torch.randn(b, t, ds, generator=g, device=dev).to(dtype)
+        cm = torch.randn(b, t, ds, generator=g, device=dev).to(dtype)
+        dt = torch.nn.functional.softplus(
+            torch.randn(b, t, h, generator=g, device=dev)) * dt_scale
+        a = -torch.linspace(1.0, 16.0, h, device=dev)
+        la = torch.cumsum((dt * a).reshape(b, t // cs, cs, h),
+                          dim=2).reshape(b, t, h)
+        before = _lib.launch_counts()["ssd_chunk_scan"]
+        got = tssd.ssd_chunk_scan(x, dt, la, bm, cm, chunk)
+        assert _lib.launch_counts()["ssd_chunk_scan"] == before + 1
+        assert got.dtype == dtype and got.shape == x.shape
+        want = tssd.ssd_chunk_scan_plain(x, dt, la, bm, cm, chunk).float()
+        assert bool(torch.isfinite(got).all())
+        top = float(want.abs().max())
+        lim = (1e-4 * top if dtype == torch.float32
+               else 2 * 2.0 ** (math.floor(math.log2(top)) - 7))
+        err = float((got.float() - want).abs().max())
+        assert err <= lim, (b, t, h, hd, ds, chunk, err, lim)
+    with pytest.raises(ValueError, match="head_dim"):
+        z = torch.zeros(1, 16, 1, 128, device=dev)
+        tssd.ssd_chunk_scan(z, z[..., 0], z[..., 0], z[:, :, 0, :8],
+                            z[:, :, 0, :8], 16)
     torch.cuda.synchronize()

@@ -11,10 +11,10 @@ The long canvas (N = 12288: stratified selection and the banded grid)
 runs in ``test_torch_hybrid_long*.py``, one identifier a file.
 
 Also the repairs a hybrid needs: the weights bridge checks each layer
-kind's own leaves, the test helper carries ``RGLRUConfig`` across (and
-still refuses MoE and SSM configs), the incremental identifier identifies
-in full after a recurrent block, and the serving engine refuses a hybrid
-(a later slice) instead of serving it wrongly.
+kind's own leaves, the test helper carries ``RGLRUConfig`` (and
+``SSMConfig``) across and still refuses MoE configs, the incremental
+identifier identifies in full after a recurrent block, and the serving
+engine refuses a hybrid (a later slice) instead of serving it wrongly.
 """
 import dataclasses
 
@@ -30,7 +30,9 @@ from _torch_parity import (assert_caches_close, decode_both, hybrid_cfg,
                            hybrid_strategies, np32, port_cfg, port_params)
 from repro_torch import weights
 from repro_torch.configs import get_arch as tget_arch
+from repro_torch.configs.base import MoEConfig as TMoE
 from repro_torch.configs.base import RGLRUConfig as TRGLRU
+from repro_torch.configs.base import SSMConfig as TSSM
 from repro_torch.models import transformer as tt
 
 torch.set_num_threads(1)
@@ -114,14 +116,18 @@ def test_weights_check_each_kinds_own_leaves(hybrid):
 
 
 def test_port_cfg_carries_rglru_and_refuses_moe_and_ssm(hybrid):
-    """Fault 3: the helper refused any config with ``rglru``."""
+    """Fault 3: the helper refused any config with ``rglru``.  It carries
+    ``SSMConfig`` too since the SSD mixer is ported, and still refuses
+    MoE."""
     cfg, _ = hybrid
     tcfg = port_cfg(cfg)
     assert isinstance(tcfg.rglru, TRGLRU)
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(cfg)
-    for name in ("mixtral-8x22b", "mamba2-370m"):
-        with pytest.raises(AssertionError, match="not ported"):
-            port_cfg(reduced(get_arch(name)))
+    mamba = reduced(get_arch("mamba2-370m"))
+    assert isinstance(port_cfg(mamba).ssm, TSSM)
+    assert dataclasses.asdict(port_cfg(mamba)) == dataclasses.asdict(mamba)
+    with pytest.raises(AssertionError, match="not ported"):
+        port_cfg(reduced(get_arch("mixtral-8x22b")))
     assert dataclasses.asdict(tget_arch("recurrentgemma-9b")) == \
         dataclasses.asdict(get_arch("recurrentgemma-9b"))
 
@@ -157,9 +163,15 @@ def test_engine_refuses_a_hybrid(hybrid):
     tcfg = port_cfg(cfg)
     with pytest.raises(NotImplementedError, match="later slice"):
         ServingEngine(tcfg, port_params(params, tcfg), device="cpu")
+    # an SSD stack initialises now, and the engine names its kind
+    ssd_cfg = dataclasses.replace(tcfg, layer_pattern=("ssd",))
     with pytest.raises(NotImplementedError, match="ssd"):
-        tt.init_params(dataclasses.replace(tcfg, layer_pattern=("ssd",)),
-                       device="cpu")
+        ServingEngine(ssd_cfg, tt.init_params(ssd_cfg, device="cpu"),
+                      device="cpu")
+    with pytest.raises(NotImplementedError, match="MoE"):
+        tt.init_params(dataclasses.replace(
+            tcfg, moe=TMoE(n_experts=4, top_k=2, d_ff_expert=64)),
+            device="cpu")
 
 
 def test_strata_and_span_bound_match_jax():

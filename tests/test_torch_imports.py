@@ -35,7 +35,9 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.serving.engine",
             "repro_torch.launch.serve", "repro_torch.models.rglru",
             "repro_torch.kernels.rglru_scan",
-            "repro_torch.configs.recurrentgemma_9b"} <= set(mods)
+            "repro_torch.configs.recurrentgemma_9b",
+            "repro_torch.models.ssd", "repro_torch.kernels.ssd_chunk",
+            "repro_torch.configs.mamba2_370m"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -61,6 +63,8 @@ def test_default_device_raises_without_cuda(monkeypatch):
         resolve_device()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         transformer.init_params(cfg, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        transformer.init_params(reduced(get_arch("mamba2-370m")), seed=0)
     params = transformer.init_params(cfg, seed=0, device="cpu")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DecodeSession(params, cfg)
@@ -81,7 +85,8 @@ def test_kernel_wrappers_build_nothing_on_cpu(monkeypatch):
     """CPU tensors take the plain versions: no library is built or
     loaded and no launch is counted."""
     from repro_torch.kernels import (_lib, proxy_score, rglru_scan,
-                                     scatter_update, sparse_attention)
+                                     scatter_update, sparse_attention,
+                                     ssd_chunk)
 
     def no_build():
         raise AssertionError("a CPU call must not build the kernels")
@@ -98,6 +103,9 @@ def test_kernel_wrappers_build_nothing_on_cpu(monkeypatch):
     scatter_update.scatter_rows_paged(arena[0], pt, torch.tensor([[0, 5]]),
                                       torch.randn(1, 2, 4))
     rglru_scan.rglru_scan(torch.rand(1, 6, 8), torch.randn(1, 6, 8))
+    ssd_chunk.ssd_chunk_scan(torch.randn(1, 8, 2, 4), torch.rand(1, 8, 2),
+                             -torch.rand(1, 8, 2), torch.randn(1, 8, 3),
+                             torch.randn(1, 8, 3), 4)
     kv = torch.randn(1, 2000, 1, 8)
     sparse_attention.sparse_attention(     # the banded grid
         torch.randn(1, 4, 2, 8), kv, kv, torch.tensor([[0, 1, 2, 3]]),
