@@ -28,35 +28,34 @@
 //   TFLOP, 0.56 ms at the bf16 peak against 0.01 ms of bytes.  (The band of
 //   26 blocks is 13312 keys a query, 3.25x what the function needs.)
 //   Prefill (kq = N) is 2.2 TFLOP.
-// Design: a block owns a tile of queries of one head and one batch row and
-//   loops over kv tiles inside the block (the sequential grid axis of the
-//   TPU becomes this loop), so no state crosses blocks.  The banded grid is
-//   the same body with the loop bounded to [starts[i] * bk, (starts[i] +
-//   n_band) * bk): a block's 64 (or 16) queries lie inside one JAX q block
-//   (bq is 512, or kq when there is one q block).  Both grids also skip
-//   the tiles past kv_len and, with a window, the tiles outside [least
-//   query position - window, greatest + window] of the block's queries
-//   (kv_range).  A skipped tile is fully masked, and a fully masked tile
-//   leaves (m, l, acc) as they were, so the skip changes no bit and,
-//   where the band covers the window, banded equals dense bit for bit.
-//   Two variants:
-//   - bf16 K/V with head_dim 32, 64, 128 or 256 (the main path): 64 queries
-//     per block, one warp per 16; a 64-key K/V tile is staged once in shared
-//     memory for the 4 warps; S and P V are warp-level tensor-core MMAs
-//     (wmma, f32 accumulators); softmax state and the running output stay
-//     f32; P enters P V as a bf16 hi/lo pair (two MMAs), so it keeps f32
+// Design: a block owns a tile of rows and loops over kv tiles inside the
+//   block (the sequential grid axis of the TPU becomes this loop), so no
+//   state crosses blocks.  The banded grid is the same body with the loop
+//   bounded to [starts[i] * bk, (starts[i] + n_band) * bk): a block's rows
+//   lie inside one JAX q block (bq is 512, or kq when there is one q
+//   block).  Both grids also skip the tiles past kv_len and, with a window,
+//   the tiles outside [least query position - window, greatest + window]
+//   of the block's queries (kv_range).  A skipped tile is fully masked, and
+//   a fully masked tile leaves (m, l, acc) as they were, so the skip
+//   changes no bit and, where the band covers the window, banded equals
+//   dense bit for bit.  Two variants:
+//   - bf16 K/V (the main path), head_dim any multiple of 8 up to 256,
+//     padded with zero columns to 32, 64, 80, 128 or 256: rows are (query,
+//     head) pairs of one kv head, so a K/V tile staged once serves the whole
+//     GQA group; TMA streams K/V into a 4-stage ring for two consumer
+//     warpgroups of 64 rows, which run S = Q K^T and O += P V by wgmma and
+//     keep S, P, the softmax state and O in registers (namespace wg below).
+//     P enters P V as a bf16 hi/lo pair (two products), so it keeps f32
 //     accuracy to 2^-17, as in the f32 reference.
 //   - f32 K/V, or int8 K/V with dequant scales (q in f32 or bf16), head_dim
 //     up to 256: 16 queries per block, 32-key tiles dequantized to f32 in
-//     shared memory, exact f32 FMAs on the CUDA cores.
-//   bf16 K/V of another head_dim, with scales, or not 16-byte aligned are
-//   refused (cudaErrorInvalidValue), never run on a slower path.  At
-//   head_dim 256 a block takes about 205 KB of shared memory (one block an
-//   SM) and holds 16 Q fragments a warp in registers.
-//   K/V tiles are re-read by every query tile and every head of a GQA group
-//   (from L2 at decode sizes); wgmma/TMA pipelines are later work.
+//     shared memory, exact f32 FMAs on the CUDA cores (not redesigned).
+//   bf16 K/V with scales, of a head_dim that is no multiple of 8, or not
+//   16-byte aligned are refused (cudaErrorInvalidValue), never run on a
+//   slower path.
+#include <cuda.h>
+
 #include <climits>
-#include <mma.h>
 
 #include "common.cuh"
 
@@ -209,246 +208,700 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(
   }
 }
 
-// ---- bf16 K/V: tensor-core tiles -------------------------------------------
-// One block per (64-query tile, q head, batch row), one warp per 16 queries.
-// A K/V tile of 64 keys is staged once in shared memory for the 4 warps.
-// S = Q K^T and O = P V run as warp-level tensor-core MMAs (wmma, bf16 in,
-// f32 accumulate; Q stays in registers as MMA fragments); the online
-// softmax stays f32 per row.  The f32 P is split into P_hi = bf16(P) and
-// P_lo = bf16(P - P_hi), and O = P_hi V + P_lo V: V is bf16 already, so
-// the products are exact and P is off by at most 2^-17 of itself, where a
-// single bf16 P would be off by 2^-9 while l sums the unrounded P.
-// head_dim is a compile-time 32, 64, 128 or 256; 16-byte aligned q/k/v; no
-// dequant scales.  About 110 KB of shared memory at head_dim 128 (two
-// blocks per SM), 205 KB at 256 (one).
-constexpr int kWarpsT = 4;
-constexpr int kBQT = 16 * kWarpsT;  // queries per block
-constexpr int kBKT = 64;            // keys per tile
-constexpr int kThreadsT = 32 * kWarpsT;
+// ---- bf16 K/V: warp-specialised wgmma + TMA body ---------------------------
+// A CTA owns kRows = 128 rows, each a (query, head) pair of one kv head and
+// one batch row: row r of a q block is query r / G, head kvh * G + r % G
+// (G = H / KVH), so one staged K/V tile serves every head of the GQA group.
+// The rows of a CTA lie inside one JAX q block (the dense grid is one block
+// of kq queries), so on the banded grid they share starts[i].
+// Warps 0-7 are two consumer warpgroups of 64 rows; warps 8-11 are the
+// producer warpgroup, whose first lane streams K/V tiles of kBN keys by TMA
+// (a 4D tensor map over [B, N, KVH, hd], so keys past N and columns past hd
+// arrive as zeros) into a ring of kStages stages guarded by full/empty
+// mbarriers.  setmaxnreg moves registers from the producer (24) to the
+// consumers (240).  The consumers copy Q once into shared memory by 16-byte
+// cp.async; the producer starts once those copies are issued, so Q is not
+// queued behind the K/V stream.  Shared tiles are rows of 64 bf16 columns
+// (128 bytes) in the 128-byte swizzle, head_dim cut into such chunks;
+// chunks past ceil(hd / 64) are zeroed once and never copied into, so
+// head_dim is padded with zero columns up to the instantiated width HDP.
+// A consumer warpgroup issues, as one wgmma group, P V of the previous tile
+// and S = Q K^T of this one (S with both operands in shared memory; P V with
+// P in registers as the A fragment and V read transposed), then runs the
+// scale, soft cap, masks and online softmax on the S accumulator fragment
+// (a row lives on the four threads of a quad: max and sum are two
+// shuffles), splits P into P_hi = bf16(P) and P_lo = bf16(P - P_hi) and
+// rescales O, all in registers.  V is bf16, so both products are exact and
+// P keeps f32 accuracy to 2^-17.  The two warpgroups take turns to issue
+// (named barriers), so one's softmax overlaps the other's products.
+// Registers at HDP = 256: O is 128 f32 a thread, S 16 and P 16 (32-key
+// tiles), no spill at 240.
+// Bound: the LLaDA decode grid is 128 CTAs of 8 tiles, latency- and
+// HBM-bound; head_dim 256 is tensor-core-bound (S, P_hi V and P_lo V:
+// 1.5x the function's operations, plus the softmax between them).
+namespace wg {
 
-template <int HD>
-struct TcLayout {
-  static constexpr int kLd = HD + 8;                       // Q/K/V rows, bf16
-  static constexpr int kLdS = (HD > kBKT ? HD : kBKT) + 4;  // S / O rows, f32
-  static constexpr int kLdP = kBKT + 8;                    // P rows, bf16
-  static constexpr size_t kKv = (size_t)kBKT * kLd * 2;    // one K or V tile
-  static constexpr size_t kWarp =
-      ((size_t)16 * kLdS * 4 +   // S, then O (aliased); Q staging at start
-       (size_t)16 * HD * 4 +     // running output
-       (size_t)16 * kLdP * 2 +   // P_hi, then P_lo
-       4 * 16 * 4 + 127) / 128 * 128;  // m, l, alpha, q_pos
-  static constexpr size_t kBytes = 2 * kKv + kWarpsT * kWarp;
+constexpr int kConsumerWGs = 2;
+constexpr int kRows = 64 * kConsumerWGs;           // rows per CTA
+constexpr int kThreads = 128 * (kConsumerWGs + 1);  // + a producer group
+constexpr int kStages = 4;
+
+template <int HDP>
+struct Cfg {
+  static constexpr int kBN = HDP == 256 ? 32 : 64;  // keys per tile
+  static constexpr int kNch = (HDP + 63) / 64;      // 64-column chunks
+  static constexpr int kQBytes = kNch * kRows * 128;
+  static constexpr int kKvBytes = kNch * kBN * 128;  // one K or V tile
+  static constexpr int kStageBytes = 2 * kKvBytes;
+  static constexpr int kBarOff = kQBytes + kStages * kStageBytes;
+  // + full/empty barriers, the rows' position range, 1024-byte alignment
+  static constexpr int kSmem = kBarOff + 16 * kStages + 16 + 1024;
+  static constexpr int kFull = HDP / 64;  // n64 column blocks of O
+  static constexpr int kTail = HDP % 64;  // 0, 16 or 32 more columns
 };
 
-template <int HD>
-__global__ void __launch_bounds__(kThreadsT) attention_bf16_tc(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-    const __nv_bfloat16* __restrict__ v, const int* __restrict__ qpos,
-    const int* __restrict__ kvlen, __nv_bfloat16* __restrict__ out, int kq,
-    int H, int N, int KVH, int window, float scale, float soft_cap,
-    const int* __restrict__ starts, int n_band, int bq, int bk) {
-  using namespace nvcuda;
-  using bf16 = __nv_bfloat16;
-  using L = TcLayout<HD>;
-  constexpr int kHd8 = HD / 8;
-  extern __shared__ __align__(128) unsigned char tc_smem[];
-  bf16* kt = reinterpret_cast<bf16*>(tc_smem);
-  bf16* vt = reinterpret_cast<bf16*>(tc_smem + L::kKv);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  unsigned char* wbase = tc_smem + 2 * L::kKv + warp * L::kWarp;
-  float* so = reinterpret_cast<float*>(wbase);
-  float* acc = so + 16 * L::kLdS;
-  bf16* pb = reinterpret_cast<bf16*>(acc + 16 * HD);
-  float* m_s = reinterpret_cast<float*>(pb + 16 * L::kLdP);
-  float* l_s = m_s + 16;
-  float* a_s = l_s + 16;
-  int* qp_s = reinterpret_cast<int*>(a_s + 16);
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
-  const int b = blockIdx.z, h = blockIdx.y;
-  const int kvh = h / (H / KVH);
-  const int q0 = blockIdx.x * kBQT + warp * 16;  // this warp's first query
-  const int kv_limit = kvlen ? kvlen[b] : N;
-  const uint4 zero = make_uint4(0, 0, 0, 0);
-  const bool active = q0 < kq;
+// wgmma matrix descriptor of a 128-byte-swizzled tile at shared address a:
+// lbo / sbo are the byte strides the PTX ISA names (8-row groups 1024 bytes
+// apart in every tile here); layout type 1 = 128-byte swizzle.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t a, uint32_t lbo,
+                                               uint32_t sbo) {
+  return (uint64_t)((a & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
 
-  // Q -> registers, staged through the S/O scratch as bf16 rows
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> qf[HD / 16];
-  {
-    bf16* qs = reinterpret_cast<bf16*>(so);
-    for (int e = lane; e < 16 * kHd8; e += 32) {
-      const int i = e / kHd8, c = (e % kHd8) * 8, qi = q0 + i;
-      *reinterpret_cast<uint4*>(qs + i * L::kLd + c) =
-          qi < kq ? *reinterpret_cast<const uint4*>(
-                        q + (((size_t)b * kq + qi) * H + h) * HD + c)
-                  : zero;
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Wait until the barrier's phase of this parity has completed.  A phase
+// that never completes (a lost copy) traps after about 8 s of SM clocks
+// instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  long long t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (t0 == 0) {
+      t0 = clock64();
+    } else if (clock64() - t0 > (1ll << 34)) {
+      __trap();
     }
-    __syncwarp();
-#pragma unroll
-    for (int kk = 0; kk < HD / 16; ++kk)
-      wmma::load_matrix_sync(qf[kk], qs + kk * 16, L::kLd);
-    __syncwarp();
   }
-  for (int i = 0; i < 16; ++i)
-    for (int c = lane; c < HD; c += 32) acc[i * HD + c] = 0.f;
-  if (lane < 16) {
-    m_s[lane] = spa::kNegInf;
-    l_s[lane] = 0.f;
-    qp_s[lane] = q0 + lane < kq ? qpos[(size_t)b * kq + q0 + lane] : (1 << 30);
-  }
+}
 
-  __shared__ int q_rng[2];  // the block's least and greatest query position
+// One TMA box [1, box keys, 1, 64 columns] of a 4D [B, N, KVH, hd] map
+// (coordinates innermost first) into shared memory, completing on bar.
+__device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* m,
+                                            uint32_t bar, int c0, int c1,
+                                            int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(m)), "r"(bar), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Keep the compiler from moving register accesses across the asynchronous
+// wgmma region (the registers are "written" here).
+template <int M>
+__device__ __forceinline__ void reg_fence(float (&r)[M]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+template <int M>
+__device__ __forceinline__ void reg_fence(uint32_t (&r)[M][4]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(r[i][j])::"memory");
+}
+
+// d[64 x 64] (+)= A[64 x 16] B[64 x 16]^T, A and B K-major in shared
+// memory; accumulate == 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 32] (+)= A[64 x 16] B[32 x 16]^T, A and B K-major in shared
+// memory; accumulate == 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                             uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[64 x 64] += A[64 x 16] B[16 x 64], A in registers (the m64k16
+// fragment), B MN-major in shared memory (imm-trans-b = 1).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 32] += A[64 x 16] B[16 x 32], A in registers (the m64k16
+// fragment), B MN-major in shared memory (imm-trans-b = 1).
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d[64 x 16] += A[64 x 16] B[16 x 16], A in registers (the m64k16
+// fragment), B MN-major in shared memory (imm-trans-b = 1).
+__device__ __forceinline__ void wgmma_rs_n16(float (&d)[8],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      :
+        "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  if constexpr (N == 64) {
+    wgmma_rs_n64(d, a, db);
+  } else if constexpr (N == 32) {
+    wgmma_rs_n32(d, a, db);
+  } else {
+    wgmma_rs_n16(d, a, db);
+  }
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 v) {
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 2^x (MUFU.EX2; 2^-inf = 0, 2^0 = 1 exactly)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(kThreads, 1) attention_bf16_wgmma(
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const __nv_bfloat16* __restrict__ q, const int* __restrict__ qpos,
+    const int* __restrict__ kvlen, __nv_bfloat16* __restrict__ out, int kq,
+    int H, int N, int KVH, int hd, int window, float scale, float soft_cap,
+    const int* __restrict__ starts, int n_band, int bq, int bk,
+    int tiles_per_qb) {
+  using C = Cfg<HDP>;
+  constexpr int BN = C::kBN;
+  constexpr int kConsumers = 128 * kConsumerWGs;
+  extern __shared__ unsigned char wg_smem[];
+  const uint32_t raw = smem_u32(wg_smem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* sm = wg_smem + (base - raw);
+  const uint32_t s_q = base;
+  const uint32_t s_kv = base + C::kQBytes;  // stage s: K, then V
+  const uint32_t s_bar = base + C::kBarOff;  // full[s], then empty[s]
+  int* rng = reinterpret_cast<int*>(sm + C::kBarOff + 16 * kStages);
+
+  const int G = H / KVH;
+  const int b = blockIdx.z, kvh = blockIdx.y;
+  const int qb = blockIdx.x / tiles_per_qb;
+  const int row0 = qb * bq * G + (blockIdx.x % tiles_per_qb) * kRows;
+  const int row_end = min((qb + 1) * bq, kq) * G;
+  if (row0 >= row_end) return;  // a spare tile of a short last q block
+  const int tid = threadIdx.x;
+  const int kv_limit = kvlen ? kvlen[b] : N;
+  const int nch_load = (hd + 63) / 64;  // chunks the copies fill
+
   if (tid == 0) {
-    q_rng[0] = INT_MAX;
-    q_rng[1] = INT_MIN;
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(s_bar + 8 * s, 1);
+      mbar_init(s_bar + 8 * (kStages + s), kConsumers);
+    }
+    rng[0] = INT_MAX;
+    rng[1] = INT_MIN;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  if (lane < 16 && q0 + lane < kq) {
-    atomicMin(&q_rng[0], qp_s[lane]);
-    atomicMax(&q_rng[1], qp_s[lane]);
+  if (tid < kRows && row0 + tid < row_end) {
+    const int p = qpos[(size_t)b * kq + (row0 + tid) / G];
+    atomicMin(&rng[0], p);
+    atomicMax(&rng[1], p);
   }
   __syncthreads();
   int kv_lo, kv_hi;
-  kv_range(starts ? starts[blockIdx.x * kBQT / bq] : -1, n_band, bk, N,
-           kv_limit, window, q_rng[0], q_rng[1], kBKT, &kv_lo, &kv_hi);
-  for (int kv0 = kv_lo; kv0 < kv_hi; kv0 += kBKT) {
-    __syncthreads();  // every warp is done with the previous tile
-    for (int e = tid; e < kBKT * kHd8; e += kThreadsT) {
-      const int j = e / kHd8, c = (e % kHd8) * 8, p = kv0 + j;
-      uint4 kk4 = zero, vv4 = zero;
-      if (p < N) {
-        const size_t off = (((size_t)b * N + p) * KVH + kvh) * HD + c;
-        kk4 = *reinterpret_cast<const uint4*>(k + off);
-        vv4 = *reinterpret_cast<const uint4*>(v + off);
-      }
-      *reinterpret_cast<uint4*>(kt + j * L::kLd + c) = kk4;
-      *reinterpret_cast<uint4*>(vt + j * L::kLd + c) = vv4;
-    }
-    __syncthreads();
-    if (!active) continue;
+  kv_range(starts ? starts[qb] : -1, n_band, bk, N, kv_limit, window,
+           rng[0], rng[1], BN, &kv_lo, &kv_hi);
+  const int n_tiles = kv_hi > kv_lo ? (kv_hi - kv_lo + BN - 1) / BN : 0;
+  const int warp = tid / 32;
 
-    // S = Q K^T: four 16-key column tiles, f32 accumulators
-#pragma unroll
-    for (int jt = 0; jt < kBKT / 16; ++jt) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> fs;
-      wmma::fill_fragment(fs, 0.f);
-#pragma unroll
-      for (int kk = 0; kk < HD / 16; ++kk) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> fb;
-        wmma::load_matrix_sync(fb, kt + jt * 16 * L::kLd + kk * 16, L::kLd);
-        wmma::mma_sync(fs, qf[kk], fb, fs);
+  if (warp >= 4 * kConsumerWGs) {
+    // ---- producer warpgroup: one lane keeps the ring full ----
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    // K/V requests queue behind the consumers' Q loads
+    asm volatile("bar.sync 4, %0;\n" ::"n"(kThreads) : "memory");
+    if (tid == kConsumers) {
+      for (int i = 0; i < n_tiles; ++i) {
+        const int s = i % kStages;
+        if (i >= kStages)
+          mbar_wait(s_bar + 8 * (kStages + s), ((i / kStages) - 1) & 1);
+        const uint32_t full = s_bar + 8 * s;
+        mbar_expect_tx(full, 2 * nch_load * BN * 128);
+        const uint32_t k_s = s_kv + s * C::kStageBytes;
+        const int kv0 = kv_lo + i * BN;
+        for (int c = 0; c < nch_load; ++c) {
+          tma_load_4d(k_s + c * BN * 128, &tm_k, full, c * 64, kvh, kv0, b);
+          tma_load_4d(k_s + C::kKvBytes + c * BN * 128, &tm_v, full, c * 64,
+                      kvh, kv0, b);
+        }
       }
-      wmma::store_matrix_sync(so + jt * 16, fs, L::kLdS, wmma::mem_row_major);
     }
-    __syncwarp();
+  } else {
+    // ---- two consumer warpgroups of 64 rows ----
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const uint4 zero = make_uint4(0, 0, 0, 0);
+    // zero the chunks no copy fills (columns past ceil(hd / 64) * 64)
+    for (int e = tid; e < kStages * 2 * (C::kNch - nch_load) * BN * 8;
+         e += kConsumers) {
+      const int per = (C::kNch - nch_load) * BN * 8;
+      const int tile = e / per, rem = e % per;
+      *reinterpret_cast<uint4*>(sm + C::kQBytes + tile * C::kKvBytes +
+                                nch_load * BN * 128 + rem * 16) = zero;
+    }
+    // Q -> shared memory in the swizzled layout by 16-byte cp.async, every
+    // copy in flight at once: thread tid copies unit tid % 8 of rows tid / 8
+    // + 32 k of each chunk; columns past hd and rows past the q block are
+    // zero-filled
+    static_assert(kRows * 8 == 4 * kConsumers, "4 rows a thread");
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int r = tid / 8 + 32 * k, u = tid % 8, grow = row0 + r;
+      const bool row_in = grow < row_end;
+      const __nv_bfloat16* src =
+          row_in ? q + (((size_t)b * kq + grow / G) * H + kvh * G + grow % G)
+                           * hd
+                 : q;
+#pragma unroll
+      for (int c = 0; c < C::kNch; ++c) {
+        const bool in = row_in && c * 64 + u * 8 < hd;
+        spa::cp_async16(
+            sm + c * kRows * 128 + r * 128 + ((u ^ (r & 7)) << 4),
+            in ? src + c * 64 + u * 8 : q, in);
+      }
+    }
+    spa::cp_async_commit();
+    // the Q copies are issued: the producer may start streaming K/V
+    asm volatile("bar.arrive 4, %0;\n" ::"n"(kThreads) : "memory");
+    spa::cp_async_wait<0>();
+    // the copies' (generic-proxy) writes -> visible to wgmma (async
+    // proxy), then a barrier of the consumer threads only
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
 
-    // online softmax, one row at a time, two keys per lane; the f32 P
-    // overwrites S in place (each lane rewrites the entries it read)
-    for (int i = 0; i < 16; ++i) {
-      float sv[2];
-      bool ok[2];
+    const int wgi = warp / 4, lane = tid & 31;
+    const int g = lane >> 2, t = lane & 3;
+    int qp[2], rq[2], rh[2];
+    bool live[2];
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int j = lane + 32 * u, p = kv0 + j;
-        float s = so[i * L::kLdS + j] * scale;
-        if (soft_cap > 0.f) s = soft_cap * tanhf(s / soft_cap);
-        ok[u] = p < N && p < kv_limit &&
-                (window <= 0 || abs(qp_s[i] - p) <= window);
-        sv[u] = ok[u] ? s : spa::kNegInf;
-      }
-      const float m_prev = m_s[i];
-      const float m_new = fmaxf(m_prev, spa::warp_max(fmaxf(sv[0], sv[1])));
-      const float e0 = ok[0] ? expf(sv[0] - m_new) : 0.f;
-      const float e1 = ok[1] ? expf(sv[1] - m_new) : 0.f;
-      const float psum = spa::warp_sum(e0 + e1);
-      so[i * L::kLdS + lane] = e0;
-      so[i * L::kLdS + lane + 32] = e1;
-      if (lane == 0) {
-        const float alpha =
-            m_prev <= spa::kNegInf / 2 ? 0.f : expf(m_prev - m_new);
-        l_s[i] = alpha * l_s[i] + psum;
-        m_s[i] = m_new;
-        a_s[i] = alpha;
-      }
+    for (int e = 0; e < 2; ++e) {
+      const int grow = row0 + wgi * 64 + (warp & 3) * 16 + g + 8 * e;
+      live[e] = grow < row_end;
+      rq[e] = grow / G;
+      rh[e] = kvh * G + grow % G;
+      qp[e] = live[e] ? qpos[(size_t)b * kq + rq[e]] : (1 << 30);
     }
-    __syncwarp();
+    const int kv_cut = min(N, kv_limit);
+    float m[2] = {spa::kNegInf, spa::kNegInf}, l[2] = {0.f, 0.f};
+    float o[C::kFull > 0 ? C::kFull : 1][32];
+    float o_tail[C::kTail > 0 ? C::kTail / 2 : 1];
+#pragma unroll
+    for (int c = 0; c < C::kFull; ++c)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) o[c][i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < (C::kTail > 0 ? C::kTail / 2 : 1); ++i)
+      o_tail[i] = 0.f;
+    float sc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) sc[i] = 0.f;
+    // P of one tile, A-fragment layout of the 16-key steps
+    uint32_t p_hi[BN / 16][4], p_lo[BN / 16][4];
+    const uint32_t q_wg = s_q + wgi * 64 * 128;
 
-    // P_hi and P_lo -> fragments (through the bf16 scratch, one at a time)
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>
-        ph[kBKT / 16], pl[kBKT / 16];
-    for (int e = lane; e < 16 * kBKT; e += 32) {
-      const int i = e / kBKT, j = e % kBKT;
-      pb[i * L::kLdP + j] = __float2bfloat16_rn(so[i * L::kLdS + j]);
-    }
-    __syncwarp();
+    // scale, soft cap, masks and the online softmax of tile i on the
+    // fragment in sc (sc[4j + e] is row g + 8 (e >> 1), key kv0 + 8j + 2t
+    // + (e & 1)); updates m and l, returns alpha, writes P_hi / P_lo of the
+    // tile into p (register r of 16-key step kk holds keys 16 kk + 8 (r >>
+    // 1) + 2t, +1 of row g + 8 (r & 1)).  Scores are kept in log2 units
+    // (s * log2 e, after the soft cap), so each exponential is one ex2; a
+    // masked score becomes -inf, whose ex2 is exactly 0, and leaves the
+    // row max as the NEG_INF sentinel would.  The code is straight-line
+    // (the uniform soft-cap test sits outside the element loops); a warp
+    // whose rows all see every key of the tile skips the masks.
+    auto softmax = [&](int i, float (&alpha)[2]) {
+      constexpr float kLog2e = 1.4426950408889634f;
+      if (soft_cap > 0.f) {
 #pragma unroll
-    for (int jt = 0; jt < kBKT / 16; ++jt)
-      wmma::load_matrix_sync(ph[jt], pb + jt * 16, L::kLdP);
-    __syncwarp();
-    for (int e = lane; e < 16 * kBKT; e += 32) {
-      const int i = e / kBKT, j = e % kBKT;
-      const float pv = so[i * L::kLdS + j];
-      pb[i * L::kLdP + j] = __float2bfloat16_rn(
-          pv - __bfloat162float(__float2bfloat16_rn(pv)));
-    }
-    __syncwarp();
+        for (int idx = 0; idx < BN / 2; ++idx)
+          sc[idx] = soft_cap * tanhf(sc[idx] * scale / soft_cap) * kLog2e;
+      } else {
 #pragma unroll
-    for (int jt = 0; jt < kBKT / 16; ++jt)
-      wmma::load_matrix_sync(pl[jt], pb + jt * 16, L::kLdP);
-    __syncwarp();
-
-    // O = P_hi V + P_lo V into the scratch, then acc = alpha * acc + O
-#pragma unroll
-    for (int ct = 0; ct < HD / 16; ++ct) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> fo;
-      wmma::fill_fragment(fo, 0.f);
-#pragma unroll
-      for (int jt = 0; jt < kBKT / 16; ++jt) {
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fb, vt + jt * 16 * L::kLd + ct * 16, L::kLd);
-        wmma::mma_sync(fo, ph[jt], fb, fo);
-        wmma::mma_sync(fo, pl[jt], fb, fo);
+        for (int idx = 0; idx < BN / 2; ++idx) sc[idx] *= scale * kLog2e;
       }
-      wmma::store_matrix_sync(so + ct * 16, fo, L::kLdS, wmma::mem_row_major);
-    }
-    __syncwarp();
-    for (int i = 0; i < 16; ++i) {
-      const float alpha = a_s[i];
+      // key kv0 + 8j + 2t + (e & 1) lies below kv_cut iff 8j + (e & 1) <
+      // lim, and within row r's window iff |dq[r] - (8j + (e & 1))| <=
+      // window
+      const int kv0 = kv_lo + i * BN;
+      const bool whole =
+          kv0 + BN <= kv_cut &&
+          (window <= 0 || (qp[0] - window <= kv0 && qp[1] - window <= kv0 &&
+                           qp[0] + window >= kv0 + BN - 1 &&
+                           qp[1] + window >= kv0 + BN - 1));
+      if (!__all_sync(0xffffffffu, whole)) {
+        const int lim = kv_cut - kv0 - 2 * t;
+        const int dq[2] = {qp[0] - kv0 - 2 * t, qp[1] - kv0 - 2 * t};
 #pragma unroll
-      for (int c = lane; c < HD; c += 32)
-        acc[i * HD + c] = alpha * acc[i * HD + c] + so[i * L::kLdS + c];
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int idx = 4 * j + e, off = 8 * j + (e & 1);
+            const bool ok = off < lim && (window <= 0 ||
+                                          abs(dq[e >> 1] - off) <= window);
+            sc[idx] = ok ? sc[idx] : -INFINITY;
+          }
+      }
+      float mx[2] = {spa::kNegInf, spa::kNegInf};
+#pragma unroll
+      for (int idx = 0; idx < BN / 2; ++idx)
+        mx[(idx >> 1) & 1] = fmaxf(mx[(idx >> 1) & 1], sc[idx]);
+      float rsum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 1));
+        mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 2));
+        const float m_new = fmaxf(m[e], mx[e]);
+        alpha[e] = m[e] <= spa::kNegInf / 2 ? 0.f : ex2(m[e] - m_new);
+        m[e] = m_new;
+      }
+#pragma unroll
+      for (int idx = 0; idx < BN / 2; ++idx) {
+        const int row = (idx >> 1) & 1;
+        sc[idx] = ex2(sc[idx] - m[row]);
+        rsum[row] += sc[idx];
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        rsum[e] += __shfl_xor_sync(0xffffffffu, rsum[e], 1);
+        rsum[e] += __shfl_xor_sync(0xffffffffu, rsum[e], 2);
+        l[e] = alpha[e] * l[e] + rsum[e];
+      }
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float x0 = sc[8 * kk + 2 * r], x1 = sc[8 * kk + 2 * r + 1];
+          const __nv_bfloat162 hi = __floats2bfloat162_rn(x0, x1);
+          p_hi[kk][r] = bf16x2_bits(hi);
+          p_lo[kk][r] = bf16x2_bits(__floats2bfloat162_rn(
+              x0 - __low2float(hi), x1 - __high2float(hi)));
+        }
+    };
+
+    auto rescale_o = [&](const float (&alpha)[2]) {
+#pragma unroll
+      for (int c = 0; c < C::kFull; ++c)
+#pragma unroll
+        for (int idx = 0; idx < 32; ++idx)
+          o[c][idx] *= alpha[(idx >> 1) & 1];
+      if constexpr (C::kTail > 0) {
+#pragma unroll
+        for (int idx = 0; idx < C::kTail / 2; ++idx)
+          o_tail[idx] *= alpha[(idx >> 1) & 1];
+      }
+    };
+
+    // Phase 0 issues S of tile 0; phase ph (1 <= ph < n_tiles) issues P V
+    // of tile ph - 1 and S of tile ph in one wgmma group; phase n_tiles
+    // issues the last P V.  After the group lands the stage of tile ph - 1
+    // is released, and the softmax of tile ph runs (P into p, O rescaled).
+    // The two consumer warpgroups take turns to issue their groups (named
+    // barriers 2 and 3, warpgroup 0 first), so one's softmax runs while
+    // the other's products keep the tensor cores busy.
+    const int turn = 2 + wgi, other = 3 - wgi;
+    if (wgi == 1)
+      asm volatile("bar.arrive 2, %0;\n" ::"n"(kConsumers) : "memory");
+    const int n_ph = n_tiles > 0 ? n_tiles + 1 : 0;
+    for (int ph = 0; ph < n_ph; ++ph) {
+      const bool has_pv = ph > 0, has_s = ph < n_tiles;
+      const int st_s = ph % kStages, st_v = (ph + kStages - 1) % kStages;
+      if (has_s) mbar_wait(s_bar + 8 * st_s, (ph / kStages) & 1);
+      asm volatile("bar.sync %0, %1;\n" ::"r"(turn), "n"(kConsumers)
+                   : "memory");
+#pragma unroll
+      for (int c = 0; c < C::kFull; ++c) reg_fence(o[c]);
+      reg_fence(o_tail);
+      reg_fence(p_hi);
+      reg_fence(p_lo);
+      reg_fence(sc);
+      wgmma_fence();
+      if (has_pv) {
+        // O += P_hi V + P_lo V: V tile rows are keys, 16 keys = 2048 bytes
+        const uint32_t v_s = s_kv + st_v * C::kStageBytes + C::kKvBytes;
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk) {
+          const uint32_t vk = v_s + kk * 16 * 128;
+#pragma unroll
+          for (int c = 0; c < C::kFull; ++c) {
+            const uint64_t db = sw128_desc(vk + c * BN * 128, 1024, 1024);
+            wgmma_rs_n64(o[c], p_hi[kk], db);
+            wgmma_rs_n64(o[c], p_lo[kk], db);
+          }
+          if constexpr (C::kTail > 0) {
+            const uint64_t db =
+                sw128_desc(vk + C::kFull * BN * 128, 1024, 1024);
+            wgmma_rs<C::kTail>(o_tail, p_hi[kk], db);
+            wgmma_rs<C::kTail>(o_tail, p_lo[kk], db);
+          }
+        }
+      }
+      if (has_s) {
+        // S = Q K^T over HDP / 16 steps of 16 columns (32 bytes of a row)
+        const uint32_t k_s = s_kv + st_s * C::kStageBytes;
+#pragma unroll
+        for (int kk = 0; kk < HDP / 16; ++kk) {
+          const uint64_t da = sw128_desc(
+              q_wg + (kk / 4) * kRows * 128 + (kk % 4) * 32, 16, 1024);
+          const uint64_t db = sw128_desc(
+              k_s + (kk / 4) * BN * 128 + (kk % 4) * 32, 16, 1024);
+          if constexpr (BN == 64) {
+            wgmma_ss_n64(sc, da, db, kk > 0);
+          } else {
+            wgmma_ss_n32(sc, da, db, kk > 0);
+          }
+        }
+      }
+      wgmma_commit();
+      asm volatile("bar.arrive %0, %1;\n" ::"r"(other), "n"(kConsumers)
+                   : "memory");
+      wgmma_wait<0>();
+#pragma unroll
+      for (int c = 0; c < C::kFull; ++c) reg_fence(o[c]);
+      reg_fence(o_tail);
+      reg_fence(sc);
+      if (has_pv)  // the stage of tile ph - 1 may be refilled
+        mbar_arrive(s_bar + 8 * (kStages + st_v));
+      if (has_s) {
+        float alpha[2];
+        softmax(ph, alpha);
+        // alpha is exactly 1 where the row max did not move: skip the
+        // product in a warp whose rows all kept theirs
+        if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f))
+          rescale_o(alpha);
+      }
     }
-    __syncwarp();
-  }
-  if (!active) return;
-  for (int i = 0; i < 16; ++i) {
-    const int qi = q0 + i;
-    if (qi >= kq) break;
-    const float l = l_s[i];
-    const float inv_l = 1.f / (l == 0.f ? 1.f : l);
-    bf16* o = out + (((size_t)b * kq + qi) * H + h) * HD;
-    for (int c = lane; c < HD; c += 32)
-      o[c] = __float2bfloat16_rn(acc[i * HD + c] * inv_l);
+    if (wgi == 0)  // warpgroup 1's last hand-over
+      asm volatile("bar.sync 2, %0;\n" ::"n"(kConsumers) : "memory");
+
+    // out = O / l (rows with l == 0 output 0); column pairs 8j + 2t, +1
+    float inv[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) inv[e] = 1.f / (l[e] == 0.f ? 1.f : l[e]);
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      if (!live[e]) continue;
+      __nv_bfloat16* orow =
+          out + (((size_t)b * kq + rq[e]) * H + rh[e]) * hd;
+#pragma unroll
+      for (int c = 0; c < C::kFull; ++c)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = c * 64 + 8 * j + 2 * t;
+          if (col < hd)
+            *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+                __floats2bfloat162_rn(o[c][4 * j + 2 * e] * inv[e],
+                                      o[c][4 * j + 2 * e + 1] * inv[e]);
+        }
+      if constexpr (C::kTail > 0) {
+#pragma unroll
+        for (int j = 0; j < C::kTail / 8; ++j) {
+          const int col = C::kFull * 64 + 8 * j + 2 * t;
+          if (col < hd)
+            *reinterpret_cast<__nv_bfloat162*>(orow + col) =
+                __floats2bfloat162_rn(o_tail[4 * j + 2 * e] * inv[e],
+                                      o_tail[4 * j + 2 * e + 1] * inv[e]);
+        }
+      }
+    }
   }
 }
 
-template <int HD>
-int launch_tc(const void* q, const void* k, const void* v, const int* qpos,
-              const int* kvlen, void* out, int B, int kq, int H, int N,
-              int KVH, int window, float scale, float soft_cap,
-              const int* starts, int n_band, int bq, int bk, cudaStream_t s) {
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled through the runtime's driver entry point (the
+// library links no -lcuda); nullptr where the driver lacks it.
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &res);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res);
+#endif
+    if (err == cudaSuccess && res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// The 4D map of a [B, N, KVH, hd] bf16 cache, boxes of 64 columns x bn keys
+// of one kv head and batch row, 128-byte swizzle, zeros out of bounds.
+bool kv_map(EncodeTiled enc, CUtensorMap* m, const void* base, int B, int N,
+            int KVH, int hd, int bn) {
+  const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)KVH, (cuuint64_t)N,
+                              (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)hd * 2, (cuuint64_t)KVH * hd * 2,
+                                 (cuuint64_t)N * KVH * hd * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)bn, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int HDP>
+int launch(const void* q, const void* k, const void* v, const int* qpos,
+           const int* kvlen, void* out, int B, int kq, int H, int N, int KVH,
+           int hd, int window, float scale, float soft_cap, const int* starts,
+           int n_band, int bq, int bk, cudaStream_t s) {
   using bf16 = __nv_bfloat16;
-  const size_t bytes = TcLayout<HD>::kBytes;
+  using C = Cfg<HDP>;
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap tk, tv;
+  if (!kv_map(enc, &tk, k, B, N, KVH, hd, C::kBN) ||
+      !kv_map(enc, &tv, v, B, N, KVH, hd, C::kBN))
+    return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      attention_bf16_tc<HD>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)bytes);
+      attention_bf16_wgmma<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::kSmem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((kq + kBQT - 1) / kBQT, H, B);
-  attention_bf16_tc<HD><<<grid, kThreadsT, bytes, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), qpos, kvlen, static_cast<bf16*>(out), kq,
-      H, N, KVH, window, scale, soft_cap, starts, n_band, bq, bk);
+  const int G = H / KVH;
+  const int qblock = starts ? bq : kq;  // the dense grid: one q block
+  const int tiles = (qblock * G + kRows - 1) / kRows;
+  const dim3 grid(((kq + qblock - 1) / qblock) * tiles, KVH, B);
+  attention_bf16_wgmma<HDP><<<grid, kThreads, C::kSmem, s>>>(
+      tk, tv, static_cast<const bf16*>(q), qpos, kvlen,
+      static_cast<bf16*>(out), kq, H, N, KVH, hd, window, scale, soft_cap,
+      starts, n_band, qblock, bk, tiles);
   return (int)cudaGetLastError();
 }
+
+}  // namespace wg
 
 size_t smem_bytes(int hd) {
   return sizeof(float) * (size_t)(kBQ * hd + kBK * (hd + 1) + kBK * hd +
@@ -481,7 +934,10 @@ int launch(const void* q, const void* k, const void* v, const int* qpos,
 // kvlen [B] int32 or nullptr (= N); out [B,kq,H,hd] in q's dtype.
 // starts == nullptr: the dense grid.  Else the banded grid: starts
 // [ceil(kq / bq)] int32 kv-block indices (of bk keys), n_band blocks each;
-// bq must be a multiple of 64 or at least kq, bk a multiple of 64.
+// bq must be a multiple of 16 or at least kq, bk a multiple of 64.
+// bf16 K/V (no scales) take a head_dim that is a multiple of 8 up to 256
+// and 16-byte aligned q, k and v; anything else returns
+// cudaErrorInvalidValue.
 extern "C" int spa_sparse_attention(const void* q, const void* k,
                                     const void* v, const void* qpos,
                                     const void* ks, const void* vs,
@@ -496,8 +952,8 @@ extern "C" int spa_sparse_attention(const void* q, const void* k,
       (quant && (!ks || !vs)))
     return (int)cudaErrorInvalidValue;
   const int* st = static_cast<const int*>(starts);
-  if (st && (n_band <= 0 || bq <= 0 || bk <= 0 || bk % kBKT ||
-             (bq % kBQT && bq < kq)))
+  if (st && (n_band <= 0 || bq <= 0 || bk <= 0 || bk % 64 ||
+             (bq % kBQ && bq < kq)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* qp = static_cast<const int*>(qpos);
@@ -513,15 +969,16 @@ extern "C" int spa_sparse_attention(const void* q, const void* k,
     const bool aligned = ((reinterpret_cast<uintptr_t>(q) |
                            reinterpret_cast<uintptr_t>(k) |
                            reinterpret_cast<uintptr_t>(v)) & 15) == 0;
-    if (ks || !aligned ||
-        !(hd == 32 || hd == 64 || hd == 128 || hd == 256))
-      return (int)cudaErrorInvalidValue;
-    auto tc = hd == 32    ? launch_tc<32>
-              : hd == 64  ? launch_tc<64>
-              : hd == 128 ? launch_tc<128>
-                          : launch_tc<256>;
-    return tc(q, k, v, qp, kvl, out, B, kq, H, N, KVH, window, scale,
-              soft_cap, st, n_band, bq, bk, s);
+    if (ks || !aligned || hd % 8) return (int)cudaErrorInvalidValue;
+    // head_dim padded with zero columns to the next instantiated width
+    const int hp = (hd + 15) / 16 * 16;
+    auto body = hp <= 32    ? wg::launch<32>
+                : hp <= 64  ? wg::launch<64>
+                : hp <= 80  ? wg::launch<80>
+                : hp <= 128 ? wg::launch<128>
+                            : wg::launch<256>;
+    return body(q, k, v, qp, kvl, out, B, kq, H, N, KVH, hd, window, scale,
+                soft_cap, st, n_band, bq, bk, s);
   }
   if (dtype == spa::kF32) {
     return quant ? launch<float, int8_t>(q, k, v, qp, kss, vss, kvl, out, B,

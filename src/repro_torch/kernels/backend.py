@@ -3,9 +3,11 @@
 A SPA layer step has four kernel-shaped stages on the dense path
 (identification, the gather + norm epilogue, gathered-query attention and
 the cache commits) plus a score-only pass and three paged stages; the
-Mamba-2 mixer adds a ninth, the SSD chunked scan (``ssd_scan``).  A
-backend owns all of them and rides on the ``CacheStrategy`` (a frozen
-dataclass field), exactly as in the JAX package.
+Mamba-2 mixer adds a ninth, the SSD chunked scan (``ssd_scan``), and the
+RG-LRU mixer a tenth, its linear recurrence (``rglru_scan``; port-only:
+the JAX model runs an associative scan there).  A backend owns all of them
+and rides on the ``CacheStrategy`` (a frozen dataclass field), exactly as
+in the JAX package.
 
   ``TorchBackend`` — the plain PyTorch versions, on any device: the oracle.
   ``CudaBackend``  — the kernel wrappers: CUDA kernels for tensors on the
@@ -33,6 +35,7 @@ from typing import Any, ClassVar, Dict, Optional
 import torch
 
 from repro_torch.kernels import proxy_score as ps
+from repro_torch.kernels import rglru_scan as rs
 from repro_torch.kernels import scatter_update as sc
 from repro_torch.kernels import sparse_attention as sa
 from repro_torch.kernels import ssd_chunk
@@ -100,6 +103,11 @@ class KernelBackend:
         y [B, T, H, hd] in x's dtype."""
         raise NotImplementedError
 
+    def rglru_scan(self, a, x):
+        """The RG-LRU recurrence h_t = a_t * h_{t-1} + x_t: a, x [B, T, d]
+        of one dtype -> h [B, T, d] in a's dtype (f32 carry)."""
+        raise NotImplementedError
+
     @staticmethod
     def _base_score(strategy) -> bool:
         """Whether the strategy keeps the protocol's cosine ``score``."""
@@ -159,6 +167,9 @@ class TorchBackend(KernelBackend):
 
     def ssd_scan(self, x, dt, la, b, c, chunk):
         return ssd_chunk.ssd_chunk_scan_plain(x, dt, la, b, c, chunk)
+
+    def rglru_scan(self, a, x):
+        return rs.rglru_scan_plain(a, x)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -227,6 +238,9 @@ class CudaBackend(KernelBackend):
 
     def ssd_scan(self, x, dt, la, b, c, chunk):
         return ssd_chunk.ssd_chunk_scan(x, dt, la, b, c, chunk)
+
+    def rglru_scan(self, a, x):
+        return rs.rglru_scan(a, x)
 
 
 def _positions(q, q_positions, q_span):

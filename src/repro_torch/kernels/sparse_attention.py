@@ -29,8 +29,9 @@ dense grid's.
 banded grid); the wrapper takes it for CPU tensors and launches
 ``csrc/sparse_attention.cu`` for CUDA ones, counted as
 ``sparse_attention`` (dense grid) or ``sparse_attention_banded``.  On the
-card, bf16 K/V take head_dim 32, 64, 128 or 256 (tensor-core tiles); other
-bf16 shapes raise.
+card, bf16 K/V take any head_dim that is a multiple of 8 up to 256 (padded
+with zero columns to the kernel's next width) and no scales; other bf16
+shapes raise.
 """
 from __future__ import annotations
 
@@ -219,11 +220,11 @@ def sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ks = k_scale.to(torch.float32).contiguous()
         vs = v_scale.to(torch.float32).contiguous()
     if q.dtype == torch.bfloat16 and not quant:
-        # bf16 K/V run only on the tensor-core tiles
-        if hd not in (32, 64, 128, 256) or ks is not None:
-            raise ValueError("bf16 K/V attention takes head_dim 32, 64, 128 "
-                             f"or 256 and no scales, got head_dim {hd}, "
-                             f"scales {ks is not None}")
+        # bf16 K/V run only on the wgmma body
+        if hd % 8 or ks is not None:
+            raise ValueError("bf16 K/V attention takes a head_dim that is a "
+                             "multiple of 8 and no scales, got head_dim "
+                             f"{hd}, scales {ks is not None}")
         if any(t.data_ptr() % 16 for t in (q, k, v)):
             raise ValueError("bf16 K/V attention needs 16-byte aligned "
                              "q, k and v")

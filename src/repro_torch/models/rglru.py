@@ -13,18 +13,19 @@ Masked-diffusion decoding needs bidirectional context, so the recurrence
 runs forward and on the flipped sequence, and the two are averaged.  The
 gates are block-diagonal (``n_heads`` blocks) and computed in f32; ``a``
 and the gated input are cast to the model dtype before the recurrence,
-which keeps an f32 carry.  The recurrence is ``kernels.rglru_scan`` (the
-CUDA kernel on the card, its plain loop on the CPU), where the JAX model
-runs an XLA associative scan.
+which keeps an f32 carry.  The recurrence is the backend's ``rglru_scan``
+stage (``CudaBackend``: the CUDA kernel on the card, its plain loop on the
+CPU; ``TorchBackend``: the plain loop anywhere), where the JAX model runs
+an XLA associative scan.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels.rglru_scan import rglru_scan
+from repro_torch.kernels.backend import CUDA_BACKEND, KernelBackend
 from repro_torch.models import common
 
 _C = 8.0  # Griffin's gate sharpness constant
@@ -82,9 +83,10 @@ def _block_gate(xf: torch.Tensor, w: torch.Tensor,
     return torch.sigmoid(out.reshape(bsz, t, dr) + b.float())
 
 
-def rglru_core(params, x: torch.Tensor, *,
-               reverse: bool = False) -> torch.Tensor:
-    """The gated linear recurrence on pre-activations x: [B, T, dr]."""
+def rglru_core(params, x: torch.Tensor, *, reverse: bool = False,
+               backend: Optional[KernelBackend] = None) -> torch.Tensor:
+    """The gated linear recurrence on pre-activations x: [B, T, dr]; the
+    scan on ``backend`` (default ``CUDA_BACKEND``)."""
     if reverse:
         x = torch.flip(x, dims=(1,))
     xf = x.float()
@@ -95,19 +97,23 @@ def rglru_core(params, x: torch.Tensor, *,
     a = torch.exp(-_C * decay * r)
     gated_in = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xf)
     # the recurrence streams in the model dtype (f32 carry)
-    h = rglru_scan(a.to(x.dtype), gated_in.to(x.dtype))
+    h = (backend or CUDA_BACKEND).rglru_scan(a.to(x.dtype),
+                                             gated_in.to(x.dtype))
     if reverse:
         h = torch.flip(h, dims=(1,))
     return h.to(x.dtype)
 
 
 def apply_rglru(params, x: torch.Tensor, cfg: ModelConfig,
-                bidirectional: bool = True) -> torch.Tensor:
-    """Full RG-LRU mixer. x: [B, T, d] -> [B, T, d]."""
+                bidirectional: bool = True,
+                backend: Optional[KernelBackend] = None) -> torch.Tensor:
+    """Full RG-LRU mixer. x: [B, T, d] -> [B, T, d]; the scans on
+    ``backend``."""
     pre = x @ params["w_in"]
     pre = _temporal_conv(pre, params["conv_kernel"])
-    h = rglru_core(params, pre)
+    h = rglru_core(params, pre, backend=backend)
     if bidirectional:
-        h = 0.5 * (h + rglru_core(params, pre, reverse=True))
+        h = 0.5 * (h + rglru_core(params, pre, reverse=True,
+                                  backend=backend))
     gate = common.act_fn("gelu")(x @ params["w_gate_branch"])
     return (gate * h) @ params["w_out"]

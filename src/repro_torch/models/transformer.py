@@ -184,9 +184,9 @@ def apply_block_dense(cfg: ModelConfig, kind: str, bp: Params,
     None); an attention block's entries hold the raw k/v/h (+ proxy)
     tensors, a recurrent block keeps no cache."""
     from repro_torch.core.strategy import resolve_strategy
-    if kind == RGLRU:
-        return _apply_rglru_block(cfg, bp, h), None
     strat = resolve_strategy(cfg, strategy)
+    if kind == RGLRU:
+        return _apply_rglru_block(cfg, bp, h, strat.backend), None
     if kind == SSD:
         return _apply_ssd_block(cfg, bp, h, strat.backend), None
     if kind not in ATTENTION_KINDS:
@@ -218,12 +218,12 @@ def apply_block_dense(cfg: ModelConfig, kind: str, bp: Params,
     return h_out, entries
 
 
-def _apply_rglru_block(cfg: ModelConfig, bp: Params,
-                       h: torch.Tensor) -> torch.Tensor:
+def _apply_rglru_block(cfg: ModelConfig, bp: Params, h: torch.Tensor,
+                       backend) -> torch.Tensor:
     """norm1 -> RG-LRU mixer -> post-attn norm -> residual -> norm2 ->
-    FFN -> post-FFN norm -> residual."""
+    FFN -> post-FFN norm -> residual; the scans on ``backend``."""
     x = common.rms_norm(h, bp["norm1"], cfg.norm_eps)
-    mix = rglru.apply_rglru(bp["mixer"], x, cfg)
+    mix = rglru.apply_rglru(bp["mixer"], x, cfg, backend=backend)
     if cfg.post_norms:
         mix = common.rms_norm(mix, bp["norm_post_attn"], cfg.norm_eps)
     h_mid = h + mix

@@ -15,7 +15,9 @@ the plain version sum in different orders before rounding:
 - scores: 5e-3, as a cosine moves by at most 2^-8 when every element of
   ``p`` flips by one ulp;
 - attention: 2^-7 of the largest output (one ulp of it), well below the
-  ~1/25 of a value that one wrongly masked key in the 25-key window moves.
+  ~1/25 of a value that one wrongly masked key in the 25-key window moves;
+  bf16 K/V of any head_dim that is a multiple of 8 (40, 80, 120 padded with
+  zero columns) and GQA groups 1-16 keep that bound.
 
 The paged kernels are copies and must match their plain versions exactly,
 drop rules included; ``proxy_score_paged`` shares its kernel body with
@@ -96,19 +98,87 @@ def test_cuda_kernels_match_plain(dtype):
 
 @pytest.mark.cuda
 def test_cuda_attention_refuses_untiled_bf16():
-    """bf16 K/V run only on the tensor-core tiles: another head_dim, or
-    scales on float K/V, raise instead of taking a slower path."""
+    """bf16 K/V take any head_dim that is a multiple of 8 up to 256 (zero
+    columns pad it to the kernel's width): 40, 80 and 120 match the plain
+    version.  A head_dim of 36 or 264, or scales on bf16 K/V, raise
+    instead of taking a slower path."""
     _cuda_or_skip()
     dev = torch.device("cuda")
-    q = torch.zeros((1, 4, 2, 40), dtype=torch.bfloat16, device=dev)
-    kv = torch.zeros((1, 8, 2, 40), dtype=torch.bfloat16, device=dev)
-    pos = torch.zeros((1, 4), dtype=torch.int32, device=dev)
-    with pytest.raises(ValueError, match="head_dim"):
-        tsa.sparse_attention(q, kv, kv, pos)
-    q, kv = q[..., :32].contiguous(), kv[..., :32].contiguous()
+    g = torch.Generator(device=dev).manual_seed(7)
+    bf16 = torch.bfloat16
+    pos = torch.randint(0, 90, (2, 20), generator=g, device=dev)
+    kvl = torch.tensor([90, 61], device=dev)
+    for hd in (40, 80, 120):
+        q = torch.randn(2, 20, 8, hd, generator=g, device=dev).to(bf16)
+        k = torch.randn(2, 90, 2, hd, generator=g, device=dev).to(bf16)
+        v = torch.randn(2, 90, 2, hd, generator=g, device=dev).to(bf16)
+        kw = dict(window=30, soft_cap=20.0, kv_len=kvl)
+        got = tsa.sparse_attention(q, k, v, pos, **kw).float()
+        want = tsa.sparse_attention_plain(q, k, v, pos, **kw).float()
+        torch.testing.assert_close(got, want, rtol=0,
+                                   atol=2 ** -7 * float(want.abs().max()))
+    for hd in (36, 264):
+        q = torch.zeros((1, 4, 2, hd), dtype=bf16, device=dev)
+        kv = torch.zeros((1, 8, 2, hd), dtype=bf16, device=dev)
+        with pytest.raises(ValueError, match="head_dim"):
+            tsa.sparse_attention(q, kv, kv, pos[:1, :4])
+    q = torch.zeros((1, 4, 2, 32), dtype=bf16, device=dev)
+    kv = torch.zeros((1, 8, 2, 32), dtype=bf16, device=dev)
     sc = torch.ones((1, 8, 2), device=dev)
     with pytest.raises(ValueError, match="scales"):
-        tsa.sparse_attention(q, kv, kv, pos, k_scale=sc, v_scale=sc)
+        tsa.sparse_attention(q, kv, kv, pos[:1, :4], k_scale=sc, v_scale=sc)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [1, 2, 4, 6, 7, 16])
+def test_cuda_bf16_attention_gqa_groups(group):
+    """A CTA's rows are (query, head) pairs of one kv head: G = H / KVH q
+    heads share each staged K/V tile, and 6 and 7 do not divide a tile of
+    rows.  Dense grid at head_dim 128 with a window and kv_len, kq = 16 (a
+    single partial tile) and 100, against the plain version.  At G = 7 also
+    the banded grid at kq = 700: the last q block's 188 queries x 7 heads
+    end in a partial tile, and no tile spans two q blocks (bit for bit the
+    dense grid, whose band covers the window)."""
+    _cuda_or_skip()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(10 + group)
+    bf16 = torch.bfloat16
+    kvh = 2
+
+    def close(got, want):
+        torch.testing.assert_close(
+            got.float(), want.float(), rtol=0,
+            atol=2 ** -7 * float(want.float().abs().max()))
+
+    k = torch.randn(2, 300, kvh, 128, generator=g, device=dev).to(bf16)
+    v = torch.randn(2, 300, kvh, 128, generator=g, device=dev).to(bf16)
+    kw = dict(window=40, kv_len=torch.tensor([300, 170], device=dev))
+    for kq in (16, 100):
+        q = torch.randn(2, kq, kvh * group, 128, generator=g,
+                        device=dev).to(bf16)
+        pos = torch.randint(0, 300, (2, kq), generator=g, device=dev)
+        close(tsa.sparse_attention(q, k, v, pos, **kw),
+              tsa.sparse_attention_plain(q, k, v, pos, **kw))
+    if group != 7:
+        torch.cuda.synchronize()
+        return
+    n, kq = 4100, 700
+    q = torch.randn(2, kq, group, 128, generator=g, device=dev).to(bf16)
+    k = torch.randn(2, n, 1, 128, generator=g, device=dev).to(bf16)
+    v = torch.randn(2, n, 1, 128, generator=g, device=dev).to(bf16)
+    pos = torch.cat([
+        torch.sort(torch.randint(0, 1500, (2, 512), generator=g,
+                                 device=dev)).values,
+        torch.sort(torch.randint(2000, 3000, (2, kq - 512), generator=g,
+                                 device=dev)).values], dim=1)
+    kw = dict(window=64, kv_len=torch.tensor([n, 2600], device=dev))
+    got = tsa.sparse_attention(q, k, v, pos, banded=True, q_span=1500, **kw)
+    band = tsa.band_for(pos, n, 64, 1500)
+    assert band is not None and band[2] == 512
+    close(got, tsa.sparse_attention_plain(q, k, v, pos, band=band, **kw))
+    assert torch.equal(got, tsa.sparse_attention(q, k, v, pos, **kw))
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
@@ -315,7 +385,7 @@ def test_cuda_banded_attention_matches_plain(dtype):
 
 @pytest.mark.cuda
 def test_cuda_bf16_attention_head_dim_256():
-    """The tensor-core tiles at head_dim 256 (RecurrentGemma's heads), MQA,
+    """The wgmma body at head_dim 256 (RecurrentGemma's heads), MQA,
     dense grid with a window, against the plain version."""
     _cuda_or_skip()
     dev = torch.device("cuda")

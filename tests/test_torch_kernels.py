@@ -100,6 +100,11 @@ ATTN_CASES = {
                        kv_len=[96, 40, 0]),
     "int8_scales_gqa": dict(b=2, kq=16, n=80, h=4, kvh=2, hd=16, quant=True,
                             window=10),
+    # head_dims the CUDA body pads with zero columns (h2o-danube3's 120,
+    # hubert-xlarge's 80)
+    "hd120_gqa8on2_window": dict(b=2, kq=10, n=70, h=8, kvh=2, hd=120,
+                                 window=20),
+    "hd80_mha": dict(b=2, kq=9, n=48, h=3, kvh=3, hd=80),
 }
 
 
