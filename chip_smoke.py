@@ -31,7 +31,8 @@ Phases (each asserts; any failure exits non-zero):
    the bf16 dense grid at head_dim 256, and rglru_scan in bf16 and f32,
    forward and flipped, ragged T and d; ssd_chunk_scan at Mamba2-370m's
    shapes (x [4, 4096, 32, 64], d_state 128, chunk 256) in bf16 and f32,
-   and with T = 200 < chunk;
+   and with T = 200 < chunk, with the device time of each of its three
+   kernels and their ``-Xptxas -v`` lines;
 4. decode parity: a 2-layer, full-width LLaDA, in f32 and in bf16 (the
    main path's kernel variants), through ``CudaBackend`` and
    ``TorchBackend`` (whose side of every comparison in phases 4, 8 and 10
@@ -194,23 +195,32 @@ def bound(nbytes: float, flops: float, flops_per_s: float = BF16_FLOPS):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def attention_ptxas() -> str:
-    """``-Xptxas -v`` of the bf16 attention body, one entry per head_dim
-    width: registers, stack and spills (from the build log)."""
+def ptxas_lines(pattern: str) -> dict:
+    """``-Xptxas -v`` lines (registers, stack, spills) of the kernels whose
+    mangled name matches ``pattern``, keyed by the match (its first group
+    where it has one), from the build log."""
     import re
     from repro_torch.kernels import _lib
-    widths, entry = {}, "?"
+    found, entry = {}, "?"
     for line in _lib.build_log().splitlines():
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
             continue
-        m = re.search(r"attention_bf16_wgmmaILi(\d+)E", entry)
+        m = re.search(pattern, entry)
         if m and ("registers" in line or "spill" in line):
-            widths.setdefault(int(m.group(1)), []).append(
-                line.split(":", 1)[-1].strip() if "ptxas" in line
-                else line.strip())
+            found.setdefault(m.group(1) if m.groups() else m.group(0),
+                             []).append(line.split(":", 1)[-1].strip()
+                                        if "ptxas" in line else line.strip())
+    return found
+
+
+def attention_ptxas() -> str:
+    """``-Xptxas -v`` of the bf16 attention body, one entry per head_dim
+    width: registers, stack and spills (from the build log)."""
+    widths = ptxas_lines(r"attention_bf16_wgmmaILi(\d+)E")
     return "; ".join(f"hd {w}: " + ", ".join(v)
-                     for w, v in sorted(widths.items()))
+                     for w, v in sorted(widths.items(), key=lambda kv:
+                                        int(kv[0])))
 
 
 # ---------------------------------------------------------------------------
@@ -1063,16 +1073,35 @@ def check_ssd_kernel(torch, flush, gen):
         replaces="src/repro/kernels/ssd_chunk.py:75",
         max_abs_err=errs[(N, torch.bfloat16)],
         ms=median_ms(lambda: sc.ssd_chunk_scan(*args, cs), torch, flush,
-                     runs=10),
+                     runs=20),
         plain_ms=median_ms(lambda: sc.ssd_chunk_scan_plain(*args, cs), torch,
                            flush, runs=5, warmup=1),
         library_ms=None,
         bound=bound(nbytes, flops))
-    print(f"  kernel {rec['ms']:.3f} ms ({flops / rec['ms'] / 1e9:.1f} "
+    print(f"  kernel {rec['ms']:.4f} ms ({flops / rec['ms'] / 1e9:.1f} "
           f"TFLOP/s of the {flops / 1e9:.1f} GFLOP the data needs, "
           f"{nbytes / rec['ms'] / 1e6:.1f} GB/s of {nbytes / 1e6:.1f} MB), "
-          f"plain {rec['plain_ms']:.3f} ms; this check took "
-          f"{time.perf_counter() - t0:.1f} s")
+          f"plain {rec['plain_ms']:.3f} ms")
+    # the three kernels of a call: device time each, from a profiler window
+    # (the L2 overwritten before every call)
+    from torch.autograd import DeviceType
+    with new_profiler(torch) as prof:
+        for _ in range(10):
+            flush.zero_()
+            sc.ssd_chunk_scan(*args, cs)
+        torch.cuda.synchronize()
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and "ssd_chunk_" in ev.key:
+            us = getattr(ev, "self_device_time_total", None)
+            if us is None:
+                us = ev.self_cuda_time_total
+            print(f"  {ev.key[:60]}: {us / 10 / 1e3:.4f} ms a call")
+    for name, lines in sorted(ptxas_lines(
+            r"(ssd_chunk_(?:states|pass|outputs)[a-z0-9_]*(?:ILb[01]E)?)"
+            ).items()):
+        name = name.replace("ILb1E", "<true>").replace("ILb0E", "<false>")
+        print(f"  ptxas -v {name}: {', '.join(lines)}")
+    print(f"  this check took {time.perf_counter() - t0:.1f} s")
     del args
     return {"ssd_chunk_scan": rec}
 
@@ -1363,7 +1392,7 @@ KERNEL_GROUPS = (("gather_pages + scatter_pages", ("page_copy_kernel",)),
                   ("attention_bf16_wgmma", "attention_kernel")),
                  ("rglru_scan", ("chunk_summary", "chunk_carry",
                                  "chunk_rewrite")),
-                 ("ssd_chunk_scan", ("ssd_chunk_kernel",)),
+                 ("ssd_chunk_scan", ("ssd_chunk_",)),
                  ("scatter_update_multi", ("scatter_kernel",)),
                  ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_",
                                       "nvjet")))

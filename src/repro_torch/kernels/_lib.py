@@ -62,8 +62,8 @@ _SIGNATURES = {
                                _F, _P],
     "spa_rglru_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "spa_rglru_chunk": [],
-    "spa_ssd_chunk_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                           _P],
+    "spa_ssd_chunk_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                           _I, _P],
 }
 
 _state: Dict[str, object] = {"lib": None, "build_seconds": None,
@@ -85,7 +85,9 @@ def build_seconds() -> Optional[float]:
 
 
 def build_log() -> str:
-    """nvcc's output (``-Xptxas -v``: registers, shared memory, spills)."""
+    """nvcc's output (``-Xptxas -v``: registers, shared memory, spills) of
+    the build of the loaded library, kept beside it, so that a process
+    that finds the library built still reads it."""
     return _state["build_log"]
 
 
@@ -149,11 +151,13 @@ def load() -> ctypes.CDLL:
         return _state["lib"]
     sources = _sources()
     lib_path = BUILD_DIR / f"libspa_kernels-{_digest()}.so"
+    log_path = lib_path.with_suffix(".log")
     t0 = time.perf_counter()
     if not lib_path.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        _state["build_log"] = _build(lib_path, sources)
+        log_path.write_text(_build(lib_path, sources))
     _state["build_seconds"] = time.perf_counter() - t0
+    _state["build_log"] = log_path.read_text() if log_path.exists() else ""
     lib = ctypes.CDLL(str(lib_path))
     for fn, argtypes in _SIGNATURES.items():
         f = getattr(lib, fn)

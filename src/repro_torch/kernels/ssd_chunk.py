@@ -20,7 +20,10 @@ arithmetic throughout; y is cast to x's dtype.
 ``ssd_chunk_scan_plain`` is the chunked form term for term with the JAX
 ``ssd_scan`` (the oracle); ``ssd_scan_ref`` the sequential per-step
 recurrence (for tests).  The wrapper takes the plain version for CPU
-tensors and launches ``csrc/ssd_chunk.cu`` for CUDA ones.
+tensors and launches ``csrc/ssd_chunk.cu`` for CUDA ones: chunk states in
+parallel, a pass over the chunks, then the outputs (three kernels, counted
+as one launch), with the chunk states in an f32 workspace
+[B, T / cs, H, 64, 128] that the wrapper allocates.
 """
 from __future__ import annotations
 
@@ -28,7 +31,8 @@ import torch
 
 from repro_torch.kernels import _lib
 
-# the kernel's widths: head_dim and d_state at most these (Mamba2-370m's)
+# the kernel's widths: head_dim and d_state at most these (Mamba2-370m's);
+# the workspace holds each chunk state padded to them
 MAX_HEAD_DIM = 64
 MAX_D_STATE = 128
 
@@ -135,10 +139,15 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, la: torch.Tensor,
     x, dt, la = x.contiguous(), dt.contiguous(), la.contiguous()
     b, c = b.contiguous(), c.contiguous()
     y = torch.empty_like(x)
+    # the chunk states (none when the sequence is one chunk)
+    n_chunks = t // cs
+    ws = (torch.empty(bsz * n_chunks * h * MAX_HEAD_DIM * MAX_D_STATE,
+                      dtype=torch.float32, device=x.device)
+          if n_chunks > 1 else None)
     lib = _lib.load()
     _lib.check(lib.spa_ssd_chunk_scan(
         x.data_ptr(), dt.data_ptr(), la.data_ptr(), b.data_ptr(),
-        c.data_ptr(), y.data_ptr(), bsz, t, h, hd, ds, cs, code,
-        _lib.stream_ptr(x)), "ssd_chunk_scan")
+        c.data_ptr(), y.data_ptr(), None if ws is None else ws.data_ptr(),
+        bsz, t, h, hd, ds, cs, code, _lib.stream_ptr(x)), "ssd_chunk_scan")
     _lib.LAUNCHES["ssd_chunk_scan"] += 1
     return y

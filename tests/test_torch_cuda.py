@@ -438,10 +438,15 @@ def test_cuda_rglru_scan_matches_plain(dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_ssd_chunk_scan_matches_plain(dtype):
     """The SSD chunked scan against the plain chunked einsums: Mamba2-370m's
-    widths (hd 64, ds 128, chunk 256) over several chunks, one chunk
+    widths (hd 64, ds 128, chunk 256) over several chunks and over 16
+    chunks at T = 4096, H = 32 (the pass over the chunk states), one chunk
     shorter than 256 (T < chunk: ragged 64-row tiles), narrow and odd
-    widths, and steps large enough that exp(la_i - la_j) for j > i would
-    overflow f32 if the kernel formed it (the output must stay finite)."""
+    widths (36 and 20: rows no multiple of 16 bytes, copied element by
+    element), H = 5 and 3 (no multiple of the kernel's pair of heads), and
+    steps large enough that exp(la_i - la_j) for j > i would overflow f32
+    if the kernel formed it (the output must stay finite).  Two calls on
+    the same inputs return the same bits: the stages sum in a fixed order,
+    with no atomics."""
     _cuda_or_skip()
     from repro_torch.kernels import _lib
     dev = torch.device("cuda")
@@ -449,7 +454,9 @@ def test_cuda_ssd_chunk_scan_matches_plain(dtype):
     for b, t, h, hd, ds, chunk, dt_scale in (
             (2, 768, 4, 64, 128, 256, 0.1), (1, 100, 3, 64, 128, 256, 0.1),
             (2, 96, 5, 16, 16, 16, 0.1), (1, 192, 2, 40, 72, 64, 0.1),
-            (1, 256, 2, 64, 128, 256, 10.0)):
+            (1, 256, 2, 64, 128, 256, 10.0),
+            (1, 4096, 32, 64, 128, 256, 0.1),
+            (2, 640, 3, 64, 128, 128, 0.1), (1, 160, 3, 36, 20, 80, 0.1)):
         cs = min(chunk, t)
         x = torch.randn(b, t, h, hd, generator=g, device=dev).to(dtype)
         bm = torch.randn(b, t, ds, generator=g, device=dev).to(dtype)
@@ -470,6 +477,8 @@ def test_cuda_ssd_chunk_scan_matches_plain(dtype):
                else 2 * 2.0 ** (math.floor(math.log2(top)) - 7))
         err = float((got.float() - want).abs().max())
         assert err <= lim, (b, t, h, hd, ds, chunk, err, lim)
+        again = tssd.ssd_chunk_scan(x, dt, la, bm, cm, chunk)
+        assert torch.equal(got, again), (b, t, h, hd, ds, chunk)
     with pytest.raises(ValueError, match="head_dim"):
         z = torch.zeros(1, 16, 1, 128, device=dev)
         tssd.ssd_chunk_scan(z, z[..., 0], z[..., 0], z[:, :, 0, :8],
