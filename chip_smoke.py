@@ -18,21 +18,29 @@ Phases (each asserts; any failure exits non-zero):
    SDPA also at kq = N = 512, the NoCache and prefill shape, and at the
    hybrid's head_dim 256 dense grid and banded prefill with a window
    mask), and the attention body's ``-Xptxas -v`` line;
+   bf16 proxy_score runs one TMA-fed wgmma GEMM (proxy_wgmma: d split
+   across a thread-block cluster where the row tiles do not fill the
+   card, the partials summed in rank order; a score epilogue for r <= 256,
+   a store epilogue for the wide projection), timed also at the hybrid's
+   shape (B=2, N=16384), with its ``-Xptxas -v`` lines.
    The paged kernels (gather_pages, scatter_pages, scatter_rows_paged,
    proxy_score_paged) must match exactly, proxy_score_paged bitwise equal
    to proxy_score on the gathered pages.  cosine_drift (bf16 at d=4096,
    f32 x against bf16 at r=128, ragged N, f32) and cosine_drift_paged
    (bitwise cosine_drift on the gathered pages), and proxy_score /
    proxy_score_paged at r=4096 (the value identifier's width: projection
-   kernel + cosine_drift; paged bitwise dense); at RecurrentGemma-9B's
+   kernel + cosine_drift; paged bitwise dense), the projection alone timed
+   beside one ``torch.matmul`` of the same product; at RecurrentGemma-9B's
    shapes (B=2, N=16384, 16 query heads on one kv head of 256, window
    2048) the banded sparse_attention grid (decode kq=4096 and prefill
    kq=N, bit for bit equal to the dense grid, plus f32 and int8 edges),
-   the bf16 dense grid at head_dim 256, and rglru_scan in bf16 and f32,
-   forward and flipped, ragged T and d; ssd_chunk_scan at Mamba2-370m's
-   shapes (x [4, 4096, 32, 64], d_state 128, chunk 256) in bf16 and f32,
-   and with T = 200 < chunk, with the device time of each of its three
-   kernels and their ``-Xptxas -v`` lines;
+   the bf16 dense grid at head_dim 256, and rglru_scan (one pass over
+   64-step tiles with a decoupled look-back) in bf16 and f32, forward and
+   flipped, ragged T and d, with its ``-Xptxas -v`` lines;
+   ssd_chunk_scan at Mamba2-370m's shapes (x [4, 4096, 32, 64], d_state
+   128, chunk 256) in bf16 and f32, and with T = 200 < chunk, with the
+   device time of each of its three kernels and their ``-Xptxas -v``
+   lines;
 4. decode parity: a 2-layer, full-width LLaDA, in f32 and in bf16 (the
    main path's kernel variants), through ``CudaBackend`` and
    ``TorchBackend`` (whose side of every comparison in phases 4, 8 and 10
@@ -96,6 +104,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -199,7 +208,6 @@ def ptxas_lines(pattern: str) -> dict:
     """``-Xptxas -v`` lines (registers, stack, spills) of the kernels whose
     mangled name matches ``pattern``, keyed by the match (its first group
     where it has one), from the build log."""
-    import re
     from repro_torch.kernels import _lib
     found, entry = {}, "?"
     for line in _lib.build_log().splitlines():
@@ -221,6 +229,27 @@ def attention_ptxas() -> str:
     return "; ".join(f"hd {w}: " + ", ".join(v)
                      for w, v in sorted(widths.items(), key=lambda kv:
                                         int(kv[0])))
+
+
+def wgmma_ptxas() -> str:
+    """``-Xptxas -v`` of the bf16 proxy_score body (proxy_wgmma), one entry
+    per (columns, epilogue, row addressing)."""
+    found = ptxas_lines(r"(proxy_wgmmaILi\d+ELb[01]ENS_9(?:Dense|Paged)Rows)")
+
+    def name(key):
+        n, e, rows = re.match(r"proxy_wgmmaILi(\d+)ELb([01])ENS_9(\w+)",
+                              key).groups()
+        return f"<{n}, {'score' if e == '1' else 'store'}, {rows}>"
+    return "; ".join(f"{name(k)}: " + ", ".join(v)
+                     for k, v in sorted(found.items()))
+
+
+def lookback_ptxas() -> str:
+    """``-Xptxas -v`` of rglru_lookback, bf16 and f32."""
+    found = ptxas_lines(r"(rglru_lookbackI(?:13__nv_bfloat16|f))")
+    return "; ".join(f"{'bf16' if 'bfloat16' in k else 'f32'}: "
+                     + ", ".join(v)
+                     for k, v in sorted(found.items()))
 
 
 # ---------------------------------------------------------------------------
@@ -291,6 +320,19 @@ def check_kernels(torch, flush):
         library_ms=None,
         bound=bound(2 * (B * N * d + d * r + 2 * B * N * r) + 4 * B * N,
                     2 * B * N * d * r))
+    # the hybrid's shape (RecurrentGemma-9B: B=2, N=16384, d=4096, r=128):
+    # 256 row tiles, d not split
+    bh, nh = HYBRID["B"], HYBRID["N"]
+    xh, pch = randn(bh, nh, d), randn(bh, nh, r)
+    assert_close("hybrid shape scores", ps.proxy_score(xh, w, pch)[0],
+                 ps.proxy_score_plain(xh, w, pch)[0], 5e-3, 0)
+    ms_h = median_ms(lambda: ps.proxy_score(xh, w, pch), torch, flush)
+    b_h = bound(2 * (bh * nh * d + d * r + 2 * bh * nh * r) + 4 * bh * nh,
+                2 * bh * nh * d * r)
+    print(f"  hybrid shape B={bh} N={nh}: kernel {ms_h:.4f} ms, bound "
+          f"{b_h[0]:.4f} ms ({b_h[1]})")
+    del xh, pch
+    print(f"  ptxas -v: {wgmma_ptxas()}")
 
     # -- gather_norm --------------------------------------------------------
     # raw rows are copies (exact); normed rows round once to bf16 from f32
@@ -789,6 +831,15 @@ def check_drift_kernels(torch, flush, gen, randn, assert_close):
         library_ms=None,
         bound=bound(2 * (B * N * d + d * r_w + 2 * B * N * r_w) + 4 * B * N,
                     2 * B * N * d * r_w))
+    # the projection alone (the store epilogue) beside one torch.matmul
+    # of the same product: no PyTorch call computes proxy_score itself
+    proj_ms = median_ms(lambda: ps._project_wide(x, w), torch, flush)
+    mm_ms = median_ms(lambda: torch.matmul(x, w), torch, flush)
+    proj_b = bound(2 * (B * N * d + d * r_w + B * N * r_w),
+                   2 * B * N * d * r_w)
+    print(f"  r=4096 projection alone: kernel {proj_ms:.4f} ms, "
+          f"torch.matmul {mm_ms:.4f} ms, bound {proj_b[0]:.4f} ms "
+          f"({proj_b[1]}); {2 * B * N * d * r_w / proj_ms / 1e9:.1f} TFLOP/s")
     del x, pc, arena, arena_w, w, pcw
     return records
 
@@ -833,9 +884,10 @@ def check_hybrid_kernels(torch, flush, gen, randn, randint, assert_close):
     and bit for bit equal to the dense grid on the same inputs, since the
     band covers the window; f32 and int8 K/V at a ragged kq and N (f32
     1e-5).  The dense grid at head_dim 256 in bf16 (kq = 1744, the widest
-    dense-grid layer) against plain.  rglru_scan in bf16 (one bf16 ulp of
-    each element) and f32 (1e-5: the chunk carries reassociate), forward
-    and flipped, and at a ragged T and d."""
+    dense-grid layer) against plain.  rglru_scan (one pass with a decoupled
+    look-back) in bf16 (one bf16 ulp of each element) and f32 (1e-5: the
+    chunk carries reassociate), forward and flipped, and at a ragged T and
+    d (the plain-copy path), with its kernel's ``-Xptxas -v`` lines."""
     import torch.nn.functional as F
     from repro_torch.core.spa_layer import q_span_bound
     from repro_torch.kernels import rglru_scan as rs
@@ -1002,6 +1054,7 @@ def check_hybrid_kernels(torch, flush, gen, randn, randint, assert_close):
         xe = torch.randn((b_, t_, d_), generator=gen, device=dev) * 0.1
         assert_close(f"f32 ragged B={b_} T={t_} d={d_}", rs.rglru_scan(ae, xe),
                      rs.rglru_scan_plain(ae, xe), 1e-5, 1e-5)
+    print(f"  ptxas -v: {lookback_ptxas()}")
     ab, xb = a.to(bf16), x.to(bf16)
     records["rglru_scan"] = dict(
         source="src/repro_torch/csrc/rglru_scan.cu",
@@ -1011,7 +1064,13 @@ def check_hybrid_kernels(torch, flush, gen, randn, randint, assert_close):
                            runs=3, warmup=1),
         library_ms=None,
         bound=bound(3 * 2 * B * T * dr, 2 * B * T * dr, F32_FLOPS))
-    del a, x, ab, xb
+    # the same bytes in one elementwise pass (read a and b, write one
+    # tensor, no recurrence): what streaming them costs on this card
+    summed = torch.empty_like(ab)
+    add_ms = median_ms(lambda: torch.add(ab, xb, out=summed), torch, flush)
+    print(f"  kernel {records['rglru_scan']['ms']:.4f} ms; the same bytes "
+          f"in one elementwise pass (torch.add of a and b) {add_ms:.4f} ms")
+    del a, x, ab, xb, summed
     return records
 
 
@@ -1384,14 +1443,13 @@ KERNEL_GROUPS = (("gather_pages + scatter_pages", ("page_copy_kernel",)),
                  ("scatter_rows_paged", ("rows_paged_kernel",)),
                  ("cosine_drift (+ paged)", ("cosine_drift_kernel",)),
                  ("proxy_score_paged", ("PagedRows",)),
-                 ("proxy_score, wide projection", (("proxy_score",
-                                                    "false>"),)),
-                 ("proxy_score", ("proxy_score",)),
+                 ("proxy_score, wide projection",
+                  (("proxy_wgmma", "false"), ("proxy_score_f32", "false>"))),
+                 ("proxy_score", ("proxy_wgmma", "proxy_score_f32")),
                  ("gather_norm", ("gather_norm",)),
                  ("sparse_attention (dense + banded)",
                   ("attention_bf16_wgmma", "attention_kernel")),
-                 ("rglru_scan", ("chunk_summary", "chunk_carry",
-                                 "chunk_rewrite")),
+                 ("rglru_scan", ("rglru_lookback",)),
                  ("ssd_chunk_scan", ("ssd_chunk_",)),
                  ("scatter_update_multi", ("scatter_kernel",)),
                  ("matmul (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_",

@@ -9,35 +9,50 @@
 //   bf16) the projection is 2.1 GFLOP but x alone is 16.8 MB, so the least
 //   time is the ~19 MB read once (x, W_r, p_cached) and written once (p_now,
 //   scores): about 6 us at 3.35 TB/s, against about 2 us of tensor-core work.
-// Design: one block per (row tile, batch row); the whole d-loop runs inside
-//   the block (nothing carries between blocks).  bf16: 32-row tiles, x and
-//   W_r chunks of 64 staged in shared memory by a two-stage cp.async
-//   pipeline (16-byte copies, the next chunk in flight while warp-level
-//   tensor-core MMAs (wmma, f32 accumulators) consume this one).  f32: 16-row
-//   tiles and a plain FMA loop (exact f32, no TF32).  The epilogue rounds p
-//   through the storage dtype, writes p_now and reduces the three dot
-//   products of each row with one warp per row, so p never makes an HBM
-//   round trip before it is scored.  Every block re-reads W_r (1 MB at the
-//   slice shape) from L2, 64 MB in all; sharing it across a cluster with
-//   TMA multicast is later work.
+//   At the hybrid's shape (B=2, N=16384) x is 268 MB: 0.08 ms.
+// Design (bf16): one TMA-fed wgmma GEMM, proxy_wgmma, with two epilogues.
+//   x [B*N, d] is read K-major and W_r [d, r] MN-major (r contiguous), both
+//   by TMA in the 128-byte swizzle (csrc/hopper.cuh), 64 columns of d a
+//   stage, into a ring of stages guarded by full / empty mbarriers.  A CTA
+//   is two consumer warpgroups (64 rows of a 128-row tile each, f32
+//   accumulators of up to 256 columns in registers, m64nNk16 products
+//   with N = r rounded up to 64, 128 or 256) and a producer warp whose
+//   first thread keeps the ring full.  Columns past r and rows past B*N
+//   arrive as zeros.  Up to r = 128 two CTAs share an SM (a three-stage
+//   ring of 96 KB each).
+//   Score epilogue (r <= 256): the CTA holds all r columns of its rows.
+//   Where the row tiles do not fill the card (the slice shape has 16),
+//   the host splits d across the `split` CTAs of a thread-block cluster
+//   (16 x 8 = 128 CTAs there; the hybrid's 256 row tiles take split 1).
+//   Each CTA stores its partial f32 tile in its own shared memory, and
+//   after a cluster barrier CTA q reduces rows [q, q + 1) * 128 / split
+//   from the partials of CTAs 0, 1, ..., split - 1 in that order (through
+//   distributed shared memory), so the sum, and every result, is the same
+//   on every run.  It then rounds p to bf16, writes p_now and forms the
+//   three row sums against p_cached, one warp per row.
+//   Store epilogue (any r; the wide ranks): each 128 x 256 tile of p is
+//   rounded to bf16 and stored from the accumulators; the CTAs are
+//   persistent over the tiles, so one tile's stores overlap the next one's
+//   loads.  cosine_drift then scores p_now.
+// f32: 16-row tiles and a plain FMA loop (exact f32, no TF32), with the
+//   same two epilogues.
 //
 // proxy_score_paged (replaces src/repro/kernels/proxy_score.py:
 //   proxy_score_paged) reads p_cached through a page table from a pooled
 //   arena [P, page, r] instead of a dense [B, N, r] buffer.  It is the same
 //   kernel body, templated only on how a row of p_cached is addressed
-//   (DenseRows / PagedRows), so its results are bitwise those of proxy_score
-//   on the gathered pages.  Its bound is proxy_score's.
+//   (DenseRows / PagedRows), with the same split, so its results are
+//   bitwise those of proxy_score on the gathered pages.  Its bound is
+//   proxy_score's.
 //
 // Wide ranks (r > 256: the value / query / key identifiers project onto
-//   kv_dim or q_dim, 4096 for LLaDA-8B).  A block cannot hold a 256 < r row
-//   of p, so the projection runs alone (spa_proxy_project: the same
-//   tensor-core body with the scoring epilogue swapped for a store, tiled
-//   over (row tile, batch row, 256-column tile of r)) and writes the ROUNDED
-//   p_now; cosine_drift (or cosine_drift_paged) then scores it.  That is the
-//   JAX semantics exactly (the cosine of the rounded p), and the paged
-//   result stays bitwise the dense one.  Bound at B=4, N=512, d=r=4096,
-//   bf16: operations, 68.7 GFLOP = 0.069 ms at 989 TFLOP/s (the bytes, 84
-//   MB, take 0.025 ms).  Every 256-column tile re-reads x from L2.
+//   kv_dim or q_dim, 4096 for LLaDA-8B).  A CTA cannot hold a 256 < r row
+//   of p, so the projection runs alone (spa_proxy_project: the store
+//   epilogue) and writes the ROUNDED p_now; cosine_drift (or
+//   cosine_drift_paged) then scores it.  That is the JAX semantics exactly
+//   (the cosine of the rounded p), and the paged result stays bitwise the
+//   dense one.  Bound at B=4, N=512, d=r=4096, bf16: operations, 68.7
+//   GFLOP = 0.069 ms at 989 TFLOP/s (the bytes, 84 MB, take 0.025 ms).
 //
 // cosine_drift (replaces src/repro/kernels/proxy_score.py:cosine_drift):
 //   rowwise cosine(x, p_cached) with no projection, the norm product
@@ -50,13 +65,12 @@
 // cosine_drift_paged (replaces src/repro/kernels/proxy_score.py:
 //   cosine_drift_paged) is that kernel with PagedRows: bitwise cosine_drift
 //   on the gathered pages.
-#include <mma.h>
-
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;   // 8 warps
+constexpr int kThreads = 256;   // 8 warps (the f32 body)
 constexpr int kRMax = 256;      // largest rank a block holds
 
 // Where row `row` of batch row b of p_cached lies.
@@ -80,140 +94,340 @@ struct PagedRows {  // arena [P, page, r] through pt [B, n_log]
   }
 };
 
-// ---- bf16: tensor-core tiles, two-stage cp.async pipeline ------------------
-constexpr int kRowsB = 32;      // rows of x per block (2 MMA row tiles)
-constexpr int kTkB = 64;        // d-chunk per pipeline stage
-constexpr int kLdX = kTkB + 8;  // padded row stride of an x stage (bf16)
-constexpr int kSlots = 4;       // accumulator tiles per warp (r <= 256)
+// ---- bf16: TMA-fed wgmma GEMM, score or store epilogue --------------------
+namespace wg {
 
-size_t bf16_smem_bytes(int r) {
-  const size_t stages = 2 * sizeof(__nv_bfloat16) *
-                        (size_t)(kRowsB * kLdX + kTkB * (r + 8));
-  const size_t p_tile = sizeof(float) * (size_t)kRowsB * (r + 8);
-  return stages > p_tile ? stages : p_tile;
-}
+using namespace hopper;  // csrc/hopper.cuh
+using bf16 = __nv_bfloat16;
 
-// Needs d % 8 == 0, r % 16 == 0 and 16-byte aligned x / w (checked by the
-// wrapper): every tile row moves as 16-byte cp.async chunks.  kScore: the
-// block holds all r <= 256 columns of p and scores them; otherwise it
-// projects the 256-column tile blockIdx.z of a wide r and stores it.
-template <typename Rows, bool kScore>
-__global__ void __launch_bounds__(kThreads) proxy_score_bf16(
-    const __nv_bfloat16* __restrict__ x, const __nv_bfloat16* __restrict__ w,
-    Rows pc_row, float* __restrict__ scores,
-    __nv_bfloat16* __restrict__ pnow, int N, int d, int r, float eps) {
-  using namespace nvcuda;
-  using bf16 = __nv_bfloat16;
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int c0 = blockIdx.z * kRMax;        // first column of p in the block
-  const int nc = min(kRMax, r - c0);        // columns of p in the block
-  const int ldw = nc + 8;
-  bf16* xs0 = reinterpret_cast<bf16*>(smem);
-  bf16* ws0 = xs0 + 2 * kRowsB * kLdX;
+constexpr int kConsumerWGs = 2;
+constexpr int kRows = 64 * kConsumerWGs;             // rows of x a tile
+constexpr int kConsumers = 128 * kConsumerWGs;
+constexpr int kThreadsWG = kConsumers + 32;           // + a producer warp
+constexpr int kMaxSplit = 8;                          // portable cluster size
 
-  const int b = blockIdx.y;
-  const int row0 = blockIdx.x * kRowsB;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32, lane = tid % 32;
-  const int n_tiles = (kRowsB / 16) * (nc / 16);
-  const int r8 = nc / 8;
-  const int n_k = (d + kTkB - 1) / kTkB;
-  const bf16* xb = x + (size_t)b * N * d;
+// Score epilogue: a three-stage ring, two CTAs an SM up to r = 128 (the
+// partial tile reuses the ring); store epilogue (r = 256 columns a tile):
+// four stages, one CTA an SM.
+template <int BN, bool kScore>
+struct Cfg {
+  static constexpr int kXBytes = kRows * 128;         // [128 rows][64 k]
+  static constexpr int kWBytes = (BN / 64) * 8192;    // BN/64 x [64 k][64 n]
+  static constexpr int kStageBytes = kXBytes + kWBytes;
+  static constexpr int kStages = kScore ? 3 : 4;
+  static constexpr int kBarOff = kStages * kStageBytes;
+  static constexpr int kSmem = kBarOff + 16 * kStages + 1024;
+  static constexpr int kLdP = BN + 8;  // row stride of the f32 partial tile
+  static constexpr int kMinBlocks = BN <= 128 ? 2 : 1;
+  static_assert(!kScore || kRows * kLdP * 4 <= kBarOff,
+                "partial tile fits the ring");
+};
 
-  auto load_stage = [&](int s, int k0) {
-    bf16* xs = xs0 + s * kRowsB * kLdX;
-    bf16* ws = ws0 + s * kTkB * ldw;
-    for (int e = tid; e < kRowsB * (kTkB / 8); e += kThreads) {
-      const int i = e / (kTkB / 8), c = (e % (kTkB / 8)) * 8;
-      const int row = row0 + i, col = k0 + c;
-      const bool ok = row < N && col < d;
-      spa::cp_async16(xs + i * kLdX + c, ok ? xb + (size_t)row * d + col : x,
-                      ok);
-    }
-    for (int e = tid; e < kTkB * r8; e += kThreads) {
-      const int kk = e / r8, c = (e - kk * r8) * 8;
-      const int col = k0 + kk;
-      const bool ok = col < d;
-      spa::cp_async16(ws + kk * ldw + c,
-                      ok ? w + (size_t)col * r + c0 + c : w, ok);
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[kSlots];
+// The score epilogue of one warp: rows i0 + 8 k (k < n_k) of the tile at
+// row0, each the sum of the partials [kRows][kLdP] of cluster ranks 0, 1,
+// ..., split - 1 in that order (kCluster: read through distributed shared
+// memory; else split is 1 and the partial is this CTA's), rounded to
+// bf16, written to p_now and scored against p_cached.  Rows go in batches
+// of kBatch: the batch's p_cached is loaded before its first sum (the
+// rows were pulled into L2 while the products ran), and every partial of
+// a row before its sum, so the warp waits for few round trips.
+template <int BN, bool kCluster, int kLdP, typename Rows>
+__device__ __forceinline__ void score_rows(
+    const float* ps, int i0, int n_k, int row0, int split, Rows pc_row,
+    float* __restrict__ scores, bf16* __restrict__ pnow, int N, int r,
+    float eps, int lane) {
+  constexpr int kU = BN / 64;  // column pairs a lane: 64 u + 2 lane
+  constexpr int kBatch = BN <= 128 ? 4 : 2;
+  constexpr int kQ = kCluster ? kMaxSplit : 1;
+  for (int k0 = 0; k0 < n_k; k0 += kBatch) {
+    uint32_t pcv[kBatch][kU];
 #pragma unroll
-  for (int t = 0; t < kSlots; ++t) wmma::fill_fragment(acc[t], 0.f);
-
-  load_stage(0, 0);
-  spa::cp_async_commit();
-  for (int it = 0; it < n_k; ++it) {
-    if (it + 1 < n_k) load_stage((it + 1) & 1, (it + 1) * kTkB);
-    spa::cp_async_commit();
-    spa::cp_async_wait<1>();  // this stage has landed; the next may fly
-    __syncthreads();
-    const bf16* xs = xs0 + (it & 1) * kRowsB * kLdX;
-    const bf16* ws = ws0 + (it & 1) * kTkB * ldw;
+    for (int k = 0; k < kBatch; ++k) {
+      if (k0 + k >= n_k) break;
+      const int row = row0 + i0 + 8 * (k0 + k), b = row / N;
+      const bf16* pc = pc_row(b, row - b * N);
 #pragma unroll
-    for (int slot = 0; slot < kSlots; ++slot) {
-      const int t = warp + slot * (kThreads / 32);
-      if (t >= n_tiles) continue;
-      const int rt = t % (kRowsB / 16), ct = t / (kRowsB / 16);
-#pragma unroll
-      for (int kk = 0; kk < kTkB; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, xs + rt * 16 * kLdX + kk, kLdX);
-        wmma::load_matrix_sync(fb, ws + kk * ldw + ct * 16, ldw);
-        wmma::mma_sync(acc[slot], fa, fb, acc[slot]);
+      for (int u = 0; u < kU; ++u) {
+        const int c = 64 * u + 2 * lane;
+        pcv[k][u] = c < r ? *reinterpret_cast<const uint32_t*>(pc + c) : 0u;
       }
     }
-    __syncthreads();  // the stage is free for the load two steps ahead
-  }
-  spa::cp_async_wait<0>();
-
-  float* ps = reinterpret_cast<float*>(smem);  // [kRowsB][nc + 8]
 #pragma unroll
-  for (int slot = 0; slot < kSlots; ++slot) {
-    const int t = warp + slot * (kThreads / 32);
-    if (t >= n_tiles) continue;
-    const int rt = t % (kRowsB / 16), ct = t / (kRowsB / 16);
-    wmma::store_matrix_sync(ps + rt * 16 * ldw + ct * 16, acc[slot], ldw,
-                            wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  if constexpr (!kScore) {  // wide r: store this column tile of p, rounded
-    for (int e = tid; e < kRowsB * nc; e += kThreads) {
-      const int i = e / nc, c = e - i * nc;
-      const int row = row0 + i;
-      if (row < N)
-        pnow[((size_t)b * N + row) * r + c0 + c] =
-            __float2bfloat16_rn(ps[i * ldw + c]);
-    }
-  } else {
-    // epilogue: round p to bf16, write p_now, score against p_cached
-    for (int i = warp; i < kRowsB; i += kThreads / 32) {
-      const int row = row0 + i;
-      if (row >= N) continue;
-      const size_t off = ((size_t)b * N + row) * r;
-      const bf16* pc = pc_row(b, row);
+    for (int k = 0; k < kBatch; ++k) {
+      if (k0 + k >= n_k) break;
+      const int i = i0 + 8 * (k0 + k), row = row0 + i;
+      float2 part[kQ][kU];
+#pragma unroll
+      for (int q = 0; q < kQ; ++q)
+#pragma unroll
+        for (int u = 0; u < kU; ++u) {
+          const int c = 64 * u + 2 * lane;
+          const float* src = ps + i * kLdP + c;
+          part[q][u] = q >= split || c >= r ? make_float2(0.f, 0.f)
+                       : kCluster ? ld_dsmem_f32x2(mapa(smem_u32(src), q))
+                                  : *reinterpret_cast<const float2*>(src);
+        }
+      bf16* prow = pnow + (size_t)row * r;
       float num = 0.f, pp = 0.f, cc = 0.f;
-      for (int c = lane; c < r; c += 32) {
-        const bf16 pr = __float2bfloat16_rn(ps[i * ldw + c]);
-        pnow[off + c] = pr;
-        const float p = __bfloat162float(pr);
-        const float q = __bfloat162float(pc[c]);
-        num += p * q;
-        pp += p * p;
-        cc += q * q;
+#pragma unroll
+      for (int u = 0; u < kU; ++u) {
+        const int c = 64 * u + 2 * lane;
+        if (c >= r) continue;
+        float2 v = part[0][u];
+#pragma unroll
+        for (int q = 1; q < kQ; ++q)
+          if (q < split) {
+            v.x += part[q][u].x;
+            v.y += part[q][u].y;
+          }
+        const __nv_bfloat162 pr = __floats2bfloat162_rn(v.x, v.y);
+        *reinterpret_cast<__nv_bfloat162*>(prow + c) = pr;
+        const float2 pf = __bfloat1622float2(pr);
+        const float2 qf = __bfloat1622float2(
+            *reinterpret_cast<const __nv_bfloat162*>(&pcv[k][u]));
+        num += pf.x * qf.x;
+        pp += pf.x * pf.x;
+        cc += qf.x * qf.x;
+        num += pf.y * qf.y;
+        pp += pf.y * pf.y;
+        cc += qf.y * qf.y;
       }
       num = spa::warp_sum(num);
       pp = spa::warp_sum(pp);
       cc = spa::warp_sum(cc);
-      if (lane == 0)
-        scores[(size_t)b * N + row] = num / fmaxf(sqrtf(pp * cc), eps);
+      if (lane == 0) scores[row] = num / fmaxf(sqrtf(pp * cc), eps);
     }
   }
 }
+
+// A CTA of the cluster (blockIdx.x = its rank, gridDim.x = split) projects
+// the 64-column stages [k_lo, k_hi) of d; blockIdx.y walks the tiles
+// (row tile fastest, then 256-column tile of r for the store epilogue).
+template <int BN, bool kScore, typename Rows>
+__global__ void __launch_bounds__(kThreadsWG, (Cfg<BN, kScore>::kMinBlocks))
+    proxy_wgmma(
+    const __grid_constant__ CUtensorMap tm_x,
+    const __grid_constant__ CUtensorMap tm_w, Rows pc_row,
+    float* __restrict__ scores, bf16* __restrict__ pnow, int M, int N, int r,
+    int n_kst, int kst_per_rank, int n_row_tiles, int n_tiles, float eps) {
+  using C = Cfg<BN, kScore>;
+  extern __shared__ unsigned char wg_smem[];
+  const uint32_t raw = smem_u32(wg_smem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* sm = wg_smem + (base - raw);
+  const uint32_t s_bar = base + C::kBarOff;  // full[s], then empty[s]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int split = gridDim.x, rank = blockIdx.x;
+  const int k_lo = rank * kst_per_rank;
+  const int k_hi = min(n_kst, k_lo + kst_per_rank);
+
+  if (tid == 0) {
+    for (int s = 0; s < C::kStages; ++s) {
+      mbar_init(s_bar + 8 * s, 1);
+      mbar_init(s_bar + 8 * (C::kStages + s), kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= 4 * kConsumerWGs) {
+    // ---- producer warp: one thread keeps the ring full ----
+    if constexpr (kScore) {
+      // first pull this CTA's rows of p_cached into L2, for the score
+      // epilogue once the products are done
+      const int per = kRows / split;
+      const int row0 = blockIdx.y * kRows + rank * per;
+      for (int e = lane; e < per * 4; e += 32) {
+        const int row = row0 + e / 4, off = (e % 4) * 64;  // 128-byte lines
+        if (row < M && off < r) {
+          const int b = row / N;
+          asm volatile("prefetch.global.L2 [%0];\n" ::"l"(
+              pc_row(b, row - b * N) + off));
+        }
+      }
+    }
+    if (tid == kConsumers) {
+      int it = 0;
+      for (int t = blockIdx.y; t < n_tiles; t += gridDim.y) {
+        const int row0 = (t % n_row_tiles) * kRows;
+        const int c0 = (t / n_row_tiles) * BN;
+        for (int ks = k_lo; ks < k_hi; ++ks, ++it) {
+          const int s = it % C::kStages;
+          if (it >= C::kStages)
+            mbar_wait(s_bar + 8 * (C::kStages + s),
+                      ((it / C::kStages) - 1) & 1);
+          const uint32_t full = s_bar + 8 * s;
+          const uint32_t st = base + s * C::kStageBytes;
+          mbar_expect_tx(full, C::kStageBytes);
+          tma_load_2d(st, &tm_x, full, ks * 64, row0);
+#pragma unroll
+          for (int cb = 0; cb < BN / 64; ++cb)
+            tma_load_2d(st + C::kXBytes + cb * 8192, &tm_w, full,
+                        c0 + cb * 64, ks * 64);
+        }
+      }
+    }
+    if constexpr (kScore) {
+      __syncwarp();  // the consumers' two cluster barriers
+      cluster_sync();
+      cluster_sync();
+    }
+    return;
+  }
+
+  // ---- two consumer warpgroups of 64 rows ----
+  const int wgi = warp / 4;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r_lo = wgi * 64 + 16 * (warp % 4) + g;  // acc rows r_lo, r_lo + 8
+  int it = 0;
+  for (int t = blockIdx.y; t < n_tiles; t += gridDim.y) {
+    const int row0 = (t % n_row_tiles) * kRows;
+    const int c0 = (t / n_row_tiles) * BN;
+    // acc[4j + e]: row r_lo + 8 (e >> 1), column 8j + 2 t4 + (e & 1)
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    for (int ks = k_lo; ks < k_hi; ++ks, ++it) {
+      const int s = it % C::kStages;
+      mbar_wait(s_bar + 8 * s, (it / C::kStages) & 1);
+      const uint32_t st = base + s * C::kStageBytes;
+      reg_fence(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {  // 16 columns of d a product
+        const uint64_t da = sw128_desc(st + wgi * 8192 + kk * 32, 16, 1024);
+        const uint64_t db =
+            sw128_desc(st + C::kXBytes + kk * 2048, 8192, 1024);
+        wgmma_ss_kmn<BN>(acc, da, db);
+      }
+      wgmma_commit();
+      wgmma_wait<1>();  // the previous stage's products are done
+      reg_fence(acc);
+      if (ks > k_lo)
+        mbar_arrive(s_bar + 8 * (C::kStages + (it - 1) % C::kStages));
+    }
+    wgmma_wait<0>();
+    reg_fence(acc);
+    if (k_hi > k_lo)
+      mbar_arrive(s_bar + 8 * (C::kStages + (it - 1) % C::kStages));
+
+    if constexpr (!kScore) {
+      // store: p rounded to bf16, column pairs straight from the registers
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int row = row0 + r_lo + 8 * h;
+        if (row >= M) continue;
+        bf16* prow = pnow + (size_t)row * r;
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j) {
+          const int col = c0 + 8 * j + 2 * t4;
+          if (col < r)
+            *reinterpret_cast<__nv_bfloat162*>(prow + col) =
+                __floats2bfloat162_rn(acc[4 * j + 2 * h],
+                                      acc[4 * j + 2 * h + 1]);
+        }
+      }
+    } else {
+      // score: this CTA's partial tile into its shared memory (the ring,
+      // which every product and copy of the tile is done with); after the
+      // cluster barrier rank q sums rows [q, q + 1) * per of the tile over
+      // the partials of ranks 0, 1, ..., split - 1 in that order
+      asm volatile("bar.sync 1, %0;\n" ::"n"(kConsumers) : "memory");
+      float* ps = reinterpret_cast<float*>(sm);  // [kRows][kLdP]
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+          *reinterpret_cast<float2*>(ps + (r_lo + 8 * h) * C::kLdP + 8 * j +
+                                     2 * t4) =
+              make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+      cluster_sync();  // every partial of the cluster is written
+      const int per = kRows / split;  // split is a power of two
+      const int i0 = rank * per + warp;  // rows i0 + 8 k of the tile
+      const int n_k = (min(per, M - row0 - rank * per) - warp + 7) / 8;
+      if (split == 1)
+        score_rows<BN, false, C::kLdP>(ps, i0, n_k, row0, 1, pc_row,
+                                       scores, pnow, N, r, eps, lane);
+      else
+        score_rows<BN, true, C::kLdP>(ps, i0, n_k, row0, split, pc_row,
+                                      scores, pnow, N, r, eps, lane);
+      cluster_sync();  // no CTA leaves while another reads its partial
+    }
+  }
+}
+
+// The 2D map of a row-major [rows, cols] bf16 matrix, boxes of 64 columns
+// x box_rows rows, 128-byte swizzle, zeros out of bounds.
+bool map_2d(EncodeTiled enc, CUtensorMap* m, const void* base, int rows,
+            int cols, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * 2};
+  const cuuint32_t box[2] = {64, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base),
+             dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+int num_sms() {
+  int dev = 0, n = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 132;
+  return n;
+}
+
+// The split of d for the score epilogue: a power of two, about one CTA an
+// SM, at most kMaxSplit and one stage of d per CTA.
+int pick_split(int n_row_tiles, int n_kst) {
+  const int sms = num_sms();
+  int split = 1;
+  while (2 * split <= kMaxSplit && 2 * split <= n_kst &&
+         n_row_tiles * 2 * split <= sms + n_row_tiles / 2)
+    split *= 2;
+  return split;
+}
+
+template <int BN, bool kScore, typename Rows>
+int go(const void* x, const void* w, Rows rows, float* scores, bf16* pnow,
+       int M, int N, int d, int r, float eps, cudaStream_t s) {
+  using C = Cfg<BN, kScore>;
+  const EncodeTiled enc = encode_tiled();
+  if (enc == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap tx, tw;
+  if (!map_2d(enc, &tx, x, M, d, kRows) || !map_2d(enc, &tw, w, d, r, 64))
+    return (int)cudaErrorInvalidValue;
+  auto kern = proxy_wgmma<BN, kScore, Rows>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_kst = (d + 63) / 64;
+  const int n_row_tiles = (M + kRows - 1) / kRows;
+  const int n_tiles = n_row_tiles * (kScore ? 1 : (r + BN - 1) / BN);
+  // score: one tile a cluster, d split; store: persistent, no split
+  const int split = kScore ? pick_split(n_row_tiles, n_kst) : 1;
+  const int per = (n_kst + split - 1) / split;
+  const int ctas = kScore ? n_tiles
+                          : (n_tiles < num_sms() ? n_tiles : num_sms());
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split, ctas, 1);
+  cfg.blockDim = dim3(kThreadsWG, 1, 1);
+  cfg.dynamicSmemBytes = C::kSmem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kern, tx, tw, rows, scores, pnow, M,
+                                 N, r, n_kst, per, n_row_tiles, n_tiles, eps);
+}
+
+}  // namespace wg
 
 // ---- f32: exact FMA loop ----------------------------------------------------
 constexpr int kRows = 16;       // rows of x per block
@@ -303,6 +517,7 @@ __global__ void __launch_bounds__(kThreads) proxy_score_f32(
   }
 }
 
+
 template <template <typename> class Rows, typename... A>
 int launch(const void* x, const void* w, const void* pc, void* scores,
            void* pnow, int B, int N, int d, int r, int dtype, float eps,
@@ -313,60 +528,51 @@ int launch(const void* x, const void* w, const void* pc, void* scores,
   if (dtype == spa::kBF16) {
     if (r % 16 || d % 8) return (int)cudaErrorInvalidValue;
     using T = __nv_bfloat16;
-    const size_t bytes = bf16_smem_bytes(r);
-    const cudaError_t err = cudaFuncSetAttribute(
-        proxy_score_bf16<Rows<T>, true>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((N + kRowsB - 1) / kRowsB, B);
-    proxy_score_bf16<Rows<T>, true><<<grid, kThreads, bytes, s>>>(
-        static_cast<const T*>(x), static_cast<const T*>(w),
-        Rows<T>{static_cast<const T*>(pc), where...},
-        static_cast<float*>(scores), static_cast<T*>(pnow), N, d, r, eps);
-  } else if (dtype == spa::kF32) {
+    const Rows<T> rows{static_cast<const T*>(pc), where...};
+    float* sc = static_cast<float*>(scores);
+    T* pn = static_cast<T*>(pnow);
+    const int M = B * N;
+    return r <= 64    ? wg::go<64, true>(x, w, rows, sc, pn, M, N, d, r, eps, s)
+           : r <= 128 ? wg::go<128, true>(x, w, rows, sc, pn, M, N, d, r, eps,
+                                          s)
+                      : wg::go<256, true>(x, w, rows, sc, pn, M, N, d, r, eps,
+                                          s);
+  }
+  if (dtype == spa::kF32) {
     const dim3 grid((N + kRows - 1) / kRows, B);
     proxy_score_f32<Rows<float>, true><<<grid, kThreads, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(w),
         Rows<float>{static_cast<const float*>(pc), where...},
         static_cast<float*>(scores), static_cast<float*>(pnow), N, d, r,
         eps);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
 // The projection alone for a wide r (> 256): p_now = x @ w rounded to x's
-// dtype, one block per (row tile, batch row, 256-column tile).
+// dtype (bf16: the store epilogue over 128 x 256 tiles; f32: one block per
+// (row tile, batch row, 256-column tile)).
 int launch_project(const void* x, const void* w, void* pnow, int B, int N,
                    int d, int r, int dtype, void* stream) {
   if (B <= 0 || N <= 0) return 0;
   if (r <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_col = (r + kRMax - 1) / kRMax;
   if (dtype == spa::kBF16) {
     if (r % 16 || d % 8) return (int)cudaErrorInvalidValue;
     using T = __nv_bfloat16;
-    const size_t bytes = bf16_smem_bytes(r < kRMax ? r : kRMax);
-    const cudaError_t err = cudaFuncSetAttribute(
-        proxy_score_bf16<DenseRows<T>, false>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-    if (err != cudaSuccess) return (int)err;
-    const dim3 grid((N + kRowsB - 1) / kRowsB, B, n_col);
-    proxy_score_bf16<DenseRows<T>, false><<<grid, kThreads, bytes, s>>>(
-        static_cast<const T*>(x), static_cast<const T*>(w),
-        DenseRows<T>{nullptr, N, r}, nullptr, static_cast<T*>(pnow), N, d,
-        r, 0.f);
-  } else if (dtype == spa::kF32) {
-    const dim3 grid((N + kRows - 1) / kRows, B, n_col);
+    return wg::go<256, false>(x, w, DenseRows<T>{nullptr, N, r}, nullptr,
+                              static_cast<T*>(pnow), B * N, N, d, r, 0.f, s);
+  }
+  if (dtype == spa::kF32) {
+    const dim3 grid((N + kRows - 1) / kRows, B, (r + kRMax - 1) / kRMax);
     proxy_score_f32<DenseRows<float>, false><<<grid, kThreads, 0, s>>>(
         static_cast<const float*>(x), static_cast<const float*>(w),
         DenseRows<float>{nullptr, N, r}, nullptr,
         static_cast<float*>(pnow), N, d, r, 0.f);
-  } else {
-    return (int)cudaErrorInvalidValue;
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
+  return (int)cudaErrorInvalidValue;
 }
 
 // ---- cosine_drift: one warp per row, 8 elements a lane per load ----------
@@ -450,6 +656,7 @@ int launch_drift(const void* x, const void* pc, void* scores, int B, int N,
   else return (int)cudaErrorInvalidValue;
   return (int)cudaGetLastError();
 }
+
 
 }  // namespace
 

@@ -60,11 +60,14 @@ _SIGNATURES = {
     "spa_cosine_drift": [_P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "spa_cosine_drift_paged": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                                _F, _P],
-    "spa_rglru_scan": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
-    "spa_rglru_chunk": [],
+    "spa_rglru_scan": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "spa_rglru_workspace_bytes": [_I, _I, _I],
     "spa_ssd_chunk_scan": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                            _I, _P],
 }
+
+# entry points that return something other than a CUDA error code
+_RESTYPES = {"spa_rglru_workspace_bytes": _L}
 
 _state: Dict[str, object] = {"lib": None, "build_seconds": None,
                              "build_log": ""}
@@ -162,7 +165,7 @@ def load() -> ctypes.CDLL:
     for fn, argtypes in _SIGNATURES.items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
-        f.restype = ctypes.c_int
+        f.restype = _RESTYPES.get(fn, ctypes.c_int)
     _state["lib"] = lib
     return lib
 

@@ -10,9 +10,10 @@ Elementwise over channels, along axis 1 of ``[B, T, d]``, with an f32
 carry from zero; every step rounds ``a_t * h`` and then ``+ b_t`` to f32
 (as the JAX reference ``a_t * h + b_t``), and the output is cast to a's
 dtype.  ``rglru_scan_plain`` is the sequential loop over T; the wrapper
-takes it for CPU tensors and launches ``csrc/rglru_scan.cu`` (a three-pass
-chunked scan, see its note) for CUDA ones.  The kernel agrees with the
-plain version to f32 rounding of the chunk carries.
+takes it for CPU tensors and launches ``csrc/rglru_scan.cu`` (one pass
+over chunks of 64 steps with a decoupled look-back, see its note) for CUDA
+ones.  The kernel agrees with the plain version to f32 rounding of the
+chunk carries, and gives the same bits on every run.
 """
 from __future__ import annotations
 
@@ -49,12 +50,11 @@ def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     bsz, t, d = a.shape
     out = torch.empty_like(a)
     lib = _lib.load()
-    n_chunks = -(-t // lib.spa_rglru_chunk())
-    scratch = torch.empty((3, bsz, n_chunks, d), dtype=torch.float32,
-                          device=a.device)
+    # the tile counter and the chunks' carries (filled on the stream)
+    ws = torch.empty(lib.spa_rglru_workspace_bytes(bsz, t, d),
+                     dtype=torch.uint8, device=a.device)
     _lib.check(lib.spa_rglru_scan(
-        a.data_ptr(), b.data_ptr(), out.data_ptr(), scratch[0].data_ptr(),
-        scratch[1].data_ptr(), scratch[2].data_ptr(), bsz, t, d, code,
-        _lib.stream_ptr(a)), "rglru_scan")
+        a.data_ptr(), b.data_ptr(), out.data_ptr(), ws.data_ptr(), bsz, t, d,
+        code, _lib.stream_ptr(a)), "rglru_scan")
     _lib.LAUNCHES["rglru_scan"] += 1
     return out

@@ -26,11 +26,12 @@ so must ``cosine_drift_paged`` with ``cosine_drift``.  ``cosine_drift``
 sums in f32 like its plain version, in another order: 1e-5 absolute for
 every pairing of f32 and bf16 operands (the inputs are the same values).
 The wide-rank ``proxy_score`` (r > 256: projection kernel, then
-``cosine_drift``) keeps ``proxy_score``'s tolerances.  The banded
+``cosine_drift``) keeps ``proxy_score``'s tolerances; the bf16 body gives
+the same bits on every call.  The banded
 attention grid keeps the attention tolerances and equals the dense grid
 bit for bit where its band covers the window; ``rglru_scan`` agrees with
 the sequential loop within 1e-5 in f32 (its chunk carries reassociate)
-and one bf16 ulp of each element in bf16.  ``ssd_chunk_scan`` sums its
+and one bf16 ulp of each element in bf16, the same bits on every call.  ``ssd_chunk_scan`` sums its
 f32 products in another order than the plain einsums: f32 within 1e-4 of
 the largest output, bf16 within two ulps of the largest output.
 """
@@ -317,6 +318,79 @@ def test_cuda_wide_proxy_score_matches_plain(dtype):
     assert torch.equal(s_pg, s_d) and torch.equal(p_pg, p_d)
     torch.cuda.synchronize()
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d,r,page", [
+    (2, 33, 4096, 16, 11),     # ragged N, d split over 8 CTAs, r padded to 64
+    (3, 300, 96, 128, 20),     # d = 96: one stage and a zero-filled tail
+    (2, 300, 4096, 256, 20),   # the widest fused rank
+    (2, 8192, 256, 128, 16),   # 128 row tiles: d not split
+    (1, 40, 256, 272, 8),      # wide: a 16-column last tile
+    (2, 48, 512, 4096, 16)])   # wide at the value identifier's rank
+def test_cuda_bf16_proxy_score_wgmma_shapes(b, n, d, r, page):
+    """The bf16 wgmma body at the shapes its tiling and split treat apart:
+    within proxy_score's tolerances of the plain version, unchanged rows
+    scoring 1, two calls bit for bit (the split's partials are summed in
+    a fixed order), and proxy_score_paged bitwise proxy_score on the
+    gathered pages."""
+    _cuda_or_skip()
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(r + n)
+    bf16 = torch.bfloat16
+    x = torch.randn(b, n, d, generator=g, device=dev).to(bf16)
+    w = (torch.randn(d, r, generator=g, device=dev) / math.sqrt(d)).to(bf16)
+    pc = torch.randn(b, n, r, generator=g, device=dev).to(bf16)
+    s_k, p_k = tps.proxy_score(x, w, pc)
+    s_p, p_p = tps.proxy_score_plain(x, w, pc)
+    torch.testing.assert_close(s_k, s_p, rtol=0, atol=5e-3)
+    torch.testing.assert_close(p_k.float(), p_p.float(), rtol=2 ** -7,
+                               atol=1e-5)
+    s_again, p_again = tps.proxy_score(x, w, pc)
+    assert torch.equal(s_k, s_again) and torch.equal(p_k, p_again)
+    same, _ = tps.proxy_score(x, w, p_k)
+    assert float((same - 1).abs().max()) < 1e-5
+    n_log = n // page
+    arena = torch.randn(1 + b * n_log, page, r, generator=g,
+                        device=dev).to(bf16)
+    arena[0] = 0
+    pt = (torch.randperm(b * n_log, generator=g, device=dev) + 1
+          ).reshape(b, n_log).to(torch.int32)
+    pt[0, -1] = 0                              # a short row: the zero page
+    s_pg, p_pg = tps.proxy_score_paged(x, w, arena, pt)
+    s_d, p_d = tps.proxy_score(x, w, tsc.gather_pages(arena[None], pt)[0])
+    assert torch.equal(s_pg, s_d) and torch.equal(p_pg, p_d)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_rglru_scan_chunk_edges(dtype):
+    """The one-pass scan at the lengths around its chunk of 64 steps (one
+    step, one chunk less or more, many chunks) and at widths of one and
+    several channel tiles (d = 8; 77, whose rows are no multiple of 16
+    bytes: the plain-copy path; 512): within rglru_scan's tolerances of
+    the sequential loop, one launch a call, and two calls bit for bit (the
+    carries do not depend on the look-back's schedule)."""
+    _cuda_or_skip()
+    from repro_torch.kernels import _lib
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
+           else dict(rtol=2 ** -7, atol=1e-5))
+    for t in (1, 63, 64, 65, 1001):
+        for d in (8, 77, 512):
+            a = (1.0 - 0.1 * torch.rand(2, t, d, generator=g, device=dev)
+                 ).to(dtype)
+            x = (torch.randn(2, t, d, generator=g, device=dev) * 0.1
+                 ).to(dtype)
+            before = _lib.launch_counts()["rglru_scan"]
+            got = trs.rglru_scan(a, x)
+            assert _lib.launch_counts()["rglru_scan"] == before + 1
+            torch.testing.assert_close(
+                got.float(), trs.rglru_scan_plain(a, x).float(), **tol)
+            assert torch.equal(got, trs.rglru_scan(a, x)), (t, d)
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda
