@@ -40,7 +40,14 @@ Phases (each asserts; any failure exits non-zero):
    ssd_chunk_scan at Mamba2-370m's shapes (x [4, 4096, 32, 64], d_state
    128, chunk 256) in bf16 and f32, and with T = 200 < chunk, with the
    device time of each of its three kernels and their ``-Xptxas -v``
-   lines;
+   lines; the row movers (``check_row_movers``): the timing floor (a
+   one-element kernel), scatter_update_multi at every commit of the
+   layer step beyond its record's LLaDA K+V k=128 (k=16, H + proxy, int8
+   K+V + scales, int8 H + 2-byte scale + proxy; the hybrid's 512-byte
+   K+V rows and H + proxy at k=4096) bit for bit, and gather_norm beyond
+   its record's k=128 (LLaDA k=16, the hybrid's k=4096 and 720, f32,
+   d=1000 / 120), each timed beside its bound and plain version (scatter
+   also beside ``index_copy_``), with their ``-Xptxas -v`` lines;
 4. decode parity: a 2-layer, full-width LLaDA, in f32 and in bf16 (the
    main path's kernel variants), through ``CudaBackend`` and
    ``TorchBackend`` (whose side of every comparison in phases 4, 8 and 10
@@ -89,6 +96,9 @@ Phases (each asserts; any failure exits non-zero):
    ssd_chunk_scan launches a layer a step, hidden states finite, ms/step,
    generated tokens/s and a profiled window (cuBLAS, ssd_chunk_scan, other
    kernels, device-busy share).
+
+Every profiled window (phases 5, 6, 7, 9, 11) prints each kernel group's
+device ms a step, calls a step and device us a call.
 
 The last lines are the kernels' JSON record (each kernel's launches are
 those of its path: phase 5 for the session kernels, phase 6 for
@@ -211,6 +221,9 @@ def ptxas_lines(pattern: str) -> dict:
     from repro_torch.kernels import _lib
     found, entry = {}, "?"
     for line in _lib.build_log().splitlines():
+        if line.startswith("== "):      # the next source file's output
+            entry = "?"
+            continue
         if "Compiling entry function" in line:
             entry = line.split("'")[1]
             continue
@@ -515,6 +528,7 @@ def check_kernels(torch, flush):
             k_bufs, idx, rows), torch, flush),
         library_ms=median_ms(index_copy_all, torch, flush),
         bound=bound(2 * 2 * (2 * B * 128 * KVH * hd) + 4 * B * 128, 0))
+    check_row_movers(torch, flush)
     records.update(check_paged_kernels(torch, flush, gen, randn, randint,
                                        assert_close))
     records.update(check_drift_kernels(torch, flush, gen, randn,
@@ -530,6 +544,177 @@ def check_kernels(torch, flush):
               f"{rec['bound'][0]:.4f} ms ({rec['bound'][1]})")
     _lib.reset_launch_counts()
     return records
+
+
+def row_movers_ptxas() -> str:
+    """``-Xptxas -v`` of scatter_kernel and of each gather_norm_rows
+    instance (element type, vector bytes, vectors a thread holds)."""
+    found = ptxas_lines(r"(scatter_kernel|gather_norm_rowsI\w+?Li\d+ELi\d+E)")
+
+    def name(key):
+        m = re.match(r"gather_norm_rowsI(\w+?)Li(\d+)ELi(\d+)E", key)
+        if m is None:
+            return key
+        t = "bf16" if "bfloat16" in m.group(1) else "f32"
+        return f"gather_norm_rows<{t}, {m.group(2)} B, {m.group(3)}>"
+    return "; ".join(f"{name(k)}: " + ", ".join(v)
+                     for k, v in sorted(found.items()))
+
+
+def check_row_movers(torch, flush):
+    """scatter_update_multi and gather_norm at the shapes of the main
+    paths beyond the slice case that their records time (k=128), each
+    against its plain version, with its median time beside its bound
+    (bytes: rows read once and written once; for gather_norm the raw and
+    the normed rows written and w read once).
+
+    scatter_update_multi (bit for bit, every case): LLaDA K+V (B=4, 32 kv
+    heads of 128, bf16) at k=16, H + proxy (8 KB + 256 B rows),
+    int8 K+V + f16 scales (4 KB + 64 B rows), int8 H + its 2-byte f16
+    scale + proxy, and RecurrentGemma-9B's K+V (B=2, k=4096, one kv head
+    of 256: 512-byte rows) and H + proxy (B=2, k=4096), with
+    ``index_copy_`` per buffer beside each.  gather_norm (raw rows bit for
+    bit, normed rows within 1e-2 of the largest: one bf16 ulp; f32 1e-5;
+    two calls the same bits): LLaDA (B=4, N=512, d=4096, bf16) at k=16,
+    the hybrid's B=2, N=16384 at k=4096 and 720, and f32, d=1000 and
+    d=120 (clamped indices).  First the floor of the timing method: a
+    one-element ``add_`` between the same events."""
+    from repro_torch.kernels import proxy_score as ps
+    from repro_torch.kernels import scatter_update as sc
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4321)
+    bf16, f32, f16, i8 = (torch.bfloat16, torch.float32, torch.float16,
+                          torch.int8)
+
+    def rand(shape, dtype):
+        if dtype == i8:
+            return torch.randint(-127, 128, shape, generator=gen,
+                                 device=dev, dtype=torch.int32).to(i8)
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    def perm_idx(b, n, k, sort):
+        rows = [torch.randperm(n, generator=gen, device=dev)[:k]
+                for _ in range(b)]
+        idx = torch.stack(rows)
+        return (torch.sort(idx).values if sort else idx).to(torch.int32)
+
+    one = torch.zeros(1, device=dev)
+    print(f"timing floor: a one-element add_ "
+          f"{median_ms(lambda: one.add_(1), torch, flush):.4f} ms")
+    print("scatter_update_multi at every commit shape (kernel / plain / "
+          "index_copy_ per buffer / bound)")
+    S, Hy = SLICE, HYBRID
+    kv = (S["KVH"], S["hd"])
+    cases = [
+        ("LLaDA K+V k=16", S["B"], S["N"], 16, [(kv, bf16), (kv, bf16)]),
+        ("LLaDA H + proxy k=128", S["B"], S["N"], 128,
+         [((S["d"],), bf16), ((S["r"],), bf16)]),
+        ("int8 K+V + scales k=128", S["B"], S["N"], 128,
+         [(kv, i8), (kv, i8), ((S["KVH"],), f16), ((S["KVH"],), f16)]),
+        ("int8 H + 2-byte scale + proxy k=128", S["B"], S["N"], 128,
+         [((S["d"],), i8), ((), f16), ((S["r"],), bf16)]),
+        ("hybrid K+V k=4096", Hy["B"], Hy["N"], 4096,
+         [((Hy["KVH"], Hy["hd"]), bf16), ((Hy["KVH"], Hy["hd"]), bf16)]),
+        ("hybrid H + proxy k=4096", Hy["B"], Hy["N"], 4096,
+         [((Hy["d"],), bf16), ((S["r"],), bf16)]),
+    ]
+    for name, b, n, k, bufs in cases:
+        caches = [rand((b, n) + f, dt) for f, dt in bufs]
+        rows = [rand((b, k) + f, dt) for f, dt in bufs]
+        idx = perm_idx(b, n, k, sort=False)
+        want = [c.clone() for c in caches]
+        sc.scatter_update_multi_plain(want, idx, rows)
+        got = [c.clone() for c in caches]
+        sc.scatter_update_multi(got, idx, rows)
+        for t_got, t_want in zip(got, want):
+            assert torch.equal(t_got, t_want), f"{name} differs"
+        del got, want
+        moved = 2 * sum(r.numel() * r.element_size() for r in rows)
+
+        def index_copy_all():
+            for c, r in zip(caches, rows):
+                flat = c.view((b * n,) + tuple(c.shape[2:]))
+                flat.index_copy_(0, (idx.long() + torch.arange(
+                    b, device=dev)[:, None] * n).reshape(-1),
+                    r.reshape((b * k,) + tuple(r.shape[2:])))
+
+        ms = median_ms(lambda: sc.scatter_update_multi(caches, idx, rows),
+                       torch, flush)
+        plain = median_ms(lambda: sc.scatter_update_multi_plain(
+            caches, idx, rows), torch, flush, runs=10)
+        lib = median_ms(index_copy_all, torch, flush, runs=10)
+        bnd = bound(moved + 4 * b * k, 0)[0]
+        print(f"  {name}: identical; kernel {ms:.4f} ms ({bnd / ms:.0%} of "
+              f"bound), plain {plain:.4f} ms, index_copy_ {lib:.4f} ms, "
+              f"bound {bnd:.4f} ms ({moved / 1e6:.2f} MB)")
+        del caches, rows
+    # dropped indices (-1, N, 2N) in an unsorted commit that mixes 16-byte,
+    # 64-byte, 10-byte and 2-byte rows, k = 1 and k = 7
+    n = 64
+    for k in (1, 7):
+        bufs = [((2, 32), i8), ((2,), f16), ((5,), bf16), ((), f16),
+                ((48,), f32), ((4, 8), bf16)]
+        caches = [rand((3, n) + f, dt) for f, dt in bufs]
+        rows = [rand((3, k) + f, dt) for f, dt in bufs]
+        idx = perm_idx(3, n, k, sort=False)
+        idx[0, 0], idx[-1, -1] = -1, n
+        if k > 2:
+            idx[1, 1] = 2 * n
+        want = [c.clone() for c in caches]
+        sc.scatter_update_multi_plain(want, idx, rows)
+        got = [c.clone() for c in caches]
+        sc.scatter_update_multi(got, idx, rows)
+        assert all(torch.equal(a, w) for a, w in zip(got, want)), \
+            f"mixed commit k={k} differs"
+    print("  mixed 16/64/10/2-byte rows, dropped -1, N, 2N, k=1 and 7: "
+          "identical")
+
+    print("gather_norm at every shape (kernel / plain / bound)")
+    gcases = [("LLaDA k=16", S["B"], S["N"], S["d"], 16, bf16),
+              ("hybrid k=4096", Hy["B"], Hy["N"], Hy["d"], 4096, bf16),
+              ("hybrid k=720", Hy["B"], Hy["N"], Hy["d"], 720, bf16),
+              ("LLaDA f32 k=128", S["B"], S["N"], S["d"], 128, f32)]
+    for name, b, n, d, k, dt in gcases:
+        h = rand((b, n, d), dt)
+        w = (torch.randn(d, generator=gen, device=dev) * 0.1).to(dt)
+        idx = perm_idx(b, n, k, sort=True)
+        rk, nk = ps.gather_norm(h, idx, w, 1e-6)
+        rp, np_ = ps.gather_norm_plain(h, idx, w, 1e-6)
+        assert torch.equal(rk, rp), f"gather_norm {name}: raw rows differ"
+        err = max_err(nk, np_)
+        lim = (1e-2 if dt == bf16 else 1e-5) * float(np_.float().abs().max())
+        assert err <= lim, f"gather_norm {name}: {err} > {lim}"
+        r2, n2 = ps.gather_norm(h, idx, w, 1e-6)
+        assert torch.equal(n2, nk) and torch.equal(r2, rk), \
+            f"gather_norm {name}: two calls differ"
+        ms = median_ms(lambda: ps.gather_norm(h, idx, w, 1e-6), torch, flush)
+        plain = median_ms(lambda: ps.gather_norm_plain(h, idx, w, 1e-6),
+                          torch, flush, runs=10)
+        es = h.element_size()
+        moved = 3 * b * k * d * es + d * es
+        bnd = bound(moved + 4 * b * k, 0)[0]
+        print(f"  {name}: rows identical, normed max_abs_err {err:.3e} "
+              f"(limit {lim:.3e}); kernel {ms:.4f} ms ({bnd / ms:.0%} of "
+              f"bound), plain {plain:.4f} ms, bound {bnd:.4f} ms "
+              f"({moved / 1e6:.2f} MB)")
+        del h, rk, nk, rp, np_, r2, n2
+    idx = torch.tensor([[5, -3, 700, 2, 511, 0, 9000, 7]] * 2,
+                       dtype=torch.int32, device=dev)
+    for d in (1000, 120):
+        for dt in (bf16, f32):
+            h = rand((2, 512, d), dt)
+            w = (torch.randn(d, generator=gen, device=dev) * 0.1).to(dt)
+            (rk, nk), (rp, np_) = (ps.gather_norm(h, idx, w, 1e-6),
+                                   ps.gather_norm_plain(h, idx, w, 1e-6))
+            assert torch.equal(rk, rp), f"gather_norm d={d} {dt}: raw rows"
+            lim = (1e-2 if dt == bf16 else 1e-5) * float(
+                np_.float().abs().max())
+            assert max_err(nk, np_) <= lim, f"gather_norm d={d} {dt}"
+    print("  d=1000 and d=120, bf16 and f32, clamped indices: rows "
+          "identical, normed within the limit")
+    print(f"  ptxas -v: {row_movers_ptxas()}")
 
 
 def check_paged_kernels(torch, flush, gen, randn, randint, assert_close):
@@ -1484,6 +1669,7 @@ def report_profile(prof, n_steps: int, wall_us: float, label: str) -> None:
     from torch.autograd import DeviceType
     groups = {name: 0.0 for name, _ in KERNEL_GROUPS}
     groups["other kernels"] = 0.0
+    calls = dict.fromkeys(groups, 0)
     others = {}
     busy = 0.0
     for ev in prof.key_averages():
@@ -1497,6 +1683,7 @@ def report_profile(prof, n_steps: int, wall_us: float, label: str) -> None:
                       if any(_matches(ev.key, k) for k in keys)),
                      "other kernels")
         groups[group] += t
+        calls[group] += ev.count
         if group == "other kernels":
             others[ev.key] = others.get(ev.key, 0.0) + t
     if busy == 0:
@@ -1505,8 +1692,10 @@ def report_profile(prof, n_steps: int, wall_us: float, label: str) -> None:
     print(f"  {label} profile over {n_steps} steps: {wall_us / n_steps / 1e3:.2f}"
           f" ms/step wall, device busy {busy / wall_us:.1%}")
     for name, t in sorted(groups.items(), key=lambda kv: -kv[1]):
+        per_call = (f", {calls[name] / n_steps:g} calls/step, "
+                    f"{t / calls[name]:.2f} us/call" if calls[name] else "")
         print(f"    {name:>22}: {t / n_steps / 1e3:8.3f} ms/step "
-              f"({t / busy:.1%} of device time)")
+              f"({t / busy:.1%} of device time{per_call})")
     for name, t in sorted(others.items(), key=lambda kv: -kv[1])[:6]:
         print(f"      other: {t / n_steps / 1e3:8.3f} ms/step  {name[:90]}")
     return wall_us / n_steps / 1e3, busy / n_steps / 1e3

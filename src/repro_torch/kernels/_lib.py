@@ -48,8 +48,8 @@ _SIGNATURES = {
     "spa_sparse_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _I, _I, _I,
                              _F, _F, _P, _I, _I, _I, _P],
-    "spa_scatter_update_multi": [_P, _I, _I, _I, _I,
-                                 _P, _P, _P, _P, _P, _P, _P, _P],
+    "spa_scatter_update_multi": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
+                                 _P, _P, _P, _P, _P, _I, _L, _I, _I, _P],
     "spa_proxy_score_paged": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                               _I, _I, _F, _P],
     "spa_gather_pages": [_P, _P, _P, _I, _I, _I, _I, _L, _P],

@@ -28,7 +28,8 @@ through a page table, bitwise ``cosine_drift`` on the gathered pages.
 ``gather_norm`` replaces ``repro/kernels/proxy_score.py:gather_norm``:
 the k selected rows of ``h`` (indices clamped to ``[0, N)``) are emitted
 raw and rms-normed, ``row * rsqrt(mean(row^2) + eps) * (1 + w)``, in one
-pass.
+pass (rows of at most ``MAX_ROW_BYTES`` bytes on the card: d <= 16384 in
+bf16, 8192 in f32).
 
 Each function has a ``*_plain`` PyTorch version beside it.  The wrapper
 takes the plain version for tensors on the CPU and launches the CUDA
@@ -54,6 +55,7 @@ def cosine(p: torch.Tensor, pc: torch.Tensor, eps: float) -> torch.Tensor:
 
 
 FUSED_R_MAX = 256     # widest rank the fused kernel holds in one block
+MAX_ROW_BYTES = 32768  # widest row gather_norm's kernel holds in registers
 
 
 def cosine_drift_plain(x: torch.Tensor, p_cached: torch.Tensor, *,
@@ -274,6 +276,9 @@ def gather_norm(h: torch.Tensor, idx: torch.Tensor, weight: torch.Tensor,
                          f"{tuple(idx.shape)}, weight {tuple(weight.shape)}")
     if weight.dtype != h.dtype:
         raise TypeError("h and weight must share one dtype")
+    if d * h.element_size() > MAX_ROW_BYTES:
+        raise ValueError(f"gather_norm: rows of {d * h.element_size()} "
+                         f"bytes exceed the kernel's {MAX_ROW_BYTES}")
     h, weight = h.contiguous(), weight.contiguous()
     idx = idx.to(torch.int32).contiguous()
     rows = torch.empty((b, k, d), dtype=h.dtype, device=h.device)

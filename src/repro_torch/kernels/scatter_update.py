@@ -36,6 +36,8 @@ page ids in [0, P).
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 import math
 from typing import Sequence, Tuple
 
@@ -84,6 +86,74 @@ def _row_view(t: torch.Tensor) -> torch.Tensor:
     return v
 
 
+# The work split of csrc/scatter_update.cu (kUnitMax, kWarpRows, kWarps)
+UNIT_MAX = 4096          # bytes of one copy unit
+WARP_ROWS = 32           # rows a warp's units may span (an index a lane)
+WARPS = 4                # warps of a CTA
+CTAS_PER_SM = 4
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+@dataclasses.dataclass(frozen=True)
+class CopyPlan:
+    """How one commit's row copies are cut into units and spread over the
+    grid.  Unit u covers row ``u // per_row`` (= b * k + j) and, within it,
+    unit ``q = u % per_row``: buffer t is the last with ``first[t] <= q``,
+    bytes ``[(q - first[t]) * chunk[t], ... + chunk[t])`` of its row, cut
+    at the row's end.  CTA c takes units ``[c * upc, (c + 1) * upc)``, its
+    warp w the ``upw`` units from ``c * upc + w * upw`` that stay in the
+    CTA's range, and no warp's units span more than WARP_ROWS rows."""
+    chunk: Tuple[int, ...]
+    first: Tuple[int, ...]
+    per_row: int
+    units: int
+    upc: int
+    upw: int
+    grid: int
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_units(row_bytes: Tuple[int, ...], rows: int, n_sm: int
+               ) -> CopyPlan:
+    """The work split of one commit of ``rows`` (= B * k) rows of buffers
+    with these row widths, on a card of ``n_sm`` SMs: each row of a buffer
+    is cut into the fewest units of at most UNIT_MAX bytes, of equal size
+    rounded up to 16 bytes (so a unit keeps its row's alignment); at most
+    CTAS_PER_SM CTAs an SM share the units in equal contiguous ranges
+    (more where a warp's share would span more than WARP_ROWS rows)."""
+    chunk, first, per_row = [], [], 0
+    for rb in row_bytes:
+        n_u = _cdiv(rb, UNIT_MAX)
+        c = 16 * _cdiv(_cdiv(rb, n_u), 16) if n_u else 16
+        chunk.append(c)
+        first.append(per_row)
+        per_row += _cdiv(rb, c)
+    units = rows * per_row
+    if units == 0:
+        return CopyPlan(tuple(chunk), tuple(first), per_row, 0, 0, 0, 0)
+    upc = min(_cdiv(units, min(units, CTAS_PER_SM * n_sm)),
+              WARPS * ((WARP_ROWS - 1) * per_row + 1))
+    return CopyPlan(tuple(chunk), tuple(first), per_row, units, upc,
+                    _cdiv(upc, WARPS), _cdiv(units, upc))
+
+
+def copy_width(*values: int) -> int:
+    """The widest move (16, 4 or 1 bytes) that every address, stride and
+    width in ``values`` allows."""
+    g = 0
+    for v in values:
+        g = math.gcd(g, v)
+    return next(w for w in (16, 4, 1) if g % w == 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: int) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def scatter_update_multi(caches: Sequence[torch.Tensor], idx: torch.Tensor,
                          rows: Sequence[torch.Tensor]
                          ) -> Tuple[torch.Tensor, ...]:
@@ -100,19 +170,27 @@ def scatter_update_multi(caches: Sequence[torch.Tensor], idx: torch.Tensor,
     idx32 = idx.to(torch.int32).contiguous()
     srcs = [r.to(c.dtype).contiguous() for c, r in zip(caches, rows)]
     views = [_row_view(c) for c in caches]
-    row_bytes = [v.shape[2] * v.element_size() for v in views]
-    arr = ctypes.c_longlong * m
+    es = [v.element_size() for v in views]
+    row_bytes = [v.shape[2] * e for v, e in zip(views, es)]
+    dst_bs = [v.stride(0) * e for v, e in zip(views, es)]
+    dst_rs = [v.stride(1) * e for v, e in zip(views, es)]
+    plan = plan_units(tuple(row_bytes), b * k, _sm_count(idx.device.index))
+    if plan.units == 0:
+        return tuple(caches)
+    vec = [copy_width(v.data_ptr(), s.data_ptr(), bs, rs, rb, c)
+           for v, s, bs, rs, rb, c in zip(views, srcs, dst_bs, dst_rs,
+                                          row_bytes, plan.chunk)]
+    arr, iarr = ctypes.c_longlong * m, ctypes.c_int * m
     lib = _lib.load()
     _lib.check(lib.spa_scatter_update_multi(
         idx32.data_ptr(), b, k, n, m,
         arr(*[v.data_ptr() for v in views]),
         arr(*[s.data_ptr() for s in srcs]),
-        arr(*row_bytes),
-        arr(*[v.stride(0) * v.element_size() for v in views]),
-        arr(*[v.stride(1) * v.element_size() for v in views]),
-        arr(*[k * rb for rb in row_bytes]),
-        arr(*row_bytes),
-        _lib.stream_ptr(idx)), "scatter_update_multi")
+        arr(*row_bytes), arr(*dst_bs), arr(*dst_rs),
+        arr(*[k * rb for rb in row_bytes]), arr(*row_bytes),
+        iarr(*plan.chunk), iarr(*plan.first), iarr(*vec), plan.per_row,
+        plan.upc, plan.upw, plan.grid, _lib.stream_ptr(idx)),
+        "scatter_update_multi")
     _lib.LAUNCHES["scatter_update_multi"] += 1
     return tuple(caches)
 

@@ -558,3 +558,131 @@ def test_cuda_ssd_chunk_scan_matches_plain(dtype):
         tssd.ssd_chunk_scan(z, z[..., 0], z[..., 0], z[:, :, 0, :8],
                             z[:, :, 0, :8], 16)
     torch.cuda.synchronize()
+
+
+# commits of the SPA layer step (chip_smoke.py phase 3): B, N, k and each
+# buffer's trailing shape and dtype
+_BF16, _F16, _I8 = torch.bfloat16, torch.float16, torch.int8
+SCATTER_CASES = {
+    "llada_kv_k128": (4, 512, 128, [((32, 128), _BF16), ((32, 128), _BF16)]),
+    "llada_kv_k16": (4, 512, 16, [((32, 128), _BF16), ((32, 128), _BF16)]),
+    "llada_h_proxy": (4, 512, 128, [((4096,), _BF16), ((128,), _BF16)]),
+    "int8_kv_scales": (4, 512, 128, [((32, 128), _I8), ((32, 128), _I8),
+                                     ((32,), _F16), ((32,), _F16)]),
+    "int8_h_scale_proxy": (4, 512, 128, [((4096,), _I8), ((), _F16),
+                                         ((128,), _BF16)]),
+    "hybrid_kv_k4096": (2, 16384, 4096, [((1, 256), _BF16),
+                                         ((1, 256), _BF16)]),
+    "hybrid_h_proxy_k4096": (2, 16384, 4096, [((4096,), _BF16),
+                                              ((128,), _BF16)]),
+    # the edge: 16-byte, 64-byte, 10-byte, 4-byte and 2-byte rows in one
+    # commit, with dropped indices
+    "mixed_k7": (3, 64, 7, [((2, 32), _I8), ((2,), _F16), ((5,), _BF16),
+                            ((), _F16), ((48,), torch.float32),
+                            ((4, 8), _BF16)]),
+    "mixed_k1": (3, 64, 1, [((2, 32), _I8), ((), _F16), ((5,), _BF16)]),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(SCATTER_CASES))
+def test_cuda_scatter_update_multi_shapes(case):
+    """scatter_update_multi at every commit shape of the layer step, bit
+    for bit its plain version (16-, 4- and 1-byte moves); unsorted
+    indices, with -1, N and 2N dropped in the mixed commits; two calls the
+    same bits, one launch counted a call."""
+    _cuda_or_skip()
+    from repro_torch.kernels import _lib
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    b, n, k, bufs = SCATTER_CASES[case]
+
+    def rand(shape, dtype):
+        if dtype == _I8:
+            return torch.randint(-127, 128, shape, generator=g, device=dev,
+                                 dtype=torch.int32).to(_I8)
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    caches = [rand((b, n) + f, dt) for f, dt in bufs]
+    rows = [rand((b, k) + f, dt) for f, dt in bufs]
+    idx = torch.stack([torch.randperm(n, generator=g, device=dev)[:k]
+                       for _ in range(b)]).to(torch.int32)
+    if case.startswith("mixed"):
+        idx[0, 0], idx[-1, -1] = -1, n
+        if k > 2:
+            idx[1, 1] = 2 * n
+    want = [c.clone() for c in caches]
+    tsc.scatter_update_multi_plain(want, idx, rows)
+    for _ in range(2):
+        got = [c.clone() for c in caches]
+        before = _lib.launch_counts()["scatter_update_multi"]
+        out = tsc.scatter_update_multi(got, idx, rows)
+        assert _lib.launch_counts()["scatter_update_multi"] == before + 1
+        assert all(o is t for o, t in zip(out, got))
+        for t_got, t_want in zip(got, want):
+            assert torch.equal(t_got, t_want), case
+    torch.cuda.synchronize()
+
+
+# B, N, d, k, dtype: the layer step's shapes, the edge widths (1000, 120),
+# the 4-byte (4098) and 2-byte (1001) bf16 vector paths, rows that take at
+# least two (4096 bf16), four (8192 bf16) and eight (8192 f32, 16384 bf16,
+# 4098 f32) warps
+GATHER_NORM_CASES = [
+    (4, 512, 4096, 128, _BF16), (4, 512, 4096, 16, _BF16),
+    (2, 16384, 4096, 4096, _BF16), (2, 16384, 4096, 720, _BF16),
+    (4, 512, 4096, 128, torch.float32),
+    (2, 512, 1000, 8, _BF16), (2, 512, 1000, 8, torch.float32),
+    (2, 512, 120, 8, _BF16), (2, 512, 120, 8, torch.float32),
+    (2, 64, 1001, 9, _BF16), (2, 64, 4098, 9, _BF16),
+    (2, 64, 4098, 9, torch.float32), (2, 64, 8192, 9, _BF16),
+    (2, 64, 8192, 9, torch.float32), (2, 64, 16384, 9, _BF16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d,k,dtype", GATHER_NORM_CASES)
+def test_cuda_gather_norm_shapes(b, n, d, k, dtype):
+    """gather_norm against its plain version: raw rows bit for bit, normed
+    rows within one bf16 ulp of each element (f32: 1e-5), indices clamped
+    both ways; two calls the same bits, one launch counted a call.  A
+    weight that starts 2 bytes into its storage takes the narrow path."""
+    _cuda_or_skip()
+    from repro_torch.kernels import _lib
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(d + k)
+    h = (torch.randn((b, n, d), generator=g, device=dev) * 2).to(dtype)
+    w = (torch.randn(d, generator=g, device=dev) * 0.1).to(dtype)
+    idx = torch.stack([torch.randperm(n, generator=g, device=dev)[:k]
+                       for _ in range(b)]).to(torch.int32)
+    idx[0, 0], idx[-1, -1] = -5, n + 3
+    elem = (dict(rtol=1e-5, atol=1e-5) if dtype == torch.float32
+            else dict(rtol=2 ** -7, atol=1e-5))
+    rp, np_ = tps.gather_norm_plain(h, idx, w, 1e-6)
+    before = _lib.launch_counts()["gather_norm"]
+    rk, nk = tps.gather_norm(h, idx, w, 1e-6)
+    assert _lib.launch_counts()["gather_norm"] == before + 1
+    assert torch.equal(rk, rp)
+    torch.testing.assert_close(nk.float(), np_.float(), **elem)
+    r2, n2 = tps.gather_norm(h, idx, w, 1e-6)
+    assert torch.equal(r2, rk) and torch.equal(n2, nk)
+    if d == 1000:
+        w_off = torch.empty(d + 1, dtype=dtype, device=dev)[1:]
+        w_off.copy_(w)
+        rk, nk = tps.gather_norm(h, idx, w_off, 1e-6)
+        assert torch.equal(rk, rp)
+        torch.testing.assert_close(nk.float(), np_.float(), **elem)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+def test_cuda_gather_norm_refuses_wide_rows():
+    """Rows wider than MAX_ROW_BYTES raise instead of launching."""
+    _cuda_or_skip()
+    dev = torch.device("cuda")
+    d = tps.MAX_ROW_BYTES // 2 + 8
+    h = torch.zeros((1, 4, d), dtype=_BF16, device=dev)
+    with pytest.raises(ValueError, match="MAX_ROW_BYTES|exceed"):
+        tps.gather_norm(h, torch.zeros((1, 2), dtype=torch.int32,
+                                       device=dev),
+                        torch.zeros(d, dtype=_BF16, device=dev))
