@@ -3,6 +3,7 @@
 check them.
 
     python3 chip_smoke.py                 # one card, no arguments
+    python3 chip_smoke.py --phases 3,7    # only those phases; no result line
 
 Phases (each asserts; any failure exits non-zero):
 
@@ -17,7 +18,10 @@ Phases (each asserts; any failure exits non-zero):
    library call where one computes the same function (attention against
    SDPA also at kq = N = 512, the NoCache and prefill shape, and at the
    hybrid's head_dim 256 dense grid and banded prefill with a window
-   mask), and the attention body's ``-Xptxas -v`` line;
+   mask), and the attention body's ``-Xptxas -v`` line.  Before every
+   timed call the L2 is left holding only clean lines (``L2Flush``), and
+   for the timing floor and six kernel rows the time under the earlier,
+   dirty ``zero_()`` flush is printed beside it;
    bf16 proxy_score runs one TMA-fed wgmma GEMM (proxy_wgmma: d split
    across a thread-block cluster where the row tiles do not fill the
    card, the partials summed in rank order; a score epilogue for r <= 256,
@@ -25,9 +29,13 @@ Phases (each asserts; any failure exits non-zero):
    shape (B=2, N=16384), with its ``-Xptxas -v`` lines.
    The paged kernels (gather_pages, scatter_pages, scatter_rows_paged,
    proxy_score_paged) must match exactly, proxy_score_paged bitwise equal
-   to proxy_score on the gathered pages.  cosine_drift (bf16 at d=4096,
-   f32 x against bf16 at r=128, ragged N, f32) and cosine_drift_paged
-   (bitwise cosine_drift on the gathered pages), and proxy_score /
+   to proxy_score on the gathered pages, scatter_rows_paged also at
+   256-byte, 8 KB, 10-byte and 2-byte rows and k up to 4096 (timed at
+   8 KB rows and at k=4096).
+   cosine_drift (r = 8 to 4096, every pairing of f32 and bf16 operands,
+   ragged N, two calls the same bits) and cosine_drift_paged (bitwise
+   cosine_drift on the gathered pages), each also timed L2-hot over 200
+   back-to-back calls (``warm_us``), and proxy_score /
    proxy_score_paged at r=4096 (the value identifier's width: projection
    kernel + cosine_drift; paged bitwise dense), the projection alone timed
    beside one ``torch.matmul`` of the same product; at RecurrentGemma-9B's
@@ -75,7 +83,8 @@ Phases (each asserts; any failure exits non-zero):
    must preempt; all complete, the pool drains, every paged kernel
    launched, with a ``torch.profiler`` window over a few engine steps;
    then paged lanes of attn_in, the incremental identifier and attn_out
-   (five mixed requests each), which launch cosine_drift_paged;
+   (five mixed requests each), which launch cosine_drift_paged, with a
+   ``torch.profiler`` window over a few engine steps of the attn_in lane;
 8. hybrid parity: a 3-layer, full-width RecurrentGemma (rglru, rglru,
    local) at B=2, N=16384, whose local layer runs the banded grid,
    through ``CudaBackend`` and ``TorchBackend``: f32 free-running with
@@ -180,17 +189,45 @@ def card_line() -> str:
         else f"nvidia-smi failed: {out.stderr.strip()}"
 
 
-def median_ms(fn, torch, flush, runs: int = 30, warmup: int = 3) -> float:
-    """Median device time of one call, from CUDA events.  The L2 is
-    overwritten before every timed call, so inputs come from HBM as on the
-    decode path, and a spin kernel ahead of the start event keeps the card
-    busy while the host enqueues the call, so the events bracket device
-    work and not Python dispatch."""
+class L2Flush:
+    """Run before every timed call of :func:`median_ms`: it leaves the
+    H100's L2 (50 MB, write-back) holding only clean lines of a buffer that
+    no timed call touches, so a call reads its inputs from HBM, as on the
+    decode path, and writes back nothing but its own stores.
+    ``zero_()`` of a 64 MB buffer alone (``dirty=True``, the flush of
+    earlier runs, kept to compare with them) left the L2 full of dirty
+    lines, and a call that read X bytes then also wrote back up to X dirty
+    bytes between its events.  The read sweep of a second 64 MB buffer (a
+    sum into a preallocated scalar) evicts those lines before the timed
+    call's spin kernel starts."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.written = torch.empty(64 * 2 ** 20, dtype=torch.uint8,
+                                   device="cuda")
+        self.swept = torch.ones(16 * 2 ** 20, dtype=torch.float32,
+                                device="cuda")
+        self.total = torch.zeros((), dtype=torch.float32, device="cuda")
+
+    def __call__(self, dirty: bool = False) -> None:
+        self.written.zero_()
+        if not dirty:
+            self.torch.sum(self.swept, 0, out=self.total)
+
+
+def median_ms(fn, torch, flush, runs: int = 30, warmup: int = 3,
+              dirty: bool = False) -> float:
+    """Median device time of one call, from CUDA events.  ``flush`` (an
+    :class:`L2Flush`) runs before every timed call, so inputs come from
+    HBM and the L2 holds no dirty line (``dirty=True``: the earlier
+    ``zero_()`` flush alone), and a spin kernel ahead of the start event
+    keeps the card busy while the host enqueues the call, so the events
+    bracket device work and not Python dispatch."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(runs):
-        flush.zero_()
+        flush(dirty)
         torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
@@ -200,6 +237,40 @@ def median_ms(fn, torch, flush, runs: int = 30, warmup: int = 3) -> float:
         stop.synchronize()
         times.append(start.elapsed_time(stop))
     return statistics.median(times)
+
+
+def both_flushes(label: str, fn, torch, flush, **kw) -> float:
+    """:func:`median_ms` under the clean flush, printed beside the same
+    call under the earlier dirty one; returns the clean time."""
+    clean = median_ms(fn, torch, flush, **kw)
+    dirty = median_ms(fn, torch, flush, dirty=True, **kw)
+    print(f"  {label}: {clean:.4f} ms (dirty flush {dirty:.4f} ms)")
+    return clean
+
+
+def warm_us(fn, torch, kernel: str, calls: int = 200) -> tuple:
+    """(device us a call, launches traced) of the kernels whose names hold
+    ``kernel``, over ``calls`` back-to-back calls with no flush between
+    them, from a ``torch.profiler`` trace: the operands may stay in the L2
+    (50 MB on the H100), as where a step's kernels follow each other
+    closely.  The clean-flush time is the decode path's today; this one is
+    what CUDA graphs may make of it.  The trace may drop a launch or all
+    of them, so the mean is over those it holds (None where it holds
+    none)."""
+    from torch.autograd import DeviceType
+    fn()
+    torch.cuda.synchronize()
+    with new_profiler(torch) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    t = n = 0
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and kernel in ev.key:
+            dt = getattr(ev, "self_device_time_total", None)
+            t += ev.self_cuda_time_total if dt is None else dt
+            n += ev.count
+    return (t / n if n else None), n
 
 
 def max_err(a, b) -> float:
@@ -327,7 +398,8 @@ def check_kernels(torch, flush):
     records["proxy_score"] = dict(
         source="src/repro_torch/csrc/proxy_score.cu",
         replaces="src/repro/kernels/proxy_score.py:101", max_abs_err=err,
-        ms=median_ms(lambda: ps.proxy_score(x, w, pc), torch, flush),
+        ms=both_flushes("slice shape kernel", lambda: ps.proxy_score(
+            x, w, pc), torch, flush),
         plain_ms=median_ms(lambda: ps.proxy_score_plain(x, w, pc), torch,
                            flush),
         library_ms=None,
@@ -372,7 +444,8 @@ def check_kernels(torch, flush):
     records["gather_norm"] = dict(
         source="src/repro_torch/csrc/gather_norm.cu",
         replaces="src/repro/kernels/proxy_score.py:308", max_abs_err=err,
-        ms=median_ms(lambda: ps.gather_norm(h, idx, wn, 1e-6), torch, flush),
+        ms=both_flushes("k=128 kernel", lambda: ps.gather_norm(
+            h, idx, wn, 1e-6), torch, flush),
         plain_ms=median_ms(lambda: ps.gather_norm_plain(h, idx, wn, 1e-6),
                            torch, flush),
         library_ms=None,
@@ -522,8 +595,8 @@ def check_kernels(torch, flush):
     records["scatter_update_multi"] = dict(
         source="src/repro_torch/csrc/scatter_update.cu",
         replaces="src/repro/kernels/scatter_update.py:114", max_abs_err=err,
-        ms=median_ms(lambda: sc.scatter_update_multi(k_bufs, idx, rows),
-                     torch, flush),
+        ms=both_flushes("k=128 K+V kernel", lambda: sc.scatter_update_multi(
+            k_bufs, idx, rows), torch, flush),
         plain_ms=median_ms(lambda: sc.scatter_update_multi_plain(
             k_bufs, idx, rows), torch, flush),
         library_ms=median_ms(index_copy_all, torch, flush),
@@ -601,8 +674,8 @@ def check_row_movers(torch, flush):
         return (torch.sort(idx).values if sort else idx).to(torch.int32)
 
     one = torch.zeros(1, device=dev)
-    print(f"timing floor: a one-element add_ "
-          f"{median_ms(lambda: one.add_(1), torch, flush):.4f} ms")
+    print("timing floor")
+    both_flushes("a one-element add_", lambda: one.add_(1), torch, flush)
     print("scatter_update_multi at every commit shape (kernel / plain / "
           "index_copy_ per buffer / bound)")
     S, Hy = SLICE, HYBRID
@@ -723,8 +796,10 @@ def check_paged_kernels(torch, flush, gen, randn, randint, assert_close):
     (LLaDA-8B: 32 layers, B=4, N=512, page 16, bf16; a pool of 129 pages
     so that every logical page of the 4 rows is a real one) and at edge
     cases (zero page, sentinel N, idx < 0, logical pages past n_log, short
-    rows, int8 K/V and f16 scales).  The copies must be exact, and
-    proxy_score_paged bitwise equal to proxy_score on the gathered pages."""
+    rows, int8 K/V and f16 scales); scatter_rows_paged also at 256-byte,
+    8 KB, 10-byte and 2-byte rows and k in {1, 16, 128, 511, 4096}.  The
+    copies must be exact, and proxy_score_paged bitwise equal to
+    proxy_score on the gathered pages."""
     from repro_torch.kernels import proxy_score as ps
     from repro_torch.kernels import scatter_update as sc
 
@@ -834,12 +909,63 @@ def check_paged_kernels(torch, flush, gen, randn, randint, assert_close):
         sc.scatter_rows_paged(got[1], tbl, ii, rw)
         sc.scatter_rows_paged_plain(want[1], tbl, ii, rw)
         exact(f"{dt} {shape}", got, want)
+    # the row widths of the port's commits (256-byte r=128 and 8 KB r=4096
+    # bf16 proxy rows, 10-byte int8 and 2-byte f16 rows) at k in {1, 16,
+    # 128, 4096}, unsorted, with every drop rule, into one layer of a
+    # two-layer arena: B=4, N=512, pages of 16; k=4096 on the hybrid's
+    # canvas (B=2, N=16384); B=5, k=511 makes runs of two rows that
+    # straddle batch rows
+    for shape, dt in (((r,), torch.bfloat16), ((d,), torch.bfloat16),
+                      ((10,), torch.int8), ((), torch.float16)):
+        for b_, n_, k_ in ((B, N, 1), (B, N, 16), (B, N, 128), (5, N, 511),
+                           (2, HYBRID["N"], 4096)):
+            nl = n_ // page
+            pool = 1 + b_ * nl
+            tbl = (torch.randperm(pool - 1, generator=gen, device=dev) + 1
+                   ).reshape(b_, nl).to(torch.int32)
+            tbl[1, nl // 2:] = 0                  # a short row
+            ii = torch.stack([torch.randperm(n_, generator=gen,
+                                             device=dev)[:k_]
+                              for _ in range(b_)]).to(torch.int32)
+            if k_ > 1:
+                ii[0, 0], ii[1, -1] = -1, n_      # idx < 0, the sentinel
+            if dt == torch.int8:
+                ar = randint(-127, 128, 2, pool, page, *shape).to(dt)
+                rw = randint(-127, 128, b_, k_, *shape).to(dt)
+            else:
+                ar = randn(2, pool, page, *shape, dtype=dt)
+                rw = randn(b_, k_, *shape, dtype=dt)
+            ar[:, 0] = 0
+            got, want = ar.clone(), ar.clone()
+            sc.scatter_rows_paged(got[1], tbl, ii, rw)
+            sc.scatter_rows_paged_plain(want[1], tbl, ii, rw)
+            assert torch.equal(got, want), \
+                f"scatter_rows_paged {dt} {shape} k={k_}: differs from plain"
+            assert not got[:, 0].any(), \
+                "scatter_rows_paged wrote the zero page"
+            if shape == (d,) and k_ == k:
+                # the attn_in lane's commit: 8 KB proxy rows
+                ms8 = median_ms(lambda: sc.scatter_rows_paged(
+                    got[1], tbl, ii, rw), torch, flush)
+                b8 = bound(2 * 2 * b_ * k_ * d + 4 * b_ * (k_ + nl), 0)[0]
+            if shape == (r,) and k_ == 4096:
+                # 256-byte rows, 8192 of them: runs of several rows a warp
+                ms4k = median_ms(lambda: sc.scatter_rows_paged(
+                    got[1], tbl, ii, rw), torch, flush)
+                b4k = bound(2 * 2 * b_ * k_ * r + 4 * b_ * (k_ + nl), 0)[0]
+            del ar, rw, got, want
+    print("  256-byte, 8 KB, 10-byte and 2-byte rows at k=1, 16, 128, "
+          "511 (B=5), 4096: identical")
+    print(f"  8 KB rows (r=4096) k={k}: kernel {ms8:.4f} ms, bound "
+          f"{b8:.4f} ms")
+    print(f"  256-byte rows k=4096 (B=2, N={HYBRID['N']}): kernel "
+          f"{ms4k:.4f} ms, bound {b4k:.4f} ms")
     work = parena.clone()
     records["scatter_rows_paged"] = dict(
         source="src/repro_torch/csrc/paged.cu",
         replaces="src/repro/kernels/scatter_update.py:296", max_abs_err=0.0,
-        ms=median_ms(lambda: sc.scatter_rows_paged(work[lay], pt, idx, rows),
-                     torch, flush),
+        ms=both_flushes("k=128 kernel", lambda: sc.scatter_rows_paged(
+            work[lay], pt, idx, rows), torch, flush),
         plain_ms=median_ms(lambda: sc.scatter_rows_paged_plain(
             work[lay], pt, idx, rows), torch, flush),
         library_ms=None,
@@ -886,11 +1012,12 @@ def check_paged_kernels(torch, flush, gen, randn, randint, assert_close):
 
 def check_drift_kernels(torch, flush, gen, randn, assert_close):
     """cosine_drift, cosine_drift_paged and the wide-rank proxy_score
-    against their plain versions.  cosine_drift at the attn_in / attn_out
-    width (B=4, N=512, r=4096, bf16 both; the timed case), at the
-    incremental identifier's (f32 x against a bf16 cache, r=128), with a
-    ragged N and in f32; cosine_drift_paged bitwise equal to cosine_drift
-    on the gathered pages; proxy_score and proxy_score_paged at r=4096
+    against their plain versions.  cosine_drift at B=4, N=512 and N=509
+    for r in {8, 64, 96, 128, 4096} and every pairing of f32 and bf16
+    operands (timed at the attn_in / attn_out width, r=4096 bf16 both, and
+    at the incremental identifier's, f32 x against a bf16 cache at r=128);
+    cosine_drift_paged bitwise equal to cosine_drift on the gathered pages
+    for the same cases; proxy_score and proxy_score_paged at r=4096
     (the value identifier, bf16), paged bitwise dense.  Tolerances:
     cosine_drift sums in f32 like its plain version, in another order,
     so 1e-5; wide proxy_score as proxy_score (p within one bf16 ulp, 2^-7
@@ -906,33 +1033,77 @@ def check_drift_kernels(torch, flush, gen, randn, assert_close):
     records = {}
 
     print("cosine_drift")
+    P = 1 + B * n_log
+    perm = torch.randperm(P - 1, generator=gen, device=dev) + 1
+    pt = perm.reshape(B, n_log).to(torch.int32).contiguous()
+    pt_short = pt.clone()
+    for b_, n_real in enumerate((32, 16, 24, 8)):
+        pt_short[b_, n_real:] = 0
+    # every rank the identifiers score at (8 ... 4096) and every pairing of
+    # f32 and bf16 operands, at the slice's B and N and a ragged N; unchanged
+    # rows score 1, an all-zero row 0 (the eps floor), two calls the same
+    # bits, and the paged instance bitwise the dense one on the gathered
+    # pages (every page real, and short rows over the zero page)
+    err = err_paged = 0.0
+    for r_ in (8, 64, 96, 128, d):
+        for xd in (f32, bf16):
+            for cd in (f32, bf16):
+                xe = randn(B, N, r_, dtype=xd)
+                pe = randn(B, N, r_, dtype=cd)
+                pe[:, :8] = xe[:, :8].to(cd)
+                xe[1, 9] = 0
+                tag = f"{str(xd)[6:]}/{str(cd)[6:]} r={r_}"
+                for n_ in (N, N - 3):
+                    xs = xe[:, :n_].contiguous()
+                    ps_ = pe[:, :n_].contiguous()
+                    s_k = ps.cosine_drift(xs, ps_)
+                    e = max_err(s_k, ps.cosine_drift_plain(xs, ps_))
+                    assert e <= 1e-5, f"cosine_drift {tag} N={n_}: {e}"
+                    assert torch.equal(s_k, ps.cosine_drift(xs, ps_)), \
+                        f"cosine_drift {tag}: two calls differ"
+                    if (xd, cd, r_) == (bf16, bf16, d):
+                        err = max(err, e)
+                if xd == cd:
+                    assert float((s_k[:, :8] - 1).abs().max()) < 1e-5, \
+                        f"cosine_drift {tag}: unchanged rows must score 1"
+                assert float(s_k[1, 9]) == 0.0, f"{tag}: zero row"
+                ar = randn(P, page, r_, dtype=cd)
+                ar[0] = 0
+                for table in (pt, pt_short):
+                    s_pg = ps.cosine_drift_paged(xe, ar, table)
+                    s_d = ps.cosine_drift(
+                        xe, sc.gather_pages(ar[None], table)[0])
+                    assert torch.equal(s_pg, s_d), \
+                        f"cosine_drift_paged {tag}: not bitwise cosine_drift"
+                    assert torch.equal(
+                        s_pg, ps.cosine_drift_paged(xe, ar, table)), \
+                        f"cosine_drift_paged {tag}: two calls differ"
+                    e = max_err(s_pg,
+                                ps.cosine_drift_paged_plain(xe, ar, table))
+                    assert e <= 1e-5, f"cosine_drift_paged {tag}: {e}"
+                    if (xd, cd, r_) == (bf16, bf16, d):
+                        err_paged = max(err_paged, e)
+                print(f"  {tag}: within 1e-5 of plain (N={N} and {N - 3}), "
+                      f"unchanged rows 1, two calls the same bits, paged "
+                      f"bitwise dense (full and short rows)")
+                del xe, pe, ar
     x = randn(B, N, d)
     pc = randn(B, N, d)
-    pc[:, :8] = x[:, :8]                       # unchanged rows score 1
-    s_k = ps.cosine_drift(x, pc)
-    err = assert_close("bf16/bf16 r=4096", s_k, ps.cosine_drift_plain(x, pc),
-                       1e-5, 0)
-    assert float((s_k[:, :8] - 1).abs().max()) < 1e-5, \
-        "unchanged rows must score 1"
     r_inc = SLICE["r"]
     x_inc = randn(B, N, r_inc, dtype=f32)
     pc_inc = randn(B, N, r_inc)
-    assert_close("f32/bf16 r=128", ps.cosine_drift(x_inc, pc_inc),
-                 ps.cosine_drift_plain(x_inc, pc_inc), 1e-5, 0)
-    for xd, cd, n_, r_ in ((f32, f32, 301, 96), (bf16, f32, 77, 4096),
-                           (bf16, bf16, 33, 8)):
-        xe, pe = randn(3, n_, r_, dtype=xd), randn(3, n_, r_, dtype=cd)
-        assert_close(f"{xd}/{cd} N={n_} r={r_}", ps.cosine_drift(xe, pe),
-                     ps.cosine_drift_plain(xe, pe), 1e-5, 0)
-    inc_ms = median_ms(lambda: ps.cosine_drift(x_inc, pc_inc), torch, flush)
+    inc_ms = both_flushes("f32/bf16 r=128 (incremental width) kernel",
+                          lambda: ps.cosine_drift(x_inc, pc_inc), torch,
+                          flush)
     inc_bound = bound(4 * B * N * r_inc + 2 * B * N * r_inc + 4 * B * N,
                       6 * B * N * r_inc, F32_FLOPS)
-    print(f"  f32/bf16 r=128 (incremental width): kernel {inc_ms:.4f} ms, "
-          f"bound {inc_bound[0]:.4f} ms ({inc_bound[1]})")
+    print(f"  f32/bf16 r=128: kernel {inc_ms:.4f} ms, bound "
+          f"{inc_bound[0]:.4f} ms ({inc_bound[1]})")
     records["cosine_drift"] = dict(
         source="src/repro_torch/csrc/proxy_score.cu",
         replaces="src/repro/kernels/proxy_score.py:138", max_abs_err=err,
-        ms=median_ms(lambda: ps.cosine_drift(x, pc), torch, flush),
+        ms=both_flushes("bf16/bf16 r=4096 kernel", lambda: ps.cosine_drift(
+            x, pc), torch, flush),
         plain_ms=median_ms(lambda: ps.cosine_drift_plain(x, pc), torch,
                            flush),
         library_ms=median_ms(lambda: F.cosine_similarity(x, pc, dim=-1),
@@ -941,43 +1112,37 @@ def check_drift_kernels(torch, flush, gen, randn, assert_close):
                     F32_FLOPS))
 
     print("cosine_drift_paged")
-    P = 1 + B * n_log
-    perm = torch.randperm(P - 1, generator=gen, device=dev) + 1
-    pt = perm.reshape(B, n_log).to(torch.int32).contiguous()
-    pt_short = pt.clone()
-    for b_, n_real in enumerate((32, 16, 24, 8)):
-        pt_short[b_, n_real:] = 0
     arena = randn(P, page, d)
     arena[0] = 0
-    err = 0.0
-    for name, xx, ar, table in (
-            ("bf16 r=4096 full rows", x, arena, pt),
-            ("bf16 r=4096 short rows", x, arena, pt_short),
-            ("f32/bf16 r=128 short rows", x_inc, randn(P, page, r_inc),
-             pt_short),
-            ("f32/f32 r=96", randn(2, 80, 96, dtype=f32),
-             randn(9, page, 96, dtype=f32),
-             torch.tensor([[1, 7, 0, 0, 0], [8, 2, 3, 4, 5]],
-                          dtype=torch.int32, device=dev))):
-        s_pg = ps.cosine_drift_paged(xx, ar, table)
-        s_d = ps.cosine_drift(xx, sc.gather_pages(ar[None], table)[0])
-        assert torch.equal(s_pg, s_d), \
-            f"cosine_drift_paged {name}: not bitwise cosine_drift"
-        print(f"  {name}: bitwise equal to cosine_drift on the gathered "
-              f"pages")
-        err = max(err, assert_close(
-            f"{name} vs plain", s_pg,
-            ps.cosine_drift_paged_plain(xx, ar, table), 1e-5, 0))
+    arena_inc = randn(P, page, r_inc)
+    inc_ms = both_flushes(
+        "f32/bf16 r=128 kernel", lambda: ps.cosine_drift_paged(
+            x_inc, arena_inc, pt), torch, flush)
+    print(f"  f32/bf16 r=128: kernel {inc_ms:.4f} ms, bound "
+          f"{inc_bound[0]:.4f} ms ({inc_bound[1]})")
     records["cosine_drift_paged"] = dict(
         source="src/repro_torch/csrc/proxy_score.cu",
-        replaces="src/repro/kernels/proxy_score.py:254", max_abs_err=err,
-        ms=median_ms(lambda: ps.cosine_drift_paged(x, arena, pt), torch,
-                     flush),
+        replaces="src/repro/kernels/proxy_score.py:254", max_abs_err=err_paged,
+        ms=both_flushes("bf16 r=4096 kernel", lambda: ps.cosine_drift_paged(
+            x, arena, pt), torch, flush),
         plain_ms=median_ms(lambda: ps.cosine_drift_paged_plain(
             x, arena, pt), torch, flush),
         library_ms=None,
         bound=bound(2 * 2 * B * N * d + 4 * B * N + 4 * B * n_log,
                     6 * B * N * d, F32_FLOPS))
+    # back to back, operands L2-hot (the clean flush's times are above)
+    for tag, fn in (
+            ("bf16 r=4096", lambda: ps.cosine_drift(x, pc)),
+            ("paged bf16 r=4096", lambda: ps.cosine_drift_paged(
+                x, arena, pt)),
+            ("f32/bf16 r=128", lambda: ps.cosine_drift(x_inc, pc_inc)),
+            ("paged f32/bf16 r=128", lambda: ps.cosine_drift_paged(
+                x_inc, arena_inc, pt))):
+        us, n = warm_us(fn, torch, "cosine_drift_kernel")
+        print(f"  {tag}: warm " + ("not measured" if us is None else
+                                   f"{us:.3f} us a call")
+              + f" ({n} of 200 back-to-back calls traced, L2-hot)")
+    del x_inc, pc_inc, arena_inc
 
     print("proxy_score at r=4096 (projection kernel + cosine_drift)")
     r_w = d                                   # kv_dim of LLaDA-8B
@@ -1327,11 +1492,11 @@ def check_ssd_kernel(torch, flush, gen):
           f"{nbytes / rec['ms'] / 1e6:.1f} GB/s of {nbytes / 1e6:.1f} MB), "
           f"plain {rec['plain_ms']:.3f} ms")
     # the three kernels of a call: device time each, from a profiler window
-    # (the L2 overwritten before every call)
+    # (the L2 flushed clean before every call)
     from torch.autograd import DeviceType
     with new_profiler(torch) as prof:
         for _ in range(10):
-            flush.zero_()
+            flush()
             sc.ssd_chunk_scan(*args, cs)
         torch.cuda.synchronize()
     for ev in prof.key_averages():
@@ -1364,6 +1529,37 @@ def baseline_strategies(cfg):
     out["singular_incremental"] = dataclasses.replace(
         SPACache.from_spec(cfg.spa), incremental_ident=True)
     return out
+
+
+def decode_parity_phase(torch):
+    """Phase 4: 2-layer full-width LLaDA through both backends."""
+    print("decode parity (2-layer full-width LLaDA, CudaBackend vs "
+          "TorchBackend)")
+    # f32: the kernels agree with the plain versions to FMA order.
+    setup = _parity_setup(torch, "float32")
+    decode_parity(torch, 1e-5, setup, setup[2], "singular")
+    for name, strat in baseline_strategies(setup[0]).items():
+        decode_parity(torch, 1e-5, setup, strat, name)
+    del setup
+    torch.cuda.empty_cache()
+    # bf16, the main path's kernels (tensor-core attention, bf16 proxies):
+    # each call agrees to one bf16 ulp (2^-7), so one step's buffers and
+    # logits to a few ulps of their largest value (an H100 read 1.1e-2 and
+    # 6.0e-3); the limit is four ulps.
+    setup = _parity_setup(torch, "bfloat16")
+    lockstep_parity(torch, 2 ** -5, 2 ** -5, setup, setup[2], "singular")
+    # the baselines: a step may commit another slot where two bf16
+    # confidences tie within the step's logit difference (checked)
+    for name, strat in baseline_strategies(setup[0]).items():
+        lockstep_parity(torch, 2 ** -5, 2 ** -5, setup, strat, name,
+                        strict=False)
+    del setup
+    torch.cuda.empty_cache()
+    print("paged decode parity (2-layer full-width f32 LLaDA, pages of "
+          f"{PAGE})")
+    paged_parity(torch, 1e-5)
+    torch.cuda.empty_cache()
+
 
 def _parity_setup(torch, dtype: str):
     """A 2-layer, full-width LLaDA, its proxies and a B=4 prompt of 48."""
@@ -1701,12 +1897,11 @@ def report_profile(prof, n_steps: int, wall_us: float, label: str) -> None:
     return wall_us / n_steps / 1e3, busy / n_steps / 1e3
 
 
-def main_path(torch):
+def llada_setup(torch):
+    """LLaDA-8B's random bf16 weights, its ``SPACache`` and SVD proxies:
+    (cfg, params, strat, proxies), shared by phases 5-7."""
     from repro_torch.configs import get_arch
-    from repro_torch.core import spa_layer
-    from repro_torch.core.strategy import NoCache, SPACache
-    from repro_torch.dlm.session import DecodeSession
-    from repro_torch.kernels import _lib
+    from repro_torch.core.strategy import SPACache
     from repro_torch.models import transformer
 
     cfg = get_arch("llada-8b")
@@ -1721,6 +1916,17 @@ def main_path(torch):
     torch.cuda.synchronize()
     print(f"  SVD proxies (32 x [4096, 4096] -> r=128): "
           f"{time.perf_counter() - t0:.2f} s")
+    return cfg, params, strat, proxies
+
+
+def main_path(torch, cfg, params, strat, proxies):
+    """Phase 5: the SPA decode to completion, a profiled window, then
+    NoCache steps.  Returns the launches of the SPA decode."""
+    from repro_torch.core import spa_layer
+    from repro_torch.core.strategy import NoCache
+    from repro_torch.dlm.session import DecodeSession
+    from repro_torch.kernels import _lib
+
     gen = torch.Generator().manual_seed(11)
     b, p_len, g_len = 4, 256, GEN_LEN
     prompt = torch.randint(0, cfg.vocab_size - 1, (b, p_len), generator=gen)
@@ -1775,7 +1981,7 @@ def main_path(torch):
           f"(SPA {spa_ms:.2f} ms/step, ratio {base_ms / spa_ms:.2f}x)")
     profile_steps(torch, base.step, 2, "NoCache")
     del base
-    return launches, cfg, params, strat, proxies
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2320,6 +2526,7 @@ def serve_full_width(torch, cfg, params, strat, proxies, *, device=None,
 # (prompt, gen) of each drift lane's requests: 65 pages, 5 requests, 4 slots
 DRIFT_LANE_REQUESTS = ((128, 64), (64, 32), (256, 96), (192, 64), (96, 48))
 DRIFT_LANES = ("attn_in", "singular_incremental", "attn_out")
+DRIFT_PROFILE = ("attn_in", (10, 14))   # lane and engine steps profiled
 
 
 def serve_drift_lanes(torch, cfg, params, proxies):
@@ -2328,7 +2535,9 @@ def serve_drift_lanes(torch, cfg, params, proxies):
     4 slots, continuous batching) serves five mixed-length requests under
     each of ``DRIFT_LANES``; all complete, outputs have no open slot, the
     hidden states stay finite, the pool drains and each lane launched
-    ``cosine_drift_paged``.  Returns the launches of the whole phase."""
+    ``cosine_drift_paged``, with a ``torch.profiler`` window over a few
+    engine steps of the ``DRIFT_PROFILE`` lane (cosine_drift_paged in
+    place).  Returns the launches of the whole phase."""
     import numpy as np
     from repro_torch.kernels import _lib
     from repro_torch.serving.engine import ServingEngine
@@ -2347,15 +2556,31 @@ def serve_drift_lanes(torch, cfg, params, proxies):
         for p_len, g_len in DRIFT_LANE_REQUESTS:
             engine.submit(rng.integers(0, cfg.vocab_size - 1, p_len), g_len)
 
+        window = DRIFT_PROFILE[1] if name == DRIFT_PROFILE[0] else ()
+        prof = new_profiler(torch) if window else None
+        seen = {}
+
         def on_step(e):
             sess = next(iter(e._sessions.values()))
             assert bool(sess.last_info["row_finite"].all()), \
                 f"{name}: non-finite hidden states at step {e.stats.steps}"
+            if e.stats.steps in window:
+                torch.cuda.synchronize()
+                if e.stats.steps == window[0]:
+                    prof.start()
+                    seen["t0"] = time.perf_counter()
+                else:
+                    prof.stop()
+                    seen["wall_us"] = (time.perf_counter() - seen["t0"]) * 1e6
 
         t0 = time.perf_counter()
         stats = engine.run(max_steps=300, on_step=on_step)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+        if window:
+            assert "wall_us" in seen, f"{name}: the profiled window never ran"
+            report_profile(prof, window[1] - window[0], seen["wall_us"],
+                           f"{name} lane engine")
         assert stats.requests_done == len(DRIFT_LANE_REQUESTS), \
             f"{name}: {stats.requests_done} requests completed"
         for r in engine.done:
@@ -2376,7 +2601,27 @@ def serve_drift_lanes(torch, cfg, params, proxies):
     return _lib.launch_counts()
 
 
-def main() -> int:
+ALL_PHASES = tuple(range(3, 12))
+
+
+def parse_phases(argv) -> tuple:
+    """``--phases 3,6,7`` runs only those of phases 3-11 (the card line and
+    the build always run) and prints no result line: for development
+    calls and for comparing two trees' kernels in one call.  Without it,
+    every phase runs."""
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
+                    help="comma-separated subset of phases 3-11")
+    phases = tuple(sorted({int(p) for p in ap.parse_args(argv).phases
+                           .split(",") if p}))
+    if not phases or not set(phases) <= set(ALL_PHASES):
+        ap.error(f"phases must lie in 3-11, got {phases}")
+    return phases
+
+
+def main(argv=None) -> int:
+    phases = parse_phases(sys.argv[1:] if argv is None else argv)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2400,74 +2645,71 @@ def main() -> int:
         elif "registers" in line or "spill" in line:
             print(f"  {entry}: {line.strip()}")
 
-    flush = torch.empty(64 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    records = check_kernels(torch, flush)
-    print("decode parity (2-layer full-width LLaDA, CudaBackend vs "
-          "TorchBackend)")
-    # f32: the kernels agree with the plain versions to FMA order.
-    setup = _parity_setup(torch, "float32")
-    decode_parity(torch, 1e-5, setup, setup[2], "singular")
-    for name, strat in baseline_strategies(setup[0]).items():
-        decode_parity(torch, 1e-5, setup, strat, name)
-    del setup
-    torch.cuda.empty_cache()
-    # bf16, the main path's kernels (tensor-core attention, bf16 proxies):
-    # each call agrees to one bf16 ulp (2^-7), so one step's buffers and
-    # logits to a few ulps of their largest value (an H100 read 1.1e-2 and
-    # 6.0e-3); the limit is four ulps.
-    setup = _parity_setup(torch, "bfloat16")
-    lockstep_parity(torch, 2 ** -5, 2 ** -5, setup, setup[2], "singular")
-    # the baselines: a step may commit another slot where two bf16
-    # confidences tie within the step's logit difference (checked)
-    for name, strat in baseline_strategies(setup[0]).items():
-        lockstep_parity(torch, 2 ** -5, 2 ** -5, setup, strat, name,
-                        strict=False)
-    del setup
-    torch.cuda.empty_cache()
-    print("paged decode parity (2-layer full-width f32 LLaDA, pages of "
-          f"{PAGE})")
-    paged_parity(torch, 1e-5)
-    torch.cuda.empty_cache()
-    print(f"main path (LLaDA-8B bf16, B=4, prompt 256 + gen {GEN_LEN})")
-    launches, cfg, params, strat, proxies = main_path(torch)
-    torch.cuda.empty_cache()
-    print(f"baselines (LLaDA-8B bf16, B=4, prompt 256 + gen {GEN_LEN}, the "
-          "config's adaptive budget)")
-    base = baselines(torch, cfg, params, proxies, strat)
-    for name in BASELINE_KERNELS:
-        assert base[name] > 0, f"kernel {name} never launched (baselines)"
-    print("server at full width (LLaDA-8B bf16 through ServingEngine, "
-          f"canvas 512, pool of 97 pages of {PAGE}, 4 slots)")
-    paging_cost(torch, cfg, params, strat, proxies)
-    served = serve_full_width(torch, cfg, params, strat, proxies)
-    for name in SERVING_KERNELS:
-        assert served[name] > 0, f"kernel {name} never launched serving"
-    print("server drift lanes (paged attn_in, incremental singular, "
-          "attn_out)")
-    lanes = serve_drift_lanes(torch, cfg, params, proxies)
-    for name in DRIFT_LANE_KERNELS:
-        assert lanes[name] > 0, f"kernel {name} never launched (lanes)"
-    del cfg, params, strat, proxies
-    torch.cuda.empty_cache()
-    print("hybrid decode parity (3-layer full-width RecurrentGemma, B=2, "
-          f"N={HYBRID['N']}, CudaBackend vs TorchBackend)")
-    hybrid_parity(torch)
-    print(f"hybrid main path (RecurrentGemma-9B bf16, B=2, prompt "
-          f"{HYBRID['N'] - HYBRID_GEN} + gen {HYBRID_GEN}, {HYBRID_STEPS} "
-          "SPA steps)")
-    hybrid = hybrid_main_path(torch)
-    torch.cuda.empty_cache()
-    print(f"mamba2 decode parity (3-layer full-width Mamba2, B={MAMBA['B']}, "
-          f"N={MAMBA['N']}, CudaBackend vs TorchBackend)")
-    t0 = time.perf_counter()
-    mamba_parity(torch)
-    print(f"  phase 10: {time.perf_counter() - t0:.1f} s")
-    print(f"mamba2 main path (Mamba2-370m bf16, B={MAMBA['B']}, prompt "
-          f"{MAMBA['N'] - MAMBA_GEN} + gen {MAMBA_GEN}, {MAMBA_STEPS} NoCache "
-          "steps)")
-    t0 = time.perf_counter()
-    mamba = mamba_main_path(torch)
-    print(f"  phase 11: {time.perf_counter() - t0:.1f} s")
+    flush = L2Flush(torch)
+    records = check_kernels(torch, flush) if 3 in phases else {}
+    if 4 in phases:
+        decode_parity_phase(torch)
+    launches = base = lanes = served = {}
+    if {5, 6, 7} & set(phases):
+        print(f"LLaDA-8B (bf16, B=4, prompt 256 + gen {GEN_LEN})")
+        cfg, params, strat, proxies = llada_setup(torch)
+        if 5 in phases:
+            print(f"main path (LLaDA-8B bf16, B=4, prompt 256 + gen "
+                  f"{GEN_LEN})")
+            launches = main_path(torch, cfg, params, strat, proxies)
+            torch.cuda.empty_cache()
+        if 6 in phases:
+            print(f"baselines (LLaDA-8B bf16, B=4, prompt 256 + gen "
+                  f"{GEN_LEN}, the config's adaptive budget)")
+            base = baselines(torch, cfg, params, proxies, strat)
+            for name in BASELINE_KERNELS:
+                assert base[name] > 0, \
+                    f"kernel {name} never launched (baselines)"
+        if 7 in phases:
+            print("server at full width (LLaDA-8B bf16 through "
+                  f"ServingEngine, canvas 512, pool of 97 pages of {PAGE}, "
+                  "4 slots)")
+            paging_cost(torch, cfg, params, strat, proxies)
+            served = serve_full_width(torch, cfg, params, strat, proxies)
+            for name in SERVING_KERNELS:
+                assert served[name] > 0, \
+                    f"kernel {name} never launched serving"
+            print("server drift lanes (paged attn_in, incremental singular, "
+                  "attn_out)")
+            lanes = serve_drift_lanes(torch, cfg, params, proxies)
+            for name in DRIFT_LANE_KERNELS:
+                assert lanes[name] > 0, \
+                    f"kernel {name} never launched (lanes)"
+        del cfg, params, strat, proxies
+        torch.cuda.empty_cache()
+    hybrid = mamba = {}
+    if 8 in phases:
+        print("hybrid decode parity (3-layer full-width RecurrentGemma, "
+              f"B=2, N={HYBRID['N']}, CudaBackend vs TorchBackend)")
+        hybrid_parity(torch)
+    if 9 in phases:
+        print(f"hybrid main path (RecurrentGemma-9B bf16, B=2, prompt "
+              f"{HYBRID['N'] - HYBRID_GEN} + gen {HYBRID_GEN}, "
+              f"{HYBRID_STEPS} SPA steps)")
+        hybrid = hybrid_main_path(torch)
+        torch.cuda.empty_cache()
+    if 10 in phases:
+        print(f"mamba2 decode parity (3-layer full-width Mamba2, "
+              f"B={MAMBA['B']}, N={MAMBA['N']}, CudaBackend vs "
+              "TorchBackend)")
+        t0 = time.perf_counter()
+        mamba_parity(torch)
+        print(f"  phase 10: {time.perf_counter() - t0:.1f} s")
+    if 11 in phases:
+        print(f"mamba2 main path (Mamba2-370m bf16, B={MAMBA['B']}, prompt "
+              f"{MAMBA['N'] - MAMBA_GEN} + gen {MAMBA_GEN}, {MAMBA_STEPS} "
+              "NoCache steps)")
+        t0 = time.perf_counter()
+        mamba = mamba_main_path(torch)
+        print(f"  phase 11: {time.perf_counter() - t0:.1f} s")
+    if phases != ALL_PHASES:
+        print(f"phases {phases} passed; a partial run prints no result line")
+        return 0
 
     kernels = []
     for name, rec in records.items():

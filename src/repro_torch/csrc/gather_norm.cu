@@ -203,16 +203,6 @@ __global__ void __launch_bounds__(kMaxThreads) gather_norm_rows(
   }
 }
 
-int sm_count() {
-  static int n = 0;
-  if (n == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return n;
-}
-
 // Warps a row, a power of two: the fewest whose threads hold the row's
 // nvec vectors at most vpl_max a thread, doubled (up to 8, while each warp
 // keeps a full step of 32 vectors) until the call has about 16 warps an SM,
@@ -234,7 +224,7 @@ int launch(const void* h, const void* idx, const void* w, void* rows,
            cudaStream_t s) {
   auto kernel = gather_norm_rows<T, V, VPL>;
   const long long n_rows = (long long)B * k;
-  const int n_sm = sm_count();
+  const int n_sm = spa::sm_count();
   // groups a CTA: enough to spread small calls over the SMs, at most 8 warps
   const long long want = (n_rows + n_sm - 1) / n_sm;
   const int groups =
@@ -266,7 +256,7 @@ int launch16(const void* h, const void* idx, const void* w, void* rows,
              void* normed, int B, int N, int d, int k, float eps,
              cudaStream_t s) {
   const int nvec = d * (int)sizeof(T) / 16;
-  const int W = warps_per_row(nvec, 8, (long long)B * k, sm_count());
+  const int W = warps_per_row(nvec, 8, (long long)B * k, spa::sm_count());
   if (W == 0) return (int)cudaErrorInvalidValue;
   const int need = (nvec + 32 * W - 1) / (32 * W);
   if (need <= 2)
@@ -282,7 +272,7 @@ int launch_narrow(const void* h, const void* idx, const void* w, void* rows,
                   void* normed, int B, int N, int d, int k, float eps,
                   cudaStream_t s) {
   const int W = warps_per_row(d * (int)sizeof(T) / V, VPL, (long long)B * k,
-                              sm_count());
+                              spa::sm_count());
   if (W == 0) return (int)cudaErrorInvalidValue;
   return launch<T, V, VPL>(h, idx, w, rows, normed, B, N, d, k, W, eps, s);
 }

@@ -17,19 +17,49 @@
 // Bound on the H100: bytes.  At the serving slice (LLaDA-8B, B=4, N=512,
 //   page 16, bf16) one gather or scatter of one buffer (K, V or H, F=4096)
 //   reads 537 MB and writes 537 MB: 0.32 ms at 3.35 TB/s.  A proxy row commit
-//   (k=128, r=128) moves 0.26 MB, well under a microsecond.
-// Design: a page is one contiguous run of page * F elements on both sides,
-//   so one block per (logical page, batch row, layer) moves it with
-//   spa::block_copy (16-byte moves, four in flight per thread); the block
-//   reads its own page id.  Row commits take one block per (selected row,
-//   batch row) and resolve the row through the page table in the block.
-//   Both are dtype-agnostic: they move bytes.
+//   (k=128, r=128) moves 0.26 MB: 0.08 us, far below any launch, so its time
+//   is latency: the chain of dependent loads before the first store.
+// Design of the page copies: a page is one contiguous run of page * F
+//   elements on both sides, so one block per (logical page, batch row,
+//   layer) moves it with spa::block_copy (16-byte moves, four in flight per
+//   thread); the block reads its own page id.
+// Row commits (redesigned).  What held the first kernel back: one
+//   32-thread CTA per (selected row, batch row), 512 at the serving slice,
+//   each waiting on its index, then on its page id, then copying a 256-byte
+//   row with half its lanes: three dependent round trips and a CTA to
+//   schedule per row.  Design: a grid of one wave (kRowCtasPerSm CTAs an SM
+//   at most) whose warps walk items: a run of up to 32 selected rows of the
+//   flattened [B*k] commit, no more than a warp's 32 x kRowSlots moves hold
+//   (32 rows of 256 bytes) and no more than spread the call over every warp
+//   of the grid (one row a warp at the serving slice's 512), or one part of
+//   a row wider than that (an 8 KB row is one item).  The run's source
+//   bytes are contiguous, so a lane first issues its loads of the indices
+//   (one a lane, one coalesced load), of its batch row's page table where
+//   the run lies in one batch row and the table has at most 32 pages (one
+//   id a lane, one coalesced load: the serving slice has 32), and of all its
+//   moves; only then does it resolve its row's page id (by a shuffle, else
+//   by a second lane-parallel load) and the drop rules.  The stores take
+//   each row's destination from its lane by a shuffle.  The chain before
+//   the first store is one round trip where the table sits in the lanes,
+//   two where it does not.  Moves are 16 bytes where the arena, the rows,
+//   the width and the strides allow, else 4 or 1 (int8 rows, f16 scales).
+//   In place (chip_smoke.py phase 7, an NVIDIA H100 80GB HBM3 at 700 W):
+//   2.16 us a call at the serving slice (the first kernel 2.25), 8 KB rows
+//   3.13 (3.56).  Runs of several rows a warp form only where a call has
+//   more rows than the grid has warps (2112 on that card): at k=4096
+//   (B=2, 256-byte rows, runs of 4) phase 3 reads 0.0076 ms, against
+//   0.0107 with one row a warp and 0.0110 for the first kernel.  Both
+//   kernels are dtype-agnostic: they move bytes.
+#include <algorithm>
+
 #include "common.cuh"
 
 namespace {
 
 constexpr int kPageThreads = 256;
-constexpr int kRowThreads = 32;
+constexpr int kRowWarps = 4;      // warps a CTA of the row commit
+constexpr int kRowSlots = 16;     // moves a lane has in flight
+constexpr int kRowCtasPerSm = 4;  // the row commit's grid: one wave
 
 template <bool kToArena>
 __global__ void __launch_bounds__(kPageThreads) page_copy_kernel(
@@ -46,19 +76,88 @@ __global__ void __launch_bounds__(kPageThreads) page_copy_kernel(
     spa::block_copy(d, a, page_bytes);
 }
 
-__global__ void __launch_bounds__(kRowThreads) rows_paged_kernel(
+// One warp per item: the rows [r0, r0 + nr) of the flattened [B*k] commit
+// (a run of up to 32), bytes [p0, p0 + w) of each (the whole row, or a
+// part of a row wider than a warp's moves).  The item's source bytes are
+// contiguous; the lane's kRowSlots moves of W bytes are all loaded before
+// the indices' page ids are resolved, and stored after.
+template <typename W>
+__global__ void __launch_bounds__(32 * kRowWarps) rows_paged_kernel(
     char* arena, const int* __restrict__ pt, const int* __restrict__ idx,
-    const char* rows, int k, int n_log, int page, long long row_bytes,
-    long long page_stride, long long row_stride) {
-  const int j = blockIdx.x, b = blockIdx.y;
-  const int i = idx[(long long)b * k + j];
-  if (i < 0) return;
-  const int lpage = i / page;
-  if (lpage >= n_log) return;
-  const int pid = pt[b * n_log + lpage];
-  if (pid <= 0) return;
-  spa::block_copy(arena + pid * page_stride + (i % page) * row_stride,
-                  rows + ((long long)b * k + j) * row_bytes, row_bytes);
+    const char* __restrict__ rows, int n_rows, int k, int n_log, int page,
+    long long row_bytes, long long page_stride, long long row_stride, int R,
+    int pb, int parts, int items) {
+  constexpr int V = sizeof(W);
+  const int lane = threadIdx.x & 31;
+  const int nwarps = gridDim.x * kRowWarps;
+  for (int it = blockIdx.x * kRowWarps + (threadIdx.x >> 5); it < items;
+       it += nwarps) {
+    const int run = parts == 1 ? it : it / parts;
+    const int part = it - run * parts;
+    const int r0 = run * R;
+    const int nr = min(R, n_rows - r0);
+    const long long p0 = (long long)part * pb;
+    const int w = (int)min((long long)pb, row_bytes - p0);
+    const int span = nr * w;  // <= 32 * kRowSlots * V
+    const int slots = (span + 32 * V - 1) / (32 * V);  // the warp's moves
+    // the run's indices, one a lane, by one coalesced load; where the run
+    // lies in one batch row whose table fits a warp, that row's page ids
+    // too, one a lane, so no load waits on an index
+    const int i = lane < nr ? idx[r0 + lane] : -1;
+    const int b0 = r0 / k;
+    const bool lanes_hold_table =
+        n_log <= 32 && (nr == 1 || (r0 + nr - 1) / k == b0);
+    const int pid_lane = lanes_hold_table && lane < n_log
+                             ? pt[(long long)b0 * n_log + lane]
+                             : 0;
+    const char* src = rows + (long long)r0 * row_bytes + p0;
+    W v[kRowSlots];
+#pragma unroll
+    for (int s = 0; s < kRowSlots; ++s) {
+      if (s == slots) break;
+      const int off = (lane + 32 * s) * V;
+      if (off < span) v[s] = *reinterpret_cast<const W*>(src + off);
+    }
+    // each lane's row: its page id (from the lane that holds it, else by a
+    // second lane-parallel load), then its destination, or null where the
+    // row drops
+    const bool kept = i >= 0 && i / page < n_log;
+    int pid = __shfl_sync(0xffffffffu, pid_lane, kept ? (i / page) & 31 : 0);
+    if (!lanes_hold_table && kept)
+      pid = pt[(long long)((r0 + lane) / k) * n_log + i / page];
+    char* dst = nullptr;
+    if (kept && pid > 0)
+      dst = arena + pid * page_stride + (long long)(i % page) * row_stride + p0;
+    if (nr == 1) {  // one row (the serving slice's case): no row arithmetic
+      char* d = reinterpret_cast<char*>(__shfl_sync(
+          0xffffffffu, reinterpret_cast<unsigned long long>(dst), 0));
+#pragma unroll
+      for (int s = 0; s < kRowSlots; ++s) {
+        if (s == slots) break;
+        const int off = (lane + 32 * s) * V;
+        if (off < span && d != nullptr)
+          *reinterpret_cast<W*>(d + off) = v[s];
+      }
+      continue;
+    }
+    // move s of the lane lies in row j of the run, at byte col of its part
+    int j = lane * V / w, col = lane * V - j * w;
+    const int dj = 32 * V / w, dcol = 32 * V - dj * w;
+#pragma unroll
+    for (int s = 0; s < kRowSlots; ++s) {
+      if (s == slots) break;
+      char* d = reinterpret_cast<char*>(__shfl_sync(
+          0xffffffffu, reinterpret_cast<unsigned long long>(dst), j & 31));
+      if ((lane + 32 * s) * V < span && d != nullptr)
+        *reinterpret_cast<W*>(d + col) = v[s];
+      j += dj;
+      col += dcol;
+      if (col >= w) {
+        col -= w;
+        ++j;
+      }
+    }
+  }
 }
 
 int launch_pages(bool to_arena, void* arena, const void* pt, void* dense,
@@ -109,11 +208,42 @@ extern "C" int spa_scatter_rows_paged(void* arena, const void* pt,
                                       long long row_stride, void* stream) {
   if (B <= 0 || k <= 0 || row_bytes <= 0) return 0;
   if (page <= 0) return (int)cudaErrorInvalidValue;
-  const dim3 grid(k, B);
-  rows_paged_kernel<<<grid, kRowThreads, 0,
-                      static_cast<cudaStream_t>(stream)>>>(
-      static_cast<char*>(arena), static_cast<const int*>(pt),
-      static_cast<const int*>(idx), static_cast<const char*>(rows), k, n_log,
-      page, row_bytes, page_stride, row_stride);
+  const unsigned long long align =
+      reinterpret_cast<uintptr_t>(arena) | reinterpret_cast<uintptr_t>(rows) |
+      row_bytes | page_stride | row_stride;
+  const int V = (align & 15) == 0 ? 16 : (align & 3) == 0 ? 4 : 1;
+  const long long n_rows = (long long)B * k;
+  // an item: up to 32 whole rows that fit a warp's moves, as few as keep
+  // every warp of the one-wave grid busy, or one part of a wider row
+  const int cap = 32 * kRowSlots * V;
+  const long long warps = (long long)spa::sm_count() * kRowCtasPerSm *
+                          kRowWarps;
+  const int R = row_bytes <= cap
+                    ? (int)std::min({32LL, cap / row_bytes,
+                                     (n_rows + warps - 1) / warps})
+                    : 1;
+  const int pb = (int)std::min(row_bytes, (long long)cap);
+  const int parts = (int)((row_bytes + pb - 1) / pb);
+  const long long items = (n_rows + R - 1) / R * parts;
+  if (n_rows + 32 > 0x7fffffffLL || items > 0x7fffffffLL)
+    return (int)cudaErrorInvalidValue;
+  const unsigned grid = (unsigned)std::min((items + kRowWarps - 1) / kRowWarps,
+                                           warps / kRowWarps);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  char* a = static_cast<char*>(arena);
+  const int* p = static_cast<const int*>(pt);
+  const int* ii = static_cast<const int*>(idx);
+  const char* src = static_cast<const char*>(rows);
+#define SPA_ROWS(W)                                                       \
+  rows_paged_kernel<W><<<grid, 32 * kRowWarps, 0, s>>>(                   \
+      a, p, ii, src, (int)n_rows, k, n_log, page, row_bytes, page_stride, \
+      row_stride, R, pb, parts, (int)items)
+  if (V == 16)
+    SPA_ROWS(uint4);
+  else if (V == 4)
+    SPA_ROWS(uint32_t);
+  else
+    SPA_ROWS(uint8_t);
+#undef SPA_ROWS
   return (int)cudaGetLastError();
 }

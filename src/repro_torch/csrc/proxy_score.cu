@@ -56,12 +56,32 @@
 //
 // cosine_drift (replaces src/repro/kernels/proxy_score.py:cosine_drift):
 //   rowwise cosine(x, p_cached) with no projection, the norm product
-//   floored at eps, f32 sums.  x and p_cached may differ in dtype (the
-//   incremental identifier scores an f32 x against a bf16 cache).  One warp
-//   per row reads both rows once with 16-byte loads, so the kernel is
-//   bound by bytes: at attn_in width (B=4, N=512, r=4096, bf16 both) 33.6 MB,
-//   0.010 ms at 3.35 TB/s; at the incremental width (r=128, f32 x) 1.6 MB,
-//   0.5 us, where the launch dominates.
+//   floored at eps, f32 sums of x.p, x.x and p.p (JAX _cosine).  x and
+//   p_cached may differ in dtype (the incremental identifier scores an f32
+//   x against a bf16 cache).  Bound on the H100: bytes, both rows read once:
+//   at attn_in width (B=4, N=512, r=4096, bf16 both) 33.6 MB, 0.010 ms at
+//   3.35 TB/s; at the incremental width (r=128, f32 x) 1.6 MB, 0.5 us, where
+//   the launch dominates.
+//   Redesigned.  What held the first kernel back: one warp per
+//   row at every r, so at r=128 lanes 16-31 idled and a warp waited on one
+//   256-byte row, then spent five shuffle stages on each of its three
+//   sums; and the paged instance loaded pt[b, row / page] before it issued
+//   any load of the row.  Design: G = min(32, r / 8) lanes a row (a power of
+//   two), so every lane loads at r=128 and a warp scores 32 / G rows; a
+//   lane holds up to 4 chunks of 8 elements of each operand in flight (at
+//   r=4096 a quarter of its row); a grid of at most two CTAs an SM whose
+//   groups walk contiguous row ranges one row at a time, so a small call
+//   spreads over the card (at LLaDA's 2048 rows a group has one row).  A batch's x loads are issued
+//   before the p_cached row is resolved, so the paged page-id load (once
+//   per logical page a group enters) overlaps them.  Holding half the row
+//   at r=4096 (8 chunks) measured no faster in place and slower in phase
+//   3's paged case; the whole row does not fit: 2048 rows of 16 KB are the
+//   card's register file.  One fixed sum order in both instances: each
+//   lane over its chunks in order, then the group's butterfly of shuffles
+//   (tests/test_torch_drift_groups.py emulates it).  In place (chip_smoke.py
+//   phases 6-7, an NVIDIA H100 80GB HBM3 at 700 W): 11.9 us a call at
+//   attn_in width (the first kernel 12.6), 2.49 at r=128 (2.53), paged in
+//   the attn_in lane 8.7 (9.0).
 // cosine_drift_paged (replaces src/repro/kernels/proxy_score.py:
 //   cosine_drift_paged) is that kernel with PagedRows: bitwise cosine_drift
 //   on the gathered pages.
@@ -370,19 +390,10 @@ bool map_2d(EncodeTiled enc, CUtensorMap* m, const void* base, int rows,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-int num_sms() {
-  int dev = 0, n = 0;
-  if (cudaGetDevice(&dev) != cudaSuccess ||
-      cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev) !=
-          cudaSuccess)
-    return 132;
-  return n;
-}
-
 // The split of d for the score epilogue: a power of two, about one CTA an
 // SM, at most kMaxSplit and one stage of d per CTA.
 int pick_split(int n_row_tiles, int n_kst) {
-  const int sms = num_sms();
+  const int sms = spa::sm_count();
   int split = 1;
   while (2 * split <= kMaxSplit && 2 * split <= n_kst &&
          n_row_tiles * 2 * split <= sms + n_row_tiles / 2)
@@ -409,8 +420,9 @@ int go(const void* x, const void* w, Rows rows, float* scores, bf16* pnow,
   // score: one tile a cluster, d split; store: persistent, no split
   const int split = kScore ? pick_split(n_row_tiles, n_kst) : 1;
   const int per = (n_kst + split - 1) / split;
-  const int ctas = kScore ? n_tiles
-                          : (n_tiles < num_sms() ? n_tiles : num_sms());
+  const int ctas =
+      kScore ? n_tiles : (n_tiles < spa::sm_count() ? n_tiles
+                                                    : spa::sm_count());
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(split, ctas, 1);
   cfg.blockDim = dim3(kThreadsWG, 1, 1);
@@ -575,67 +587,164 @@ int launch_project(const void* x, const void* w, void* pnow, int B, int N,
   return (int)cudaErrorInvalidValue;
 }
 
-// ---- cosine_drift: one warp per row, 8 elements a lane per load ----------
-constexpr int kDriftRows = 8;   // rows (warps) per block
+// ---- cosine_drift: lane groups sized to the row --------------------------
+constexpr int kDriftThreads = 256;  // 8 warps a CTA
+constexpr int kDriftCtasPerSm = 2;  // the grid's CTAs an SM (one wave)
+// 8-element chunks of each operand a lane has in flight (a quarter of its
+// row at r=4096): half a row measured no faster in place and slower in
+// phase 3's paged case (PERF.md, Findings)
+constexpr int kDriftSlots = 4;
 
-// Eight consecutive elements as f32 (16-byte aligned: r % 8 == 0 and the
-// row bases are checked by the wrapper).
-__device__ __forceinline__ void load8(const float* p, float (&v)[8]) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
-  v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
-}
-
-__device__ __forceinline__ void load8(const __nv_bfloat16* p,
-                                      float (&v)[8]) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float2 f = __bfloat1622float2(h[i]);
-    v[2 * i] = f.x;
-    v[2 * i + 1] = f.y;
+// Eight consecutive elements, loaded raw with 16-byte loads (r % 8 == 0
+// and the row bases are checked by the wrapper) and read as f32 later, so
+// a lane issues every load of a batch before it converts any.
+template <typename T> struct Chunk8;
+template <> struct Chunk8<float> {
+  float4 a, b;
+  __device__ __forceinline__ void load(const float* p) {
+    a = *reinterpret_cast<const float4*>(p);
+    b = *reinterpret_cast<const float4*>(p + 4);
   }
-}
-
-// x [B*N, r] in TX; row n of batch row b of p_cached at pc_row(b, n).
-template <typename TX, typename Rows>
-__global__ void __launch_bounds__(kDriftRows * 32) cosine_drift_kernel(
-    const TX* __restrict__ x, Rows pc_row, float* __restrict__ scores,
-    long long BN, int N, int r, float eps) {
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long g = (long long)blockIdx.x * kDriftRows + warp;
-  if (g >= BN) return;
-  const TX* xr = x + g * r;
-  const auto* pr = pc_row((int)(g / N), (int)(g % N));
-  float num = 0.f, pp = 0.f, cc = 0.f;
-#pragma unroll 4
-  for (int c = lane * 8; c < r; c += 32 * 8) {
-    float a[8], q[8];
-    load8(xr + c, a);
-    load8(pr + c, q);
+  __device__ __forceinline__ void get(float (&v)[8]) const {
+    v[0] = a.x; v[1] = a.y; v[2] = a.z; v[3] = a.w;
+    v[4] = b.x; v[5] = b.y; v[6] = b.z; v[7] = b.w;
+  }
+};
+template <> struct Chunk8<__nv_bfloat16> {
+  uint4 u;
+  __device__ __forceinline__ void load(const __nv_bfloat16* p) {
+    u = *reinterpret_cast<const uint4*>(p);
+  }
+  __device__ __forceinline__ void get(float (&v)[8]) const {
+    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
 #pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      num = fmaf(a[i], q[i], num);
-      pp = fmaf(a[i], a[i], pp);
-      cc = fmaf(q[i], q[i], cc);
+    for (int i = 0; i < 4; ++i) {
+      const float2 f = __bfloat1622float2(h[i]);
+      v[2 * i] = f.x;
+      v[2 * i + 1] = f.y;
     }
   }
-  num = spa::warp_sum(num);
-  pp = spa::warp_sum(pp);
-  cc = spa::warp_sum(cc);
-  if (lane == 0) scores[g] = num / fmaxf(sqrtf(pp * cc), eps);
+};
+
+// Row g (= b * N + n) of p_cached.  Paged: the page id of the row's
+// logical page is loaded when a group's rows enter that page and kept in
+// (key, base) for the page's other rows.
+template <typename T>
+__device__ __forceinline__ const T* drift_row(const DenseRows<T>& R, int g,
+                                              int, long long&, const T*&) {
+  return R.pc + (long long)g * R.r;
 }
 
-template <typename TX, typename TC, template <typename> class Rows,
-          typename... A>
-void drift_go(const void* x, const void* pc, void* scores, long long bn,
-              int N, int r, float eps, cudaStream_t s, A... where) {
-  const dim3 grid((unsigned)((bn + kDriftRows - 1) / kDriftRows));
-  cosine_drift_kernel<TX, Rows<TC>><<<grid, kDriftRows * 32, 0, s>>>(
-      static_cast<const TX*>(x), Rows<TC>{static_cast<const TC*>(pc), where...},
-      static_cast<float*>(scores), bn, N, r, eps);
+template <typename T>
+__device__ __forceinline__ const T* drift_row(const PagedRows<T>& R, int g,
+                                              int N, long long& key,
+                                              const T*& base) {
+  const int b = g / N, n = g - b * N;
+  const long long k = (long long)b * R.n_log + n / R.page;
+  if (k != key) {
+    key = k;
+    base = R.arena + (size_t)R.pt[k] * R.page * R.r;
+  }
+  return base + (size_t)(n % R.page) * R.r;
+}
+
+// x [B*N, r] in TX.  A group of G = 2^lg lanes scores one row: lane l sums
+// chunks l, l + G, l + 2G, ... (8 elements each, in order) into its f32
+// num, xx and pp, then the group adds them by a butterfly of shuffles
+// (offsets G/2, ..., 1).  Group q scores rows [q * rpg, q * rpg + rpg), one
+// at a time, each row's chunks in batches of kC: the x loads of a batch,
+// then the p_cached loads, all before any arithmetic.
+template <typename TX, typename TC, typename Rows, int kC>
+__global__ void __launch_bounds__(kDriftThreads, kDriftCtasPerSm)
+    cosine_drift_kernel(const TX* __restrict__ x, Rows pc_rows,
+                        float* __restrict__ scores, int BN, int N, int r,
+                        int lg, int rpg, float eps) {
+  const int G = 1 << lg;
+  const int gl = threadIdx.x & (G - 1);
+  const int step = 8 * G;  // elements from one of a lane's chunks to the next
+  const int lo = (blockIdx.x * (kDriftThreads >> lg) + (threadIdx.x >> lg)) *
+                 rpg;
+  const int hi = min(lo + rpg, BN);
+  long long key = -1;
+  const TC* base = nullptr;
+  for (int it = 0; it < rpg; ++it) {
+    const int g = lo + it;
+    const bool live = g < hi;  // the same for every lane of the group
+    const TX* xr = x + (long long)g * r + gl * 8;
+    float num = 0.f, xx = 0.f, pp = 0.f;
+    const TC* pr = nullptr;  // the row of p_cached, resolved after x's loads
+    for (int c0 = 0; c0 < r; c0 += kC * step) {
+      Chunk8<TX> a[kC];
+      Chunk8<TC> p[kC];
+#pragma unroll
+      for (int i = 0; i < kC; ++i)
+        if (live && c0 + i * step + gl * 8 < r) a[i].load(xr + c0 + i * step);
+      if (c0 == 0 && live) pr = drift_row(pc_rows, g, N, key, base) + gl * 8;
+#pragma unroll
+      for (int i = 0; i < kC; ++i)
+        if (live && c0 + i * step + gl * 8 < r) p[i].load(pr + c0 + i * step);
+#pragma unroll
+      for (int i = 0; i < kC; ++i)
+        if (live && c0 + i * step + gl * 8 < r) {
+          float av[8], pv[8];
+          a[i].get(av);
+          p[i].get(pv);
+#pragma unroll
+          for (int e = 0; e < 8; ++e) {
+            num = fmaf(av[e], pv[e], num);
+            xx = fmaf(av[e], av[e], xx);
+            pp = fmaf(pv[e], pv[e], pp);
+          }
+        }
+    }
+    for (int o = G >> 1; o > 0; o >>= 1) {
+      num += __shfl_xor_sync(0xffffffffu, num, o);
+      xx += __shfl_xor_sync(0xffffffffu, xx, o);
+      pp += __shfl_xor_sync(0xffffffffu, pp, o);
+    }
+    if (gl == 0 && live) scores[g] = num / fmaxf(sqrtf(xx * pp), eps);
+  }
+}
+
+template <typename TX, typename TC, typename Rows, int kC>
+void drift_launch(unsigned grid, cudaStream_t s, const void* x, Rows rows,
+                  void* scores, int bn, int N, int r, int lg, int rpg,
+                  float eps) {
+  cosine_drift_kernel<TX, TC, Rows, kC><<<grid, kDriftThreads, 0, s>>>(
+      static_cast<const TX*>(x), rows, static_cast<float*>(scores), bn, N, r,
+      lg, rpg, eps);
+}
+
+// The split: G = the largest power of two <= min(32, r / 8) lanes a row,
+// the chunks a lane holds of a row rounded up to a power of two (at most
+// kDriftSlots; a longer row takes several batches), and rows per group as
+// few as fill kDriftCtasPerSm CTAs an SM, so small calls spread over the
+// card.
+template <typename TX, typename TC, typename Rows>
+int drift_go(const void* x, Rows rows, void* scores, long long bn, int N,
+             int r, float eps, cudaStream_t s) {
+  if (bn > 0x7fffffffLL - 0xffffLL) return (int)cudaErrorInvalidValue;
+  int lg = 0;
+  while (lg < 5 && (16 << lg) <= r) ++lg;
+  const int G = 1 << lg;
+  const int cpr = (r / 8 + G - 1) / G;
+  const int gpc = kDriftThreads >> lg;
+  const long long max_groups =
+      (long long)spa::sm_count() * kDriftCtasPerSm * gpc;
+  const int rpg = (int)((bn + max_groups - 1) / max_groups);
+  const long long groups = (bn + rpg - 1) / rpg;
+  const unsigned grid = (unsigned)((groups + gpc - 1) / gpc);
+  const int n = (int)bn;
+  if (cpr <= 1)
+    drift_launch<TX, TC, Rows, 1>(grid, s, x, rows, scores, n, N, r, lg, rpg,
+                                  eps);
+  else if (cpr <= 2)
+    drift_launch<TX, TC, Rows, 2>(grid, s, x, rows, scores, n, N, r, lg, rpg,
+                                  eps);
+  else
+    drift_launch<TX, TC, Rows, kDriftSlots>(grid, s, x, rows, scores, n, N, r,
+                                            lg, rpg, eps);
+  return (int)cudaGetLastError();
 }
 
 template <template <typename> class Rows, typename... A>
@@ -649,12 +758,15 @@ int launch_drift(const void* x, const void* pc, void* scores, int B, int N,
   using bf16 = __nv_bfloat16;
   const bool xf = x_dtype == spa::kF32, xb = x_dtype == spa::kBF16;
   const bool cf = pc_dtype == spa::kF32, cb = pc_dtype == spa::kBF16;
-  if (xf && cf) drift_go<float, float, Rows>(x, pc, scores, bn, N, r, eps, s, where...);
-  else if (xf && cb) drift_go<float, bf16, Rows>(x, pc, scores, bn, N, r, eps, s, where...);
-  else if (xb && cf) drift_go<bf16, float, Rows>(x, pc, scores, bn, N, r, eps, s, where...);
-  else if (xb && cb) drift_go<bf16, bf16, Rows>(x, pc, scores, bn, N, r, eps, s, where...);
-  else return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+#define SPA_DRIFT(TX, TC)                                                  \
+  return drift_go<TX, TC>(x, Rows<TC>{static_cast<const TC*>(pc), where...}, \
+                          scores, bn, N, r, eps, s)
+  if (xf && cf) SPA_DRIFT(float, float);
+  if (xf && cb) SPA_DRIFT(float, bf16);
+  if (xb && cf) SPA_DRIFT(bf16, float);
+  if (xb && cb) SPA_DRIFT(bf16, bf16);
+#undef SPA_DRIFT
+  return (int)cudaErrorInvalidValue;
 }
 
 

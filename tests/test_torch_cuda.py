@@ -189,7 +189,9 @@ def test_cuda_paged_copies_match_plain(dtype):
     """gather_pages, scatter_pages and scatter_rows_paged against their
     plain versions: exact, with the zero page, the sentinel N, idx < 0,
     logical pages >= n_log and short rows; int8 K/V rows and f16 scales of
-    width 2 and 1 (the int8 cache's buffers) included."""
+    width 2 and 1 (the int8 cache's buffers) included; scatter_rows_paged
+    also at 256-byte, 8 KB, 10-byte and 2-byte rows, k in {1, 16, 128,
+    4096} (and 511 at B=5), on a layer slice."""
     _cuda_or_skip()
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(1)
@@ -224,6 +226,35 @@ def test_cuda_paged_copies_match_plain(dtype):
         tsc.scatter_rows_paged(got[1], pt, idx, rows)   # a layer slice
         tsc.scatter_rows_paged_plain(want[1], pt, idx, rows)
         assert torch.equal(got, want) and not got[:, 0].any()
+    # scatter_rows_paged at the row widths of the port's commits: 256-byte
+    # (proxy r=128 bf16) and 8 KB (r=4096) rows, 10-byte int8 and 2-byte
+    # f16 rows, k up to 4096, pages of 16, unsorted indices with every drop
+    # rule, into layer 1 of a two-layer arena; B=5, k=511 makes runs of two
+    # rows that straddle batch rows
+    widths = {torch.bfloat16: [(128,), (4096,)], torch.int8: [(10,)],
+              torch.float16: [()]}.get(dtype, [(4,)])
+    page = 16
+    for feat in widths:
+        for b_, k in ((2, 1), (2, 16), (2, 128), (5, 511), (2, 4096)):
+            n = max(512, 2 * k)
+            n_log = n // page
+            pool = 1 + b_ * n_log
+            table = (torch.randperm(pool - 1, generator=g, device=dev) + 1
+                     ).reshape(b_, n_log).to(torch.int32)
+            table[1, n_log // 2:] = 0                   # a short row
+            ii = torch.stack([torch.randperm(n, generator=g, device=dev)[:k]
+                              for _ in range(b_)]).to(torch.int32)
+            if k > 1:
+                ii[0, 0], ii[1, -1] = -1, n + 3 * page  # idx < 0, past n_log
+            arena = rand(2, pool, page, *feat)
+            arena[:, 0] = 0
+            rows = rand(b_, k, *feat)
+            got, want = arena.clone(), arena.clone()
+            tsc.scatter_rows_paged(got[1], table, ii, rows)
+            tsc.scatter_rows_paged_plain(want[1], table, ii, rows)
+            assert torch.equal(got, want), (feat, k)
+            assert not got[:, 0].any()
+            del arena, got, want
     torch.cuda.synchronize()
 
 
@@ -256,10 +287,13 @@ def test_cuda_proxy_score_paged_bitwise(dtype):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("r", [8, 128, 4096])
+@pytest.mark.parametrize("r", [8, 64, 96, 128, 4096])
 def test_cuda_cosine_drift_matches_plain(r):
-    """cosine_drift for every dtype pairing and cosine_drift_paged bitwise
-    equal to it on the gathered pages (ragged N, zero page, short rows)."""
+    """cosine_drift for every dtype pairing within 1e-5 of its plain
+    version (ragged N, an all-zero row, unchanged rows scoring 1), two
+    calls the same bits, and cosine_drift_paged bitwise equal to it on the
+    gathered pages (zero page, short rows); again with enough rows that a
+    lane group scores several."""
     _cuda_or_skip()
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(r)
@@ -268,24 +302,51 @@ def test_cuda_cosine_drift_matches_plain(r):
     x32 = torch.randn(3, n, r, generator=g, device=dev)
     pc32 = torch.randn(3, n, r, generator=g, device=dev)
     pc32[:, :4] = x32[:, :4]                   # unchanged rows score 1
+    x32[1, 9] = 0                              # the eps floor: scores 0
     pt = torch.tensor([[1, 2, 3, 0, 0], [4, 5, 6, 7, 10], [9, 8, 0, 0, 0]],
                       dtype=torch.int32, device=dev)
     for xd in (torch.float32, torch.bfloat16):
         for cd in (torch.float32, torch.bfloat16):
             x, pc = x32.to(xd), pc32.to(cd)
-            got = tps.cosine_drift(x[:, :n - 3], pc[:, :n - 3])   # ragged
-            torch.testing.assert_close(
-                got, tps.cosine_drift_plain(x[:, :n - 3], pc[:, :n - 3]),
-                rtol=0, atol=1e-5)
+            pc[:, :4] = x[:, :4].to(cd)
+            for m in (n, n - 3):               # full and ragged N
+                got = tps.cosine_drift(x[:, :m], pc[:, :m])
+                torch.testing.assert_close(
+                    got, tps.cosine_drift_plain(x[:, :m], pc[:, :m]),
+                    rtol=0, atol=1e-5)
+                assert torch.equal(got, tps.cosine_drift(x[:, :m],
+                                                         pc[:, :m]))
+            if xd == cd:
+                assert float((got[:, :4] - 1).abs().max()) < 1e-5
+            assert float(got[1, 9]) == 0.0
             arena = torch.randn(11, page, r, generator=g,
                                 device=dev).to(cd)
             arena[0] = 0
             s_k = tps.cosine_drift_paged(x, arena, pt)
             s_d = tps.cosine_drift(x, tsc.gather_pages(arena[None], pt)[0])
             assert torch.equal(s_k, s_d), (xd, cd)
+            assert torch.equal(s_k, tps.cosine_drift_paged(x, arena, pt))
             torch.testing.assert_close(
                 s_k, tps.cosine_drift_paged_plain(x, arena, pt), rtol=0,
                 atol=1e-5)
+    # enough rows that each lane group scores several (rows per group 2-3),
+    # crossing page boundaries in the paged instance
+    n_big = {8: 36000, 4096: 1104}.get(r, 4496)
+    pages = n_big // page
+    xb = torch.randn(2, n_big, r, generator=g, device=dev)
+    ab = torch.randn(2 * pages + 1, page, r, generator=g, device=dev)
+    ab[0] = 0
+    tb = (torch.randperm(2 * pages, generator=g, device=dev) + 1
+          ).reshape(2, pages).to(torch.int32)
+    tb[1, pages // 2:] = 0
+    for xd, cd in ((torch.float32, torch.bfloat16),
+                   (torch.bfloat16, torch.bfloat16)):
+        x, arena = xb.to(xd), ab.to(cd)
+        dense = tsc.gather_pages(arena[None], tb)[0]
+        got = tps.cosine_drift(x, dense)
+        torch.testing.assert_close(got, tps.cosine_drift_plain(x, dense),
+                                   rtol=0, atol=1e-5)
+        assert torch.equal(tps.cosine_drift_paged(x, arena, tb), got)
     torch.cuda.synchronize()
 
 
