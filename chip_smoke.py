@@ -104,7 +104,29 @@ Phases (each asserts; any failure exits non-zero):
    config's ``NoCache`` and ``CudaBackend`` for 32 steps: exactly two
    ssd_chunk_scan launches a layer a step, hidden states finite, ms/step,
    generated tokens/s and a profiled window (cuBLAS, ssd_chunk_scan, other
-   kernels, device-busy share).
+   kernels, device-busy share);
+12. shared-prefix serving, run after phase 7 (it shares LLaDA-8B's
+   weights and proxies with phases 5-7): (a) a 2-layer, full-width f32 LLaDA through
+   ``ServingEngine`` (canvas 64, pages of 16, 2 slots) with the prefix
+   index on and off, on a system prompt of 2 pages and 3 questions asked
+   twice: every page a hit attaches must equal, bit for bit, the
+   publisher's prefill-time page it was copied from; an admission must
+   launch ``sparse_attention`` once a layer for each group of cold or
+   partial rows, over a partial row's suffix only, and never for full
+   hits alone; a suffix-only prefill over the cold prefill's prefix K/V
+   must give the cold prefill's suffix rows within 1e-5; prints how many
+   hits decode the prefix-off tokens; (b) LLaDA-8B through
+   ``ServingEngine`` (canvas 512, pages of 16, 4 slots, 257 pages) on the
+   shared-system-prompt traffic (224-token system prompt, 6 questions of
+   32 tokens asked twice, gen 256), prefix index off and on, each after
+   an untimed warm pass (8 steps a request) and with the index dropped:
+   every request finishes with no [MASK] left; prints hits, the prefill
+   device ms of an admitted row (cold, suffix-only), the copy-on-write
+   and publication copies a page, engine ms per step, TTFT and e2e
+   percentiles and generated tokens/s.
+
+Phase 3 also times ``scatter_pages`` beside one ``index_put_`` of the
+whole view (``arena[:, pt] = dense``), its library call.
 
 Every profiled window (phases 5, 6, 7, 9, 11) prints each kernel group's
 device ms a step, calls a step and device us a call.
@@ -866,13 +888,25 @@ def check_paged_kernels(torch, flush, gen, randn, randint, assert_close):
         library_ms=median_ms(lambda: arena[:, pt_long], torch, flush),
         bound=bound(2 * side_bytes + 4 * B * n_log, 0))
     back = arena.clone()
+    # the library call: one index_put_ of the whole view (the full-row table
+    # maps no logical page to the zero page, so nothing is to be dropped)
+    dense_pages = dense.view(L, B, n_log, page, F)
+    library = back.clone()
+    library[:, pt_long] = dense_pages
+    sc.scatter_pages(back, pt, dense)
+    exact("scatter library index_put_", back, library)
+    del library
+
+    def put():
+        back[:, pt_long] = dense_pages
+
     records["scatter_pages"] = dict(
         source="src/repro_torch/csrc/paged.cu",
         replaces="src/repro/kernels/scatter_update.py:199", max_abs_err=0.0,
         ms=median_ms(lambda: sc.scatter_pages(back, pt, dense), torch, flush),
         plain_ms=median_ms(lambda: sc.scatter_pages_plain(back, pt, dense),
                            torch, flush),
-        library_ms=None,
+        library_ms=median_ms(put, torch, flush),
         bound=bound(2 * side_bytes + 4 * B * n_log, 0))
     del arena, dense, back
 
@@ -2601,22 +2635,469 @@ def serve_drift_lanes(torch, cfg, params, proxies):
     return _lib.launch_counts()
 
 
-ALL_PHASES = tuple(range(3, 12))
+# ---------------------------------------------------------------------------
+# Phase 12: shared-prefix serving (the prefix index, copy-on-write pages and
+# the suffix-only prefill) through ServingEngine
+# ---------------------------------------------------------------------------
+
+# 12(a): 2-layer full-width f32 LLaDA; prompts of a 32-token system prompt
+# (2 pages) and one of 3 questions of 8 tokens, each asked twice; gen 16,
+# canvas 64 (4 pages), 2 slots
+PREFIX_SMALL = dict(system=32, question=8, questions=3, gen=16, canvas=64,
+                    slots=2)
+# 12(b): LLaDA-8B, canvas 512, 4 slots; a 224-token system prompt (14
+# pages) and 6 questions of 32 tokens, each asked twice, gen 256 (the JAX
+# package's shared-system-prompt traffic, benchmarks/bench_serving.py)
+PREFIX_FULL = dict(system=224, question=32, questions=6, gen=256,
+                   canvas=512, slots=4)
+PREFIX_POOL = 257         # 4 rows of 32 pages + the index's 122 + slack
+PREFIX_WARM_STEPS = 8     # the untimed warm pass stops each request here
+PREFIX_PROBE_STEPS = 2    # the probed pass stops each request here
+# bf16 suffix rows over the cold prefix K/V against a cold prefill: the two
+# differ in GEMM shapes (288 against 512 rows a request), so cuBLAS may
+# round differently; the limit phase 4 holds bf16 prefill caches to
+PREFIX_BF16_TOL = 2.0 ** -5
+PREFIX_PROFILE = (300, 304)   # engine steps profiled: wave 2, all decode
+
+
+def shared_prompt_traffic(cfg, system: int, question: int, questions: int,
+                          seed: int):
+    """One system prompt followed by each question, each question asked
+    twice (q0 .. q{n-1}, then the same again)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    head = rng.integers(0, cfg.vocab_size - 1, system)
+    qs = [rng.integers(0, cfg.vocab_size - 1, question)
+          for _ in range(questions)]
+    return [np.concatenate([head, qs[i % questions]]).astype(np.int32)
+            for i in range(2 * questions)]
+
+
+class AdmissionProbe:
+    """Watches the port's admissions while it is entered, through four
+    seams.  ``DecodeSession._paged_fill`` (every paged admission): its
+    rows' kinds, from the ``SharedPrefix`` specs it is given; the query
+    counts ``sparse_attention`` should see (one call a layer for each
+    suffix start of its cold and partial rows, over the suffix only); the
+    counts it saw and the launches counted meanwhile; the fill's device
+    time.  ``core.cache.copy_arena_pages`` (publication and copy-on-write):
+    the pages moved and the copy's device time.  ``prefill_partial``:
+    its inputs and output.  ``sparse_attention``: the query count of each
+    call inside a fill.  With ``snapshot``, the source of every page a
+    copy writes is kept, as it was before the copy, and each page a hit
+    attaches must equal it bit for bit."""
+
+    def __init__(self, torch, snapshot: bool = False):
+        self.torch = torch
+        self.snapshot = snapshot
+        self.fills = []          # (kinds, expected kq, seen kq, launches,
+        #                           start event, end event)
+        self.copies = []         # (pages, start event, end event)
+        self.written = {}        # page -> {kind: {name: tensor}}: what the
+        #                           last copy into it read
+        self.partials = []       # (tokens, kv_view, s0, kv_len, output)
+        self._kq = None
+
+    def _event(self):
+        ev = self.torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
+    def __enter__(self):
+        from repro_torch.core import cache
+        from repro_torch.dlm import decoding
+        from repro_torch.dlm.session import DecodeSession
+        from repro_torch.kernels import _lib
+        from repro_torch.kernels import sparse_attention as sa
+        probe, torch = self, self.torch
+        self._saved = [
+            (DecodeSession, "_paged_fill", DecodeSession._paged_fill),
+            (cache, "copy_arena_pages", cache.copy_arena_pages),
+            (decoding, "prefill_partial", decoding.prefill_partial),
+            (sa, "sparse_attention", sa.sparse_attention)]
+        orig = {n: f for _, n, f in self._saved}
+
+        def paged_fill(sess, arenas, tokens, kv_len, read_pt, shared):
+            m, n = tokens.shape
+            page = n // read_pt.shape[1]
+            kv = kv_len.tolist() if kv_len is not None else [n] * m
+            s0 = {s.row: len(s.pages) * page for s in shared}
+            kinds = ["cold" if r not in s0 else
+                     "full" if s0[r] >= kv[r] else "partial"
+                     for r in range(m)]
+            starts = sorted({s0.get(r, 0) for r in range(m)
+                             if kinds[r] != "full"})
+            expected = [n - st for st in starts
+                        for _ in range(sess.cfg.n_layers)]
+            if probe.snapshot:
+                for s in shared:
+                    for p in s.pages:
+                        for kind, bufs in arenas.items():
+                            for nm, t in bufs.items():
+                                assert torch.equal(
+                                    t[:, p], probe.written[p][kind][nm]), \
+                                    f"attached page {p} {nm} differs from " \
+                                    "the page it was copied from"
+            probe._kq = []
+            before = _lib.launch_counts()["sparse_attention"]
+            start = probe._event()
+            try:
+                orig["_paged_fill"](sess, arenas, tokens, kv_len, read_pt,
+                                    shared)
+            finally:
+                seen, probe._kq = probe._kq, None
+            probe.fills.append((
+                kinds, expected, seen,
+                _lib.launch_counts()["sparse_attention"] - before,
+                start, probe._event()))
+
+        def copy_pages(arenas, src, dst):
+            if probe.snapshot:      # the source pages, before the copy
+                for sp, p in zip(src, dst):
+                    probe.written[int(p)] = {
+                        kind: {nm: t[:, int(sp)].clone()
+                               for nm, t in bufs.items()}
+                        for kind, bufs in arenas.items()}
+            start = probe._event()
+            out = orig["copy_arena_pages"](arenas, src, dst)
+            probe.copies.append((len(dst), start, probe._event()))
+            return out
+
+        def prefill_partial(params, cfg, inputs, kv_view, s0, **kw):
+            out = orig["prefill_partial"](params, cfg, inputs, kv_view, s0,
+                                          **kw)
+            if probe.snapshot:
+                probe.partials.append((
+                    inputs["tokens"].clone(),
+                    {k: {nm: t.clone() for nm, t in b.items()}
+                     for k, b in kv_view.items()},
+                    s0, kw.get("kv_len"), out))
+            return out
+
+        def attention(q, *a, **kw):
+            if probe._kq is not None:
+                probe._kq.append(q.shape[1])
+            return orig["sparse_attention"](q, *a, **kw)
+
+        DecodeSession._paged_fill = paged_fill
+        cache.copy_arena_pages = copy_pages
+        decoding.prefill_partial = prefill_partial
+        sa.sparse_attention = attention
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+        return False
+
+    def check_fills(self) -> None:
+        """Every admission launched ``sparse_attention`` exactly for its
+        cold and partial rows' suffixes, and never for full hits."""
+        for kinds, expected, seen, launched, *_ in self.fills:
+            assert seen == expected and launched == len(expected), \
+                f"admission {kinds}: sparse_attention kq {seen}, launches " \
+                f"{launched}, expected kq {expected}"
+
+    def check_index(self, engine) -> int:
+        """The index pages still equal the copies that published them.
+        Returns how many there are."""
+        pages = engine.prefix.device_pages()
+        arenas = engine.pool.arenas_for(engine.strategy)
+        for p in pages:
+            for kind, bufs in arenas.items():
+                for nm, t in bufs.items():
+                    assert self.torch.equal(t[:, p],
+                                            self.written[p][kind][nm]), \
+                        f"index page {p} {nm} changed after publication"
+        return len(pages)
+
+
+def suffix_diff(part, cold, s0) -> float:
+    """Largest difference of the suffix rows [s0:) of a partial prefill's
+    cache from a cold prefill's, over each buffer's largest value."""
+    worst = 0.0
+    for kind, bufs in part.items():
+        for nm, t in bufs.items():
+            w = cold[kind][nm][:, :, s0:]
+            worst = max(worst, max_err(t[:, :, s0:], w)
+                        / max(float(w.float().abs().max()), 1e-30))
+    return worst
+
+
+def partial_vs_cold(torch, params, cfg, proxies, strat, partials):
+    """For each recorded partial prefill: its suffix rows against a cold
+    prefill of the same rows, over the published prefix pages it read and
+    over the cold prefill's own prefix K/V.  Returns the two largest
+    differences (see ``suffix_diff``)."""
+    from repro_torch.dlm import decoding
+    stale = exact = 0.0
+    for tokens, kv_view, s0, kv_len, part in partials:
+        _, cold = decoding.prefill(params, cfg, {"tokens": tokens}, proxies,
+                                   strat, kv_len=kv_len)
+        stale = max(stale, suffix_diff(part, cold, s0))
+        own = decoding.prefill_partial(
+            params, cfg, {"tokens": tokens},
+            {kind: {nm: bufs[nm] for nm in ("k", "v")}
+             for kind, bufs in cold.items()}, s0, kv_len=kv_len,
+            spa_proxies=proxies, strategy=strat)
+        exact = max(exact, suffix_diff(own, cold, s0))
+        del cold, own
+    return stale, exact
+
+
+def full_hit_agreement(on, off) -> str:
+    """How many hits of the prefix-on run decode the prefix-off tokens.
+    ``on``/``off``: the finished requests in submission order.  A full hit
+    is a cold prefill's bits only where one request published its whole
+    run: the repeats of the first request's prompt; the other repeats take
+    the system prompt's pages from that request."""
+    first = on[0].prompt
+    hits = [i for i, r in enumerate(on) if r.shared_n]
+    full = [i for i in hits if on[i].shared_full]
+    own = {i for i in full if (on[i].prompt == first).all()}
+    same = {i for i in hits if (on[i].output == off[i].output).all()}
+    return (f"{len(same & own)} of {len(own)} full hits on one publisher's "
+            f"run, {len(same & set(full)) - len(same & own)} of "
+            f"{len(full) - len(own)} on a run of two publishers, "
+            f"{len(same - set(full))} of {len(hits) - len(full)} partial "
+            f"hits")
+
+
+def prefix_parity(torch):
+    """Phase 12(a): a 2-layer, full-width f32 LLaDA through
+    ``ServingEngine`` with the prefix index on and off, on the same
+    requests.  Asserts that every page a hit attaches equals, bit for bit,
+    the publisher's prefill-time page it was copied from (and the index
+    pages still do after the run); that an admission launches
+    ``sparse_attention`` once per layer for each group of cold or partial
+    rows, over a partial row's suffix only, and never for a full hit; that
+    there were full and partial hits; and that a suffix-only prefill over
+    the cold prefill's prefix K/V gives the cold prefill's suffix rows
+    within 1e-5 of each buffer's largest value.  Prints that difference,
+    the one over the published prefix pages, and how many hits decode the
+    tokens of the prefix-off engine."""
+    from repro_torch.serving.engine import ServingEngine
+
+    cfg, params, strat, proxies, _ = _parity_setup(torch, "float32")
+    c = PREFIX_SMALL
+    prompts = shared_prompt_traffic(cfg, c["system"], c["question"],
+                                    c["questions"], seed=5)
+    n_log = c["canvas"] // PAGE
+    out = {}
+    for prefix in (False, True):
+        engine = ServingEngine(cfg, params, max_batch=c["slots"],
+                               canvas_len=c["canvas"], strategy=strat,
+                               pool_pages=1 + 8 * n_log, page_size=PAGE,
+                               prefix_cache=prefix)
+        engine._proxies[engine.strategy] = proxies
+        for p in prompts:
+            engine.submit(p, c["gen"])
+        with AdmissionProbe(torch, snapshot=prefix) as probe:
+            engine.run()
+        torch.cuda.synchronize()
+        assert engine.stats.requests_done == len(prompts)
+        for r in engine.done:
+            assert not (r.output == cfg.mask_id).any(), f"uid {r.uid}"
+        probe.check_fills()
+        out[prefix] = sorted(engine.done, key=lambda r: r.uid)
+    st = engine.stats
+    assert st.prefix_full_hits > 0 and st.prefix_hits > st.prefix_full_hits, \
+        f"hits {st.prefix_hits}, full {st.prefix_full_hits}"
+    assert engine.pool.used == engine.prefix.held_pages
+    n_index = probe.check_index(engine)
+    shared = [k for k, *_ in probe.fills if set(k) != {"cold"}]
+    full_only = sum(set(k) == {"full"} for k in shared)
+    assert full_only > 0, "no admission of full hits alone"
+    # the engine's partial prefills read prefix pages a request with
+    # another question published (bidirectional layers: stale from layer
+    # 2 on); the same suffix prefill over the cold prefill's own prefix
+    # K/V must match the cold prefill's suffix rows
+    stale, exact = partial_vs_cold(torch, params, cfg, proxies, strat,
+                                   probe.partials)
+    print(f"  prefix on: {st.prefix_hits} hits ({st.prefix_full_hits} full),"
+          f" {st.prefix_tokens_saved} prefill rows saved, "
+          f"{st.prefix_published} pages published; {len(probe.written)} "
+          f"copied pages and {n_index} index pages bitwise their sources")
+    print(f"  admissions with shared pages: {len(shared)} ({full_only} of full"
+          f" hits alone: 0 sparse_attention launches); partial groups "
+          f"launch it once a layer over the suffix (kq {c['canvas']} - s0)")
+    print(f"  suffix rows of {len(probe.partials)} partial prefills, "
+          f"largest difference from a cold prefill of the same rows (of the "
+          f"buffer's largest value): {exact:.3e} over the cold prefix K/V, "
+          f"{stale:.3e} over the published prefix pages (another question's"
+          f" canvas)")
+    print(f"  tokens equal to prefix off: "
+          f"{full_hit_agreement(out[True], out[False])}")
+    assert exact <= 1e-5, f"suffix rows differ by {exact}"
+    del params, proxies
+
+
+def prefix_serving(torch, cfg, params, strat, proxies):
+    """Phase 12(b): LLaDA-8B through ``ServingEngine`` (canvas 512, pages of
+    16, 4 slots, a pool of ``PREFIX_POOL`` pages) on the shared-system-prompt
+    traffic, with the prefix index off and on: an untimed warm pass of the
+    same requests cut at ``PREFIX_WARM_STEPS`` steps each, then (index
+    dropped) the timed pass, which nothing instruments.  Every request must
+    finish with no [MASK] left.  Prints hits, engine ms per step (mean, and
+    median step to step outside the profiled window), TTFT and e2e
+    percentiles, generated tokens/s, a ``torch.profiler`` window over
+    engine steps ``PREFIX_PROFILE`` (device ms a step, busy share), and how
+    many hits decode the prefix-off tokens.  Then ``probed_admissions``."""
+    from repro_torch.serving.engine import ServingEngine
+
+    c = PREFIX_FULL
+    prompts = shared_prompt_traffic(cfg, c["system"], c["question"],
+                                    c["questions"], seed=7)
+    out = {}
+    for prefix in (False, True):
+        engine = ServingEngine(cfg, params, max_batch=c["slots"],
+                               canvas_len=c["canvas"], strategy=strat,
+                               pool_pages=PREFIX_POOL, page_size=PAGE,
+                               prefix_cache=prefix)
+        engine._proxies[engine.strategy] = proxies
+        for p in prompts:
+            engine.submit(p, c["gen"])
+        engine.run(max_steps=PREFIX_WARM_STEPS)
+        engine.done.clear()
+        engine.stats = type(engine.stats)()
+        engine.pool.reset_telemetry()
+        engine.drop_prefix_cache()
+        for p in prompts:
+            engine.submit(p, c["gen"])
+        prof, marks, seen = new_profiler(torch), {}, {}
+
+        def on_step(e):
+            step = e.stats.steps
+            marks[step] = time.perf_counter()
+            if step in PREFIX_PROFILE:
+                torch.cuda.synchronize()
+                if step == PREFIX_PROFILE[0]:
+                    prof.start()
+                    seen["t0"] = time.perf_counter()
+                else:
+                    prof.stop()
+                    seen["wall_us"] = (time.perf_counter() - seen["t0"]) * 1e6
+
+        torch.cuda.synchronize()
+        stats = engine.run(max_steps=2 * c["gen"], on_step=on_step)
+        torch.cuda.synchronize()
+        assert stats.requests_done == len(prompts) == len(engine.done)
+        for r in engine.done:
+            assert len(r.output) == c["gen"]
+            assert not (r.output == cfg.mask_id).any(), f"uid {r.uid}: open"
+        held = engine.prefix.held_pages if prefix else 0
+        assert engine.pool.used == held, "pool not drained to the index"
+        out[prefix] = sorted(engine.done, key=lambda r: r.uid)
+        wall = engine._wall
+        pct = stats.percentiles()
+        label = "prefix on" if prefix else "prefix off"
+        if prefix:
+            print(f"  {label}: {stats.prefix_hits} hits "
+                  f"({stats.prefix_full_hits} full), "
+                  f"{stats.prefix_tokens_saved} prefill rows saved, "
+                  f"{stats.prefix_published} pages published "
+                  f"({stats.prefix_publish_skipped} skipped), {held} held")
+        intervals = [marks[i] - marks[i - 1] for i in marks
+                     if i - 1 in marks and not (
+                         PREFIX_PROFILE[0] < i <= PREFIX_PROFILE[1])]
+        print(f"  {label}: {stats.steps} engine steps, "
+              f"{wall / stats.steps * 1e3:.2f} ms per engine step (median "
+              f"{statistics.median(intervals) * 1e3:.2f} step to step), "
+              f"{stats.tokens_committed / wall:.1f} generated tokens/s, "
+              f"TTFT p50 {pct['ttft_p50']:.3f} s p95 {pct['ttft_p95']:.3f} s,"
+              f" e2e p50 {pct['e2e_p50']:.3f} s p95 {pct['e2e_p95']:.3f} s")
+        assert "wall_us" in seen, f"{label}: the profiled window never ran"
+        report_profile(prof, PREFIX_PROFILE[1] - PREFIX_PROFILE[0],
+                       seen["wall_us"], f"{label} engine")
+        if not prefix:
+            del engine
+            torch.cuda.empty_cache()
+    print(f"  tokens equal to prefix off: "
+          f"{full_hit_agreement(out[True], out[False])}")
+    probed_admissions(torch, engine, prompts, cfg, params, strat, proxies)
+    del engine
+    torch.cuda.empty_cache()
+
+
+def probed_admissions(torch, engine, prompts, cfg, params, strat, proxies):
+    """Phase 12(b), the probed pass: the prefix-on engine serves the same
+    requests again (index dropped), each cut at ``PREFIX_PROBE_STEPS``
+    steps so that all three admission waves run in a few steps, under an
+    ``AdmissionProbe`` with snapshots.  Asserts the timed pass's hits; that
+    every admission launched ``sparse_attention`` for its cold and partial
+    rows' suffixes only (none for full hits); that every page a hit
+    attaches, and every index page afterwards, equals bit for bit the page
+    it was copied from; and that the suffix rows of a partial prefill, run
+    over the cold prefill's own prefix K/V, are within
+    ``PREFIX_BF16_TOL`` of a cold bf16 prefill of the same rows (of each
+    buffer's largest value).  Prints each admission's fill (device ms by
+    CUDA events) and the page copies' device ms a page."""
+    want = engine.stats
+    engine.done.clear()
+    engine.stats = type(engine.stats)()
+    engine.drop_prefix_cache()
+    for p in prompts:
+        engine.submit(p, PREFIX_FULL["gen"])
+    with AdmissionProbe(torch, snapshot=True) as probe:
+        engine.run(max_steps=PREFIX_PROBE_STEPS)
+    torch.cuda.synchronize()
+    st = engine.stats
+    keys = ("prefix_hits", "prefix_full_hits", "prefix_tokens_saved",
+            "prefix_published")
+    assert [getattr(st, k) for k in keys] == \
+        [getattr(want, k) for k in keys], \
+        f"probed pass {[getattr(st, k) for k in keys]}, timed pass " \
+        f"{[getattr(want, k) for k in keys]}"
+    probe.check_fills()
+    n_index = probe.check_index(engine)
+    kinds = {frozenset(k) for k, *_ in probe.fills}
+    assert {frozenset({"cold"}), frozenset({"full"})} <= kinds and any(
+        "partial" in k for k in kinds), f"admission kinds {kinds}"
+    parts = []
+    for k, _, _, launched, start, end in probe.fills:
+        rows = ", ".join(f"{k.count(x)} {x}" for x in
+                         ("cold", "partial", "full") if x in k)
+        parts.append(f"{rows}: {start.elapsed_time(end):.3f} ms "
+                     f"({launched} launches)")
+    print(f"  probed pass ({PREFIX_PROBE_STEPS} steps a request): admission "
+          f"fills, device ms: {'; '.join(parts)}")
+    pages = sum(n for n, *_ in probe.copies)
+    copy_ms = sum(a.elapsed_time(b) for n, a, b in probe.copies if n)
+    print(f"  page copies (publication and copy-on-write): {pages} pages in "
+          f"{sum(1 for n, *_ in probe.copies if n)} calls, "
+          f"{copy_ms / max(pages, 1):.4f} ms a page; a full hit's "
+          f"admission is its fill plus "
+          f"{PREFIX_FULL['canvas'] // PAGE} pages of copy-on-write")
+    print(f"  {len(probe.written)} copied pages and {n_index} index pages "
+          f"bitwise their sources")
+    stale, exact = partial_vs_cold(torch, params, cfg, proxies, strat,
+                                   probe.partials)
+    print(f"  suffix rows of {len(probe.partials)} partial prefills "
+          f"({cfg.param_dtype}), "
+          f"largest difference from a cold prefill of the same rows (of the "
+          f"buffer's largest value): {exact:.3e} over the cold prefix K/V "
+          f"(limit {PREFIX_BF16_TOL:g}), {stale:.3e} over the published "
+          f"prefix pages")
+    assert exact <= PREFIX_BF16_TOL, f"suffix rows differ by {exact}"
+    del probe
+
+
+ALL_PHASES = tuple(range(3, 13))
 
 
 def parse_phases(argv) -> tuple:
-    """``--phases 3,6,7`` runs only those of phases 3-11 (the card line and
+    """``--phases 3,6,7`` runs only those of phases 3-12 (the card line and
     the build always run) and prints no result line: for development
     calls and for comparing two trees' kernels in one call.  Without it,
     every phase runs."""
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
-                    help="comma-separated subset of phases 3-11")
+                    help="comma-separated subset of phases 3-12")
     phases = tuple(sorted({int(p) for p in ap.parse_args(argv).phases
                            .split(",") if p}))
     if not phases or not set(phases) <= set(ALL_PHASES):
-        ap.error(f"phases must lie in 3-11, got {phases}")
+        ap.error(f"phases must lie in 3-12, got {phases}")
     return phases
 
 
@@ -2650,8 +3131,9 @@ def main(argv=None) -> int:
     if 4 in phases:
         decode_parity_phase(torch)
     launches = base = lanes = served = {}
-    if {5, 6, 7} & set(phases):
-        print(f"LLaDA-8B (bf16, B=4, prompt 256 + gen {GEN_LEN})")
+    if {5, 6, 7, 12} & set(phases):
+        print(f"LLaDA-8B (bf16, B=4, prompt 256 + gen {GEN_LEN}; phases "
+              f"5-7 and 12)")
         cfg, params, strat, proxies = llada_setup(torch)
         if 5 in phases:
             print(f"main path (LLaDA-8B bf16, B=4, prompt 256 + gen "
@@ -2680,6 +3162,21 @@ def main(argv=None) -> int:
             for name in DRIFT_LANE_KERNELS:
                 assert lanes[name] > 0, \
                     f"kernel {name} never launched (lanes)"
+        if 12 in phases:        # shares LLaDA-8B's weights and proxies
+            t0 = time.perf_counter()
+            print(f"prefix parity (2-layer full-width f32 LLaDA through "
+                  f"ServingEngine, canvas {PREFIX_SMALL['canvas']}, pages "
+                  f"of {PAGE}, prefix index on and off)")
+            prefix_parity(torch)
+            torch.cuda.empty_cache()
+            c = PREFIX_FULL
+            print(f"prefix serving (LLaDA-8B bf16 through ServingEngine, "
+                  f"canvas {c['canvas']}, pages of {PAGE}, {c['slots']} "
+                  f"slots, system prompt {c['system']} + {c['questions']} "
+                  f"questions of {c['question']} asked twice, gen "
+                  f"{c['gen']}; {card})")
+            prefix_serving(torch, cfg, params, strat, proxies)
+            print(f"  phase 12: {time.perf_counter() - t0:.1f} s")
         del cfg, params, strat, proxies
         torch.cuda.empty_cache()
     hybrid = mamba = {}

@@ -30,7 +30,7 @@ table (``proxy_now``, where there is one, is a dense-view buffer like
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -150,6 +150,27 @@ def init_paged_arenas(cfg: ModelConfig, n_pages: int, page_size: int,
     (physical pages, page rows); page 0 is the zero page."""
     return init_model_cache(cfg, n_pages, page_size, strategy,
                             device=device)
+
+
+def copy_arena_pages(arenas: Dict[str, Dict[str, torch.Tensor]],
+                     src: List[int], dst: List[int]
+                     ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Copy whole physical pages ``src[i] -> dst[i]`` in every buffer of
+    every arena, in place (the copy-on-write and prefix-publication
+    primitive); the caller patches page tables.  The right-hand side is
+    gathered before the write, so ``src`` and ``dst`` may overlap.
+    Returns ``arenas``."""
+    if not src:
+        return arenas
+    if len(src) != len(dst):
+        raise ValueError(f"{len(src)} source pages, {len(dst)} targets")
+    dev = next(iter(next(iter(arenas.values())).values())).device
+    s = torch.as_tensor(list(src), dtype=torch.long, device=dev)
+    d = torch.as_tensor(list(dst), dtype=torch.long, device=dev)
+    for bufs in arenas.values():
+        for arena in bufs.values():
+            arena[:, d] = arena[:, s]
+    return arenas
 
 
 def paged_step_view(pc: PagedCache, backend=None

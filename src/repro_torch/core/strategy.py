@@ -72,6 +72,15 @@ class CacheStrategy:
         from repro_torch.kernels.backend import resolve_backend
         return dataclasses.replace(self, backend=resolve_backend(backend))
 
+    def prefix_key(self) -> Any:
+        """Hashable identity of this strategy's PREFILL states, part of the
+        shared-prefix index's root key: two strategies with the same key
+        build identical prefill caches, so their requests may share
+        published pages.  Unlike the JAX package, the prefill here runs
+        its attention on the backend, so the backend's name is part of
+        the key (the two backends' pages may differ in their low bits)."""
+        return self.spec, self.backend.name
+
     # ---- budget ----
 
     def k_schedule(self, cfg: ModelConfig, seq_len: int) -> List[int]:

@@ -2,6 +2,8 @@
 
   prefill    — full forward over the canvas that builds the strategy's
                layer caches (K, V, H^c, identifier vectors).
+  prefill_partial — the same forward over a canvas suffix only, against
+               cached prefix K/V (shared-prefix serving).
   serve_step — ONE refinement step: sparse layer updates driven by the
                strategy, candidate-limited logits, and the commit decision
                of an ``UnmaskScheduler``.
@@ -19,7 +21,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ATTENTION_KINDS, ModelConfig
 from repro_torch.core import cache as cache_lib
 from repro_torch.core import selection, spa_layer
 from repro_torch.core.cache import CachePolicy
@@ -76,6 +78,106 @@ def prefill(params: Params, cfg: ModelConfig,
     return h, {kind: cache_lib.fill_from_prefill(entries, policy,
                                                  strategy.incremental)
                for kind, entries in (raw or {}).items()}
+
+
+def partial_prefill_supported(cfg: ModelConfig) -> bool:
+    """Whether ``prefill_partial`` can reproduce the cold prefill's
+    numerics for this architecture: every layer must be a cache-carrying
+    attention kind (a recurrent block's suffix states depend on prefix
+    states that carry no cache) and window-free (the cold prefill of a
+    windowed layer may take the banded grid, whose kv range differs from
+    the gathered path's).  Other architectures still get full prefix hits
+    (no forward at all); only their partial hits degrade to misses."""
+    kinds = set(cfg.layer_kinds)
+    return (kinds <= set(ATTENTION_KINDS)
+            and all(transformer.layer_window(cfg, k) == 0 for k in kinds))
+
+
+def prefill_partial(params: Params, cfg: ModelConfig,
+                    inputs: Dict[str, torch.Tensor],
+                    kv_view: Dict[str, Dict[str, torch.Tensor]],
+                    suffix_start: int,
+                    kv_len: Optional[torch.Tensor] = None,
+                    spa_proxies=None,
+                    strategy: Optional[CacheStrategy] = None
+                    ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Prefill ONLY canvas positions >= ``suffix_start``, reading the cached
+    K/V of [0, suffix_start) from ``kv_view`` ({kind: {"k"/"v": [Lk, B, N,
+    ...]}}, a dense gather of the shared prefix pages).
+
+    Every per-row op of the cold prefill (embedding, norms, QKV, FFN) is
+    row-local, and the suffix queries go through the same attention stage
+    (``strategy.backend.attention`` with ``q_positions = arange(s0, n)``:
+    the dense-grid kernel on the card), so with exact prefix K/V the
+    suffix rows match the cold prefill's up to the matmuls' summation
+    order over a different number of rows.
+
+    Returns the layout of :func:`prefill`, with zeros at positions below
+    ``suffix_start``: callers scatter it through a write page table whose
+    prefix entries map to the zero page, so those zeros land nowhere.
+    Needs :func:`partial_prefill_supported` and a float cache."""
+    strategy = resolve_strategy(cfg, strategy)
+    policy = CachePolicy.from_config(cfg)
+    assert partial_prefill_supported(cfg), cfg.layer_kinds
+    assert not policy.quantized, "partial prefill needs a float cache"
+    assert strategy.uses_cache
+    from repro_torch.models import common
+
+    h = transformer.embed_inputs(params, cfg, inputs)
+    b, n = h.shape[0], h.shape[1]
+    s0 = int(suffix_start)
+    assert 0 < s0 < n, (s0, n)
+    h = h[:, s0:]
+    positions = torch.arange(s0, n, device=h.device).expand(b, n - s0)
+    cd = policy.compute_dtype
+    per_kind: Dict[str, list] = {}
+    for l in range(cfg.n_layers):
+        kind = cfg.kind_of_layer(l)
+        ki = cfg.kind_index(l)
+        bp = transformer.layer_params(params, cfg, l)
+        proxy_mat = (spa_proxies[kind][ki]
+                     if spa_proxies is not None and kind in spa_proxies
+                     else None)
+        x = common.rms_norm(h, bp["norm1"], cfg.norm_eps)
+        q, k_new, v_new = transformer.qkv_project(bp, x, cfg, positions)
+        k_all = torch.cat([kv_view[kind]["k"][ki][:, :s0].to(cd),
+                           k_new.to(cd)], dim=1)
+        v_all = torch.cat([kv_view[kind]["v"][ki][:, :s0].to(cd),
+                           v_new.to(cd)], dim=1)
+        attn = strategy.backend.attention(q, k_all, v_all,
+                                          q_positions=positions,
+                                          soft_cap=cfg.attn_softcap,
+                                          kv_len=kv_len)
+        attn_out = attn.reshape(b, n - s0, cfg.q_dim) @ bp["wo"]
+        if cfg.post_norms:
+            attn_out = common.rms_norm(attn_out, bp["norm_post_attn"],
+                                       cfg.norm_eps)
+        h_mid = h + attn_out
+        y = common.rms_norm(h_mid, bp["norm2"], cfg.norm_eps)
+        ffn_out = transformer.apply_ffn_or_moe(bp, y, cfg)
+        if cfg.post_norms:
+            ffn_out = common.rms_norm(ffn_out, bp["norm_post_ffn"],
+                                      cfg.norm_eps)
+        h_out = h_mid + ffn_out
+        entries = {"k": k_new, "v": v_new, "h": h_out}
+        prox = strategy.prefill_proxy(bp, proxy_mat, h, x, attn_out, h_out)
+        if prox is not None:
+            entries["proxy"] = prox
+        per_kind.setdefault(kind, []).append(entries)
+        h = h_out
+
+    cache: Dict[str, Dict[str, torch.Tensor]] = {}
+    for kind, layers in per_kind.items():
+        full = {}
+        for name in layers[0]:
+            stacked = torch.stack([e[name] for e in layers])  # [Lk,B,S,..]
+            out = stacked.new_zeros(stacked.shape[:2] + (n,)
+                                    + stacked.shape[3:])
+            out[:, :, s0:] = stacked
+            full[name] = out
+        cache[kind] = cache_lib.fill_from_prefill(full, policy,
+                                                  strategy.incremental)
+    return cache
 
 
 def _candidate_positions(tokens: torch.Tensor, mask_id: int, n_cand: int,

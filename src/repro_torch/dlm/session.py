@@ -20,9 +20,18 @@ a paged cache (``arenas=`` + ``page_table=``; the state's cache becomes a
 ``PagedCache``) and the row surgery of continuous batching:
 ``replace_rows``, ``deactivate_rows``, ``release_rows`` and
 ``snapshot_rows``.  ``run_blocks`` is the semi-AR block schedule through
-the active-position mask.  ``run_compiled`` (the whole loop as one
-replayed CUDA graph), ``events`` and shared-prefix attachments (the prefix
-cache) wait for later slices.
+the active-position mask; ``events`` streams a ``StepEvent`` per step.
+``run_compiled`` runs ``run``'s loop with ``run``'s exact semantics (the
+JAX package compiles the loop into one ``lax.while_loop``).
+
+Shared prefixes (the engine's prefix cache): ``attach(shared=)`` and
+``replace_rows(row_shared=)`` map a row's first logical pages to read-only
+pages of the prefix index (``SharedPrefix``); the row's prefill runs only
+over the unmatched suffix (``decoding.prefill_partial``), or not at all
+when the index covers its whole span.  Before the first cache write (the
+first ``step``, ``run_compiled``'s entry, or ``refresh``) the shared pages
+are copied into the row's own reserve pages and its page table is patched
+(copy-on-write), so no write ever reaches a page another reader sees.
 
 Stochastic schedulers draw from ``rng`` (``prefill``/``attach``): an int
 seed, a ``torch.Generator``, a ``scheduler.Draws`` source, or None, which
@@ -31,7 +40,8 @@ one (so a replay is seeded by default, as in the JAX package).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Sequence, Tuple
+import dataclasses
+from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -48,8 +58,37 @@ from repro_torch.dlm.scheduler import (Draws, GeneratorDraws,
 
 Params = Dict[str, Any]
 
-_LATER_PREFIX = ("shared-prefix attachments belong to the prefix cache, "
-                 "which waits for a later slice")
+
+@dataclasses.dataclass(frozen=True)
+class SharedPrefix:
+    """One batch row's shared-prefix attachment.
+
+    ``pages``: physical pages of the prefix index, mapped read-only at the
+    row's logical pages [0, len(pages)); ``reserve``: the row's own pages
+    of the same count.  The row's prefill reads ``pages``; right before
+    its first cache write the session copies them into ``reserve`` and
+    patches the page table (copy-on-write)."""
+    row: int
+    pages: Tuple[int, ...]
+    reserve: Tuple[int, ...]
+
+    def __post_init__(self):
+        assert len(self.pages) == len(self.reserve)
+
+
+@dataclasses.dataclass(frozen=True)
+class StepEvent:
+    """One refinement step's outcome, for the streaming iterator."""
+    step: int
+    n_committed: np.ndarray      # [B] tokens committed this step
+    committed: np.ndarray        # [B, ring] positions (-1 pad)
+    done: bool
+    refreshed: bool              # a full cache rebuild preceded this step
+    # token values at the committed ring positions (-1 at ring pads); the
+    # ring holds at most ``settings.commit_ring`` positions a step, so an
+    # exact per-token stream diffs ``tokens`` against the previous step
+    committed_tokens: Optional[np.ndarray] = None
+    tokens: Optional[np.ndarray] = None   # [B, N] canvas snapshot
 
 
 class DecodeSession:
@@ -78,9 +117,15 @@ class DecodeSession:
         for stack in (spa_proxies or {}).values():
             check_device(stack, self.device, "spa_proxies")
         self.spa_proxies = spa_proxies
+        # shared-prefix rows awaiting copy-on-write: {batch row: spec}
+        self._shared_pending: Dict[int, SharedPrefix] = {}
+        # called with the resolved specs right after a copy-on-write (the
+        # engine releases its read holds on the shared pages there)
+        self.cow_callback = None
         self.state: Optional[DecodeState] = None
         self.steps_taken = 0
         self.refresh_count = 0
+        self._last_step_refreshed = False
         self.last_info: Optional[Dict[str, torch.Tensor]] = None
         self._gen_span: Optional[Tuple[int, int]] = None  # semi-AR bounds
         # one host copy of the canvas per state (see host_tokens)
@@ -126,10 +171,13 @@ class DecodeSession:
         is scattered into the arenas and the state's cache becomes a
         :class:`PagedCache`.  ``kv_len`` [B] marks each row's valid canvas
         length (a shorter row owns only the pages that cover it; its tail
-        maps to the zero page).  ``shared`` (prefix-cache attachments)
-        raises ``NotImplementedError``."""
-        if shared is not None:
-            raise NotImplementedError(_LATER_PREFIX)
+        maps to the zero page).
+
+        ``shared``: per-row :class:`SharedPrefix` attachments (paged mode).
+        A shared row's page table maps its prefix to read-only index pages;
+        its prefill runs only over the unmatched suffix, or not at all when
+        the whole row span is covered, and the shared pages are copied into
+        the row's ``reserve`` pages right before the first cache write."""
         tokens = torch.as_tensor(tokens).to(self.device, torch.long)
         b = tokens.shape[0]
         if active is None:
@@ -140,14 +188,19 @@ class DecodeSession:
                 dim=-1).to(torch.int32)
         if kv_len is not None:
             kv_len = torch.as_tensor(kv_len).to(self.device, torch.int32)
-        cache = self._build_cache(tokens, kv_len) if use_cache else {}
-        if arenas is not None and cache:
+        shared = list(shared or [])
+        self._shared_pending = {}
+        if not (use_cache and self.strategy.uses_cache):
+            cache = {}
+        elif arenas is not None:
             if page_table is None:
                 raise ValueError("a paged attach needs page_table")
-            cache = cache_lib.repage(
-                arenas, torch.as_tensor(page_table).to(self.device,
-                                                       torch.int32),
-                cache, self.strategy.backend)
+            pt = torch.as_tensor(page_table).to(self.device, torch.int32)
+            self._paged_fill(arenas, tokens, kv_len, pt, shared)
+            cache = PagedCache(arenas, pt)
+            self._shared_pending = {s.row: s for s in shared}
+        else:
+            cache = self._build_cache(tokens, kv_len)
         self.state = DecodeState(
             tokens=tokens, cache=cache, step=0,
             committed=torch.full((b, self.settings.commit_ring), -1,
@@ -180,6 +233,87 @@ class DecodeSession:
                                            self.spa_proxies, kv_len=kv_len)
 
     # ------------------------------------------------------------------
+    # Shared-prefix attach + copy-on-write
+    # ------------------------------------------------------------------
+
+    def _paged_fill(self, arenas, tokens: torch.Tensor,
+                    kv_len: Optional[torch.Tensor], read_pt: torch.Tensor,
+                    shared: Sequence[SharedPrefix]) -> None:
+        """Prefill a (sub-)batch into pooled arenas, in place, honouring
+        shared prefixes: rows without a spec get the full prefill, rows
+        with one only their unmatched suffix (one partial prefill per
+        suffix start), and fully covered rows nothing.  Every scatter goes
+        through a write page table whose shared entries map to the zero
+        page, so the shared pages are never written here; ``shared[i].row``
+        indexes THIS (sub-)batch."""
+        m, n = tokens.shape
+        page = n // read_pt.shape[1]
+        spec_by_row = {s.row: s for s in shared}
+        write_pt, kv_host = read_pt, [n] * m
+        if spec_by_row:
+            write_pt = read_pt.clone()
+            for s in spec_by_row.values():
+                write_pt[s.row, :len(s.pages)] = 0
+            if kv_len is not None:
+                kv_host = kv_len.cpu().tolist()
+        groups: Dict[int, list] = {}
+        for r in range(m):
+            s = spec_by_row.get(r)
+            s0 = len(s.pages) * page if s else 0
+            if s is not None and s0 >= kv_host[r]:
+                continue                     # full hit: states are there
+            groups.setdefault(s0, []).append(r)
+        backend = self.strategy.backend
+        for s0, rows in sorted(groups.items()):
+            idx = slice(None) if len(rows) == m else self._rows(rows)
+            sub_kv = kv_len[idx] if kv_len is not None else None
+            if s0 == 0:
+                fresh = self._build_cache(tokens[idx], sub_kv)
+            else:
+                prefix_pt = read_pt[idx, :s0 // page]
+                kv_view = {kind: {nm: backend.gather_pages(bufs[nm],
+                                                           prefix_pt)
+                                  for nm in ("k", "v")}
+                           for kind, bufs in arenas.items()}
+                fresh = decoding.prefill_partial(
+                    self.params, self.cfg, {"tokens": tokens[idx]}, kv_view,
+                    s0, kv_len=sub_kv, spa_proxies=self.spa_proxies,
+                    strategy=self.strategy)
+            cache_lib.paged_from_dense(arenas, write_pt[idx], fresh, backend)
+
+    def copy_cache_pages(self, src: Sequence[int],
+                         dst: Sequence[int]) -> None:
+        """Copy physical pages src[i] -> dst[i] in this session's paged
+        cache (the engine's prefix publication: a row's prefill-time pages
+        are copied into index-owned pages before its first step)."""
+        cache = self.state.cache
+        assert isinstance(cache, PagedCache), "copy needs a paged cache"
+        cache_lib.copy_arena_pages(cache.arenas, list(src), list(dst))
+
+    def _cow_if_shared(self) -> None:
+        """Copy-on-write barrier: right before the first cache write (the
+        first step, ``run_compiled``'s entry or a refresh), copy every
+        pending row's shared pages into its reserve and patch the page
+        table.  After this the shared pages are never written by this
+        session, so other readers (and the index) keep their view."""
+        if not self._shared_pending:
+            return
+        specs = list(self._shared_pending.values())
+        self._shared_pending = {}
+        cache = self.state.cache
+        assert isinstance(cache, PagedCache), "shared rows need paging"
+        cache_lib.copy_arena_pages(cache.arenas,
+                                   [p for s in specs for p in s.pages],
+                                   [p for s in specs for p in s.reserve])
+        pt = cache.page_table.clone()
+        for s in specs:
+            pt[s.row, :len(s.reserve)] = torch.as_tensor(
+                s.reserve, dtype=pt.dtype)
+        self.state = self.state._replace(cache=PagedCache(cache.arenas, pt))
+        if self.cow_callback is not None:
+            self.cow_callback(specs)
+
+    # ------------------------------------------------------------------
     # Stepping
     # ------------------------------------------------------------------
 
@@ -191,6 +325,7 @@ class DecodeSession:
         if (not self.strategy.uses_cache or self.state is None
                 or not self.state.cache):
             return
+        self._cow_if_shared()     # the rebuild scatters into every page
         cache = self._build_cache(self.state.tokens, self.state.kv_len)
         old = self.state.cache
         if isinstance(old, PagedCache):
@@ -210,7 +345,8 @@ class DecodeSession:
     def step(self) -> Dict[str, torch.Tensor]:
         """One refinement step (auto-refresh applied first)."""
         assert self.state is not None, "call prefill()/attach() first"
-        self._maybe_refresh()
+        self._cow_if_shared()     # first write: un-share prefix pages
+        self._last_step_refreshed = self._maybe_refresh()
         self.state, info = decoding.serve_step(
             self.params, self.cfg, self.state, self.settings,
             spa_proxies=self.spa_proxies, strategy=self.strategy,
@@ -251,6 +387,44 @@ class DecodeSession:
             n += 1
         return self.state.tokens, {"steps": n,
                                    "refreshes": self.refresh_count}
+
+    def run_compiled(self, max_steps: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, Dict[str, Any]]:
+        """The decode loop with the JAX ``run_compiled``'s semantics: the
+        copy-on-write barrier at entry, then ``run``'s check-first loop and
+        refresh schedule (a rebuild before steps R, 2R, ...), so tokens,
+        steps and refresh counts equal ``run``'s and a finished session
+        runs 0 steps.  The JAX package compiles this loop into one
+        ``lax.while_loop``; replaying the step as a CUDA graph is work for
+        a later performance change."""
+        assert self.state is not None, "call prefill()/attach() first"
+        self._cow_if_shared()
+        return self.run(max_steps)
+
+    def events(self, max_steps: Optional[int] = None
+               ) -> Iterator[StepEvent]:
+        """Streaming iterator: yields a :class:`StepEvent` after every
+        step, and stops after the step that finishes the canvas."""
+        assert self.state is not None, "call prefill()/attach() first"
+        if max_steps is None:
+            max_steps = int(self.state.n_masked.max()) + 4
+        for _ in range(max_steps):
+            info = self.step()
+            done = self.done
+            committed = self.state.committed.cpu().numpy()
+            toks = self.host_tokens()
+            ctoks = np.where(committed >= 0,
+                             np.take_along_axis(
+                                 toks, np.maximum(committed, 0), axis=-1),
+                             -1).astype(np.int32)
+            yield StepEvent(
+                step=self.steps_taken,
+                n_committed=info["n_committed"].cpu().numpy(),
+                committed=committed, done=done,
+                refreshed=self._last_step_refreshed,
+                committed_tokens=ctoks, tokens=toks)
+            if done:
+                break
 
     def set_active(self, active: torch.Tensor) -> None:
         """Replace the commit mask; recounts open slots from the canvas."""
@@ -311,9 +485,9 @@ class DecodeSession:
         ``row_kv_len`` [n_swap]: the sub-batch prefill scatters into those
         pages only.  ``row_committed`` restores a preempted request's
         commit ring; by default the ring is cleared.  ``row_shared``
-        (prefix-cache attachments) raises ``NotImplementedError``."""
-        if row_shared is not None:
-            raise NotImplementedError(_LATER_PREFIX)
+        attaches shared prefix pages for incoming rows as
+        ``attach(shared=)`` does; its specs carry BATCH row ids (members of
+        ``rows``)."""
         assert self.state is not None
         st = self.state
         idx = self._rows(rows)
@@ -338,19 +512,27 @@ class DecodeSession:
             kv_len = kv_len.clone()
             kv_len[idx] = sub_kv
         cache = st.cache
+        rows = list(rows)
+        for r in rows:           # replaced rows' pending shares lapse
+            self._shared_pending.pop(r, None)
         if self.strategy.uses_cache and cache:
-            fresh = self._build_cache(row_tokens, sub_kv)
             if isinstance(cache, PagedCache):
                 if row_page_table is None:
                     raise ValueError("a paged session needs row_page_table")
                 row_pt = torch.as_tensor(np.asarray(row_page_table)).to(
                     self.device, torch.int32)
-                cache_lib.paged_from_dense(cache.arenas, row_pt, fresh,
-                                           self.strategy.backend)
+                row_shared = list(row_shared or [])
+                self._paged_fill(
+                    cache.arenas, row_tokens, sub_kv, row_pt,
+                    [dataclasses.replace(s, row=rows.index(s.row))
+                     for s in row_shared])
+                for s in row_shared:
+                    self._shared_pending[s.row] = s
                 pt = cache.page_table.clone()
                 pt[idx] = row_pt
                 cache = PagedCache(cache.arenas, pt)
             else:
+                fresh = self._build_cache(row_tokens, sub_kv)
                 for kind, bufs in cache.items():
                     for name, t in bufs.items():
                         t[:, idx] = fresh[kind][name]
@@ -375,6 +557,8 @@ class DecodeSession:
         reading or writing them again (a row with kv_len 0 is masked out of
         attention and selection)."""
         self.deactivate_rows(rows)
+        for r in rows:           # released rows never copy-on-write (the
+            self._shared_pending.pop(r, None)   # engine drops its holds)
         idx = self._rows(rows)
         kv_len = self.state.kv_len
         if kv_len is not None:

@@ -6,11 +6,14 @@ initialized reduced model (the offline path of the JAX package's
       --requests 4 --gen-len 6 --canvas 24 --max-batch 2 \
       --pool-pages 10 --page-size 4
 
-``--device`` picks where it runs (default: the CUDA card).  Flags of the
-engine parts that wait for later slices of the port (the prefix cache,
-host tier, online front end, SLO policy, faults, telemetry, profiling,
-checkpoints) are accepted by the parser and exit with an error that names
-them; the prefix cache is therefore off by default here.
+``--device`` picks where it runs (default: the CUDA card).  In paged mode
+the shared-prefix cache is on unless ``--no-prefix-cache`` is given; with
+it, half the requests are distinct prompts served one by one (each
+publishes its prefill pages) and the rest repeat them, so the summary's
+prefix line shows hits.  Flags of the engine parts that wait for later
+slices of the port (host tier, online front end, SLO policy, faults,
+telemetry, profiling, checkpoints) are accepted by the parser and exit with
+an error that names them.
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ from repro_torch.models import transformer
 from repro_torch.serving.engine import ServingEngine
 
 # flag -> the value that leaves it off; any other value is an error
-_LATER_FLAGS = {"ckpt": "", "prefix_cache": False, "host_pages": 0,
+_LATER_FLAGS = {"ckpt": "", "host_pages": 0,
                 "host_dtype": "auto", "serve": False, "slo_ttft": 0.0,
                 "slo_deadline": 0.0, "client": "", "supervise": False,
                 "chaos_seed": -1, "trace_out": "", "metrics": False,
@@ -63,7 +66,10 @@ def main(argv=None):
                     help="canvas rows per cache page (the canvas length "
                          "must be a multiple)")
     ap.add_argument("--prefix-cache", dest="prefix_cache",
-                    action="store_true", default=False)
+                    action="store_true", default=True,
+                    help="shared-prefix radix cache: reuse prefill pages "
+                         "across requests with matching prompt prefixes "
+                         "and canvas layout (paged mode only; default on)")
     ap.add_argument("--no-prefix-cache", dest="prefix_cache",
                     action="store_false")
     ap.add_argument("--host-pages", type=int, default=0)
@@ -86,10 +92,10 @@ def main(argv=None):
                for name, off in _LATER_FLAGS.items()
                if getattr(args, name) != off]
     if waiting:
-        ap.error(f"{', '.join(waiting)}: not ported yet (the prefix cache, "
-                 f"host tier, online front end, SLO policy, faults, "
-                 f"telemetry, profiling and checkpoints wait for later "
-                 f"slices of the port)")
+        ap.error(f"{', '.join(waiting)}: not ported yet (the host tier, "
+                 f"online front end, SLO policy, faults, telemetry, "
+                 f"profiling and checkpoints wait for later slices of the "
+                 f"port)")
 
     cfg = reduced(get_arch(args.arch))
     params = transformer.init_params(cfg, seed=0, device=args.device)
@@ -106,19 +112,61 @@ def main(argv=None):
         cfg, params, max_batch=args.max_batch, canvas_len=args.canvas,
         strategy=strategy, continuous=not args.static_batching,
         pool_pages=args.pool_pages, page_size=args.page_size,
+        prefix_cache=args.prefix_cache,
         settings=DecodeSettings(parallel_threshold=args.parallel_threshold),
         device=args.device)
-    rng = np.random.default_rng(0)
-    prompts = [rng.integers(0, cfg.vocab_size - 1,
-                            int(rng.integers(6, 18))).astype(np.int32)
-               for _ in range(args.requests)]
-    for prompt in prompts:
-        engine.submit(prompt, args.gen_len)
-    engine.run()
+    _run_offline(engine, args)
     _summarize(engine)
     for req in engine.done[:3]:
         print(f"  req {req.uid}: out={req.output[:10]}...")
     return 0
+
+
+def _run_offline(engine, args) -> None:
+    """Serve ``--requests`` random prompts.  With the prefix index, the
+    first half are distinct prompts served one at a time (a cold request
+    publishes only if the pool has a run's worth of pages to spare, which
+    it rarely has beside a full batch), then the rest repeat them
+    together, with one repeat held back and submitted at priority 5 after
+    two engine steps (preemption on a full pool), and the last served
+    alone."""
+    cfg = engine.cfg
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size - 1,
+                            int(rng.integers(6, 18))).astype(np.int32)
+               for _ in range(args.requests)]
+    if engine.prefix is None or args.requests < 2:
+        for prompt in prompts:
+            engine.submit(prompt, args.gen_len)
+        engine.run()
+        return
+    uniq = prompts[: args.requests // 2]
+    wall = 0.0
+    for prompt in uniq:
+        engine.submit(prompt, args.gen_len)
+        engine.run()
+        wall += engine._wall
+    repeats = [uniq[(i + 1) % len(uniq)]
+               for i in range(args.requests - len(uniq))]
+    churn, late = repeats[:-1], []
+    if len(churn) > 1:
+        churn, late = churn[:-1], [churn[-1]]
+
+    def on_step(e):
+        if late and e.stats.steps >= 2:
+            e.submit(late.pop(), args.gen_len, priority=5)
+
+    for prompt in churn:
+        engine.submit(prompt, args.gen_len)
+    engine.run(on_step=on_step)
+    wall += engine._wall
+    while late:                  # the churn finished before step 2
+        engine.submit(late.pop(), args.gen_len, priority=5)
+        engine.run()
+        wall += engine._wall
+    engine.submit(repeats[-1], args.gen_len)
+    engine.run()
+    engine._wall += wall
 
 
 def _summarize(engine) -> None:
@@ -145,6 +193,13 @@ def _summarize(engine) -> None:
               f"{stats.steady_pool_util:.1%} of {engine.pool.capacity} "
               f"pages, {stats.preemptions} preemptions, "
               f"{stats.admission_stalls} admission stalls")
+    if engine.prefix is not None:
+        print(f"prefix: {stats.prefix_hits} hits ({stats.prefix_full_hits} "
+              f"full), {stats.prefix_tokens_saved} prefill rows saved, "
+              f"{stats.prefix_published} pages published "
+              f"({stats.prefix_publish_skipped} skipped), "
+              f"{stats.prefix_evicted_pages} evicted, "
+              f"{engine.prefix.held_pages} held")
 
 
 if __name__ == "__main__":

@@ -30,10 +30,25 @@ their canvas + commit-ring snapshot is requeued at the front.  A resumed
 request re-prefills its cache from the snapshot, which equals a periodic
 refresh at the resume step.
 
-``cancel(uid)`` aborts a queued or running request and releases its
-slot and pages.
+Prefix reuse (``prefix_cache=True``, paged mode): a
+:class:`~repro_torch.serving.prefix.PrefixIndex` maps (row span, strategy,
+prompt token runs) to refcounted page runs holding PREFILL-TIME states.
+Admission consults the index: a full hit attaches every page and runs no
+prefill forward; a partial hit attaches the matched prefix read-only and
+prefills only the unmatched suffix (``decoding.prefill_partial``).  The
+session copies attached pages into the request's own reserve pages right
+before its first cache write (copy-on-write), so index pages never change.
+Cold requests publish their prefill pages (a page copy, skipped when the
+pool is short) into the index at admission, before the first step:
+states taken at harvest have evolved with the decode and would break the
+bit-exactness of full hits.  Under admission pressure, least-recently used
+index entries with no readers are evicted before any running request is
+preempted.
 
-The prefix cache, the host-RAM tier, fault injection and supervision, SLO
+``cancel(uid)`` aborts a queued or running request and releases its
+slot, pages and prefix read holds.
+
+The host-RAM tier, fault injection and supervision, SLO
 scheduling, telemetry, profiling and the streaming front end wait for
 later slices: their constructor arguments raise ``NotImplementedError``.
 So does a model with recurrent layers (the RG-LRU hybrid): serving it in
@@ -44,6 +59,7 @@ there.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from collections import deque
 from typing import Callable, Dict, List, Optional, Tuple
@@ -55,17 +71,19 @@ from repro_torch.configs.base import ATTENTION_KINDS, ModelConfig
 from repro_torch.core.cache import PagedCache, n_logical_pages
 from repro_torch.core.strategy import CacheStrategy, resolve_strategy
 from repro_torch.device import DeviceLike, check_device, resolve_device
-from repro_torch.dlm.decoding import DecodeSettings
+from repro_torch.dlm.decoding import (DecodeSettings,
+                                      partial_prefill_supported)
 from repro_torch.dlm.scheduler import UnmaskScheduler, resolve_scheduler
-from repro_torch.dlm.session import DecodeSession
+from repro_torch.dlm.session import DecodeSession, SharedPrefix
 from repro_torch.serving.pool import OutOfPages, PagePool
+from repro_torch.serving.prefix import PrefixIndex
 
 # (settings, strategy, scheduler): one DecodeSession per distinct key.
 LaneKey = Tuple[DecodeSettings, CacheStrategy, UnmaskScheduler]
 
 # Constructor arguments of the engine parts that wait for later slices,
 # with the value that means "off".
-_LATER = {"prefix_cache": False, "host_pages": 0, "host_dtype": "auto",
+_LATER = {"host_pages": 0, "host_dtype": "auto",
           "slo_policy": None, "fault_plan": None, "supervise": False,
           "supervisor_cfg": None, "telemetry": None, "profiler": None}
 
@@ -88,6 +106,13 @@ class Request:
     row_len: int = 0                # page-aligned prompt + gen span
     n_pages: int = 0                # composite pages needed
     pages: Optional[List[int]] = None
+    # shared-prefix attachment: read holds on index pages mapped at logical
+    # [0, shared_n); pages[:shared_n] is the copy-on-write reserve.  The
+    # holds go at copy-on-write (or at harvest, preemption or cancel)
+    holds: Optional[List[int]] = None
+    shared_n: int = 0
+    shared_full: bool = False       # the hit covers the whole row span
+    plan_epoch: Optional[int] = None  # index epoch the plan was made at
     preemptions: int = 0
     served_steps: int = 0           # per-request max_steps budget
     snapshot: Optional[Dict[str, np.ndarray]] = None  # preemption resume
@@ -110,6 +135,13 @@ class EngineStats:
     swaps: int = 0                  # mid-loop slot replacements
     preemptions: int = 0            # running requests evicted for pages
     admission_stalls: int = 0       # admission attempts blocked on pages
+    # shared-prefix index
+    prefix_hits: int = 0            # admissions that attached index pages
+    prefix_full_hits: int = 0       # ... covering the whole row span
+    prefix_tokens_saved: int = 0    # canvas rows NOT prefilled
+    prefix_published: int = 0       # pages copied into the index
+    prefix_publish_skipped: int = 0  # publications dropped (pool short)
+    prefix_evicted_pages: int = 0   # index pages evicted under pressure
     requests_canceled: int = 0
     peak_pool_util: float = 0.0
     steady_pool_util: float = 0.0
@@ -141,6 +173,7 @@ class ServingEngine:
                  scheduler: Optional[UnmaskScheduler] = None,
                  continuous: bool = True,
                  pool_pages: int = 0, page_size: int = 16,
+                 prefix_cache: bool = False,
                  clock: Optional[Callable[[], float]] = None,
                  device: DeviceLike = None, **later):
         for name, value in later.items():
@@ -169,11 +202,19 @@ class ServingEngine:
         self.paged = pool_pages > 0
         self.page_size = page_size
         self.pool: Optional[PagePool] = None
+        self.prefix: Optional[PrefixIndex] = None
         if self.paged:
             n_logical_pages(canvas_len, page_size)  # divisibility check
             self.pool = PagePool(cfg, n_pages=pool_pages,
                                  page_size=page_size,
                                  strategy=self.strategy, device=self.device)
+            if prefix_cache:
+                self.prefix = PrefixIndex(page_size)
+        # partial (suffix-only) reuse needs a window-free all-attention
+        # stack and a float cache; full hits are a page copy
+        self._partial_ok = (partial_prefill_supported(cfg)
+                            and cfg.cache_dtype != "int8")
+        self._prefix_epoch = 0        # bumps on every index mutation
         self.queue: deque[Request] = deque()
         self.done: List[Request] = []
         self.stats = EngineStats()
@@ -253,6 +294,7 @@ class ServingEngine:
         for r in list(self.queue):
             if r.uid == uid:
                 self.queue.remove(r)
+                self._drop_plan(r)
                 r.canceled = True
                 self._finalize_canceled(r)
                 return True
@@ -263,9 +305,11 @@ class ServingEngine:
         return False
 
     def _finalize_canceled(self, req: Request) -> None:
-        if self.paged and req.pages:
-            self.pool.free(req.pages)
-            req.pages = None
+        if self.paged:
+            self._release_holds(req)
+            if req.pages:
+                self.pool.free(req.pages)
+                req.pages = None
         req.completed_at = self._now()
         self._running.pop(req.uid, None)
         self._admission_dirty = True   # a slot/pages may have freed
@@ -317,6 +361,144 @@ class ServingEngine:
                                      key=lambda ir: (-ir[1].priority, ir[0]))]
 
     # ------------------------------------------------------------------
+    # Shared-prefix index
+    # ------------------------------------------------------------------
+
+    def _prompt_in_canvas(self, req: Request) -> np.ndarray:
+        """The prompt tokens that land on the canvas (the index key
+        describes the canvas, not the raw request)."""
+        return req.prompt[: self.canvas_len - req.gen_len]
+
+    def _prefix_key(self, req: Request):
+        return (req.row_len, req.lane[1].prefix_key())
+
+    def _prefix_plan(self, req: Request) -> None:
+        """Consult the index for an admission candidate: on a hit, take read
+        holds on the matched pages, to be mapped at the row's logical
+        prefix with ``req.pages[:shared_n]`` as the copy-on-write reserve.
+        Runs BEFORE the shortage check, so the holds protect the matched
+        entry from this admission's own index eviction; a stalled candidate
+        releases them again.  Resumed requests never match: their canvas
+        holds committed tokens the publisher prefilled as [MASK]."""
+        self._drop_plan(req)    # releases stale holds, never leaks them
+        if (self.prefix is None or req.preemptions > 0
+                or not req.n_pages):
+            return
+        match = self.prefix.lookup(self._prefix_key(req),
+                                   self._prompt_in_canvas(req),
+                                   partial_ok=self._partial_ok)
+        if match is None:
+            return
+        self.pool.retain(list(match.pages))
+        req.holds = list(match.pages)
+        req.shared_n = match.n_pages
+        req.shared_full = match.full
+
+    def _plan(self, req: Request) -> None:
+        """Plan ``req`` unless its plan was made at the current index epoch
+        (the plan made while the last step ran on the card)."""
+        if req.plan_epoch != self._prefix_epoch:
+            self._prefix_plan(req)
+            req.plan_epoch = self._prefix_epoch
+
+    def _plan_ahead(self, lane: LaneKey) -> None:
+        """Plan the lane's next admission candidate on the host while the
+        step just launched runs on the card (``_admit_one`` reuses it)."""
+        if self.prefix is not None and self._admission_dirty:
+            for req in self._lane_candidates(lane)[:1]:
+                if req.n_pages:
+                    self._plan(req)
+
+    def _drop_plan(self, req: Request) -> None:
+        self._release_holds(req)
+        req.shared_n, req.shared_full = 0, False
+        req.plan_epoch = None
+
+    def _release_holds(self, req: Request) -> None:
+        if req.holds:
+            self.pool.release(req.holds)
+            req.holds = None
+
+    def _count_prefix_hit(self, req: Request) -> None:
+        """Admission succeeded: count the planned hit."""
+        if not req.holds:
+            return
+        self.stats.prefix_hits += 1
+        if req.shared_full:
+            self.stats.prefix_full_hits += 1
+            self.stats.prefix_tokens_saved += req.row_len
+        else:
+            self.stats.prefix_tokens_saved += req.shared_n * self.page_size
+
+    def _attach_spec(self, req: Request, row: int):
+        """(page-table row, SharedPrefix or None) for one slot."""
+        if not req.holds:
+            return self._pt_row(req), None
+        m = req.shared_n
+        spec = SharedPrefix(row=row, pages=tuple(req.holds),
+                            reserve=tuple(req.pages[:m]))
+        return (self.pool.page_table_row(req.holds + req.pages[m:],
+                                         self.canvas_len), spec)
+
+    def _on_cow(self, slots: List[Optional[Request]], specs) -> None:
+        """The session copied shared pages on write: drop the read holds,
+        the rows now run on their own pages."""
+        for s in specs:
+            req = slots[s.row]
+            if req is not None:
+                self._release_holds(req)
+
+    def _maybe_publish(self, req: Request, sess: DecodeSession) -> None:
+        """Publish an attached request's prefill-time pages into the index,
+        at admission, before the first step writes them (harvest-time
+        states would break the bit-exactness of full hits).  A cold
+        request publishes its whole run (prompt path + all-[MASK] tail), a
+        partial hit only the depths past its match.  A page copy pays for
+        it; skipped when the pool has no slack."""
+        if self.prefix is None or req.preemptions > 0 or not req.n_pages:
+            return
+        n_run = req.row_len // self.page_size
+        m = req.shared_n if req.holds else 0
+        if m >= n_run:
+            return                       # full hit: already indexed
+        key = self._prefix_key(req)
+        prompt = self._prompt_in_canvas(req)
+        # duplicate prompts admitted together all plan before the first
+        # publishes: copy only the depths the index would adopt
+        missing = [d for d in self.prefix.missing_slots(key, prompt, n_run)
+                   if d >= m]
+        if not missing:
+            return
+        pub = self.pool.alloc(len(missing))
+        if pub is None:
+            self.stats.prefix_publish_skipped += 1
+            return
+        sess.copy_cache_pages([req.pages[d] for d in missing], pub)
+        pages: List[Optional[int]] = [None] * n_run
+        for d, p in zip(missing, pub):
+            pages[d] = p
+        rejected = self.prefix.insert(key, prompt, pages)
+        if rejected:
+            self.pool.release(rejected)
+        self.stats.prefix_published += len(pub) - len(rejected)
+        self._prefix_epoch += 1       # planned misses may now hit
+
+    def drop_prefix_cache(self) -> int:
+        """Release every index hold and clear the trie.  Returns the pages
+        released."""
+        if self.prefix is None:
+            return 0
+        self._prefix_epoch += 1
+        return self.prefix.clear(self.pool)
+
+    def _evict_index(self, n_pages: int) -> int:
+        freed = self.prefix.evict(self.pool, n_pages)
+        if freed:
+            self.stats.prefix_evicted_pages += freed
+            self._prefix_epoch += 1
+        return freed
+
+    # ------------------------------------------------------------------
     # Admission control + preemption
     # ------------------------------------------------------------------
 
@@ -328,6 +510,8 @@ class ServingEngine:
         snap = sess.snapshot_rows([slot])
         victim.snapshot = {k: v[0] for k, v in snap.items()}
         sess.release_rows([slot])
+        self._release_holds(victim)      # un-copied shared pages go back
+        victim.shared_n = 0
         if self.paged:
             self.pool.free(victim.pages or [])
         victim.pages = None
@@ -345,10 +529,12 @@ class ServingEngine:
         running requests are preempted, lowest priority first and most
         recently started first within a priority, until the candidate
         fits; if they cannot cover it the candidate stalls and the next
-        candidate gets a chance.  Returns the admitted request (popped from
-        the queue, pages allocated) or None.  ``protected`` slots were
-        admitted this swap round and have no session state yet, so they
-        are never victims."""
+        candidate gets a chance.  With the prefix index, a page shortage
+        first evicts reader-less index entries, but only when that (with
+        the preemptible victims) can admit the candidate.  Returns the
+        admitted request (popped from the queue, pages allocated) or None.
+        ``protected`` slots were admitted this swap round and have no
+        session state yet, so they are never victims."""
         stalled = False
         for req in self._lane_candidates(lane):
             slot_free = any(s is None for s in slots)
@@ -358,21 +544,35 @@ class ServingEngine:
                 self.queue.remove(req)
                 self._running[req.uid] = req
                 return req
+            # plan the prefix hit FIRST: its read holds protect the
+            # matched entry from this admission's own index eviction
+            self._plan(req)
             page_short = (max(0, req.n_pages - self.pool.available)
                           if req.n_pages else 0)
-            if page_short or not slot_free:
-                if sess is None:
-                    stalled = True
-                    continue
+            victims = []
+            if sess is not None:
                 victims = sorted(
                     ((i, r) for i, r in enumerate(slots)
                      if r is not None and i not in protected
                      and r.priority < req.priority),
                     key=lambda ir: (ir[1].priority,
                                     -(ir[1].started_at or 0.0)))
-                freeable = sum(len(r.pages or []) for _, r in victims)
-                if (self.pool.available + freeable < req.n_pages
+            freeable = sum(len(r.pages or []) for _, r in victims)
+            if page_short and self.prefix is not None:
+                # evict before preempting, and never for a candidate that
+                # stalls anyway (that would trade future hits for nothing)
+                feasible = (
+                    (slot_free or victims)
+                    and self.pool.available + freeable
+                    + self.prefix.evictable_total(self.pool)
+                    >= req.n_pages)
+                if feasible and self._evict_index(page_short):
+                    page_short = max(0, req.n_pages - self.pool.available)
+            if page_short or not slot_free:
+                if (sess is None
+                        or self.pool.available + freeable < req.n_pages
                         or (not slot_free and not victims)):
+                    self._drop_plan(req)
                     stalled = True
                     continue        # a smaller/later candidate may fit
                 for i, r in victims:
@@ -384,6 +584,7 @@ class ServingEngine:
             assert pages is not None, "admission checked the free pages"
             self.queue.remove(req)
             req.pages = pages
+            self._count_prefix_hit(req)
             self._running[req.uid] = req
             return req
         if stalled:
@@ -428,9 +629,11 @@ class ServingEngine:
                 self.stats.tpot_latencies.append(
                     (req.last_commit_at - req.first_token_at)
                     / (req.tokens_done - 1))
-        if self.paged and req.pages:
-            self.pool.free(req.pages)
-            req.pages = None
+        if self.paged:
+            self._release_holds(req)
+            if req.pages:
+                self.pool.free(req.pages)
+                req.pages = None
         self._running.pop(req.uid, None)
         self.done.append(req)
         self.stats.requests_done += 1
@@ -479,6 +682,7 @@ class ServingEngine:
         pt = np.zeros((b, n_log), np.int32)
         p_lens = [0] * b
         ages = [0] * b                 # max_steps budget is PER REQUEST
+        shared: List[SharedPrefix] = []
         for i, req in enumerate(batch):
             row, act, com, p_len = self._canvas_row(req)
             tokens[i], active[i] = row, act
@@ -489,14 +693,19 @@ class ServingEngine:
             ages[i] = req.served_steps
             kv[i] = req.row_len
             if self.paged and strategy.uses_cache:
-                pt[i] = self._pt_row(req)
+                pt[i], spec = self._attach_spec(req, i)
+                if spec is not None:
+                    shared.append(spec)
             if req.started_at is None:
                 req.started_at = now
         if self.paged:
+            sess.cow_callback = functools.partial(self._on_cow, slots)
             arenas = (self.pool.arenas_for(strategy)
                       if strategy.uses_cache else None)
             sess.attach(tokens, active=active, kv_len=kv, arenas=arenas,
-                        page_table=pt)
+                        page_table=pt, shared=shared or None)
+            for req in batch:
+                self._maybe_publish(req, sess)
         else:
             sess.attach(tokens, active=active)
         if (committed0 != -1).any():
@@ -505,6 +714,7 @@ class ServingEngine:
 
         while any(s is not None for s in slots):
             info = sess.step()
+            self._plan_ahead(lane)    # host work while the step runs
             self.stats.steps += 1
             if self.paged:
                 self.pool.note_step()
@@ -550,6 +760,7 @@ class ServingEngine:
                     sess.release_rows(finished + dead)
             swap_rows, swap_tokens, swap_active = [], [], []
             swap_kv, swap_pt, swap_com = [], [], []
+            swap_shared: List[SharedPrefix] = []
             while self.continuous:
                 # fill every empty slot (and let _admit_one MAKE one by
                 # preempting a lower-priority row) until admission stalls
@@ -569,9 +780,13 @@ class ServingEngine:
                 swap_tokens.append(row)
                 swap_active.append(act)
                 swap_kv.append(req.row_len)
-                swap_pt.append(self._pt_row(req)
-                               if self.paged and strategy.uses_cache
-                               else [0] * n_log)
+                if self.paged and strategy.uses_cache:
+                    pt_row, spec = self._attach_spec(req, i)
+                    swap_pt.append(pt_row)
+                    if spec is not None:
+                        swap_shared.append(spec)
+                else:
+                    swap_pt.append([0] * n_log)
                 swap_com.append(com if com is not None else np.full(
                     (committed0.shape[1],), -1, np.int32))
             self._admission_dirty = False
@@ -582,7 +797,10 @@ class ServingEngine:
                         np.stack(swap_active),
                         row_kv_len=np.asarray(swap_kv, np.int32),
                         row_page_table=np.asarray(swap_pt, np.int32),
-                        row_committed=np.stack(swap_com))
+                        row_committed=np.stack(swap_com),
+                        row_shared=swap_shared or None)
+                    for i in swap_rows:
+                        self._maybe_publish(slots[i], sess)
                 else:
                     sess.replace_rows(swap_rows, np.stack(swap_tokens),
                                       np.stack(swap_active))

@@ -7,11 +7,13 @@ single-threaded because the suite runs under several xdist workers.
 import dataclasses
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import torch
 
 from repro_torch import configs as tconfigs
 from repro_torch import weights
+from repro_torch.dlm.scheduler import Draws
 
 
 def port_cfg(cfg):
@@ -54,7 +56,6 @@ def decode_both(cfg, params, prompt, gen, jstrat, tstrat, *, backend=None,
     JAX ``DecodeSession.run`` (XlaBackend) and the port's (CPU), with the
     same weights and proxies (``max_steps`` steps at most).  Returns (JAX tokens, JAX info, JAX cache as
     numpy, port tokens as numpy, port info, port session)."""
-    import jax.numpy as jnp
     from repro.dlm.session import DecodeSession as JSession
     from repro_torch.dlm.session import DecodeSession as TSession
     from repro_torch.kernels.backend import TORCH_BACKEND
@@ -75,6 +76,45 @@ def decode_both(cfg, params, prompt, gen, jstrat, tstrat, *, backend=None,
             t_info, ts)
 
 
+class ReplayDraws(Draws):
+    """Recorded draws handed out in order, whatever their kind; a draw
+    whose shape differs from the request raises."""
+
+    def __init__(self, draws):
+        self.draws = list(draws)
+        self.used = 0
+
+    def _next(self, shape, device):
+        out = torch.tensor(self.draws[self.used], dtype=torch.float32,
+                           device=device)
+        self.used += 1
+        assert tuple(out.shape) == tuple(shape), (out.shape, shape)
+        return out
+
+    uniform = gumbel = _next
+
+
+def jax_draws(name, seed, steps, b, c, v):
+    """The draws the JAX decode makes from PRNGKey(seed): per step the
+    state's key splits into (next, step); temperature splits the step key
+    into (k_pos, k_tok) and draws Gumbel noise for the tokens [B, C, V]
+    and the positions [B, C]; random_order draws a uniform [B, C] from
+    the step key.  In the order the port's schedulers ask for them."""
+    key = jax.random.PRNGKey(seed)
+    out = []
+    for _ in range(steps):
+        key, step = jax.random.split(key)
+        if name == "temperature":
+            k_pos, k_tok = jax.random.split(step)
+            out.append(np.asarray(jax.random.gumbel(k_tok, (b, c, v),
+                                                    jnp.float32)))
+            out.append(np.asarray(jax.random.gumbel(k_pos, (b, c),
+                                                    jnp.float32)))
+        else:
+            out.append(np.asarray(jax.random.uniform(step, (b, c))))
+    return out
+
+
 def assert_caches_close(j_cache, t_cache):
     """The same buffers; float ones within rtol/atol 1e-4 (f32 sums in
     another order, ~1e-6 after a decode), int8 codes within 1."""
@@ -93,6 +133,22 @@ def assert_caches_close(j_cache, t_cache):
                                            err_msg=f"{kind}/{name}")
 
 
+def engine_pair(cfg, params, strategies, **kw):
+    """The JAX engine and the port's (CPU) on the same weights, both
+    scoring with the JAX strategy's proxies (when it builds any), with the
+    same engine arguments.  Returns (JAX engine, port engine)."""
+    from repro.serving.engine import ServingEngine as JEngine
+    from repro_torch.serving.engine import ServingEngine as TEngine
+    jeng = JEngine(cfg, params, strategy=strategies[0], **kw)
+    tcfg = port_cfg(cfg)
+    teng = TEngine(tcfg, port_params(params, tcfg), strategy=strategies[1],
+                   device="cpu", **kw)
+    jprox = jeng._proxies_for(jeng.strategy)
+    if jprox is not None:
+        teng._proxies[teng.strategy] = port_proxies(jprox, tcfg)
+    return jeng, teng
+
+
 def serve_both(cfg, params, requests, *, strategies, on_step=None, **kw):
     """Serve the same requests through the JAX engine and the port's.
 
@@ -101,8 +157,6 @@ def serve_both(cfg, params, requests, *, strategies, on_step=None, **kw):
     submit)`` may submit more through ``submit(prompt, gen_len, priority)``
     at the same engine step in both runs.  The port engine scores with the
     JAX engine's singular proxies.  Returns (JAX engine, port engine)."""
-    from repro.serving.engine import ServingEngine as JEngine
-    from repro_torch.serving.engine import ServingEngine as TEngine
 
     def run(engine):
         for prompt, gen, prio in requests:
@@ -115,33 +169,36 @@ def serve_both(cfg, params, requests, *, strategies, on_step=None, **kw):
         engine.run(on_step=hook)
         return engine
 
-    jeng = run(JEngine(cfg, params, strategy=strategies[0], **kw))
-    tcfg = port_cfg(cfg)
-    teng = TEngine(tcfg, port_params(params, tcfg), strategy=strategies[1],
-                   device="cpu", **kw)
-    jprox = jeng._proxies.get(jeng.strategy)
-    if jprox is not None:
-        teng._proxies[teng.strategy] = port_proxies(jprox, tcfg)
-    return jeng, run(teng)
+    jeng, teng = engine_pair(cfg, params, strategies, **kw)
+    return run(jeng), run(teng)
 
 
 ENGINE_STATS = ("steps", "swaps", "preemptions", "requests_done",
                 "admission_stalls")
+PREFIX_STATS = ("prefix_hits", "prefix_full_hits", "prefix_tokens_saved",
+                "prefix_published", "prefix_publish_skipped",
+                "prefix_evicted_pages")
 
 
 def assert_engines_match(jeng, teng):
-    """Identical outputs for every uid, equal engine counters, and (paged)
-    a drained pool on both sides."""
+    """Identical outputs for every uid, equal engine counters (with a
+    prefix index, its counters too and the same held pages), and (paged)
+    a pool drained down to the index's holds on both sides."""
     j_out = {r.uid: np.asarray(r.output) for r in jeng.done}
     t_out = {r.uid: np.asarray(r.output) for r in teng.done}
     assert sorted(j_out) == sorted(t_out)
     for uid, out in j_out.items():
         np.testing.assert_array_equal(t_out[uid], out, err_msg=f"uid {uid}")
-    for name in ENGINE_STATS:
+    names = ENGINE_STATS + (PREFIX_STATS if teng.prefix is not None else ())
+    for name in names:
         assert getattr(teng.stats, name) == getattr(jeng.stats, name), name
     if teng.pool is not None:
-        assert teng.pool.available == teng.pool.capacity
-        assert jeng.pool.available == jeng.pool.capacity
+        held = 0
+        if teng.prefix is not None:
+            held = teng.prefix.held_pages
+            assert held == jeng.prefix.held_pages
+        assert teng.pool.used == held
+        assert jeng.pool.used == held
     return t_out
 
 

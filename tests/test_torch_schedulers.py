@@ -32,8 +32,8 @@ from repro.dlm import decoding as jdecoding
 from repro.dlm import scheduler as jsched
 from repro.models import transformer as jt
 
-from _torch_parity import (assert_caches_close, decode_both, port_cfg,
-                           port_params, port_proxies)
+from _torch_parity import (ReplayDraws, assert_caches_close, decode_both,
+                           jax_draws, port_cfg, port_params, port_proxies)
 from repro_torch.core.strategy import SPACache as TSPACache
 from repro_torch.dlm import decoding as tdecoding
 from repro_torch.dlm import scheduler as tsched
@@ -72,45 +72,6 @@ def _strategies():
 def _pair(name):
     kw = SCHEDULERS[name]
     return (jsched.SCHEDULERS[name](**kw), tsched.SCHEDULERS[name](**kw))
-
-
-class ReplayDraws(tsched.Draws):
-    """Recorded draws handed out in order, whatever their kind; a draw
-    whose shape differs from the request raises."""
-
-    def __init__(self, draws):
-        self.draws = list(draws)
-        self.used = 0
-
-    def _next(self, shape, device):
-        out = torch.tensor(self.draws[self.used], dtype=torch.float32,
-                           device=device)
-        self.used += 1
-        assert tuple(out.shape) == tuple(shape), (out.shape, shape)
-        return out
-
-    uniform = gumbel = _next
-
-
-def jax_draws(name, seed, steps, b, c, v):
-    """The draws the JAX decode makes from PRNGKey(seed): per step the
-    state's key splits into (next, step); temperature splits the step key
-    into (k_pos, k_tok) and draws Gumbel noise for the tokens [B, C, V]
-    and the positions [B, C]; random_order draws a uniform [B, C] from
-    the step key.  In the order the port's schedulers ask for them."""
-    key = jax.random.PRNGKey(seed)
-    out = []
-    for _ in range(steps):
-        key, step = jax.random.split(key)
-        if name == "temperature":
-            k_pos, k_tok = jax.random.split(step)
-            out.append(np.asarray(jax.random.gumbel(k_tok, (b, c, v),
-                                                    jnp.float32)))
-            out.append(np.asarray(jax.random.gumbel(k_pos, (b, c),
-                                                    jnp.float32)))
-        else:
-            out.append(np.asarray(jax.random.uniform(step, (b, c))))
-    return out
 
 
 @pytest.mark.parametrize("name", sorted(SCHEDULERS))
