@@ -91,7 +91,7 @@ Phases (each asserts; any failure exits non-zero):
    identical tokens, bf16 in lockstep (strict);
 9. the hybrid main path: RecurrentGemma-9B (38 layers, bf16, random
    weights), B=2, prompt 16128 + gen 256, ``DecodeSession.run`` with
-   ``SPACache`` and ``CudaBackend`` for 32 steps (hidden states finite;
+   ``SPACache`` and ``CudaBackend`` for 16 steps (hidden states finite;
    the banded grid, the dense grid and rglru_scan launched, counted per
    step), a profiled window, then NoCache steps (SPA/NoCache on wall and
    device time);
@@ -123,12 +123,42 @@ Phases (each asserts; any failure exits non-zero):
    every request finishes with no [MASK] left; prints hits, the prefill
    device ms of an admitted row (cold, suffix-only), the copy-on-write
    and publication copies a page, engine ms per step, TTFT and e2e
-   percentiles and generated tokens/s.
+   percentiles and generated tokens/s;
+13. the dense configs at full width, each after a 2-layer parity of
+   ``CudaBackend`` and ``TorchBackend`` (f32 free-running with identical
+   tokens, an int8 cache's codes within 1; bf16 in lockstep): Dream-7B (28
+   layers, B=4, prompt 256 + gen 256, GQA 28/4, r=32), Gemma2-2B (26
+   layers, local and global, softcaps, post-norms, head_dim 256) and
+   H2O-Danube3-4B (24 layers, sliding window, head_dim 120) at B=2, prompt
+   7936 + gen 256 (their 8192 context; the 4096 window masks keys but
+   leaves no band), DeepSeek-67B cut to 16 of 95 layers (int8 cache, GQA
+   64/8) at B=4, prompt 256 + gen 256; random bf16 weights, each config's
+   own ``spa``, 16 SPA then 4 NoCache steps: hidden states finite, every
+   kernel of the path launched, the dense attention grid once a layer at
+   prefill and a step and no banded call, a step whose windows mask some
+   (query, key) pairs; ms a step, device ms and busy share over 4 SPA
+   steps, the per-layer k and launches a step; weights freed between
+   configs;
+14. the host-RAM page tier under the prefix index, after phase 12 on the
+   same weights: (a) a 2-layer full-width f32 LLaDA through
+   ``ServingEngine`` (canvas 64, pool 13 pages of 16, host tier f32):
+   promoted pages bitwise what their demotion read, the repeats' tokens
+   those of an engine that never evicts, an int8 round trip on the card
+   within max|row|/254 plus the f16 scale's cast, every host slot
+   corrupted before the repeats raising on its checksum and served cold,
+   both tiers leak-free and emptied by ``drop_prefix_cache``; (b) LLaDA-8B
+   on the JAX serving benchmark's host-tier traffic scaled 16x in tokens
+   (8 requests, prompt 64-176, gen 64-256, waves of 2 slots, canvas 512,
+   60 pages of 16, host budget the prefix set's pages, 16 steps a
+   request), a warm then a measured pass with the tier off, at f32 and at
+   auto: more full hits with the tier on; prints the tier's counters and
+   each demotion's and promotion's copy, checksum and quantization times
+   (host and device) and copy rate, and ms per engine step.
 
 Phase 3 also times ``scatter_pages`` beside one ``index_put_`` of the
 whole view (``arena[:, pt] = dense``), its library call.
 
-Every profiled window (phases 5, 6, 7, 9, 11) prints each kernel group's
+Every profiled window (phases 5, 6, 7, 9, 11, 13) prints each kernel group's
 device ms a step, calls a step and device us a call.
 
 The last lines are the kernels' JSON record (each kernel's launches are
@@ -1623,6 +1653,23 @@ def _cache_rel_diff(got, want) -> float:
     return worst
 
 
+def _dequantized(cache):
+    """An int8 cache's values: each int8 buffer times its ``_scale``
+    buffer, in f32 (the scales dropped); a float cache as it is.  Two
+    backends may round one bf16 value to codes several apart where their
+    row maxima (the scales) differ by an ulp; the values stay close."""
+    out = {}
+    for kind, bufs in cache.items():
+        out[kind] = {}
+        for nm, t in bufs.items():
+            scale = bufs.get(nm + "_scale")
+            if nm.endswith("_scale") and nm[:-6] in bufs:
+                continue
+            out[kind][nm] = (t if scale is None
+                             else t.float() * scale.float()[..., None])
+    return out
+
+
 @contextlib.contextmanager
 def oracle_launches_nothing(label: str, active: bool = True):
     """Around the ``TorchBackend`` side of a comparison: no kernel wrapper
@@ -1637,32 +1684,88 @@ def oracle_launches_nothing(label: str, active: bool = True):
         assert not moved, f"{label}: the TorchBackend side launched {moved}"
 
 
-def decode_parity(torch, cache_tol: float, setup, strat, label: str):
+def decode_parity(torch, cache_tol: float, setup, strat, label: str,
+                  quantized: bool = False):
     """f32: a whole decode through ``CudaBackend`` and ``TorchBackend``;
     tokens and step counts must be identical, and every cache buffer must
-    agree within ``cache_tol`` of its largest value."""
+    agree within ``cache_tol`` of its largest value.  ``quantized`` (an
+    int8 cache): the int8 codes within 1 instead, the f16 scales within
+    2^-10 (one f16 ulp) and the float buffers (the identifiers) of the
+    first layer within ``cache_tol``: they are projected from the
+    embeddings, which no int8 buffer touched.  Later layers project rows of
+    the layer before's int8 H^c, where a code apart moves a row by its
+    scale; their float buffers are held to 2^-7 (one int8 step) of their
+    largest value.  A control decode whose identifier projection is
+    rounded to bf16 must then break the first layer's limit."""
     from repro_torch.dlm.session import DecodeSession
 
     cfg, params, _, proxies, prompt = setup
     proxies = proxies if strat.uses_proxy_mat else None
-    out = {}
-    for name in ("cuda", "torch"):
+
+    def decode(name):
         with oracle_launches_nothing(label, name == "torch"):
             sess = DecodeSession(params, cfg, strategy=strat, backend=name,
                                  spa_proxies=proxies)
             sess.prefill(prompt, 16)
             toks, info = sess.run()
             torch.cuda.synchronize()
-        out[name] = (toks.cpu(), info["steps"], sess.state.cache)
+        return toks.cpu(), info["steps"], sess.state.cache
+
+    def floats(cache, first_only=False):
+        """The float buffers of an int8 cache (the first layer's alone)."""
+        return {k: {n: t[:1] if first_only else t for n, t in b.items()
+                    if t.dtype != torch.int8 and not n.endswith("_scale")}
+                for k, b in cache.items()
+                if not first_only or k == cfg.layer_kinds[0]}
+
+    out = {name: decode(name) for name in ("cuda", "torch")}
     n_diff = int((out["cuda"][0] != out["torch"][0]).sum())
     assert n_diff == 0, \
         f"{label} float32: CudaBackend and TorchBackend differ in " \
         f"{n_diff} tokens"
     assert out["cuda"][1] == out["torch"][1], f"{label}: step counts differ"
-    worst = _cache_rel_diff(out["cuda"][2], out["torch"][2])
+    got, want = out["cuda"][2], out["torch"][2]
+    if quantized:
+        codes = max(max_err(t, want[k][n]) for k, b in got.items()
+                    for n, t in b.items() if t.dtype == torch.int8)
+        scales = _cache_rel_diff(
+            *({k: {n: t for n, t in b.items() if n.endswith("_scale")}
+               for k, b in c.items()} for c in (got, want)))
+        first = _cache_rel_diff(floats(got, True), floats(want, True))
+        print(f"  {label} float32: int8 codes within {codes:g}, f16 scales "
+              f"within {scales:.3e} of their largest value, first layer's "
+              f"identifiers within {first:.3e}")
+        assert codes <= 1, f"{label}: int8 codes differ by {codes}"
+        assert scales <= 2 ** -10, f"{label}: scales differ by {scales}"
+        assert first <= cache_tol, \
+            f"{label}: first layer's identifiers differ by {first}"
+        got, want = floats(got), floats(want)
+    worst = _cache_rel_diff(got, want)
     print(f"  {label} float32: tokens identical, steps {out['cuda'][1]}, "
           f"max cache diff {worst:.3e} of the buffer's largest value")
-    assert worst <= cache_tol, f"{label}: cache buffers differ by {worst}"
+    assert worst <= (2 ** -7 if quantized else cache_tol), \
+        f"{label}: cache buffers differ by {worst}"
+    if quantized:
+        from repro_torch.kernels import proxy_score as ps
+        exact = ps.proxy_score
+
+        def rounded(x, mat, p_cached, **kw):
+            scores, p_now = exact(x, mat, p_cached, **kw)
+            return scores, p_now.to(torch.bfloat16).to(p_now.dtype)
+
+        ps.proxy_score = rounded
+        try:
+            ctl = decode("cuda")[2]
+        finally:
+            ps.proxy_score = exact
+        first = _cache_rel_diff(floats(ctl, True), floats(out["torch"][2],
+                                                          True))
+        whole = _cache_rel_diff(floats(ctl), want)
+        print(f"  {label} control, identifier projection rounded to bf16: "
+              f"first layer's identifiers {first:.3e} (limit "
+              f"{cache_tol:g}), all float buffers {whole:.3e}")
+        assert first > cache_tol, \
+            f"{label}: the first layer's limit misses a bf16 projection"
     del out
 
 
@@ -1672,8 +1775,9 @@ def lockstep_parity(torch, logit_tol: float, cache_tol: float, setup,
     ``CudaBackend``, and before every step ``TorchBackend`` is given a copy
     of the CUDA session's state and takes the same step.  From the same
     state, the step's candidate logits must agree within ``logit_tol`` and
-    every cache buffer within ``cache_tol`` of its largest value, and the
-    step's tokens must be identical.  A free-running bf16 pair is not
+    every cache buffer (an int8 one by its dequantized values) within
+    ``cache_tol`` of its largest value, and the step's tokens must be
+    identical.  A free-running bf16 pair is not
     compared token for token: the one-ulp differences of each call pile up
     in the caches over the steps, and with random weights the bf16
     confidences over the 126k vocabulary tie at the ulp, so a later step
@@ -1739,7 +1843,8 @@ def lockstep_parity(torch, logit_tol: float, cache_tol: float, setup,
         with oracle_launches_nothing(label, name == "torch"):
             s.prefill(prompt, 16)
     a, b = sess["cuda"], sess["torch"]
-    prefill_diff = _cache_rel_diff(a.state.cache, b.state.cache)
+    prefill_diff = _cache_rel_diff(_dequantized(a.state.cache),
+                                   _dequantized(b.state.cache))
     logit_diff = cache_diff = margin = 0.0
     flips = steps = 0
     while not a.done:
@@ -1757,7 +1862,8 @@ def lockstep_parity(torch, logit_tol: float, cache_tol: float, setup,
         logit_diff = max(logit_diff, float(
             (la - lb).abs()[finite].max() / lb.abs()[finite].max()))
         cache_diff = max(cache_diff,
-                         _cache_rel_diff(a.state.cache, b.state.cache))
+                         _cache_rel_diff(_dequantized(a.state.cache),
+                                         _dequantized(b.state.cache)))
         flips += int(not torch.equal(a.state.tokens, b.state.tokens))
     torch.cuda.synchronize()
     assert steps == 16, f"{label} bf16 lockstep took {steps} steps"
@@ -3082,22 +3188,614 @@ def probed_admissions(torch, engine, prompts, cfg, params, strat, proxies):
     del probe
 
 
-ALL_PHASES = tuple(range(3, 13))
+# ---------------------------------------------------------------------------
+# Phase 13: the dense configs at full width (Dream-7B, Gemma2-2B,
+# H2O-Danube3-4B, DeepSeek-67B cut by depth)
+# ---------------------------------------------------------------------------
+
+# name, layers run (DeepSeek-67B: 16 of 95, about 25 GB in bf16), batch,
+# prompt (the windowed models fill their 8192-token context)
+DENSE = (("dream-7b", 28, 4, 256), ("gemma2-2b", 26, 2, 8192 - 256),
+         ("h2o-danube-3-4b", 24, 2, 8192 - 256), ("deepseek-67b", 16, 4, 256))
+DENSE_GEN = 256
+DENSE_SPA_STEPS = 16
+DENSE_NOCACHE_STEPS = 4
+DENSE_KERNELS = ("proxy_score", "gather_norm", "sparse_attention",
+                 "scatter_update_multi")
+
+
+def _dense_setup(torch, name: str, dtype: str):
+    """A 2-layer, full-width copy of a dense config (Gemma2: one local and
+    one global layer), its proxies and a prompt: B=2 of 8192 - 16 rows for
+    the windowed models (the window masks keys), else B=4 of 48."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.strategy import SPACache
+    from repro_torch.models import transformer
+
+    cfg = dataclasses.replace(get_arch(name), n_layers=2, param_dtype=dtype)
+    params = transformer.init_params(cfg, seed=7)
+    strat = SPACache.from_spec(cfg.spa)
+    proxies = strat.build_proxies(params, cfg)
+    windowed = any(transformer.layer_window(cfg, k) for k in cfg.layer_kinds)
+    b, p_len = (2, 8192 - 16) if windowed else (4, 48)
+    gen = torch.Generator().manual_seed(3)
+    prompt = torch.randint(0, cfg.vocab_size - 1, (b, p_len), generator=gen)
+    return cfg, params, strat, proxies, prompt
+
+
+def dense_parity(torch, name: str):
+    """A dense config at 2 layers and full width through ``CudaBackend`` and
+    ``TorchBackend``: f32 free-running (identical tokens; an int8 cache's
+    codes within 1 and its f16 scales within 2^-10 of their largest value,
+    other buffers within 1e-5), bf16 in lockstep within 2^-5."""
+    setup = _dense_setup(torch, name, "float32")
+    quantized = setup[0].cache_dtype == "int8"
+    decode_parity(torch, 1e-5, setup, setup[2], f"{name} singular",
+                  quantized=quantized)
+    del setup
+    torch.cuda.empty_cache()
+    setup = _dense_setup(torch, name, "bfloat16")
+    lockstep_parity(torch, 2 ** -5, 2 ** -5, setup, setup[2],
+                    f"{name} singular")
+    del setup
+    torch.cuda.empty_cache()
+
+
+class WindowProbe:
+    """While entered, records the query positions of every windowed
+    ``sparse_attention`` call, to count the (query, key) pairs its window
+    masks."""
+
+    def __init__(self):
+        self.calls = []          # (q_pos [B, kq], n keys, window)
+
+    def __enter__(self):
+        from repro_torch.kernels import sparse_attention as sa
+        self._orig = sa.sparse_attention
+        probe = self
+
+        def attention(q, k, v, q_pos, **kw):
+            if kw.get("window", 0) > 0:
+                probe.calls.append((q_pos.clone(), k.shape[1], kw["window"]))
+            return probe._orig(q, k, v, q_pos, **kw)
+
+        sa.sparse_attention = attention
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import sparse_attention as sa
+        sa.sparse_attention = self._orig
+
+    def masked_pairs(self):
+        """(masked pairs, all pairs) over the recorded calls (every row's
+        keys valid: the decode runs full-length rows)."""
+        masked = total = 0
+        for pos, n, window in self.calls:
+            p = pos.long()
+            lo = (p - window).clamp(min=0)
+            hi = (p + window).clamp(max=n - 1)
+            masked += int((n - (hi - lo + 1)).sum())
+            total += pos.numel() * n
+        return masked, total
+
+
+def dense_main_path(torch, name: str, layers: int, b: int, p_len: int):
+    """Phase 13, one config: random bf16 weights (``layers`` of its depth),
+    its own ``spa``, ``DecodeSession`` with ``CudaBackend`` and the
+    confidence scheduler, B = ``b``, prompt ``p_len`` + gen 256:
+    ``DENSE_SPA_STEPS`` SPA steps, then ``DENSE_NOCACHE_STEPS`` NoCache
+    steps.  Asserts finite hidden states, every kernel of the path
+    launched, the dense attention grid once a layer at prefill and a step
+    (no banded call: at 8192 rows a window of 4096 leaves no band), and for
+    windowed models a step whose windows mask some (query, key) pairs.
+    Prints ms a step, device ms and busy share over 4 SPA steps, the
+    per-layer k and launches a step."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import spa_layer
+    from repro_torch.core.strategy import NoCache, SPACache
+    from repro_torch.dlm.session import DecodeSession
+    from repro_torch.kernels import _lib
+    from repro_torch.models import transformer
+
+    full = get_arch(name)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    n = p_len + DENSE_GEN
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=0)
+    strat = SPACache.from_spec(cfg.spa)
+    proxies = strat.build_proxies(params, cfg)
+    torch.cuda.synchronize()
+    windowed = sorted({k for k in cfg.layer_kinds
+                       if transformer.layer_window(cfg, k)})
+    print(f"  {name}: {layers} of {full.n_layers} layers "
+          f"({cfg.param_count() / 1e9:.2f} B parameters, bf16, cache "
+          f"{cfg.cache_dtype}), d={cfg.d_model}, {cfg.n_heads} q heads on "
+          f"{cfg.n_kv_heads} kv heads of {cfg.head_dim}, r={cfg.spa.rank}, "
+          f"B={b}, N={n}"
+          + (f", window {cfg.window} on {windowed}" if windowed else "")
+          + f"; weights and proxies {time.perf_counter() - t0:.2f} s")
+    print(f"    per-layer k: {spa_layer.layer_ks(cfg, strat, n)}")
+    gen = torch.Generator().manual_seed(17)
+    prompt = torch.randint(0, cfg.vocab_size - 1, (b, p_len), generator=gen)
+
+    _lib.reset_launch_counts()
+    sess = DecodeSession(params, cfg, strategy=strat, backend="cuda",
+                         spa_proxies=proxies)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sess.prefill(prompt, DENSE_GEN)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    at_prefill = _lib.launch_counts()
+    t0 = time.perf_counter()
+    _, info = sess.run(DENSE_SPA_STEPS)
+    torch.cuda.synchronize()
+    t_run = time.perf_counter() - t0
+    launches = _lib.launch_counts()
+    steps = info["steps"]
+    assert steps == DENSE_SPA_STEPS, f"{name} ran {steps} steps"
+    assert bool(sess.last_info["row_finite"].all()), f"{name}: non-finite"
+    for kname in DENSE_KERNELS:
+        assert launches[kname] > 0, f"{name}: kernel {kname} never launched"
+    per_step = {k: (launches[k] - at_prefill[k]) / steps
+                for k in launches if launches[k]}
+    assert at_prefill["sparse_attention"] == layers, at_prefill
+    assert per_step["sparse_attention"] == layers, per_step
+    assert launches["sparse_attention_banded"] == 0, "a banded grid ran"
+    committed = int((sess.state.tokens[:, p_len:] != cfg.mask_id).sum())
+    spa_ms = t_run / steps * 1e3
+    print(f"    SPA: prefill {t_prefill:.3f} s, {steps} steps in "
+          f"{t_run:.3f} s, {spa_ms:.2f} ms/step; committed {committed} of "
+          f"{b * DENSE_GEN} slots")
+    print(f"    launches at prefill: "
+          f"{ {k: at_prefill[k] for k in at_prefill if at_prefill[k]} }; per "
+          f"step: {per_step}; attention: the dense grid, {layers} calls at "
+          f"prefill and a step, no banded call")
+    if windowed:
+        with WindowProbe() as probe:
+            sess.step()
+        masked, total = probe.masked_pairs()
+        print(f"    one step's windowed attention: {len(probe.calls)} calls,"
+              f" {masked} of {total} (query, key) pairs masked by the "
+              f"window")
+        assert masked > 0, f"{name}: the window masked nothing"
+    spa_wall, spa_dev = profile_steps(torch, sess.step, 4, f"{name} SPA")
+    del sess
+    torch.cuda.empty_cache()
+
+    base = DecodeSession(params, cfg, strategy=NoCache(), backend="cuda")
+    base.prefill(prompt, DENSE_GEN, use_cache=False)
+    base.step()
+    torch.cuda.synchronize()
+    before = _lib.launch_counts()
+    t0 = time.perf_counter()
+    for _ in range(DENSE_NOCACHE_STEPS):
+        base.step()
+    torch.cuda.synchronize()
+    base_ms = (time.perf_counter() - t0) / DENSE_NOCACHE_STEPS * 1e3
+    attn = (_lib.launch_counts()["sparse_attention"]
+            - before["sparse_attention"]) / DENSE_NOCACHE_STEPS
+    assert attn == layers, f"{name} NoCache: {attn} attention calls a step"
+    assert bool(base.last_info["row_finite"].all())
+    print(f"    NoCache: {base_ms:.2f} ms/step over {DENSE_NOCACHE_STEPS} "
+          f"steps ({attn:g} dense-grid attention calls a step, kq = N); "
+          f"SPA/NoCache wall {spa_ms / base_ms:.3f}"
+          + (f"; SPA device {spa_dev:.2f} ms/step" if spa_dev else ""))
+    del base, params, proxies
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dense_configs(torch):
+    """Phase 13: for each dense config its 2-layer parity, then its main
+    path; the weights are freed between configs."""
+    for name, layers, b, p_len in DENSE:
+        t0 = time.perf_counter()
+        print(f"  {name}: 2-layer full-width parity (CudaBackend vs "
+              "TorchBackend)")
+        dense_parity(torch, name)
+        dense_main_path(torch, name, layers, b, p_len)
+        print(f"    {name}: {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# Phase 14: the host-RAM page tier under the prefix index, at full width
+# ---------------------------------------------------------------------------
+
+# the JAX serving benchmark's host-tier traffic (benchmarks/bench_serving.py:
+# _hier_workload, seed 29) scaled x16 in tokens: 8 distinct requests of
+# prompt 64-176 and gen 64-256, in waves of 2 slots drained in between; a
+# canvas of 512 and 60 pages of 16 (the bench's 15 pages of 4 at canvas 32)
+HIER = dict(requests=8, slots=2, canvas=512, pool=60, scale=16)
+HIER_STEPS = 16           # engine steps a request (publication is at admission)
+HIER_RUNS = (("tier off", None), ("tier on, f32", "f32"),
+             ("tier on, auto", "auto"))
+# 14(a): 2-layer full-width f32 LLaDA, canvas 64, pages of 16, 2 slots
+HIER_SMALL = dict(canvas=64, prompt=40, gen=16, slots=2, pool=13)
+
+
+def hier_traffic(cfg, scale: int):
+    """The JAX bench's ``_hier_workload`` draws, lengths times ``scale``."""
+    import numpy as np
+    rng = np.random.default_rng(29)
+    out = []
+    for _ in range(HIER["requests"]):
+        p_len = int(rng.integers(4, 12)) * scale
+        gen = int(rng.integers(4, 17)) * scale
+        out.append((rng.integers(0, cfg.vocab_size - 1, p_len)
+                    .astype(np.int32), gen))
+    return out
+
+
+def hier_waves(engine, reqs, slots: int, max_steps: int):
+    for i in range(0, len(reqs), slots):
+        for prompt, gen in reqs[i:i + slots]:
+            engine.submit(prompt, gen)
+        engine.run(max_steps=max_steps)
+
+
+def hier_reset(engine):
+    engine.done.clear()
+    engine.stats = type(engine.stats)()
+    engine.pool.reset_telemetry()
+    if engine.host_pool is not None:
+        engine.host_pool.reset_telemetry()
+
+
+class TierProbe:
+    """While entered, times the host tier's stages: per demotion and
+    promotion (``TierManager.demote`` / ``promote``, which set the current
+    operation), the growth of the pinned arenas (``HostPagePool._entry``),
+    the copies (``HostPagePool.store`` into pinned slots, with its wait,
+    its growth included; ``HostPagePool.load`` out of them; the engine's
+    arena write), the checksums and the int8 quantization (and
+    dequantization).  Host
+    time from ``perf_counter``; device time from CUDA events around each
+    stage, read when the probe closes."""
+
+    STAGES = ("alloc", "copy", "checksum", "quantize")
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.op = None
+        self.host = {}           # (op, stage) -> seconds
+        self.events = []         # (op, stage, start, end)
+        self.bytes = {"demotion": 0, "promotion": 0}
+        self.ops = {"demotion": 0, "promotion": 0}
+        self.pages = {"demotion": 0, "promotion": 0}
+
+    def _wrap(self, stage, fn, count_bytes=None):
+        probe, torch = self, self.torch
+
+        def wrapper(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            key = (probe.op, stage)
+            probe.host[key] = probe.host.get(key, 0.0) + (
+                time.perf_counter() - t0)
+            end.record()
+            probe.events.append((probe.op, stage, start, end))
+            if count_bytes is not None:
+                probe.bytes[probe.op] += count_bytes(a, kw, out)
+            return out
+
+        return wrapper
+
+    def _op(self, name, fn):
+        probe = self
+
+        def wrapper(tier, refs_or_pages, *a, **kw):
+            outer, probe.op = probe.op, name
+            try:
+                out = probe._wrap("total", fn)(tier, refs_or_pages, *a, **kw)
+            finally:
+                probe.op = outer
+            if name == "promotion" or out is not None:
+                probe.ops[name] += 1
+                probe.pages[name] += len(refs_or_pages)
+            return out
+
+        return wrapper
+
+    def __enter__(self):
+        from repro_torch.serving import hier
+        from repro_torch.serving.engine import ServingEngine
+
+        def nbytes(blocks):
+            return sum(t.numel() * t.element_size()
+                       for bufs in blocks.values() for t in bufs.values())
+
+        self._saved = [
+            (hier.HostPagePool, "store", hier.HostPagePool.store),
+            (hier.HostPagePool, "_entry", hier.HostPagePool._entry),
+            (hier.HostPagePool, "load", hier.HostPagePool.load),
+            (hier.HostPagePool, "checksum", hier.HostPagePool.checksum),
+            (hier, "_quantize_blocks", hier._quantize_blocks),
+            (hier, "_dequantize_blocks", hier._dequantize_blocks),
+            (hier.TierManager, "demote", hier.TierManager.demote),
+            (hier.TierManager, "promote", hier.TierManager.promote),
+            (ServingEngine, "_tier_write", ServingEngine._tier_write)]
+        o = {n: f for _, n, f in self._saved}
+        hier.HostPagePool.store = self._wrap(
+            "copy", o["store"], lambda a, kw, out: nbytes(a[4]))
+        hier.HostPagePool.load = self._wrap(
+            "copy", o["load"], lambda a, kw, out: nbytes(out))
+        hier.HostPagePool.checksum = self._wrap("checksum", o["checksum"])
+        hier.HostPagePool._entry = self._wrap("alloc", o["_entry"])
+        hier._quantize_blocks = self._wrap("quantize", o["_quantize_blocks"])
+        hier._dequantize_blocks = self._wrap("quantize",
+                                             o["_dequantize_blocks"])
+        hier.TierManager.demote = self._op("demotion", o["demote"])
+        hier.TierManager.promote = self._op("promotion", o["promote"])
+        probe = self
+
+        def tier_write(engine, sig, pages, blocks):
+            outer, probe.op = probe.op, "promotion"
+            try:
+                return probe._wrap("copy", o["_tier_write"])(
+                    engine, sig, pages, blocks)
+            finally:
+                probe.op = outer
+
+        ServingEngine._tier_write = tier_write
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+    def report(self, label: str) -> None:
+        self.torch.cuda.synchronize()
+        dev = {}
+        for op, stage, start, end in self.events:
+            dev[(op, stage)] = dev.get((op, stage), 0.0) + \
+                start.elapsed_time(end)
+        for op in ("demotion", "promotion"):
+            if not self.ops[op]:
+                print(f"    {label}: no {op}")
+                continue
+            n = self.ops[op]
+            parts = ", ".join(
+                f"{stage} {self.host.get((op, stage), 0.0) * 1e3 / n:.3f} / "
+                f"{dev.get((op, stage), 0.0) / n:.3f}"
+                for stage in self.STAGES)
+            copy_ms = dev.get((op, "copy"), 0.0) - dev.get((op, "alloc"), 0.0)
+            rate = (self.bytes[op] / (copy_ms * 1e-3) / 1e9
+                    if copy_ms > 0 else 0.0)
+            print(f"    {label}: {n} {op}s of {self.pages[op]} pages "
+                  f"({self.bytes[op] / 1e6:.1f} MB through the host tier); "
+                  f"ms a {op}, host / device: total "
+                  f"{self.host.get((op, 'total'), 0.0) * 1e3 / n:.3f} / "
+                  f"{dev.get((op, 'total'), 0.0) / n:.3f}, {parts} (copy "
+                  f"includes alloc and, for a promotion, the arena write); "
+                  f"copies {rate:.2f} GB/s")
+
+
+def hier_serving(torch, cfg, params, strat, proxies):
+    """Phase 14(b): LLaDA-8B through ``ServingEngine(prefix_cache=True)``
+    on the host-tier traffic (``HIER``), each request cut at
+    ``HIER_STEPS`` steps: for the tier off, on at f32 and on at auto, a
+    warm pass, then (statistics reset, as the JAX bench does) a measured
+    pass under ``TierProbe``.  Prints hits and full hits, pages evicted,
+    demoted, dropped and promoted, promotions and stalls, peak host use,
+    each demotion's and promotion's stages and ms per engine step.
+    Asserts more full hits with the tier on than off, and both tiers
+    holding exactly what the index refers to."""
+    from repro_torch.serving.engine import ServingEngine
+
+    c = HIER
+    reqs = hier_traffic(cfg, c["scale"])
+    host_pages = sum(-(-(len(p) + g) // PAGE) for p, g in reqs)
+    print(f"  traffic: {len(reqs)} requests, prompts "
+          f"{sorted(len(p) for p, _ in reqs)}, gens "
+          f"{sorted(g for _, g in reqs)}; prefix set {host_pages} pages, "
+          f"pool {c['pool']} pages of {PAGE} rows "
+          f"({cfg.n_layers * PAGE * (3 * cfg.d_model + cfg.spa.rank) * 2 / 1e6:.1f}"
+          f" MB a page), {c['slots']} slots")
+    full = {}
+    for label, host_dtype in HIER_RUNS:
+        engine = ServingEngine(
+            cfg, params, max_batch=c["slots"], canvas_len=c["canvas"],
+            strategy=strat, pool_pages=c["pool"], page_size=PAGE,
+            prefix_cache=True, host_pages=host_pages if host_dtype else 0,
+            host_dtype=host_dtype or "auto")
+        engine._proxies[engine.strategy] = proxies
+        if engine.host_pool is not None:
+            assert engine.host_pool.pin, "host arenas not pinned"
+        hier_waves(engine, reqs, c["slots"], HIER_STEPS)
+        warm = engine.stats
+        hier_reset(engine)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with TierProbe(torch) as probe:
+            hier_waves(engine, reqs, c["slots"], HIER_STEPS)
+            torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        st = engine.stats
+        assert st.requests_done == len(reqs)
+        assert engine.pool.used == engine.prefix.held_pages, "pool leak"
+        if engine.host_pool is not None:
+            assert (engine.host_pool.used_pages
+                    == engine.prefix.host_held_pages), "host tier leak"
+        full[label] = st.prefix_full_hits
+        print(f"  {label}: {st.prefix_hits} hits ({st.prefix_full_hits} "
+              f"full), {st.prefix_evicted_pages} pages evicted, "
+              f"{st.prefix_demoted_pages} demoted, {st.prefix_dropped_pages}"
+              f" dropped, {st.prefix_promoted_pages} promoted in "
+              f"{st.prefix_promotions} promotions ({st.promotion_stalls} "
+              f"stalls), peak host use {st.peak_host_util:.3f}; "
+              f"{st.steps} engine steps, {wall / st.steps * 1e3:.2f} ms per "
+              f"engine step (warm pass: {warm.prefix_full_hits} full hits, "
+              f"{warm.prefix_demoted_pages} pages demoted, "
+              f"{warm.prefix_promoted_pages} promoted)")
+        probe.report(label)
+        del engine
+        torch.cuda.empty_cache()
+    assert full["tier on, f32"] > full["tier off"], full
+    assert full["tier on, auto"] > full["tier off"], full
+
+
+def hier_exactness(torch):
+    """Phase 14(a): a 2-layer, full-width f32 LLaDA through ``ServingEngine``
+    (canvas 64, pages of 16, 2 slots, a pool of 13 pages, the host tier at
+    f32): four requests published alone, two more admitted together (their
+    admission evicts, so index entries demote), then the first two again.
+    Asserts: every page an f32 promotion writes equals, bit for bit, what
+    its demotion read; the repeats decode the tokens of an engine whose
+    pool never evicts; an int8 round trip of index pages on the card stays
+    within max|row|/254 plus the f16 scale's cast; with every host slot
+    corrupted before the repeats, promotions raise ``HostPageCorruption``
+    and are served cold with the same tokens, and after a drain both tiers
+    hold exactly what the index refers to and ``drop_prefix_cache`` empties
+    both."""
+    import numpy as np
+    from repro_torch.core import cache as cache_lib
+    from repro_torch.serving import hier
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.pool import cache_signature
+
+    cfg, params, strat, proxies, _ = _parity_setup(torch, "float32")
+    c = HIER_SMALL
+    rng = np.random.default_rng(31)
+    prompts = [rng.integers(0, cfg.vocab_size - 1, c["prompt"])
+               .astype(np.int32) for _ in range(4)]
+    waves = [[0], [1], [2, 3], [0], [1]]
+
+    def serve(pool, host_pages, corrupt=False, watch=False):
+        engine = ServingEngine(cfg, params, max_batch=c["slots"],
+                               canvas_len=c["canvas"], strategy=strat,
+                               pool_pages=pool, page_size=PAGE,
+                               prefix_cache=True, host_pages=host_pages,
+                               host_dtype="f32")
+        engine._proxies[engine.strategy] = proxies
+        checked = []
+        if watch:
+            tier = engine.tier
+            read, demote, promote = tier.read_pages, tier.demote, tier.promote
+            last, saved = {}, {}
+
+            def read_pages(sig, pages):
+                blocks = read(sig, pages)
+                last["b"] = {k: {n: t.clone() for n, t in b.items()}
+                             for k, b in blocks.items()}
+                return blocks
+
+            def demote_(pages, exact_in=True):
+                refs = demote(pages, exact_in)
+                for i, r in enumerate(refs or ()):
+                    saved[r] = {k: {n: t[:, i] for n, t in b.items()}
+                                for k, b in last["b"].items()}
+                return refs
+
+            def promote_(refs):
+                sig, blocks = promote(refs)
+                for i, r in enumerate(refs):
+                    for k, bufs in saved.pop(r).items():
+                        for n, want in bufs.items():
+                            assert torch.equal(blocks[k][n][:, i], want), \
+                                f"promoted {k}/{n} differs"
+                            checked.append(n)
+                return sig, blocks
+
+            tier.read_pages, tier.demote, tier.promote = (
+                read_pages, demote_, promote_)
+        for i, wave in enumerate(waves):
+            if corrupt and i == 3:
+                refs = engine.prefix._host_refs()
+                assert refs, "nothing demoted before the repeats"
+                for r in refs:
+                    engine.host_pool.corrupt_slot(r.sig, r.repr_, r.slot)
+            for j in wave:
+                engine.submit(prompts[j], c["gen"])
+            engine.run()
+        torch.cuda.synchronize()
+        outs = [r.output for r in sorted(engine.done, key=lambda r: r.uid)]
+        return engine, outs, checked
+
+    n_log = c["canvas"] // PAGE
+    ref, ref_out, _ = serve(1 + 16 * n_log, 0)
+    st = ref.stats
+    assert st.prefix_evicted_pages == 0 and st.prefix_full_hits == 2, st
+    tiered, out, checked = serve(c["pool"], 4 * n_log, watch=True)
+    st = tiered.stats
+    print(f"  tiered (pool {c['pool']}): {st.prefix_hits} hits "
+          f"({st.prefix_full_hits} full), {st.prefix_demoted_pages} pages "
+          f"demoted, {st.prefix_promoted_pages} promoted; {len(checked)} "
+          f"promoted buffers bitwise what their demotion read")
+    assert st.prefix_promotions > 0 and checked, "no promotion"
+    assert st.prefix_full_hits == 2, st
+    same = sum(int((a == b).all()) for a, b in zip(out, ref_out))
+    print(f"  tokens equal to the never-evicting engine: {same} of "
+          f"{len(out)} requests")
+    assert same == len(out), "a promoted full hit decoded other tokens"
+    assert tiered.pool.used == tiered.prefix.held_pages
+    assert tiered.host_pool.used_pages == tiered.prefix.host_held_pages
+
+    # int8 round trip of the never-evicting engine's index pages, on the card
+    sig = cache_signature(cfg, ref.strategy)
+    arenas = ref.pool.peek_arenas(sig)
+    pages = ref.prefix.device_pages()[:4]
+    orig = cache_lib.read_arena_pages(arenas, pages)
+    tier8 = hier.TierManager(
+        hier.HostPagePool(8, device="cuda"), host_dtype="int8",
+        read_pages=lambda s, p: cache_lib.read_arena_pages(arenas, p),
+        device="cuda")
+    tier8.note_published(sig, pages, None)
+    refs = tier8.demote(pages)
+    assert refs and all(r.repr_ == "int8" and not r.exact for r in refs)
+    _, back = tier8.promote(refs)
+    worst = 0.0
+    for kind, bufs in orig.items():
+        for name, x in bufs.items():
+            xf = x.float()
+            scale = torch.clamp(xf.abs().amax(-1, keepdim=True) / 127.0,
+                                min=1e-8)
+            bound = (scale * 0.5 + 127 * torch.clamp(scale * 2.0 ** -11,
+                                                     min=2.0 ** -24) + 1e-7)
+            err = (back[kind][name].float() - xf).abs()
+            assert bool((err <= bound).all()), f"int8 {kind}/{name}"
+            worst = max(worst, float((err / bound).max()))
+    print(f"  int8 round trip of {len(pages)} index pages: largest error "
+          f"{worst:.3f} of its bound (max|row|/254 + the f16 scale's cast)")
+
+    bad, bad_out, _ = serve(c["pool"], 4 * n_log, corrupt=True)
+    st = bad.stats
+    same = sum(int((a == b).all()) for a, b in zip(bad_out, ref_out))
+    print(f"  corrupted host slots: {st.host_checksum_failures} checksum "
+          f"failures, {st.cold_prefill_fallbacks} served cold, "
+          f"{st.prefix_promotions} promotions; tokens equal to the "
+          f"never-evicting engine: {same} of {len(bad_out)}")
+    assert st.host_checksum_failures > 0
+    assert st.cold_prefill_fallbacks == st.host_checksum_failures
+    assert same == len(bad_out), "a cold fallback decoded other tokens"
+    assert bad.pool.used == bad.prefix.held_pages, "pool leak"
+    assert bad.host_pool.used_pages == bad.prefix.host_held_pages
+    bad.drop_prefix_cache()
+    assert bad.pool.used == 0 and bad.host_pool.used_pages == 0
+    assert bad.host_pool.used_units == 0
+    del ref, tiered, bad, params, proxies
+    torch.cuda.empty_cache()
+
+
+ALL_PHASES = tuple(range(3, 15))
 
 
 def parse_phases(argv) -> tuple:
-    """``--phases 3,6,7`` runs only those of phases 3-12 (the card line and
+    """``--phases 3,6,7`` runs only those of phases 3-14 (the card line and
     the build always run) and prints no result line: for development
     calls and for comparing two trees' kernels in one call.  Without it,
     every phase runs."""
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
-                    help="comma-separated subset of phases 3-12")
+                    help="comma-separated subset of phases 3-14")
     phases = tuple(sorted({int(p) for p in ap.parse_args(argv).phases
                            .split(",") if p}))
     if not phases or not set(phases) <= set(ALL_PHASES):
-        ap.error(f"phases must lie in 3-12, got {phases}")
+        ap.error(f"phases must lie in 3-14, got {phases}")
     return phases
 
 
@@ -3131,9 +3829,9 @@ def main(argv=None) -> int:
     if 4 in phases:
         decode_parity_phase(torch)
     launches = base = lanes = served = {}
-    if {5, 6, 7, 12} & set(phases):
+    if {5, 6, 7, 12, 14} & set(phases):
         print(f"LLaDA-8B (bf16, B=4, prompt 256 + gen {GEN_LEN}; phases "
-              f"5-7 and 12)")
+              f"5-7, 12 and 14)")
         cfg, params, strat, proxies = llada_setup(torch)
         if 5 in phases:
             print(f"main path (LLaDA-8B bf16, B=4, prompt 256 + gen "
@@ -3177,8 +3875,30 @@ def main(argv=None) -> int:
                   f"{c['gen']}; {card})")
             prefix_serving(torch, cfg, params, strat, proxies)
             print(f"  phase 12: {time.perf_counter() - t0:.1f} s")
+        if 14 in phases:        # shares LLaDA-8B's weights and proxies
+            t0 = time.perf_counter()
+            c = HIER_SMALL
+            print(f"host tier exactness (2-layer full-width f32 LLaDA "
+                  f"through ServingEngine, canvas {c['canvas']}, pages of "
+                  f"{PAGE}, pool {c['pool']}, host tier f32)")
+            hier_exactness(torch)
+            c = HIER
+            print(f"host tier serving (LLaDA-8B bf16 through ServingEngine "
+                  f"with the prefix index, canvas {c['canvas']}, pool "
+                  f"{c['pool']} pages of {PAGE}, {c['slots']} slots, "
+                  f"{HIER_STEPS} steps a request; tier off, f32, auto; "
+                  f"{card})")
+            hier_serving(torch, cfg, params, strat, proxies)
+            print(f"  phase 14: {time.perf_counter() - t0:.1f} s")
         del cfg, params, strat, proxies
         torch.cuda.empty_cache()
+    if 13 in phases:
+        t0 = time.perf_counter()
+        print(f"dense configs at full width (bf16, CudaBackend, each "
+              f"config's spa, {DENSE_SPA_STEPS} SPA + {DENSE_NOCACHE_STEPS}"
+              f" NoCache steps; {card})")
+        dense_configs(torch)
+        print(f"  phase 13: {time.perf_counter() - t0:.1f} s")
     hybrid = mamba = {}
     if 8 in phases:
         print("hybrid decode parity (3-layer full-width RecurrentGemma, "

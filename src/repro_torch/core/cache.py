@@ -173,6 +173,41 @@ def copy_arena_pages(arenas: Dict[str, Dict[str, torch.Tensor]],
     return arenas
 
 
+def read_arena_pages(arenas: Dict[str, Dict[str, torch.Tensor]],
+                     pages: List[int]) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Gather whole physical pages out of every buffer of every arena:
+    blocks ``{kind: {name: [Lk, n, page, ...]}}`` with ``n == len(pages)``
+    (the host tier's demotion read), fresh tensors on the arenas' device,
+    queued behind every write already on the stream."""
+    if not pages:
+        return {}
+    dev = next(iter(next(iter(arenas.values())).values())).device
+    idx = torch.as_tensor(list(pages), dtype=torch.long, device=dev)
+    return {kind: {name: arena[:, idx] for name, arena in bufs.items()}
+            for kind, bufs in arenas.items()}
+
+
+def write_arena_pages(arenas: Dict[str, Dict[str, torch.Tensor]],
+                      pages: List[int], blocks
+                      ) -> Dict[str, Dict[str, torch.Tensor]]:
+    """Scatter page blocks (``{kind: {name: [Lk, n, page, ...]}}``, the
+    layout :func:`read_arena_pages` returns, in any float dtype) into
+    physical pages of every arena buffer, in place, cast to the arena's
+    dtype (the host tier's promotion write).  Returns ``arenas``."""
+    if not pages:
+        return arenas
+    dev = next(iter(next(iter(arenas.values())).values())).device
+    idx = torch.as_tensor(list(pages), dtype=torch.long, device=dev)
+    for kind, bufs in arenas.items():
+        for name, arena in bufs.items():
+            b = blocks[kind][name]
+            if b.shape[1] != len(pages):
+                raise ValueError(f"{kind}/{name}: {b.shape[1]} blocks for "
+                                 f"{len(pages)} pages")
+            arena[:, idx] = b.to(device=dev, dtype=arena.dtype)
+    return arenas
+
+
 def paged_step_view(pc: PagedCache, backend=None
                     ) -> Dict[str, Dict[str, torch.Tensor]]:
     """Per-step compute view of a paged cache: every buffer except the

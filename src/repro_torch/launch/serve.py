@@ -10,10 +10,12 @@ initialized reduced model (the offline path of the JAX package's
 the shared-prefix cache is on unless ``--no-prefix-cache`` is given; with
 it, half the requests are distinct prompts served one by one (each
 publishes its prefill pages) and the rest repeat them, so the summary's
-prefix line shows hits.  Flags of the engine parts that wait for later
-slices of the port (host tier, online front end, SLO policy, faults,
-telemetry, profiling, checkpoints) are accepted by the parser and exit with
-an error that names them.
+prefix line shows hits.  ``--host-pages N`` adds the host-RAM page tier
+under the prefix index (``--host-dtype`` f32, int8 or auto), and the
+summary's tier line counts demotions, drops and promotions.  Flags of the
+engine parts that wait for later slices of the port (online front end, SLO
+policy, faults, telemetry, profiling, checkpoints) are accepted by the
+parser and exit with an error that names them.
 """
 from __future__ import annotations
 
@@ -30,8 +32,7 @@ from repro_torch.models import transformer
 from repro_torch.serving.engine import ServingEngine
 
 # flag -> the value that leaves it off; any other value is an error
-_LATER_FLAGS = {"ckpt": "", "host_pages": 0,
-                "host_dtype": "auto", "serve": False, "slo_ttft": 0.0,
+_LATER_FLAGS = {"ckpt": "", "serve": False, "slo_ttft": 0.0,
                 "slo_deadline": 0.0, "client": "", "supervise": False,
                 "chaos_seed": -1, "trace_out": "", "metrics": False,
                 "profile": False, "jax_trace_dir": ""}
@@ -72,9 +73,15 @@ def main(argv=None):
                          "and canvas layout (paged mode only; default on)")
     ap.add_argument("--no-prefix-cache", dest="prefix_cache",
                     action="store_false")
-    ap.add_argument("--host-pages", type=int, default=0)
+    ap.add_argument("--host-pages", type=int, default=0,
+                    help="host-RAM page tier under the prefix index, its "
+                         "budget in exact pages: evicted entries demote "
+                         "there and promote back on a hit; 0 = off")
     ap.add_argument("--host-dtype", default="auto",
-                    choices=["auto", "f32", "int8"])
+                    choices=["auto", "f32", "int8"],
+                    help="host tier representation: f32 = promotions "
+                         "bit-identical; int8 = about twice the pages; "
+                         "auto = int8 for stable pages only")
     ap.add_argument("--serve", action="store_true")
     ap.add_argument("--port", type=int, default=8411)
     ap.add_argument("--slo-ttft", type=float, default=0.0)
@@ -92,8 +99,8 @@ def main(argv=None):
                for name, off in _LATER_FLAGS.items()
                if getattr(args, name) != off]
     if waiting:
-        ap.error(f"{', '.join(waiting)}: not ported yet (the host tier, "
-                 f"online front end, SLO policy, faults, telemetry, "
+        ap.error(f"{', '.join(waiting)}: not ported yet (the online front "
+                 f"end, SLO policy, faults, telemetry, "
                  f"profiling and checkpoints wait for later slices of the "
                  f"port)")
 
@@ -112,8 +119,8 @@ def main(argv=None):
         cfg, params, max_batch=args.max_batch, canvas_len=args.canvas,
         strategy=strategy, continuous=not args.static_batching,
         pool_pages=args.pool_pages, page_size=args.page_size,
-        prefix_cache=args.prefix_cache,
-        settings=DecodeSettings(parallel_threshold=args.parallel_threshold),
+        prefix_cache=args.prefix_cache, host_pages=args.host_pages,
+        host_dtype=args.host_dtype, settings=DecodeSettings(parallel_threshold=args.parallel_threshold),
         device=args.device)
     _run_offline(engine, args)
     _summarize(engine)
@@ -200,6 +207,16 @@ def _summarize(engine) -> None:
               f"({stats.prefix_publish_skipped} skipped), "
               f"{stats.prefix_evicted_pages} evicted, "
               f"{engine.prefix.held_pages} held")
+    if engine.host_pool is not None:
+        host = engine.host_pool
+        print(f"tier: {stats.prefix_demoted_pages} pages demoted, "
+              f"{stats.prefix_dropped_pages} dropped, "
+              f"{stats.prefix_promoted_pages} promoted in "
+              f"{stats.prefix_promotions} promotions "
+              f"({stats.promotion_stalls} stalls), "
+              f"{engine.prefix.host_held_pages} held; host peak "
+              f"{stats.peak_host_util:.1%} of {host.capacity_units} units "
+              f"({engine.tier.host_dtype})")
 
 
 if __name__ == "__main__":

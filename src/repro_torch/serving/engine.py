@@ -45,12 +45,22 @@ bit-exactness of full hits.  Under admission pressure, least-recently used
 index entries with no readers are evicted before any running request is
 preempted.
 
+Host tier (``host_pages > 0`` with the prefix index): evicted index
+entries are demoted to a :class:`~repro_torch.serving.hier.HostPagePool`
+(pinned host memory on the card) instead of dropped; a hit on a demoted
+entry is promoted back into fresh device pages before the request attaches
+them.  Demotions read the live arenas on the stream behind the step in
+flight; promotions write them without a host sync, landing before the next
+step (``_tier_read`` / ``_tier_write``).  ``host_dtype`` picks the stored
+representation (``"f32"``: exact; ``"int8"``; ``"auto"``: int8 for stable
+pages).  A promotion whose checksum fails is served by a cold prefill.
+
 ``cancel(uid)`` aborts a queued or running request and releases its
 slot, pages and prefix read holds.
 
-The host-RAM tier, fault injection and supervision, SLO
-scheduling, telemetry, profiling and the streaming front end wait for
-later slices: their constructor arguments raise ``NotImplementedError``.
+Fault injection and supervision, SLO scheduling, telemetry, profiling and
+the streaming front end wait for later slices: their constructor arguments
+raise ``NotImplementedError``.
 So does a model with recurrent layers (the RG-LRU hybrid): serving it in
 lanes waits for a later slice, since its bidirectional recurrence reaches
 past a short row's ``kv_len`` and stratified selection spends its quotas
@@ -68,6 +78,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ATTENTION_KINDS, ModelConfig
+from repro_torch.core import cache as cache_lib
 from repro_torch.core.cache import PagedCache, n_logical_pages
 from repro_torch.core.strategy import CacheStrategy, resolve_strategy
 from repro_torch.device import DeviceLike, check_device, resolve_device
@@ -75,16 +86,17 @@ from repro_torch.dlm.decoding import (DecodeSettings,
                                       partial_prefill_supported)
 from repro_torch.dlm.scheduler import UnmaskScheduler, resolve_scheduler
 from repro_torch.dlm.session import DecodeSession, SharedPrefix
-from repro_torch.serving.pool import OutOfPages, PagePool
-from repro_torch.serving.prefix import PrefixIndex
+from repro_torch.serving.hier import (HostPageCorruption, HostPagePool,
+                                      TierManager)
+from repro_torch.serving.pool import OutOfPages, PagePool, cache_signature
+from repro_torch.serving.prefix import PrefixIndex, PrefixMatch
 
 # (settings, strategy, scheduler): one DecodeSession per distinct key.
 LaneKey = Tuple[DecodeSettings, CacheStrategy, UnmaskScheduler]
 
 # Constructor arguments of the engine parts that wait for later slices,
 # with the value that means "off".
-_LATER = {"host_pages": 0, "host_dtype": "auto",
-          "slo_policy": None, "fault_plan": None, "supervise": False,
+_LATER = {"slo_policy": None, "fault_plan": None, "supervise": False,
           "supervisor_cfg": None, "telemetry": None, "profiler": None}
 
 
@@ -113,6 +125,11 @@ class Request:
     shared_n: int = 0
     shared_full: bool = False       # the hit covers the whole row span
     plan_epoch: Optional[int] = None  # index epoch the plan was made at
+    # host tier: a plan whose match lives (partly) in host RAM waits here
+    # until the engine promotes it; no_promote (sticky) makes a request
+    # whose promotion failed plan device-only
+    pending_promotion: Optional[PrefixMatch] = None
+    no_promote: bool = False
     preemptions: int = 0
     served_steps: int = 0           # per-request max_steps budget
     snapshot: Optional[Dict[str, np.ndarray]] = None  # preemption resume
@@ -142,9 +159,18 @@ class EngineStats:
     prefix_published: int = 0       # pages copied into the index
     prefix_publish_skipped: int = 0  # publications dropped (pool short)
     prefix_evicted_pages: int = 0   # index pages evicted under pressure
+    # host tier: evicted pages split into demoted and dropped
+    prefix_demoted_pages: int = 0   # ... demoted to the host tier
+    prefix_dropped_pages: int = 0   # ... dropped (tier off, full, stable)
+    prefix_promoted_pages: int = 0  # host pages promoted back
+    prefix_promotions: int = 0      # promotions served
+    promotion_stalls: int = 0       # promotions abandoned (no headroom)
+    host_checksum_failures: int = 0  # corrupt host pages caught
+    cold_prefill_fallbacks: int = 0  # corrupted promotions served cold
     requests_canceled: int = 0
     peak_pool_util: float = 0.0
     steady_pool_util: float = 0.0
+    peak_host_util: float = 0.0     # host-tier unit budget high-water
     e2e_latencies: List[float] = dataclasses.field(default_factory=list)
     queue_waits: List[float] = dataclasses.field(default_factory=list)
     ttft_latencies: List[float] = dataclasses.field(default_factory=list)
@@ -174,6 +200,7 @@ class ServingEngine:
                  continuous: bool = True,
                  pool_pages: int = 0, page_size: int = 16,
                  prefix_cache: bool = False,
+                 host_pages: int = 0, host_dtype: str = "auto",
                  clock: Optional[Callable[[], float]] = None,
                  device: DeviceLike = None, **later):
         for name, value in later.items():
@@ -210,6 +237,15 @@ class ServingEngine:
                                  strategy=self.strategy, device=self.device)
             if prefix_cache:
                 self.prefix = PrefixIndex(page_size)
+        # host-RAM page tier: evicted index entries demote host-ward
+        self.host_pool: Optional[HostPagePool] = None
+        self.tier: Optional[TierManager] = None
+        if self.prefix is not None and host_pages > 0:
+            self.host_pool = HostPagePool(host_pages, device=self.device)
+            self.tier = TierManager(self.host_pool, host_dtype=host_dtype,
+                                    read_pages=self._tier_read,
+                                    device=self.device)
+            self.prefix.tier = self.tier
         # partial (suffix-only) reuse needs a window-free all-attention
         # stack and a float cache; full hits are a page copy
         self._partial_ok = (partial_prefill_supported(cfg)
@@ -384,10 +420,15 @@ class ServingEngine:
         if (self.prefix is None or req.preemptions > 0
                 or not req.n_pages):
             return
-        match = self.prefix.lookup(self._prefix_key(req),
-                                   self._prompt_in_canvas(req),
-                                   partial_ok=self._partial_ok)
+        match = self.prefix.lookup(
+            self._prefix_key(req), self._prompt_in_canvas(req),
+            partial_ok=self._partial_ok,
+            promote_ok=self.tier is not None and not req.no_promote)
         if match is None:
+            return
+        if match.needs_promotion:
+            # no holds yet: _promote_now turns this into a device plan
+            req.pending_promotion = match
             return
         self.pool.retain(list(match.pages))
         req.holds = list(match.pages)
@@ -396,14 +437,28 @@ class ServingEngine:
 
     def _plan(self, req: Request) -> None:
         """Plan ``req`` unless its plan was made at the current index epoch
-        (the plan made while the last step ran on the card)."""
+        (the plan made while the last step ran on the card), and promote a
+        plan that waits on the host tier.  A failed promotion plans again
+        once; a second failure gives up on the tier for this admission
+        (``no_promote`` is sticky, so this ends) and plans device-only."""
         if req.plan_epoch != self._prefix_epoch:
             self._prefix_plan(req)
             req.plan_epoch = self._prefix_epoch
+        if req.pending_promotion is None:
+            return
+        if not self._promote_now(req) and req.plan_epoch is None:
+            self._prefix_plan(req)
+            req.plan_epoch = self._prefix_epoch
+            if (req.pending_promotion is not None
+                    and not self._promote_now(req)):
+                req.no_promote = True
+                self._prefix_plan(req)
+                req.plan_epoch = self._prefix_epoch
 
     def _plan_ahead(self, lane: LaneKey) -> None:
         """Plan the lane's next admission candidate on the host while the
-        step just launched runs on the card (``_admit_one`` reuses it)."""
+        step just launched runs on the card (``_admit_one`` reuses it).  A
+        promotion made here queues its copies behind that step."""
         if self.prefix is not None and self._admission_dirty:
             for req in self._lane_candidates(lane)[:1]:
                 if req.n_pages:
@@ -413,6 +468,7 @@ class ServingEngine:
         self._release_holds(req)
         req.shared_n, req.shared_full = 0, False
         req.plan_epoch = None
+        req.pending_promotion = None
 
     def _release_holds(self, req: Request) -> None:
         if req.holds:
@@ -480,23 +536,129 @@ class ServingEngine:
         rejected = self.prefix.insert(key, prompt, pages)
         if rejected:
             self.pool.release(rejected)
+        adopted = [p for p in pub if p not in rejected]
+        if adopted and self.tier is not None:
+            # the signature a later demotion reads, and each page's
+            # stability from the identifier rows just copied
+            self.tier.note_published(cache_signature(self.cfg, req.lane[1]),
+                                     adopted, self._proxy_blocks(sess,
+                                                                 adopted))
         self.stats.prefix_published += len(pub) - len(rejected)
         self._prefix_epoch += 1       # planned misses may now hit
 
     def drop_prefix_cache(self) -> int:
-        """Release every index hold and clear the trie.  Returns the pages
-        released."""
+        """Release every index hold, free every host-tier ref and clear the
+        trie.  Returns the device pages released."""
         if self.prefix is None:
             return 0
         self._prefix_epoch += 1
         return self.prefix.clear(self.pool)
 
     def _evict_index(self, n_pages: int) -> int:
-        freed = self.prefix.evict(self.pool, n_pages)
+        """Index eviction; the evicted pages split into demoted and dropped
+        (as the index reports them)."""
+        freed, demoted, dropped = self.prefix.evict(self.pool, n_pages)
+        self.stats.prefix_demoted_pages += demoted
+        self.stats.prefix_dropped_pages += dropped
         if freed:
             self.stats.prefix_evicted_pages += freed
             self._prefix_epoch += 1
         return freed
+
+    # ------------------------------------------------------------------
+    # Host tier: demotion and promotion IO
+    # ------------------------------------------------------------------
+
+    def _arenas_of(self, sig: Tuple):
+        arenas = self.pool.peek_arenas(sig)
+        assert arenas is not None, f"no arenas for signature {sig}"
+        return arenas
+
+    def _tier_read(self, sig: Tuple, pages: List[int]):
+        """Demotion read: whole physical pages as device blocks.  A running
+        lane's session holds these same arena tensors and writes them in
+        place, so the gather is queued on the stream behind the step in
+        flight (the one that last wrote the pages) and sees its values."""
+        return cache_lib.read_arena_pages(self._arenas_of(sig), pages)
+
+    def _tier_write(self, sig: Tuple, pages: List[int], blocks) -> None:
+        """Promotion write: scatter the blocks into the signature's arenas
+        (the tensors a running lane's session reads).  Queued on the stream
+        without a host sync, after the host-to-device copies that produced
+        the blocks and before the next step, which is the first to read the
+        pages."""
+        cache_lib.write_arena_pages(self._arenas_of(sig), pages, blocks)
+
+    def _proxy_blocks(self, sess: DecodeSession, pages: List[int]):
+        """Per-page identifier rows (the first layer kind that has them) for
+        the tier's stability scores; None for proxy-less caches."""
+        for kind, bufs in sess.state.cache.arenas.items():
+            if "proxy" in bufs:
+                blk = cache_lib.read_arena_pages({kind: {"proxy": bufs[
+                    "proxy"]}}, pages)[kind]["proxy"]
+                return {p: blk[:, i] for i, p in enumerate(pages)}
+        return None
+
+    def _promote_now(self, req: Request) -> bool:
+        """Promote a plan that waits on the host tier: allocate device pages
+        for the match's host refs, write the blocks into the arenas, point
+        the trie at them and leave the request a device plan with read
+        holds.  On failure the plan is dropped: a stale match plans again;
+        no headroom marks the request ``no_promote``; a corrupt page scrubs
+        the entry and the request is served cold."""
+        match = req.pending_promotion
+        req.pending_promotion = None
+        if match is None:
+            return False
+        if not self.prefix.sites_intact(match):
+            req.plan_epoch = None       # the trie moved: plan again
+            return False
+        n = len(match.host_refs)
+        # hold the match's device prefix while making headroom, so this
+        # eviction cannot take it
+        self.pool.retain(list(match.pages))
+        short = max(0, n - self.pool.available)
+        if short and self.prefix.evictable_total(self.pool) >= short:
+            self._evict_index(short)
+        pages = self.pool.alloc(n)
+        if pages is None or not self.prefix.sites_intact(match):
+            if pages is not None:
+                self.pool.free(pages)
+            else:
+                req.no_promote = True
+            self.pool.release(list(match.pages))
+            req.plan_epoch = None
+            self.stats.promotion_stalls += 1
+            return False
+        refs = list(match.host_refs)
+        try:
+            sig, blocks = self.tier.promote(refs)
+        except HostPageCorruption:
+            # corrupt bytes never reach the device; the tier freed the
+            # entry's slots, the trie drops its refs, the request is
+            # planned again and prefilled cold
+            self.pool.free(pages)
+            self.pool.release(list(match.pages))
+            self.prefix.scrub_host_sites(match)
+            self.stats.host_checksum_failures += 1
+            self.stats.cold_prefill_fallbacks += 1
+            req.plan_epoch = None
+            self._prefix_epoch += 1
+            self._admission_dirty = True
+            return False
+        self._tier_write(sig, pages, blocks)
+        all_pages = self.prefix.install_promoted(match, pages)
+        self.tier.note_promoted(sig, pages, refs)
+        self.pool.retain(pages)         # the index owns rc 1; reader hold
+        req.holds = all_pages
+        req.shared_n = len(all_pages)
+        req.shared_full = match.full
+        self.stats.prefix_promoted_pages += n
+        self.stats.prefix_promotions += 1
+        self._prefix_epoch += 1         # planned misses may now hit
+        req.plan_epoch = self._prefix_epoch
+        self._admission_dirty = True
+        return True
 
     # ------------------------------------------------------------------
     # Admission control + preemption
@@ -653,6 +815,10 @@ class ServingEngine:
             self.stats.peak_pool_util = (self.pool.peak_used
                                          / max(self.pool.capacity, 1))
             self.stats.steady_pool_util = self.pool.steady_utilization
+        if self.host_pool is not None:
+            self.stats.peak_host_util = (self.host_pool.peak_units
+                                         / max(self.host_pool.capacity_units,
+                                               1))
         return self.stats
 
     def _run_lane(self, lane: LaneKey, max_steps: int,

@@ -26,6 +26,8 @@ _NUMPY_DTYPES = {"float32": torch.float32, "float16": torch.float16,
                  "int8": torch.int8, "int32": torch.int32,
                  "int64": torch.int64, "bool": torch.bool}
 
+_POST_NORMS = {"norm_post_attn", "norm_post_ffn"}
+
 
 def to_tensor(arr: Any, device: torch.device) -> torch.Tensor:
     """One numpy array -> torch tensor of the same dtype on ``device``.
@@ -59,6 +61,10 @@ def from_numpy_params(tree: Dict[str, Any], cfg: ModelConfig,
     if params["embed"].dtype != want:
         raise TypeError(f"params are {params['embed'].dtype}, config "
                         f"says {want}")
+    if ("lm_head" in params) == cfg.tie_embeddings:
+        raise ValueError(f"lm_head {'present' if cfg.tie_embeddings else 'missing'}"
+                         f": {cfg.name} has tie_embeddings="
+                         f"{cfg.tie_embeddings}")
     for kind, bp in params["blocks"].items():
         lk = cfg.n_layers_of_kind(kind)
         if kind in ATTENTION_KINDS:
@@ -80,6 +86,11 @@ def from_numpy_params(tree: Dict[str, Any], cfg: ModelConfig,
         if got.shape != want_shape:
             raise ValueError(f"blocks[{kind!r}].{leaf} {tuple(got.shape)} "
                              f"does not match {cfg.name}")
+        post = _POST_NORMS & set(bp)
+        if kind != SSD and post != (_POST_NORMS if cfg.post_norms
+                                    else set()):
+            raise ValueError(f"blocks[{kind!r}] post-norms {sorted(post)} "
+                             f"do not match {cfg.name}")
     return params
 
 

@@ -177,13 +177,17 @@ ENGINE_STATS = ("steps", "swaps", "preemptions", "requests_done",
                 "admission_stalls")
 PREFIX_STATS = ("prefix_hits", "prefix_full_hits", "prefix_tokens_saved",
                 "prefix_published", "prefix_publish_skipped",
-                "prefix_evicted_pages")
+                "prefix_evicted_pages", "prefix_demoted_pages",
+                "prefix_dropped_pages", "prefix_promoted_pages",
+                "prefix_promotions", "promotion_stalls", "peak_host_util",
+                "host_checksum_failures", "cold_prefill_fallbacks")
 
 
 def assert_engines_match(jeng, teng):
     """Identical outputs for every uid, equal engine counters (with a
-    prefix index, its counters too and the same held pages), and (paged)
-    a pool drained down to the index's holds on both sides."""
+    prefix index, its counters and the host tier's too, and the same held
+    pages), and (paged) a pool drained down to the index's holds on both
+    sides; with a host tier, a host pool holding exactly the index's refs."""
     j_out = {r.uid: np.asarray(r.output) for r in jeng.done}
     t_out = {r.uid: np.asarray(r.output) for r in teng.done}
     assert sorted(j_out) == sorted(t_out)
@@ -199,6 +203,11 @@ def assert_engines_match(jeng, teng):
             assert held == jeng.prefix.held_pages
         assert teng.pool.used == held
         assert jeng.pool.used == held
+    if teng.host_pool is not None:
+        host = teng.prefix.host_held_pages
+        assert host == jeng.prefix.host_held_pages
+        assert teng.host_pool.used_pages == host
+        assert jeng.host_pool.used_pages == host
     return t_out
 
 
@@ -278,3 +287,49 @@ def long_hybrid_parity(name, n=12288, gen=8, steps=2):
     assert t_info["steps"] == j_info["steps"] == steps
     assert_caches_close(j_cache, sess.state.cache)
     return rec.log
+
+
+# Reduced dense configs that keep what makes each model its own: GQA group,
+# head_dim, proxy rank, windows and the cache dtype.
+DENSE_OVERRIDES = {
+    "dream-7b": dict(n_heads=7, n_kv_heads=1, head_dim=128),
+    "deepseek-67b": dict(n_heads=8, n_kv_heads=1, head_dim=128,
+                         cache_dtype="int8"),
+    "gemma2-2b": dict(n_heads=4, n_kv_heads=2, head_dim=256),
+    "h2o-danube-3-4b": dict(n_heads=8, n_kv_heads=2, head_dim=120),
+}
+
+
+def dense_cfg(name, n_layers=2):
+    """``reduced()`` of a dense config with :data:`DENSE_OVERRIDES`, the
+    config's own proxy rank and its windows cut to 64."""
+    from repro.configs import get_arch, reduced
+    cfg = get_arch(name)
+    return reduced(cfg, n_layers=n_layers, spa=cfg.spa,
+                   **DENSE_OVERRIDES[name])
+
+
+def dense_strategies(cfg, name):
+    """(JAX strategy, port strategy) built from the config's spec:
+    ``singular`` (its own adaptive schedule), a baseline identifier, or
+    ``none`` (NoCache)."""
+    from repro.core import strategy as jstrategy
+    from repro_torch.core import strategy as tstrategy
+    tspec = port_cfg(cfg).spa
+    return (jstrategy.strategy_from_spec(
+                dataclasses.replace(cfg.spa, identifier=name)),
+            tstrategy.strategy_from_spec(
+                dataclasses.replace(tspec, identifier=name)))
+
+
+def dense_decode_parity(cfg, params, prompt, gen, name, backend=None):
+    """One decode of ``cfg`` under strategy ``name`` through both packages:
+    identical tokens and step counts, caches within 1e-4 (int8 codes
+    within 1).  Returns the port session."""
+    jstrat, tstrat = dense_strategies(cfg, name)
+    j_toks, j_info, j_cache, t_toks, t_info, sess = decode_both(
+        cfg, params, prompt, gen, jstrat, tstrat, backend=backend)
+    np.testing.assert_array_equal(t_toks, j_toks)
+    assert t_info["steps"] == j_info["steps"]
+    assert_caches_close(j_cache, sess.state.cache)
+    return sess

@@ -86,7 +86,11 @@ def _apply(idx, pool, held, op):
         return ("release", len(held))
     if kind == "evict":
         bound = idx.evictable_total(pool)
-        return ("evict", bound, idx.evict(pool, n))
+        freed = idx.evict(pool, n)
+        if isinstance(freed, tuple):     # the port's Eviction, no tier:
+            assert freed.demoted == 0 and freed.dropped == freed.freed
+            freed = freed.freed
+        return ("evict", bound, freed)
     return ("clear", idx.clear(pool))
 
 

@@ -82,8 +82,8 @@ def test_engine_refuses_parts_that_wait(tiny_cfg):
     from repro_torch.models import transformer
     tcfg = port_cfg(tiny_cfg)
     params = transformer.init_params(tcfg, seed=0, device="cpu")
-    TEngine(tcfg, params, device="cpu", host_pages=0, telemetry=None)
-    for kw in (dict(host_pages=4),
+    TEngine(tcfg, params, device="cpu", fault_plan=None, telemetry=None)
+    for kw in (dict(fault_plan=object()),
                dict(slo_policy=object()), dict(supervise=True),
                dict(profiler=object())):
         with pytest.raises(NotImplementedError, match=next(iter(kw))):
@@ -103,8 +103,8 @@ def test_serve_cli_paged_in_process(capsys):
 
 def test_serve_cli_names_flags_that_wait(capsys):
     with pytest.raises(SystemExit):
-        tserve.main(["--device", "cpu", "--prefix-cache", "--host-pages",
+        tserve.main(["--device", "cpu", "--prefix-cache", "--slo-ttft",
                      "4", "--serve"])
     error = capsys.readouterr().err.strip().splitlines()[-1]
-    assert "--host-pages" in error and "--serve" in error
+    assert "--slo-ttft" in error and "--serve" in error
     assert "--prefix-cache" not in error    # ported: accepted
