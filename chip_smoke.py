@@ -153,7 +153,34 @@ Phases (each asserts; any failure exits non-zero):
    request), a warm then a measured pass with the tier off, at f32 and at
    auto: more full hits with the tier on; prints the tier's counters and
    each demotion's and promotion's copy, checksum and quantization times
-   (host and device) and copy rate, and ms per engine step.
+   (host and device) and copy rate, and ms per engine step;
+15. online serving, after phase 14 on the same weights: (a) a 2-layer
+   full-width f32 LLaDA through ``ServingEngine`` at the JAX serving
+   benchmark's online shape (canvas 32, pages of 4, 34 pages, 4 slots,
+   prefix index on, ``refresh_interval=1``, ``StepClock``) on its Poisson
+   and bursty traces (``poisson_arrivals``, ``bursty_arrivals``), FIFO and
+   ``SLOPolicy(boost=2, urgency_frac=0.6)``, each through ``CudaBackend``
+   and ``TorchBackend``: identical event streams and shed sets across the
+   backends, byte-identical outputs of every request both passes
+   complete, SLO-aware goodput at least FIFO's, a traced pass
+   (``dynamics_every=1``) with the same events; (b) LLaDA-8B (canvas 512,
+   130 pages of 16, 4 slots, ``refresh_interval=1``) on the Poisson trace
+   x16 in tokens and virtual time (its first 7 requests), FIFO then
+   SLO-aware: every stream
+   covers each gen position once and equals its output, the pool drains
+   to the index's pages, the serving kernels launch, the SLO-aware pass
+   boosts, preempts or sheds at least once; prints goodput, TTFT
+   / TPOT in steps, wall ms an engine step, the ``dispatch`` /
+   ``host_overlap`` / ``host_sync`` span medians, the streaming and
+   ``cache_dynamics`` costs and how many outputs the passes share; (c) an
+   ``AsyncFrontend`` on 127.0.0.1 over LLaDA-8B (the config's SPA
+   schedule, real clock, tracer on) with six HTTP clients, one hanging up
+   after its first token: streams equal their ``done`` outputs, the
+   dropped request canceled with its pages freed, ``/metrics`` Prometheus
+   text, the debug views JSON mid-stream, the exported trace's step spans
+   inside the serving window; prints TTFT / TPOT in ms, ms an engine step
+   online and offline, the event delivery latency and the share of steps
+   still on the card when ``_host_overlap`` ended.
 
 Phase 3 also times ``scatter_pages`` beside one ``index_put_`` of the
 whole view (``arena[:, pt] = dense``), its library call.
@@ -174,6 +201,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import re
 import statistics
@@ -3780,22 +3808,654 @@ def hier_exactness(torch):
     torch.cuda.empty_cache()
 
 
-ALL_PHASES = tuple(range(3, 15))
+# Phase 15: online serving.  15(a) runs the JAX serving bench's online part
+# (``benchmarks/bench_serving.py``, part 3) at its own shape on a 2-layer
+# f32 LLaDA; 15(b) the same Poisson trace x16 in tokens and virtual time on
+# LLaDA-8B; 15(c) an HTTP front end on the real clock.
+ONLINE_SMALL = dict(canvas=32, page=4, slots=4, n=12)
+# 15(b) serves the first 7 of the trace's 12 requests (two passes of 440
+# steps): the fewest at which the SLO-aware pass preempts, by phase 15(b)'s
+# functions on the CPU at 2 reduced layers (with 6 or fewer the two passes
+# decode alike); all 12 take two passes of ~700 steps
+ONLINE_FULL = dict(canvas=512, pool=130, slots=4, n=7, scale=16)
+ONLINE_POLICY = dict(boost=2, urgency_frac=0.6)
+# 15(c): (prompt, gen) of the clients, interactive and batch at x16
+ONLINE_HTTP = ((96, 96), (128, 256), (96, 96), (96, 96), (128, 256),
+               (96, 96))
+ONLINE_HTTP_STAGGER = 0.2     # seconds between client submissions
+ONLINE_HTTP_DROP = 0          # this client hangs up after its first token
+
+
+def online_classes(cfg, rng, scale: int = 1):
+    """The JAX bench's ``_online_classes``, lengths and SLO targets times
+    ``scale``: interactive (60%) prompt 6 + gen 6, TTFT 8, deadline 60;
+    batch prompt 8 + gen 16, deadline 400 (virtual seconds = steps)."""
+    import numpy as np
+    from repro_torch.serving.slo import SLO
+    interactive = (6 * scale, 6 * scale, SLO(ttft=8.0 * scale,
+                                             deadline=60.0 * scale))
+    batch = (8 * scale, 16 * scale, SLO(deadline=400.0 * scale))
+
+    def draw(i):
+        p_len, gen, slo = interactive if rng.random() < 0.6 else batch
+        return (i, rng.integers(0, cfg.vocab_size - 1, p_len)
+                .astype(np.int32), gen, slo)
+    return draw
+
+
+def poisson_arrivals(cfg, n: int, rate: float, seed: int = 11,
+                     scale: int = 1):
+    """The JAX bench's ``_poisson_arrivals``: exponential gaps at ``rate``
+    requests a step; (time, index, prompt, gen, SLO) tuples."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    draw = online_classes(cfg, rng, scale)
+    t, out = 0.0, []
+    for i in range(n):
+        t += float(rng.exponential(1.0 / rate))
+        out.append((t,) + draw(i))
+    return out
+
+
+def bursty_arrivals(cfg, n: int, burst: int, gap: float, seed: int = 13):
+    """The JAX bench's ``_bursty_arrivals``: ``burst`` requests together
+    every ``gap`` steps."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    draw = online_classes(cfg, rng)
+    return [(float((i // burst) * gap),) + draw(i) for i in range(n)]
+
+
+def serve_arrivals(engine, clock, arrivals, warm: bool):
+    """The JAX bench's ``_serve_online`` on ``engine`` (whose clock is the
+    ``StepClock`` ``clock``): with ``warm``, first serve four of the
+    trace's prompts untimed and reset the statistics; then feed each
+    arrival once the clock reaches it, one tick an engine step, idle gaps
+    jumping to the next arrival.  Every request streams.  Returns (events,
+    uid -> trace index, wall seconds)."""
+    if warm:
+        for _, _, prompt, gen, _ in arrivals[:2] + arrivals[-2:]:
+            engine.submit(prompt, gen)
+        engine.run()
+        engine.done.clear()
+        engine.stats = type(engine.stats)()
+        engine.pool.reset_telemetry()
+        clock.t = 0.0
+    events, index = [], {}
+    engine.event_sink = events.append
+    pending = sorted(arrivals, key=lambda a: (a[0], a[1]))
+
+    def feed(e):
+        while pending and pending[0][0] <= clock.t + 1e-9:
+            _, i, prompt, gen, slo = pending.pop(0)
+            index[e.submit(prompt, gen, slo=slo, stream=True)] = i
+
+    def on_step(e):
+        clock.advance()
+        feed(e)
+
+    t0 = time.perf_counter()
+    feed(engine)
+    while True:
+        engine.run(max_steps=100_000, on_step=on_step)
+        if not pending:
+            break
+        clock.t = max(clock.t, pending[0][0])
+        feed(engine)
+    return events, index, time.perf_counter() - t0
+
+
+def online_metrics(engine, clock, index) -> dict:
+    """The JAX bench's per-pass metrics, and the completed outputs by trace
+    index."""
+    import math
+    outputs, n_ttft, late = {}, 0, 0
+    for r in engine.done:
+        if r.output is not None and not (r.shed or r.canceled):
+            outputs[index[r.uid]] = r.output.tobytes()
+        if r.slo is not None and math.isfinite(r.slo.ttft):
+            n_ttft += 1
+            late += int(r.first_token_at is None
+                        or r.first_token_at - r.submitted_at > r.slo.ttft)
+    st = engine.stats
+    pct = st.percentiles()
+    return dict(completed=len(outputs), shed=st.requests_shed,
+                preemptions=st.preemptions,
+                boosted=sum(bool(r.boosted) for r in engine.done),
+                steps=st.steps,
+                virtual=clock.t, slo_met=st.slo_met,
+                slo_missed=st.slo_missed, goodput=st.goodput(clock.t),
+                ttft_miss=late / max(n_ttft, 1), outputs=outputs, **pct)
+
+
+def stream_key(ev):
+    return (ev.kind, ev.uid, ev.step, tuple(ev.positions), tuple(ev.tokens))
+
+
+def check_streams(engine, events) -> int:
+    """Every completed request's token events cover each gen position
+    exactly once and equal its output; returns the requests checked."""
+    import numpy as np
+    by_uid = {}
+    for ev in events:
+        if ev.kind == "token":
+            by_uid.setdefault(ev.uid, []).append(ev)
+    n = 0
+    for r in engine.done:
+        if r.output is None:
+            continue
+        pos = [p for ev in by_uid.get(r.uid, ()) for p in ev.positions]
+        tok = [t for ev in by_uid.get(r.uid, ()) for t in ev.tokens]
+        assert sorted(pos) == list(range(r.gen_len)), \
+            f"uid {r.uid}: streamed positions {sorted(pos)[:8]}..."
+        got = np.zeros(r.gen_len, np.int64)
+        got[pos] = tok
+        assert (got == r.output).all(), f"uid {r.uid}: stream != output"
+        n += 1
+    return n
+
+
+def online_line(label: str, m: dict, wall: float) -> str:
+    return (f"  {label}: {m['completed']} completed, {m['shed']} shed, "
+            f"{m['boosted']} boosted, {m['preemptions']} preemptions, "
+            f"{m['steps']} steps "
+            f"({m['virtual']:.0f} virtual), SLO {m['slo_met']} met / "
+            f"{m['slo_missed']} missed, goodput {m['goodput']:.4f} a step, "
+            f"TTFT misses {m['ttft_miss']:.0%}, TTFT p50/p95 "
+            f"{m['ttft_p50']:.1f}/{m['ttft_p95']:.1f} steps, TPOT p50/p95 "
+            f"{m['tpot_p50']:.2f}/{m['tpot_p95']:.2f} steps, "
+            f"{wall / max(m['steps'], 1) * 1e3:.2f} wall ms an engine step")
+
+
+def online_exactness(torch):
+    """Phase 15(a): a 2-layer, full-width f32 LLaDA through ``ServingEngine``
+    at the JAX bench's online shape (canvas 32, pages of 4, a pool of 4
+    canvases + 2, 4 slots, prefix index on, ``SPACache`` with
+    ``refresh_interval=1``, ``StepClock(tick=1)``) on its Poisson and
+    bursty traces, FIFO and ``SLOPolicy(boost=2, urgency_frac=0.6)``, each
+    pass through ``CudaBackend`` and ``TorchBackend``.  Asserts identical
+    event streams and shed sets across the backends, byte-identical
+    outputs of every request both passes complete, SLO-aware goodput at
+    least FIFO's, and tracing with ``dynamics_every=1`` changing no
+    event."""
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.slo import SLOPolicy, StepClock
+    from repro_torch.serving.telemetry import Telemetry
+
+    cfg, params, strat, proxies, _ = _parity_setup(torch, "float32")
+    strat = dataclasses.replace(strat, refresh_interval=1)
+    c = ONLINE_SMALL
+
+    def serve(arrivals, aware, backend, telemetry=None):
+        clock = StepClock(tick=1.0)
+        engine = ServingEngine(
+            cfg, params, max_batch=c["slots"], canvas_len=c["canvas"],
+            strategy=strat.with_backend(backend), page_size=c["page"],
+            pool_pages=c["slots"] * (c["canvas"] // c["page"]) + 2,
+            prefix_cache=True, clock=clock, telemetry=telemetry,
+            slo_policy=SLOPolicy(**ONLINE_POLICY) if aware else None)
+        engine._proxies[engine.strategy] = proxies
+        events, index, wall = serve_arrivals(engine, clock, arrivals,
+                                             warm=True)
+        m = online_metrics(engine, clock, index)
+        check_streams(engine, events)
+        assert engine.pool.used == engine.prefix.held_pages, "pool leak"
+        return engine, [stream_key(ev) for ev in events], m, wall
+
+    traces = (("poisson", poisson_arrivals(cfg, c["n"], rate=0.5)),
+              ("bursty", bursty_arrivals(cfg, c["n"], burst=12, gap=12.0)))
+    kept = {}
+    for name, arrivals in traces:
+        runs = kept[name] = {}
+        for aware in (False, True):
+            cuda = serve(arrivals, aware, "cuda")
+            plain = serve(arrivals, aware, "torch")
+            assert cuda[1] == plain[1], \
+                f"{name}: event streams differ across the backends"
+            shed = [{r.uid for r in run[0].done if r.shed}
+                    for run in (cuda, plain)]
+            assert shed[0] == shed[1], f"{name}: shed sets differ"
+            runs[aware] = cuda
+            print(online_line(f"{name} {'SLO-aware' if aware else 'FIFO'}",
+                              cuda[2], cuda[3])
+                  + f"; {len(cuda[1])} events, as TorchBackend's")
+        off, on = runs[False][2], runs[True][2]
+        common = sorted(set(off["outputs"]) & set(on["outputs"]))
+        same = sum(off["outputs"][i] == on["outputs"][i] for i in common)
+        print(f"  {name}: {same} of {len(common)} requests both passes "
+              f"complete decode byte-identically; goodput FIFO "
+              f"{off['goodput']:.4f}, SLO-aware {on['goodput']:.4f}")
+        assert same == len(common), f"{name}: completed outputs diverged"
+        assert on["goodput"] >= off["goodput"], f"{name}: goodput fell"
+    traced = serve(traces[0][1], True, "cuda",
+                   Telemetry.enabled(dynamics_every=1))
+    assert traced[1] == kept["poisson"][True][1], \
+        "tracing changed the event stream"
+    tr = traced[0].telemetry.tracer
+    assert tr.open_spans() == []
+    print(f"  traced SLO-aware poisson pass (dynamics_every=1): the same "
+          f"{len(traced[1])} events; {len(tr.events)} trace events")
+    del params, proxies
+    torch.cuda.empty_cache()
+
+
+ENGINE_PHASES = ("dispatch", "host_overlap", "host_sync")
+
+
+def phase_samples(engine) -> dict:
+    """The engine-phase span histograms' retained samples (seconds)."""
+    reg = engine.telemetry.registry
+    return {ph: reg.histogram("spa_engine_phase_seconds",
+                              labels={"phase": ph}).samples
+            for ph in ENGINE_PHASES}
+
+
+def phase_medians_ms(engine, since: dict = None) -> str:
+    """Median ms of each engine-phase span, over the samples after the
+    counts in ``since`` (phase -> samples already taken)."""
+    return ", ".join(
+        f"{ph} {statistics.median(xs[(since or {}).get(ph, 0):]) * 1e3:.2f}"
+        for ph, xs in phase_samples(engine).items())
+
+
+class GcPauses:
+    """Host time spent in the garbage collector while entered (through
+    ``gc.callbacks``): collections, full (generation 2) collections and
+    their total seconds."""
+
+    def __init__(self):
+        self.count = self.full = 0
+        self.seconds = 0.0
+        self._t = None
+
+    def _callback(self, phase, info):
+        if phase == "start":
+            self._t = time.perf_counter()
+        elif self._t is not None:
+            self.seconds += time.perf_counter() - self._t
+            self.count += 1
+            self.full += int(info["generation"] == 2)
+            self._t = None
+
+    def __enter__(self):
+        gc.callbacks.append(self._callback)
+        return self
+
+    def __exit__(self, *exc):
+        gc.callbacks.remove(self._callback)
+
+    def line(self) -> str:
+        return (f"gc {self.count} collections ({self.full} full), "
+                f"{self.seconds * 1e3:.1f} ms")
+
+
+def online_full_width(torch, cfg, params, strat, proxies):
+    """Phase 15(b): LLaDA-8B through ``ServingEngine`` (canvas 512, pool
+    130 pages of 16, 4 slots, prefix index on, the config's SPA with
+    ``refresh_interval=1``) on the JAX bench's Poisson trace x16 in tokens
+    and virtual time (its first ``ONLINE_FULL["n"]`` requests at 0.5 / 16
+    a step, seed 11), one FIFO
+    and one SLO-aware pass under a ``StepClock``, tracer on the wall
+    clock.  Asserts that every completed stream covers each gen position
+    once and equals its output, that the pool drains to the index's pages,
+    that the serving kernels launched and that the SLO-aware pass boosted,
+    preempted or shed at least once.  Prints each pass's counts, goodput,
+    TTFT / TPOT percentiles in steps, wall ms an engine step, the
+    engine-phase span medians and the garbage collector's pauses, and how
+    many completed outputs the two passes share byte for byte."""
+    from repro_torch.kernels import _lib
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.slo import SLOPolicy, StepClock
+    from repro_torch.serving.telemetry import Telemetry
+
+    c = ONLINE_FULL
+    arrivals = poisson_arrivals(cfg, c["n"], rate=0.5 / c["scale"],
+                                scale=c["scale"])
+    print(f"  trace: {len(arrivals)} requests over "
+          f"{arrivals[-1][0]:.0f} virtual steps, gens "
+          f"{[a[3] for a in arrivals]}")
+    strat = dataclasses.replace(strat, refresh_interval=1)
+    outs = {}
+    _lib.reset_launch_counts()
+    for aware in (False, True):
+        clock = StepClock(tick=1.0)
+        engine = ServingEngine(
+            cfg, params, max_batch=c["slots"], canvas_len=c["canvas"],
+            strategy=strat, pool_pages=c["pool"], page_size=PAGE,
+            prefix_cache=True, clock=clock,
+            telemetry=Telemetry.enabled(dynamics_every=0),
+            slo_policy=SLOPolicy(**ONLINE_POLICY) if aware else None)
+        engine._proxies[engine.strategy] = proxies
+        # the spans measure wall time; the SLO arithmetic stays virtual
+        engine.telemetry.tracer.clock = time.perf_counter
+        streamed = []               # host seconds of each step's streaming
+        stream_tokens = engine._stream_tokens
+
+        def timed_stream(*a, **k):
+            t = time.perf_counter()
+            stream_tokens(*a, **k)
+            streamed.append(time.perf_counter() - t)
+        engine._stream_tokens = timed_stream
+        with GcPauses() as pauses:
+            events, index, wall = serve_arrivals(engine, clock, arrivals,
+                                                 warm=False)
+        torch.cuda.synchronize()
+        m = online_metrics(engine, clock, index)
+        n = check_streams(engine, events)
+        assert n == m["completed"] == engine.stats.requests_done
+        assert engine.pool.used == engine.prefix.held_pages, "pool leak"
+        print(online_line("SLO-aware" if aware else "FIFO", m, wall)
+              + f"; span medians ms: {phase_medians_ms(engine)}; "
+              f"streaming {statistics.median(streamed) * 1e3:.3f} ms a "
+              f"step (median); {pauses.line()}")
+        outs[aware] = m["outputs"]
+        if aware:
+            assert m["boosted"] + m["preemptions"] + m["shed"] > 0, \
+                "the SLO policy made no decision: nothing to compare"
+            # the cache-dynamics probe's cost at this pool: each sample
+            # copies every proxy arena to the host and diffs it
+            sess = next(iter(engine._sessions.values()))
+            nbytes = sum(b["proxy"].numel() * b["proxy"].element_size()
+                         for b in sess.state.cache.arenas.values()
+                         if "proxy" in b)
+            times = []
+            for _ in range(4):
+                t = time.perf_counter()
+                sess.cache_dynamics()
+                times.append(time.perf_counter() - t)
+            print(f"  cache_dynamics: {statistics.median(times[1:]) * 1e3:.1f}"
+                  f" ms a sample ({nbytes / 1e6:.1f} MB of proxy arenas)")
+        del engine
+        torch.cuda.empty_cache()
+    launches = _lib.launch_counts()
+    common = sorted(set(outs[False]) & set(outs[True]))
+    same = sum(outs[False][i] == outs[True][i] for i in common)
+    print(f"  {same} of {len(common)} requests both passes complete decode "
+          f"byte-identically (bf16)")
+    print(f"  launches: {launches}")
+    for name in SERVING_KERNELS:
+        assert launches.get(name, 0) > 0, f"kernel {name} never launched"
+
+
+class OverlapProbe:
+    """Counts the steps whose device work was still running when the
+    engine's ``_host_overlap`` ended: a CUDA event is recorded right after
+    each ``sess.step()`` returns and queried at the end of the overlap.
+    Also records a timing event just before the step, so that
+    :meth:`lags` can say, once the card is idle, how far the device ran
+    behind the host when the step returned (device ms from the first
+    event to the second, less the host ms the step took to launch)."""
+
+    def __init__(self, torch, engine):
+        self.torch, self.engine = torch, engine
+        self.pending = None
+        self.busy = self.steps = 0
+        self.records = []         # (start event, end event, host s, in flight)
+        session_for, overlap = engine._session_for, engine._host_overlap
+
+        def session_for_(lane):
+            sess = session_for(lane)
+            if not getattr(sess, "_probed", False):
+                step = sess.step
+
+                def step_():
+                    start = torch.cuda.Event(enable_timing=True)
+                    start.record()
+                    t = time.perf_counter()
+                    info = step()
+                    host = time.perf_counter() - t
+                    end = torch.cuda.Event(enable_timing=True)
+                    end.record()
+                    self.pending = (start, end, host)
+                    return info
+                sess.step, sess._probed = step_, True
+            return sess
+
+        def overlap_(lane, slots):
+            overlap(lane, slots)
+            if self.pending is not None:
+                start, end, host = self.pending
+                running = not end.query()
+                self.steps += 1
+                self.busy += int(running)
+                self.records.append((start, end, host, running))
+                self.pending = None
+
+        engine._session_for, engine._host_overlap = session_for_, overlap_
+
+    def lags(self) -> str:
+        """Medians over the probed steps (call after a synchronize):
+        device ms of a step from its first to its last launch, host ms of
+        its launches, and their difference (> 0: the card still had that
+        much of the step to run when ``sess.step()`` returned), for every
+        step and for those still in flight at the end of the overlap."""
+        rows = [(a.elapsed_time(b), host * 1e3, running)
+                for a, b, host, running in self.records]
+        if not rows:
+            return "no step probed"
+
+        def med(sel):
+            got = [r for r in rows if sel(r)]
+            if not got:
+                return "none"
+            return (f"device {statistics.median(r[0] for r in got):.2f} / "
+                    f"host {statistics.median(r[1] for r in got):.2f} / "
+                    f"lag {statistics.median(r[0] - r[1] for r in got):.2f}")
+        return (f"all {len(rows)} steps {med(lambda r: True)}; in flight "
+                f"{med(lambda r: r[2])}")
+
+
+def online_http(torch, cfg, params, strat, proxies):
+    """Phase 15(c): an ``AsyncFrontend`` on 127.0.0.1 over LLaDA-8B (the
+    engine of (b) with the config's own SPA schedule and the SLO policy),
+    real clock, tracer on.  Six clients stream over HTTP, submitted
+    ``ONLINE_HTTP_STAGGER`` s apart (4 interactive prompt 96 + gen 96, 2
+    batch prompt 128 + gen 256); one interactive client hangs up after its
+    first token.  ``/debug/pool`` and ``/debug/requests`` are fetched
+    mid-stream, ``/metrics`` at the end.  Asserts every other stream equals
+    its ``done`` output, the dropped request ends canceled with its pages
+    freed, ``/metrics`` parses as Prometheus text, the debug views as JSON,
+    and the exported trace loads with every engine-phase span inside the
+    serving window, in order on its lane.  Prints TTFT / TPOT in ms, ms an
+    engine step and the engine-phase span medians online and offline
+    (``run`` of the same six requests), the garbage collector's pauses in
+    each, the event delivery latency, the share of steps still running on
+    the card when ``_host_overlap`` ended and how far the device ran
+    behind the host's launches (``OverlapProbe.lags``)."""
+    import asyncio
+    import tempfile
+
+    import numpy as np
+    from repro_torch.serving import frontend as fe
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.slo import SLO, SLOPolicy
+    from repro_torch.serving.telemetry import PID_ENGINE, Telemetry
+
+    c = ONLINE_FULL
+    engine = ServingEngine(
+        cfg, params, max_batch=c["slots"], canvas_len=c["canvas"],
+        strategy=strat, pool_pages=c["pool"], page_size=PAGE,
+        prefix_cache=True, slo_policy=SLOPolicy(**ONLINE_POLICY),
+        telemetry=Telemetry.enabled(dynamics_every=0))
+    engine._proxies[engine.strategy] = proxies
+    probe = OverlapProbe(torch, engine)
+    rng = np.random.default_rng(17)
+    reqs = [(rng.integers(0, cfg.vocab_size - 1, p).astype(np.int32), g)
+            for p, g in ONLINE_HTTP]
+    slos = {96: {"ttft": 30.0, "deadline": 120.0},
+            256: {"deadline": 600.0}}
+    prom = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^{}]*\})? \S+$")
+
+    async def client(front, i, views):
+        await asyncio.sleep(i * ONLINE_HTTP_STAGGER)
+        prompt, gen = reqs[i]
+        events, arrived = [], []
+        agen = fe.stream_request(front.host, front.port, prompt, gen,
+                                 slo=slos[gen])
+        try:
+            async for ev in agen:
+                arrived.append(time.time() - ev["ts"])
+                events.append(ev)
+                if ev["kind"] == "token" and i == ONLINE_HTTP_DROP:
+                    break
+                if ev["kind"] == "token" and i == 1 and not views:
+                    views["pool"] = await fe.fetch_debug_pool(
+                        front.host, front.port)
+                    views["requests"] = await fe.fetch_debug_requests(
+                        front.host, front.port)
+        finally:
+            await agen.aclose()
+        return events, arrived
+
+    async def serve_all(front, views):
+        got = await asyncio.gather(*(client(front, i, views)
+                                     for i in range(len(reqs))))
+        while engine.stats.requests_canceled < 1:   # the hang-up lands
+            await asyncio.sleep(0.05)
+        return got
+
+    async def main():
+        front = fe.AsyncFrontend(engine, max_steps=4096)
+        start = time.time()          # the engine's (and tracer's) clock
+        await front.start(serve_http=True)
+        t0 = time.perf_counter()
+        views = {}
+        try:
+            got = await asyncio.wait_for(serve_all(front, views), 300)
+            t1 = time.perf_counter()
+            steps = engine.stats.steps
+            metrics = await fe.fetch_metrics(front.host, front.port)
+        finally:
+            await front.stop(timeout=120)
+        return got, views, metrics, t1 - t0, steps, (start, time.time())
+
+    gc_objects = len(gc.get_objects())
+    with tempfile.TemporaryDirectory() as tmp:
+        with GcPauses() as online_gc:
+            got, views, metrics, wall, steps, window = asyncio.run(main())
+        path = Path(tmp) / "trace.json"
+        engine.export_trace(str(path))
+        doc = json.loads(path.read_text())
+    st = engine.stats
+    pct = st.percentiles()
+    by_uid = {r.uid: r for r in engine.done}
+    dropped = None
+    for i, (events, _) in enumerate(got):
+        uid = events[0]["uid"]
+        r = by_uid[uid]
+        if i == ONLINE_HTTP_DROP:
+            dropped = r
+            continue
+        assert events[-1]["kind"] == "done", f"client {i}: {events[-1]}"
+        stream = {p: t for ev in events if ev["kind"] == "token"
+                  for p, t in zip(ev["positions"], ev["tokens"])}
+        assert sorted(stream) == list(range(r.gen_len)), f"client {i}"
+        assert [stream[p] for p in range(r.gen_len)] \
+            == events[-1]["tokens"] == [int(t) for t in r.output]
+    assert dropped is not None and dropped.canceled and dropped.output is None
+    assert dropped.pages is None and not dropped.holds
+    assert engine.pool.used == engine.prefix.held_pages, "pool leak"
+    assert st.requests_done == len(reqs) - 1 and st.requests_canceled == 1
+    for line in metrics.rstrip("\n").split("\n"):
+        if not line.startswith("# "):
+            assert prom.match(line), f"bad exposition line {line!r}"
+            float(line.rsplit(" ", 1)[1])
+    assert "spa_engine_steps_total" in metrics
+    assert set(views["requests"]) == {"queued", "running", "done"}
+    assert views["pool"]["pool"]["used"] > 0
+    # the trace: every engine-phase span inside the serving window, in
+    # order dispatch -> host_overlap -> host_sync on its lane
+    spans = [e for e in doc["traceEvents"]
+             if e["ph"] == "X" and e["pid"] == PID_ENGINE]
+    assert spans and len(spans) % 3 == 0
+    lo, hi = window[0] * 1e6, window[1] * 1e6
+    names = [e["name"] for e in sorted(spans, key=lambda e: e["ts"])]
+    assert names == ["dispatch", "host_overlap", "host_sync"] * (
+        len(spans) // 3), "engine-phase spans out of order"
+    assert all(lo <= e["ts"] and e["ts"] + e["dur"] <= hi for e in spans), \
+        "an engine-phase span outside the serving window"
+    delivery = [d for _, arrived in got for d in arrived]
+    online_ms = wall / max(steps, 1) * 1e3
+    busy, probed = probe.busy, probe.steps
+    torch.cuda.synchronize()
+    online_lags = probe.lags()
+    medians = phase_medians_ms(engine)
+    taken = {ph: len(xs) for ph, xs in phase_samples(engine).items()}
+    # the same six requests offline, the index dropped and counters reset
+    engine.drop_prefix_cache()
+    engine.done.clear()
+    engine.stats = type(engine.stats)()
+    probe.records, probe.busy, probe.steps = [], 0, 0
+    for prompt, gen in reqs:
+        engine.submit(prompt, gen, slo=SLO(**slos[gen]))
+    torch.cuda.synchronize()
+    with GcPauses() as offline_gc:
+        engine.run(max_steps=4096)
+    torch.cuda.synchronize()
+    offline_ms = engine._wall / max(engine.stats.steps, 1) * 1e3
+    print(f"  6 clients over HTTP ({len(doc['traceEvents'])} trace events): "
+          f"TTFT p50/p95 {pct['ttft_p50'] * 1e3:.1f}/"
+          f"{pct['ttft_p95'] * 1e3:.1f} ms, TPOT p50/p95 "
+          f"{pct['tpot_p50'] * 1e3:.2f}/{pct['tpot_p95'] * 1e3:.2f} ms; "
+          f"the dropped client's request canceled, its pages freed")
+    print(f"  ms an engine step: online {online_ms:.2f} ({steps} steps), "
+          f"offline run of the same requests {offline_ms:.2f} "
+          f"({engine.stats.steps} steps); span medians ms online: "
+          f"{medians}; offline: {phase_medians_ms(engine, taken)}")
+    print(f"  host: online {online_gc.line()}, offline {offline_gc.line()}"
+          f"; {gc_objects} objects tracked at the start")
+    print(f"  event delivery (RequestEvent.ts to the client) p50/p95 "
+          f"{statistics.median(delivery) * 1e3:.2f}/"
+          f"{float(np.percentile(delivery, 95)) * 1e3:.2f} ms over "
+          f"{len(delivery)} events; steps still running on the card when "
+          f"_host_overlap ended: {busy} of {probed} "
+          f"({busy / max(probed, 1):.1%}), offline {probe.busy} of "
+          f"{probe.steps}")
+    print(f"  a step's device ms (first to last launch) / host ms of its "
+          f"launches / lag, medians: online {online_lags}; offline "
+          f"{probe.lags()}")
+    del engine
+    torch.cuda.empty_cache()
+
+
+def online_serving(torch, cfg, params, strat, proxies, card: str):
+    t0 = time.perf_counter()
+    c = ONLINE_SMALL
+    print(f"online exactness (2-layer full-width f32 LLaDA through "
+          f"ServingEngine, canvas {c['canvas']}, pages of {c['page']}, "
+          f"{c['slots']} slots, refresh_interval=1, StepClock; the JAX "
+          f"bench's Poisson and bursty traces, FIFO and SLO-aware, "
+          f"CudaBackend and TorchBackend)")
+    online_exactness(torch)
+    c = ONLINE_FULL
+    print(f"online serving, virtual time (LLaDA-8B bf16 through "
+          f"ServingEngine, canvas {c['canvas']}, pool {c['pool']} pages of "
+          f"{PAGE}, {c['slots']} slots, refresh_interval=1; the JAX bench's "
+          f"Poisson trace x{c['scale']}; {card})")
+    online_full_width(torch, cfg, params, strat, proxies)
+    print(f"online serving over HTTP (LLaDA-8B bf16, AsyncFrontend on "
+          f"127.0.0.1, the config's SPA schedule, real clock, tracer on; "
+          f"{card})")
+    online_http(torch, cfg, params, strat, proxies)
+    print(f"  phase 15: {time.perf_counter() - t0:.1f} s")
+
+
+ALL_PHASES = tuple(range(3, 16))
 
 
 def parse_phases(argv) -> tuple:
-    """``--phases 3,6,7`` runs only those of phases 3-14 (the card line and
+    """``--phases 3,6,7`` runs only those of phases 3-15 (the card line and
     the build always run) and prints no result line: for development
     calls and for comparing two trees' kernels in one call.  Without it,
     every phase runs."""
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
-                    help="comma-separated subset of phases 3-14")
+                    help="comma-separated subset of phases 3-15")
     phases = tuple(sorted({int(p) for p in ap.parse_args(argv).phases
                            .split(",") if p}))
     if not phases or not set(phases) <= set(ALL_PHASES):
-        ap.error(f"phases must lie in 3-14, got {phases}")
+        ap.error(f"phases must lie in 3-15, got {phases}")
     return phases
 
 
@@ -3829,9 +4489,9 @@ def main(argv=None) -> int:
     if 4 in phases:
         decode_parity_phase(torch)
     launches = base = lanes = served = {}
-    if {5, 6, 7, 12, 14} & set(phases):
+    if {5, 6, 7, 12, 14, 15} & set(phases):
         print(f"LLaDA-8B (bf16, B=4, prompt 256 + gen {GEN_LEN}; phases "
-              f"5-7, 12 and 14)")
+              f"5-7, 12, 14 and 15)")
         cfg, params, strat, proxies = llada_setup(torch)
         if 5 in phases:
             print(f"main path (LLaDA-8B bf16, B=4, prompt 256 + gen "
@@ -3890,6 +4550,8 @@ def main(argv=None) -> int:
                   f"{card})")
             hier_serving(torch, cfg, params, strat, proxies)
             print(f"  phase 14: {time.perf_counter() - t0:.1f} s")
+        if 15 in phases:        # shares LLaDA-8B's weights and proxies
+            online_serving(torch, cfg, params, strat, proxies, card)
         del cfg, params, strat, proxies
         torch.cuda.empty_cache()
     if 13 in phases:

@@ -41,7 +41,7 @@ one (so a replay is seeded by default, as in the JAX package).
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -131,6 +131,11 @@ class DecodeSession:
         # one host copy of the canvas per state (see host_tokens)
         self._host_tokens: Optional[np.ndarray] = None
         self._host_tokens_for: Optional[DecodeState] = None
+        # cache-dynamics probe: the previous call's host copies of the
+        # proxy identifier buffers and its changed-row sets
+        # (cache_dynamics); host-side only, never read by the step
+        self._dyn_prev: Optional[Dict[str, np.ndarray]] = None
+        self._dyn_prev_sel: Optional[Dict[str, List[set]]] = None
 
     # ------------------------------------------------------------------
     # State construction
@@ -209,6 +214,8 @@ class DecodeSession:
             active=active, kv_len=kv_len, rng=self._as_rng(rng))
         self.steps_taken = 0
         self.refresh_count = 0
+        self._dyn_prev = None          # new canvas: old diffs meaningless
+        self._dyn_prev_sel = None
         self._gen_span = None     # run_blocks needs a prefill()'d canvas
         return self.state
 
@@ -372,6 +379,89 @@ class DecodeSession:
             self._host_tokens = self.state.tokens.cpu().numpy()
             self._host_tokens_for = self.state
         return self._host_tokens
+
+    def cache_dynamics(self, max_rows: int = 2048
+                       ) -> Optional[Dict[str, Any]]:
+        """Host-side SPA cache-dynamics probe (the JAX session's).
+
+        Diffs the current ``proxy`` identifier buffers against the host copy
+        taken on the previous call.  The rows whose proxies changed are the
+        rows the strategy selected and committed in that interval (the
+        commit writes the fresh proxy beside the K/V rows), so the diff
+        gives per layer, without touching the step:
+
+          * ``changed``: refreshed row count (budget utilization against
+            ``k_schedule`` in the engine),
+          * ``drift``: ``1 - cos(old_row, new_row)`` over the first
+            ``max_rows`` changed rows, in float64,
+          * ``overlap``: Jaccard overlap of this interval's changed-row set
+            with the previous one (selection stability).
+
+        Returns None on the first call after ``attach``, for cache-less
+        strategies and when no proxy buffer exists.  Each call copies every
+        proxy buffer to the host (in paged mode the whole arena), which
+        waits for the step in flight; nothing is fed back, so decode outputs
+        are the same with sampling on.
+        """
+        if self.state is None:
+            return None
+        cache = self.state.cache
+        bufs = cache.arenas if isinstance(cache, PagedCache) else cache
+        if not isinstance(bufs, dict):
+            return None
+        # a copy (the buffers are updated in place, and on the CPU .cpu()
+        # and .float() alias them); bf16 -> f32 is exact, so comparisons
+        # and the float64 drift equal the JAX probe's on its bf16 arrays
+        cur: Dict[str, np.ndarray] = {
+            kind: b["proxy"].to("cpu", torch.float32, copy=True).numpy()
+            for kind, b in bufs.items()
+            if isinstance(b, dict) and "proxy" in b}
+        if not cur:
+            return None
+        prev, prev_sel = self._dyn_prev, self._dyn_prev_sel
+        self._dyn_prev = cur
+        if prev is None:
+            return None
+        out: Dict[str, Any] = {
+            "refreshed": bool(self._last_step_refreshed), "kinds": {}}
+        sel_now: Dict[str, List[set]] = {}
+        for kind, now_arr in cur.items():
+            p = prev.get(kind)
+            if p is None or p.shape != now_arr.shape:
+                continue
+            n_layers = now_arr.shape[0]
+            a = p.reshape(n_layers, -1, p.shape[-1])
+            b2 = now_arr.reshape(n_layers, -1, now_arr.shape[-1])
+            changed = np.any(a != b2, axis=-1)          # [L, rows]
+            layers = []
+            sel_now[kind] = []
+            for layer in range(n_layers):
+                idx = np.nonzero(changed[layer])[0]
+                drift: List[float] = []
+                if idx.size:
+                    ii = idx[:max_rows]
+                    va = a[layer, ii].astype(np.float64)
+                    vb = b2[layer, ii].astype(np.float64)
+                    denom = np.maximum(
+                        np.linalg.norm(va, axis=-1)
+                        * np.linalg.norm(vb, axis=-1), 1e-12)
+                    cos = np.clip((va * vb).sum(-1) / denom, -1.0, 1.0)
+                    drift = [float(x) for x in 1.0 - cos]
+                cur_set = set(int(x) for x in idx)
+                overlap = None
+                if (prev_sel is not None and kind in prev_sel
+                        and layer < len(prev_sel[kind])):
+                    ps = prev_sel[kind][layer]
+                    union = ps | cur_set
+                    if union:
+                        overlap = len(ps & cur_set) / len(union)
+                layers.append({"changed": int(idx.size),
+                               "rows": int(changed.shape[1]),
+                               "drift": drift, "overlap": overlap})
+                sel_now[kind].append(cur_set)
+            out["kinds"][kind] = layers
+        self._dyn_prev_sel = sel_now or prev_sel
+        return out
 
     def run(self, max_steps: Optional[int] = None
             ) -> Tuple[torch.Tensor, Dict[str, Any]]:

@@ -1,6 +1,6 @@
 """Serving launcher: run the batched SPA-Cache engine on a freshly
-initialized reduced model (the offline path of the JAX package's
-``launch/serve.py``, same flags and summary).
+initialized reduced model (the JAX package's ``launch/serve.py``, same
+flags and summary).
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu \
       --requests 4 --gen-len 6 --canvas 24 --max-batch 2 \
@@ -12,10 +12,22 @@ it, half the requests are distinct prompts served one by one (each
 publishes its prefill pages) and the rest repeat them, so the summary's
 prefix line shows hits.  ``--host-pages N`` adds the host-RAM page tier
 under the prefix index (``--host-dtype`` f32, int8 or auto), and the
-summary's tier line counts demotions, drops and promotions.  Flags of the
-engine parts that wait for later slices of the port (online front end, SLO
-policy, faults, telemetry, profiling, checkpoints) are accepted by the
-parser and exit with an error that names them.
+summary's tier line counts demotions, drops and promotions.
+
+``--serve`` runs the online front end instead of the offline loop: an
+asyncio HTTP server on ``--port`` that streams per-token ndjson events per
+request (``POST /generate``; ``GET /stats``, ``/metrics``,
+``/debug/requests``, ``/debug/pool``), until interrupted.  ``--slo-ttft`` /
+``--slo-deadline`` (seconds; 0 = off) turn on the SLO-aware policy and give
+the ``--client`` request its SLO.  ``--client HOST:PORT`` streams one demo
+request against a running server and prints each event's arrival.
+``--trace-out PATH`` writes a Chrome trace of the run; ``--metrics``
+samples the cache dynamics every step and prints the whole metrics
+registry (the non-zero part always prints).
+
+Flags of the engine parts that wait for later slices of the port (faults
+and supervision, profiling, checkpoints) are accepted by the parser and
+exit with an error that names them.
 """
 from __future__ import annotations
 
@@ -30,11 +42,11 @@ from repro_torch.core.strategy import REGISTRY, strategy_from_spec
 from repro_torch.dlm.decoding import DecodeSettings
 from repro_torch.models import transformer
 from repro_torch.serving.engine import ServingEngine
+from repro_torch.serving.slo import SLOPolicy
+from repro_torch.serving.telemetry import Telemetry, Tracer
 
 # flag -> the value that leaves it off; any other value is an error
-_LATER_FLAGS = {"ckpt": "", "serve": False, "slo_ttft": 0.0,
-                "slo_deadline": 0.0, "client": "", "supervise": False,
-                "chaos_seed": -1, "trace_out": "", "metrics": False,
+_LATER_FLAGS = {"ckpt": "", "supervise": False, "chaos_seed": -1,
                 "profile": False, "jax_trace_dir": ""}
 
 
@@ -82,16 +94,27 @@ def main(argv=None):
                     help="host tier representation: f32 = promotions "
                          "bit-identical; int8 = about twice the pages; "
                          "auto = int8 for stable pages only")
-    ap.add_argument("--serve", action="store_true")
+    ap.add_argument("--serve", action="store_true",
+                    help="online mode: run the asyncio streaming front end "
+                         "instead of the offline batch loop")
     ap.add_argument("--port", type=int, default=8411)
-    ap.add_argument("--slo-ttft", type=float, default=0.0)
-    ap.add_argument("--slo-deadline", type=float, default=0.0)
-    ap.add_argument("--client", default="")
+    ap.add_argument("--slo-ttft", type=float, default=0.0,
+                    help="TTFT target (s) attached to client requests; "
+                         "enables the SLO-aware policy")
+    ap.add_argument("--slo-deadline", type=float, default=0.0,
+                    help="e2e deadline (s) for client requests")
+    ap.add_argument("--client", default="",
+                    help="HOST:PORT: run a streaming client against a "
+                         "running --serve front end and exit")
     ap.add_argument("--supervise", action="store_true")
     ap.add_argument("--chaos-seed", type=int, default=-1)
     ap.add_argument("--chaos-rate", type=float, default=0.02)
-    ap.add_argument("--trace-out", default="")
-    ap.add_argument("--metrics", action="store_true")
+    ap.add_argument("--trace-out", default="",
+                    help="write a Chrome trace JSON of the run (request "
+                         "lifecycle spans, engine phases) to this path")
+    ap.add_argument("--metrics", action="store_true",
+                    help="sample the SPA cache dynamics every step and "
+                         "print the whole metrics registry at exit")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--jax-trace-dir", default="")
     args = ap.parse_args(argv)
@@ -99,10 +122,11 @@ def main(argv=None):
                for name, off in _LATER_FLAGS.items()
                if getattr(args, name) != off]
     if waiting:
-        ap.error(f"{', '.join(waiting)}: not ported yet (the online front "
-                 f"end, SLO policy, faults, telemetry, "
-                 f"profiling and checkpoints wait for later slices of the "
-                 f"port)")
+        ap.error(f"{', '.join(waiting)}: not ported yet (faults and "
+                 f"supervision, profiling and checkpoints wait for later "
+                 f"slices of the port)")
+    if args.client:
+        return _run_client(args)
 
     cfg = reduced(get_arch(args.arch))
     params = transformer.init_params(cfg, seed=0, device=args.device)
@@ -115,15 +139,24 @@ def main(argv=None):
     if args.kernel_backend:
         strategy = (strategy or strategy_from_spec(cfg.spa)) \
             .with_backend(args.kernel_backend)
+    slo_policy = SLOPolicy() if args.slo_ttft or args.slo_deadline else None
+    telemetry = None
+    if args.trace_out or args.metrics:
+        telemetry = Telemetry(tracer=Tracer(enabled=bool(args.trace_out)),
+                              dynamics_every=1 if args.metrics else 0)
     engine = ServingEngine(
         cfg, params, max_batch=args.max_batch, canvas_len=args.canvas,
         strategy=strategy, continuous=not args.static_batching,
         pool_pages=args.pool_pages, page_size=args.page_size,
         prefix_cache=args.prefix_cache, host_pages=args.host_pages,
-        host_dtype=args.host_dtype, settings=DecodeSettings(parallel_threshold=args.parallel_threshold),
+        host_dtype=args.host_dtype, slo_policy=slo_policy,
+        telemetry=telemetry,
+        settings=DecodeSettings(parallel_threshold=args.parallel_threshold),
         device=args.device)
+    if args.serve:
+        return _serve_online(engine, args)
     _run_offline(engine, args)
-    _summarize(engine)
+    _summarize(engine, args)
     for req in engine.done[:3]:
         print(f"  req {req.uid}: out={req.output[:10]}...")
     return 0
@@ -176,9 +209,11 @@ def _run_offline(engine, args) -> None:
     engine._wall += wall
 
 
-def _summarize(engine) -> None:
-    """End-of-run report: the headline, latency percentiles when anything
-    completed, and the paged pool's accounting."""
+def _summarize(engine, args) -> None:
+    """End-of-run report: the headline, latency percentiles and SLO counts
+    when anything completed, the paged pool's accounting, the metrics
+    registry (non-zero series; all of them with ``--metrics``) and the
+    trace file."""
     stats = engine.stats
     print(f"served {stats.requests_done} requests, "
           f"{stats.tokens_committed} tokens, {stats.steps} steps, "
@@ -192,7 +227,10 @@ def _summarize(engine) -> None:
         print(f"streaming: TTFT p50={pct['ttft_p50'] * 1e3:.0f}ms "
               f"p95={pct['ttft_p95'] * 1e3:.0f}ms | TPOT "
               f"p50={pct['tpot_p50'] * 1e3:.0f}ms "
-              f"p95={pct['tpot_p95'] * 1e3:.0f}ms")
+              f"p95={pct['tpot_p95'] * 1e3:.0f}ms | SLO "
+              f"{stats.slo_met} met / {stats.slo_missed} missed, "
+              f"{stats.requests_shed} shed, "
+              f"{stats.requests_canceled} canceled")
     else:
         print("latency: no requests completed")
     if engine.paged:
@@ -217,6 +255,77 @@ def _summarize(engine) -> None:
               f"{engine.prefix.host_held_pages} held; host peak "
               f"{stats.peak_host_util:.1%} of {host.capacity_units} units "
               f"({engine.tier.host_dtype})")
+    print("metrics registry " + "-" * 46)
+    print(engine.telemetry.registry.format_summary(
+        skip_zero=not args.metrics))
+    if args.trace_out:
+        engine.export_trace(args.trace_out)
+        print(f"trace: {len(engine.telemetry.tracer.events)} events -> "
+              f"{args.trace_out} (load in Perfetto / chrome://tracing)")
+
+
+def _serve_online(engine, args) -> int:
+    """``--serve``: run the asyncio streaming front end until interrupted,
+    then print the summary."""
+    import asyncio
+
+    from repro_torch.serving.frontend import AsyncFrontend
+
+    async def amain():
+        front = AsyncFrontend(engine, port=args.port, max_steps=4096)
+        await front.start(serve_http=True)
+        print(f"serving on http://{front.host}:{front.port}: POST "
+              f"/generate {{prompt, gen_len, slo?}} streams ndjson; GET "
+              f"/stats | /metrics (Prometheus) | /debug/requests | "
+              f"/debug/pool", flush=True)
+        try:
+            await asyncio.Event().wait()      # until interrupted
+        finally:
+            await front.stop()
+            _summarize(engine, args)
+
+    try:
+        asyncio.run(amain())
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
+def _run_client(args) -> int:
+    """``--client HOST:PORT``: stream one demo request and print each
+    event's arrival, then the server's TTFT / TPOT medians."""
+    import asyncio
+    import time
+
+    from repro_torch.serving.frontend import fetch_stats, stream_request
+
+    host, _, port = args.client.partition(":")
+    prompt = np.random.default_rng(0).integers(0, 128, 8).astype(np.int32)
+    slo = None
+    if args.slo_ttft or args.slo_deadline:
+        slo = {"ttft": args.slo_ttft or 1e9,
+               "deadline": args.slo_deadline or 1e9}
+
+    async def amain():
+        t0 = time.time()
+        n = 0
+        async for ev in stream_request(host, int(port), prompt,
+                                       args.gen_len, slo=slo):
+            dt = time.time() - t0
+            if ev["kind"] == "token":
+                n += len(ev["tokens"])
+                print(f"  +{dt * 1e3:7.1f}ms step {ev['step']:4d} "
+                      f"tokens {ev['tokens']}")
+            else:
+                print(f"  +{dt * 1e3:7.1f}ms {ev['kind']} "
+                      f"({n} tokens streamed)")
+        stats = await fetch_stats(host, int(port))
+        print(f"server: {stats['requests_done']} done, "
+              f"TTFT p50={stats['ttft_p50'] * 1e3:.0f}ms, "
+              f"TPOT p50={stats['tpot_p50'] * 1e3:.0f}ms")
+
+    asyncio.run(amain())
+    return 0
 
 
 if __name__ == "__main__":

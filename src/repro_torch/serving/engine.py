@@ -55,12 +55,41 @@ step (``_tier_read`` / ``_tier_write``).  ``host_dtype`` picks the stored
 representation (``"f32"``: exact; ``"int8"``; ``"auto"``: int8 for stable
 pages).  A promotion whose checksum fails is served by a cold prefill.
 
+Online serving (the front end in ``serving/frontend.py``):
+
+  * **Thread-safe intake** — ``submit_threadsafe`` / ``cancel_threadsafe``
+    validate on the caller and put closures on a mailbox that the engine
+    thread drains; the engine's state is only touched on that thread.
+  * **Double-buffered dispatch** — each loop iteration launches the step,
+    then does its host work (mailbox drain, SLO shedding, the prefix plan of
+    the next admission candidate: ``_host_overlap``) before the first host
+    sync on the step's outputs, so that work overlaps the step on the card.
+  * **Per-token events** — a request submitted with a ``sink`` (or with
+    ``stream=True`` and an engine-level ``event_sink``) gets a
+    :class:`RequestEvent` per batch of newly committed tokens, found by
+    diffing the canvas against the request's emitted mask.  The mask lives
+    on the ``Request``, so a preempted-then-resumed request streams every
+    gen position exactly once.
+  * **SLO-aware scheduling** — requests may carry an
+    :class:`~repro_torch.serving.slo.SLO`; with an engine-level
+    :class:`~repro_torch.serving.slo.SLOPolicy`, near-deadline requests are
+    boosted onto the priority + preemption machinery and ordered earliest
+    deadline first, and hopeless ones are shed.  ``EngineStats`` keeps
+    TTFT / TPOT histograms and goodput under SLO.  All SLO arithmetic reads
+    the engine's ``clock`` (a ``StepClock`` makes it count engine steps).
+  * **Telemetry** — a :class:`~repro_torch.serving.telemetry.Telemetry`
+    (registry + span tracer, off by default): request lifecycle spans,
+    per-step ``dispatch`` / ``host_overlap`` / ``host_sync`` spans and
+    counters, demote / promote instants, cache-dynamics sampling
+    (``dynamics_every``), ``render_metrics`` (Prometheus text) and
+    ``export_trace`` (Chrome trace JSON).
+
 ``cancel(uid)`` aborts a queued or running request and releases its
 slot, pages and prefix read holds.
 
-Fault injection and supervision, SLO scheduling, telemetry, profiling and
-the streaming front end wait for later slices: their constructor arguments
-raise ``NotImplementedError``.
+Fault injection and supervision (and the degradation ladder they drive)
+and profiling wait for later slices: their constructor arguments raise
+``NotImplementedError``.
 So does a model with recurrent layers (the RG-LRU hybrid): serving it in
 lanes waits for a later slice, since its bidirectional recurrence reaches
 past a short row's ``kv_len`` and stratified selection spends its quotas
@@ -70,6 +99,8 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import queue as queue_mod
+import threading
 import time
 from collections import deque
 from typing import Callable, Dict, List, Optional, Tuple
@@ -90,14 +121,35 @@ from repro_torch.serving.hier import (HostPageCorruption, HostPagePool,
                                       TierManager)
 from repro_torch.serving.pool import OutOfPages, PagePool, cache_signature
 from repro_torch.serving.prefix import PrefixIndex, PrefixMatch
+from repro_torch.serving.slo import SLO, SLOPolicy
+from repro_torch.serving.telemetry import (PID_ENGINE, PID_EVENTS,
+                                           PID_REQUESTS, Histogram, Telemetry)
 
 # (settings, strategy, scheduler): one DecodeSession per distinct key.
 LaneKey = Tuple[DecodeSettings, CacheStrategy, UnmaskScheduler]
 
 # Constructor arguments of the engine parts that wait for later slices,
 # with the value that means "off".
-_LATER = {"slo_policy": None, "fault_plan": None, "supervise": False,
-          "supervisor_cfg": None, "telemetry": None, "profiler": None}
+_LATER = {"fault_plan": None, "supervise": False, "supervisor_cfg": None,
+          "profiler": None}
+
+
+@dataclasses.dataclass(frozen=True)
+class RequestEvent:
+    """One streaming event of a request.
+
+    ``kind``: "token" (``positions`` / ``tokens`` carry the gen-span
+    offsets and values committed since the last event), "done" (the output
+    in ``tokens``), "shed" (the SLO policy dropped it) or "canceled".
+    Delivered to ``Request.sink`` if set, else to the engine-level
+    ``event_sink`` for ``stream=True`` requests, always on the engine
+    thread (the front end moves them onto its event loop)."""
+    kind: str
+    uid: int
+    step: int
+    ts: float
+    positions: Tuple[int, ...] = ()   # offsets into the gen span
+    tokens: Tuple[int, ...] = ()
 
 
 @dataclasses.dataclass
@@ -133,15 +185,22 @@ class Request:
     preemptions: int = 0
     served_steps: int = 0           # per-request max_steps budget
     snapshot: Optional[Dict[str, np.ndarray]] = None  # preemption resume
+    # online serving
+    slo: Optional[SLO] = None       # TTFT target + e2e deadline
+    stream: bool = False            # emit per-token events
+    sink: Optional[Callable] = None  # per-request event callback
     canceled: bool = False          # set by cancel(); the loop reaps it
+    shed: bool = False              # canceled BY the SLO policy
     first_token_at: Optional[float] = None
     last_commit_at: Optional[float] = None
     tokens_done: int = 0            # committed so far (TPOT denominator)
-
-
-def _percentile(samples: List[float], q: float) -> float:
-    """numpy's linear-interpolation percentile; 0.0 with no samples."""
-    return float(np.percentile(samples, q)) if samples else 0.0
+    # emitted mask [gen_len]: the gen-span offsets already streamed; it
+    # survives preemption, so a resumed request never repeats or drops one
+    emitted: Optional[np.ndarray] = None
+    boosted: bool = False           # urgency transition already seen
+    # the fault class that aborted the request: None until fault
+    # containment is ported
+    fault: Optional[str] = None
 
 
 @dataclasses.dataclass
@@ -162,33 +221,147 @@ class EngineStats:
     # host tier: evicted pages split into demoted and dropped
     prefix_demoted_pages: int = 0   # ... demoted to the host tier
     prefix_dropped_pages: int = 0   # ... dropped (tier off, full, stable)
+    tier_dropped_full: int = 0      # demotions the host tier had no room for
+    tier_dropped_stable: int = 0    # ... skipped as stable under pressure
     prefix_promoted_pages: int = 0  # host pages promoted back
     prefix_promotions: int = 0      # promotions served
     promotion_stalls: int = 0       # promotions abandoned (no headroom)
-    host_checksum_failures: int = 0  # corrupt host pages caught
-    cold_prefill_fallbacks: int = 0  # corrupted promotions served cold
-    requests_canceled: int = 0
     peak_pool_util: float = 0.0
     steady_pool_util: float = 0.0
     peak_host_util: float = 0.0     # host-tier unit budget high-water
-    e2e_latencies: List[float] = dataclasses.field(default_factory=list)
-    queue_waits: List[float] = dataclasses.field(default_factory=list)
-    ttft_latencies: List[float] = dataclasses.field(default_factory=list)
-    tpot_latencies: List[float] = dataclasses.field(default_factory=list)
+    # online serving / SLO accounting
+    requests_shed: int = 0          # dropped by the SLO policy
+    requests_canceled: int = 0      # client cancel / disconnect
+    slo_met: int = 0                # completed within their SLO
+    slo_missed: int = 0             # completed past TTFT/deadline, or shed
+    # latency distributions are telemetry histograms: fixed buckets for
+    # Prometheus, retained samples for exact percentiles; list-compatible
+    e2e_latencies: Histogram = dataclasses.field(
+        default_factory=functools.partial(
+            Histogram, "spa_engine_e2e_latency_seconds",
+            "request end-to-end latency (submit to harvest)"))
+    queue_waits: Histogram = dataclasses.field(
+        default_factory=functools.partial(
+            Histogram, "spa_engine_queue_wait_seconds",
+            "queue wait (submit to first admission)"))
+    ttft_latencies: Histogram = dataclasses.field(
+        default_factory=functools.partial(
+            Histogram, "spa_engine_ttft_seconds",
+            "time to first committed token"))
+    tpot_latencies: Histogram = dataclasses.field(
+        default_factory=functools.partial(
+            Histogram, "spa_engine_tpot_seconds",
+            "per-request time per output token"))
+    # fault tolerance: the host tier's checksum counters count now; the
+    # rest stay 0 (and their spa_fault_* series render 0) until fault
+    # injection and supervision are ported
+    host_checksum_failures: int = 0  # promotions refused on a checksum
+    host_corrupt_pages: int = 0     # ... and the corrupt pages they held
+    cold_prefill_fallbacks: int = 0  # corrupted promotions served cold
+    requests_faulted: int = 0
+    alloc_faults: int = 0
+    nan_quarantines: int = 0
+    disconnect_bursts: int = 0
+    watchdog_fires: int = 0
+    invariant_checks: int = 0
+    publish_paused_skips: int = 0
+    degrade_level: int = 0
+    degradations: int = 0
+    restorations: int = 0
 
     def tps(self, wall: float) -> float:
         return self.tokens_committed / max(wall, 1e-9)
 
+    def goodput(self, wall: float) -> float:
+        """Requests completed WITHIN their SLO per clock second (a request
+        without an SLO counts as met when it completes; shed, canceled and
+        late requests never count)."""
+        return self.slo_met / max(wall, 1e-9)
+
     def percentiles(self) -> Dict[str, float]:
-        """p50/p95 end-to-end, queue-wait, TTFT and TPOT (seconds)."""
+        """p50/p95 end-to-end, queue-wait, TTFT and TPOT (seconds), from
+        :meth:`Histogram.percentile` (numpy's values on the samples)."""
         out: Dict[str, float] = {}
-        for name, xs in (("e2e", self.e2e_latencies),
-                         ("wait", self.queue_waits),
-                         ("ttft", self.ttft_latencies),
-                         ("tpot", self.tpot_latencies)):
-            out[f"{name}_p50"] = _percentile(xs, 50)
-            out[f"{name}_p95"] = _percentile(xs, 95)
+        for name, h in (("e2e", self.e2e_latencies),
+                        ("wait", self.queue_waits),
+                        ("ttft", self.ttft_latencies),
+                        ("tpot", self.tpot_latencies)):
+            out[f"{name}_p50"] = h.percentile(50)
+            out[f"{name}_p95"] = h.percentile(95)
         return out
+
+
+# EngineStats field -> Prometheus metric mirror (the JAX engine's table:
+# spa_<subsystem>_<quantity>[_<unit>], monotonic counters end in _total).
+_STATS_COUNTERS: Tuple[Tuple[str, str, str], ...] = (
+    ("steps", "spa_engine_steps_total", "engine iterations"),
+    ("tokens_committed", "spa_engine_tokens_committed_total",
+     "tokens committed across all requests"),
+    ("requests_done", "spa_engine_requests_done_total",
+     "requests harvested with output"),
+    ("swaps", "spa_engine_swaps_total", "mid-loop slot replacements"),
+    ("preemptions", "spa_engine_preemptions_total",
+     "running requests evicted for pages/priority"),
+    ("admission_stalls", "spa_engine_admission_stalls_total",
+     "admission attempts blocked on pages"),
+    ("prefix_hits", "spa_prefix_hits_total",
+     "admissions that attached index pages"),
+    ("prefix_full_hits", "spa_prefix_full_hits_total",
+     "prefix hits covering the whole row span"),
+    ("prefix_tokens_saved", "spa_prefix_tokens_saved_total",
+     "prompt+canvas rows not re-prefilled"),
+    ("prefix_published", "spa_prefix_published_pages_total",
+     "pages copied into the index"),
+    ("prefix_publish_skipped", "spa_prefix_publish_skipped_total",
+     "publications dropped (pool short)"),
+    ("prefix_evicted_pages", "spa_prefix_evicted_pages_total",
+     "index pages evicted under pressure"),
+    ("prefix_demoted_pages", "spa_tier_demoted_pages_total",
+     "evicted pages demoted to the host tier"),
+    ("prefix_dropped_pages", "spa_tier_dropped_pages_total",
+     "evicted pages dropped outright"),
+    ("prefix_promoted_pages", "spa_tier_promoted_pages_total",
+     "host pages promoted back to device"),
+    ("prefix_promotions", "spa_tier_promotions_total",
+     "promotion events serviced"),
+    ("promotion_stalls", "spa_tier_promotion_stalls_total",
+     "promotions abandoned (no headroom)"),
+    ("requests_shed", "spa_slo_requests_shed_total",
+     "requests dropped by the SLO policy / ladder"),
+    ("requests_canceled", "spa_engine_requests_canceled_total",
+     "client cancels / disconnects"),
+    ("slo_met", "spa_slo_met_total", "completions within SLO"),
+    ("slo_missed", "spa_slo_missed_total",
+     "completions past TTFT/deadline (incl. shed)"),
+    ("requests_faulted", "spa_fault_requests_faulted_total",
+     "requests aborted by fault containment"),
+    ("alloc_faults", "spa_fault_alloc_failures_total",
+     "transient admission alloc failures"),
+    ("host_checksum_failures", "spa_fault_host_checksum_failures_total",
+     "corrupt host pages caught at promotion"),
+    ("cold_prefill_fallbacks", "spa_fault_cold_prefill_fallbacks_total",
+     "corrupted promotions served by cold prefill"),
+    ("nan_quarantines", "spa_fault_nan_quarantines_total",
+     "poisoned rows aborted by the NaN guard"),
+    ("disconnect_bursts", "spa_fault_disconnect_bursts_total",
+     "injected mass client hangups"),
+    ("watchdog_fires", "spa_fault_watchdog_fires_total",
+     "stuck lanes force-preempted"),
+    ("invariant_checks", "spa_fault_invariant_checks_total",
+     "supervisor accounting audits run"),
+    ("publish_paused_skips", "spa_fault_publish_paused_skips_total",
+     "publications skipped at ladder L1+"),
+    ("degradations", "spa_fault_degradations_total",
+     "upward ladder transitions"),
+    ("restorations", "spa_fault_restorations_total",
+     "downward ladder transitions"),
+)
+
+_RATIO_BUCKETS = (0.05, 0.1, 0.2, 0.3, 0.4, 0.5, 0.6, 0.7, 0.8, 0.9,
+                  1.0, 1.5, 2.0, 4.0)
+_DRIFT_BUCKETS = (1e-6, 1e-5, 1e-4, 1e-3, 3e-3, 0.01, 0.03, 0.1, 0.3,
+                  0.6, 1.0, 1.5, 2.0)
+_HIT_DEPTH_BUCKETS = (0.0, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0)
 
 
 class ServingEngine:
@@ -201,7 +374,9 @@ class ServingEngine:
                  pool_pages: int = 0, page_size: int = 16,
                  prefix_cache: bool = False,
                  host_pages: int = 0, host_dtype: str = "auto",
+                 slo_policy: Optional[SLOPolicy] = None,
                  clock: Optional[Callable[[], float]] = None,
+                 telemetry: Optional[Telemetry] = None,
                  device: DeviceLike = None, **later):
         for name, value in later.items():
             if name not in _LATER:
@@ -264,9 +439,199 @@ class ServingEngine:
         # offline proxy artefacts are per STRATEGY, shared across lanes
         self._proxies: Dict[CacheStrategy, object] = {}
         self._running: Dict[int, Request] = {}   # uid -> in-flight
+        # online serving
+        self.slo_policy = slo_policy
+        # telemetry: the registry always exists (render_metrics reads live
+        # state through a collector); the tracer is off by default and is
+        # stamped from the engine clock, so a virtual-clock run's trace is
+        # the same on every machine
+        self.telemetry = telemetry or Telemetry.disabled()
+        self.telemetry.tracer.clock = self._clock
+        self._tr = self.telemetry.tracer
+        self.telemetry.registry.add_collector(self._collect_metrics)
+        self._lane_ids: Dict[LaneKey, int] = {}
+        self.event_sink: Optional[Callable[[RequestEvent], None]] = None
+        # thread-safe intake: closures put by submit_threadsafe /
+        # cancel_threadsafe, drained on the engine thread at the overlap
+        # point (and while idle in run_online)
+        self._mailbox: "queue_mod.Queue[Callable[[], None]]" = \
+            queue_mod.Queue()
+        self._uid_lock = threading.Lock()
+        self._stop: Optional[threading.Event] = None
+        # the degradation ladder's shedding knobs (the supervisor sets them
+        # in the JAX engine); off until fault supervision is ported
+        self._shed_low_priority = False
+        self._shed_below = 0
+        self._hopeless_margin = 0.0
 
     def _now(self) -> float:
         return self._clock()
+
+    # ------------------------------------------------------------------
+    # Telemetry
+    # ------------------------------------------------------------------
+
+    def _lane_id(self, lane: LaneKey) -> int:
+        lid = self._lane_ids.get(lane)
+        if lid is None:
+            lid = self._lane_ids[lane] = len(self._lane_ids)
+            self._tr.name_track(PID_ENGINE, lid, f"lane{lid}")
+        return lid
+
+    def _phase_end(self, lid: int, name: str) -> None:
+        """Close an engine-phase span and fold its duration into the
+        step-time breakdown histogram."""
+        tr = self._tr
+        tr.end(PID_ENGINE, lid, name)
+        self.telemetry.registry.histogram(
+            "spa_engine_phase_seconds",
+            "per-iteration step-time breakdown",
+            labels={"phase": name}).observe(tr.events[-1].dur)
+
+    def _note_cache_dynamics(self, sess: DecodeSession,
+                             strategy: CacheStrategy, n_live: int) -> None:
+        """Fold one ``DecodeSession.cache_dynamics()`` probe into the
+        registry: per-layer refresh-budget utilization, proxy drift and
+        selection overlap.  Host-side, after the step's first host sync."""
+        dyn = sess.cache_dynamics()
+        if dyn is None:
+            return
+        reg = self.telemetry.registry
+        if dyn["refreshed"]:
+            # a full refresh rewrites every row: utilization and drift
+            # describe the incremental selection, so only count the event
+            reg.counter("spa_cache_refresh_steps_total",
+                        "steps that ran a full cache refresh").inc()
+            return
+        try:
+            ks = strategy.k_schedule(self.cfg, self.canvas_len)
+        except (NotImplementedError, AttributeError):
+            ks = None
+        for kind, layers in dyn["kinds"].items():
+            for layer, d in enumerate(layers):
+                labels = {"kind": kind, "layer": str(layer)}
+                if ks is not None and layer < len(ks) and n_live:
+                    util = d["changed"] / max(int(ks[layer]) * n_live, 1)
+                    reg.histogram(
+                        "spa_cache_budget_utilization_ratio",
+                        "refreshed rows / (k_schedule budget * live "
+                        "rows) per step", labels=labels,
+                        buckets=_RATIO_BUCKETS).observe(util)
+                if d["drift"]:
+                    h = reg.histogram(
+                        "spa_cache_proxy_drift",
+                        "1 - cos(prev proxy row, new proxy row) over "
+                        "refreshed rows", labels=labels,
+                        buckets=_DRIFT_BUCKETS)
+                    for x in d["drift"]:
+                        h.observe(x)
+                if d["overlap"] is not None:
+                    reg.histogram(
+                        "spa_cache_selection_overlap_ratio",
+                        "Jaccard overlap of consecutive refreshed-row "
+                        "sets", labels=labels,
+                        buckets=_RATIO_BUCKETS).observe(d["overlap"])
+
+    def _collect_metrics(self) -> None:
+        """Registry collector: mirror live engine state (EngineStats
+        counters, pool and tier occupancy, queue depth) into the registry
+        right before every render() / snapshot().  The JAX engine also
+        exports its compile tracker's ``spa_runtime_*`` series here; they
+        come with the profiling slice."""
+        reg, s = self.telemetry.registry, self.stats
+        for field, metric, help_txt in _STATS_COUNTERS:
+            reg.counter(metric, help_txt).set(getattr(s, field))
+        reg.gauge("spa_fault_degrade_level",
+                  "graceful-degradation ladder rung (0 = full service)"
+                  ).set(s.degrade_level)
+        reg.gauge("spa_engine_queue_depth",
+                  "queued requests").set(len(self.queue))
+        reg.gauge("spa_engine_running_requests",
+                  "admitted in-flight requests").set(len(self._running))
+        for h, name in ((s.e2e_latencies, "spa_engine_e2e_latency_seconds"),
+                        (s.queue_waits, "spa_engine_queue_wait_seconds"),
+                        (s.ttft_latencies, "spa_engine_ttft_seconds"),
+                        (s.tpot_latencies, "spa_engine_tpot_seconds")):
+            # re-adopt on every collect: `eng.stats = EngineStats()`
+            # resets swap the histogram objects
+            reg.adopt(h, name, h.help)
+        for obj in (self.pool, self.prefix, self.host_pool):
+            if obj is not None:
+                for name, (help_txt, val) in obj.telemetry_gauges().items():
+                    reg.gauge(name, help_txt).set(val)
+        if self.pool is not None:
+            for sig, nbytes in self.pool.arena_bytes().items():
+                reg.gauge("spa_pool_arena_bytes",
+                          "device bytes per cache-signature arena",
+                          labels={"signature": sig}).set(nbytes)
+
+    def render_metrics(self) -> str:
+        """Prometheus text exposition of the live registry (the front end's
+        ``GET /metrics``).  Reads race the engine thread benignly: ints and
+        floats only."""
+        return self.telemetry.registry.render()
+
+    def export_trace(self, path: str) -> None:
+        """Write the tracer's Chrome trace JSON (loads in Perfetto)."""
+        self._tr.export(path)
+
+    def request_states(self, done_tail: int = 32) -> Dict[str, List[Dict]]:
+        """JSON-able per-request lifecycle view (``GET /debug/requests``):
+        queued, running and recently finished, with timings."""
+        def row(r: Request, state: str) -> Dict:
+            return {
+                "uid": r.uid, "state": state, "priority": r.priority,
+                "gen_len": r.gen_len, "pages": r.n_pages,
+                "shared_pages": r.shared_n,
+                "preemptions": r.preemptions,
+                "tokens_done": r.tokens_done,
+                "submitted_at": r.submitted_at,
+                "started_at": r.started_at,
+                "first_token_at": r.first_token_at,
+                "completed_at": r.completed_at,
+                "shed": r.shed, "canceled": r.canceled,
+                "fault": r.fault,
+                "slo": (None if r.slo is None else
+                        {"ttft": (None if r.slo.ttft == float("inf")
+                                  else r.slo.ttft),
+                         "deadline": (None
+                                      if r.slo.deadline == float("inf")
+                                      else r.slo.deadline)}),
+            }
+        return {
+            "queued": [row(r, "queued") for r in list(self.queue)],
+            "running": [row(r, "running")
+                        for r in list(self._running.values())],
+            "done": [row(r, "done") for r in self.done[-done_tail:]],
+        }
+
+    def pool_debug_state(self) -> Dict:
+        """JSON-able memory view (``GET /debug/pool``): device-pool
+        occupancy, fragmentation and per-signature bytes, host-tier slot
+        accounting and the tier's page counts, the JAX engine's keys.  The
+        counts come from :class:`EngineStats`, so they run from its last
+        reset (JAX's tier manager counts for its lifetime).  The JAX engine
+        also reports ``live_executables`` (its compile tracker); that key
+        comes with the profiling slice.  Reads race the engine thread
+        benignly."""
+        out: Dict = {"paged": self.paged}
+        s = self.stats
+        if self.pool is not None:
+            out["pool"] = self.pool.debug_state()
+        if self.host_pool is not None:
+            out["host_pool"] = dict(self.host_pool.debug_state(),
+                                    pages_in=s.prefix_demoted_pages,
+                                    pages_out=s.prefix_promoted_pages)
+        if self.tier is not None:
+            out["tier"] = {
+                "demoted_pages": s.prefix_demoted_pages,
+                "promoted_pages": s.prefix_promoted_pages,
+                "dropped_full": s.tier_dropped_full,
+                "dropped_stable": s.tier_dropped_stable,
+                "store_faults": 0,      # injected refusals: the faults slice
+                "checksum_failures": s.host_corrupt_pages,
+            }
+        return out
 
     # ------------------------------------------------------------------
     # Intake
@@ -277,12 +642,86 @@ class ServingEngine:
                strategy: Optional[CacheStrategy] = None,
                scheduler: Optional[UnmaskScheduler] = None,
                priority: int = 0,
-               row_len: Optional[int] = None) -> int:
+               row_len: Optional[int] = None,
+               slo: Optional[SLO] = None,
+               stream: bool = False,
+               sink: Optional[Callable] = None) -> int:
         """Queue one request.  Rejects requests that can never be
         scheduled (``gen_len`` outside the canvas, or more pages than the
         whole pool) instead of letting them starve the queue.  ``row_len``
         (paged mode) reserves a larger page-aligned canvas span than
-        prompt + gen needs."""
+        prompt + gen needs.  ``slo`` / ``stream`` / ``sink`` are the online
+        surface.  Engine thread only: other threads use
+        ``submit_threadsafe``."""
+        req = self._build_request(prompt, gen_len, settings, strategy,
+                                  scheduler, priority=priority,
+                                  row_len=row_len, slo=slo, stream=stream,
+                                  sink=sink)
+        self._enqueue(req)
+        return req.uid
+
+    def submit_threadsafe(self, prompt: np.ndarray, gen_len: int,
+                          **kw) -> int:
+        """``submit`` from any thread: validation and lane resolution run
+        on the caller (errors raise there), the queue append rides the
+        mailbox onto the engine thread.  Returns the uid at once; the
+        request's ``sink`` is attached before the engine can see it."""
+        req = self._build_request(prompt, gen_len, **kw)
+        self._mailbox.put(lambda: self._enqueue(req))
+        return req.uid
+
+    def cancel(self, uid: int) -> bool:
+        """Abort a queued or running request: its pages and canvas row are
+        released and it finalizes with no output (a "canceled" event).
+        Engine thread only: other threads use ``cancel_threadsafe``.
+        Returns False for unknown or finished uids."""
+        for r in list(self.queue):
+            if r.uid == uid:
+                self.queue.remove(r)
+                self._drop_plan(r)
+                r.canceled = True
+                self._finalize_aborted(r)
+                return True
+        r = self._running.get(uid)
+        if r is not None and not r.canceled:
+            r.canceled = True     # the step loop releases slot + pages
+            return True
+        return False
+
+    def cancel_threadsafe(self, uid: int) -> None:
+        self._mailbox.put(lambda: self.cancel(uid))
+
+    def _enqueue(self, req: Request) -> None:
+        self._admission_dirty = True
+        self.queue.append(req)
+        tr = self._tr
+        if tr.enabled:
+            tr.name_track(PID_REQUESTS, req.uid, f"req {req.uid}")
+            tr.begin(PID_REQUESTS, req.uid, "request", cat="lifecycle",
+                     args={"prompt_len": int(len(req.prompt)),
+                           "gen_len": req.gen_len,
+                           "priority": req.priority})
+            tr.begin(PID_REQUESTS, req.uid, "queued", cat="lifecycle")
+
+    def _drain_mailbox(self) -> None:
+        while True:
+            try:
+                fn = self._mailbox.get_nowait()
+            except queue_mod.Empty:
+                return
+            fn()
+
+    def _build_request(self, prompt: np.ndarray, gen_len: int,
+                       settings: Optional[DecodeSettings] = None,
+                       strategy: Optional[CacheStrategy] = None,
+                       scheduler: Optional[UnmaskScheduler] = None,
+                       priority: int = 0,
+                       row_len: Optional[int] = None,
+                       slo: Optional[SLO] = None,
+                       stream: bool = False,
+                       sink: Optional[Callable] = None) -> Request:
+        # all validation runs here, on the submitting thread, so an invalid
+        # request raises at the caller and never inside the engine loop
         if not isinstance(gen_len, (int, np.integer)) \
                 or isinstance(gen_len, bool):
             raise ValueError(f"gen_len must be an int, got "
@@ -299,11 +738,13 @@ class ServingEngine:
         if prompt.size and not np.issubdtype(prompt.dtype, np.integer):
             raise ValueError(f"prompt must hold integer token ids, got "
                              f"dtype {prompt.dtype}")
-        uid = self._next_uid
-        self._next_uid += 1
+        with self._uid_lock:          # submit_threadsafe callers race
+            uid = self._next_uid
+            self._next_uid += 1
         req = Request(uid, prompt.astype(np.int32), gen_len, settings,
                       strategy, scheduler, priority=priority,
-                      submitted_at=self._now())
+                      submitted_at=self._now(), slo=slo, stream=stream,
+                      sink=sink)
         req.lane = self._lane_of(req)   # freeze vs later default changes
         if self.paged:
             p_len = min(len(req.prompt), self.canvas_len - gen_len)
@@ -319,28 +760,55 @@ class ServingEngine:
                     f"admitted (grow --pool-pages or shrink the request)")
         else:
             req.row_len = self.canvas_len
-        self._admission_dirty = True
-        self.queue.append(req)
-        return uid
+        return req
 
-    def cancel(self, uid: int) -> bool:
-        """Abort a queued or running request: its pages and canvas row are
-        released and it finalizes with no output.  Returns False for
-        unknown or finished uids."""
+    # ------------------------------------------------------------------
+    # Online serving: events, SLO shedding, cancellation
+    # ------------------------------------------------------------------
+
+    def _emit(self, req: Request, kind: str,
+              positions: Tuple[int, ...] = (),
+              tokens: Tuple[int, ...] = ()) -> None:
+        sink = req.sink or (self.event_sink if req.stream else None)
+        if sink is None:
+            return
+        sink(RequestEvent(kind=kind, uid=req.uid, step=self.stats.steps,
+                          ts=self._now(), positions=positions,
+                          tokens=tokens))
+
+    def _eff_priority(self, req: Request, now: float) -> int:
+        if self.slo_policy is None:
+            return req.priority
+        return self.slo_policy.effective_priority(req, now)
+
+    def _shed_hopeless(self) -> None:
+        """Drop queued requests that can no longer contribute goodput
+        (TTFT missed while waiting, or the e2e deadline passed).  The
+        ladder's low-priority shedding and margin are off until fault
+        supervision is ported (``_shed_low_priority``, ``_hopeless_margin``
+        keep their off values)."""
+        if self._shed_low_priority:
+            for r in list(self.queue):
+                if r.priority < self._shed_below:
+                    self.queue.remove(r)
+                    self._drop_plan(r)
+                    r.shed = True
+                    self._finalize_aborted(r)
+        if self.slo_policy is None or not self.slo_policy.shed:
+            return
+        now = self._now()
         for r in list(self.queue):
-            if r.uid == uid:
+            if r.slo is not None and self.slo_policy.hopeless(
+                    r, now, margin=self._hopeless_margin):
                 self.queue.remove(r)
                 self._drop_plan(r)
-                r.canceled = True
-                self._finalize_canceled(r)
-                return True
-        r = self._running.get(uid)
-        if r is not None and not r.canceled:
-            r.canceled = True     # the step loop releases slot + pages
-            return True
-        return False
+                r.shed = True
+                self._finalize_aborted(r)
 
-    def _finalize_canceled(self, req: Request) -> None:
+    def _finalize_aborted(self, req: Request) -> None:
+        """The exit of canceled and shed requests: release every resource
+        (a queued request's read holds were dropped by the caller; a
+        running one still owns pages) and finalize with no output."""
         if self.paged:
             self._release_holds(req)
             if req.pages:
@@ -350,7 +818,85 @@ class ServingEngine:
         self._running.pop(req.uid, None)
         self._admission_dirty = True   # a slot/pages may have freed
         self.done.append(req)
-        self.stats.requests_canceled += 1
+        if self._tr.enabled:
+            # the request may be mid-"queued" or mid-"running": close
+            # whatever is open on its track so no span is left open
+            outcome = ("shed" if req.shed
+                       else "fault" if req.fault is not None
+                       else "canceled")
+            self._tr.close_track(PID_REQUESTS, req.uid,
+                                 args={"outcome": outcome})
+        if req.shed:
+            self.stats.requests_shed += 1
+            if req.slo is not None:   # a shed request IS a missed SLO
+                self.stats.slo_missed += 1
+            self._emit(req, "shed")
+        elif req.fault is not None:
+            self.stats.requests_faulted += 1
+            self._emit(req, "aborted")
+        else:
+            self.stats.requests_canceled += 1
+            self._emit(req, "canceled")
+
+    def _host_overlap(self, lane: LaneKey,
+                      slots: List[Optional[Request]]) -> None:
+        """Host work while the step just launched runs on the card: it runs
+        before the first host sync on the step's outputs.  Mailbox intake,
+        SLO shedding, and the prefix plan (read holds, and a promotion
+        queued behind the step) of the next admission candidate, which
+        ``_admit_one`` reuses through ``plan_epoch``."""
+        self._drain_mailbox()
+        self._shed_hopeless()
+        pol = self.slo_policy
+        if pol is not None and self.queue and not self._admission_dirty:
+            # a queued request crossing the urgency threshold changes the
+            # admission outcome (its boost may preempt a running row)
+            now = self._now()
+            for r in self.queue:
+                if not r.boosted and pol.urgent(r, now):
+                    r.boosted = True
+                    self._admission_dirty = True
+        if pol is not None and pol.shed:
+            now = self._now()
+            for s in slots:
+                if (s is not None and not s.canceled and s.slo is not None
+                        and now > s.submitted_at + s.slo.deadline):
+                    s.canceled = True    # running past its deadline: shed
+                    s.shed = True
+        if self._stop is not None and self._stop.is_set():
+            for s in slots:              # clean shutdown: abort in-flight
+                if s is not None:
+                    s.canceled = True
+        if self.prefix is not None and self._admission_dirty:
+            for req in self._lane_candidates(lane)[:1]:
+                if req.n_pages:
+                    self._plan(req)
+
+    def _stream_tokens(self, slots: List[Optional[Request]],
+                       sess: DecodeSession, p_lens: List[int]) -> None:
+        """Token events of streaming slots: diff each row's gen span of the
+        canvas against its request's emitted mask (the canvas, not the
+        commit ring, so wide commits that overflow the ring drop nothing).
+        Costs one host copy of the canvas a step while any row streams."""
+        live = [(i, s) for i, s in enumerate(slots)
+                if s is not None and not s.canceled and s.fault is None
+                and (s.sink is not None
+                     or (s.stream and self.event_sink is not None))]
+        if not live:
+            return
+        toks = sess.host_tokens()
+        mask_id = self.cfg.mask_id
+        for i, req in live:
+            span = toks[i, p_lens[i]: p_lens[i] + req.gen_len]
+            if req.emitted is None:
+                req.emitted = np.zeros((req.gen_len,), bool)
+            fresh = (span != mask_id) & ~req.emitted
+            if not fresh.any():
+                continue
+            pos = np.nonzero(fresh)[0]
+            req.emitted[pos] = True
+            self._emit(req, "token", positions=tuple(int(p) for p in pos),
+                       tokens=tuple(int(t) for t in span[pos]))
 
     # ------------------------------------------------------------------
     # Lanes
@@ -381,6 +927,7 @@ class ServingEngine:
     def _session_for(self, lane: LaneKey) -> DecodeSession:
         if lane not in self._sessions:
             settings, strategy, scheduler = lane
+            self._lane_id(lane)       # lane tracks numbered as sessions
             self._sessions[lane] = DecodeSession(
                 self.params, self.cfg, strategy=strategy,
                 settings=settings, scheduler=scheduler,
@@ -389,12 +936,21 @@ class ServingEngine:
         return self._sessions[lane]
 
     def _lane_candidates(self, lane: LaneKey) -> List[Request]:
-        """Lane-matching queued requests in admission order: priority
-        first, queue order within a priority."""
+        """Lane-matching queued requests in admission order: strict
+        (effective) priority first; within a priority, queue order, or
+        under an SLO policy the earliest TTFT deadline first (EDF) with
+        queue order breaking ties.  The SLO boost folds into the effective
+        priority, so a near-deadline request jumps ahead of (and may
+        preempt) slack-rich peers."""
         matches = [(i, r) for i, r in enumerate(self.queue)
                    if r.lane == lane]
-        return [r for _, r in sorted(matches,
-                                     key=lambda ir: (-ir[1].priority, ir[0]))]
+        if self.slo_policy is None:
+            return [r for _, r in sorted(
+                matches, key=lambda ir: (-ir[1].priority, ir[0]))]
+        pol, now = self.slo_policy, self._now()
+        return [r for _, r in sorted(matches, key=lambda ir: (
+            -pol.effective_priority(ir[1], now),
+            pol.ttft_slack(ir[1], now), ir[0]))]
 
     # ------------------------------------------------------------------
     # Shared-prefix index
@@ -455,15 +1011,6 @@ class ServingEngine:
                 self._prefix_plan(req)
                 req.plan_epoch = self._prefix_epoch
 
-    def _plan_ahead(self, lane: LaneKey) -> None:
-        """Plan the lane's next admission candidate on the host while the
-        step just launched runs on the card (``_admit_one`` reuses it).  A
-        promotion made here queues its copies behind that step."""
-        if self.prefix is not None and self._admission_dirty:
-            for req in self._lane_candidates(lane)[:1]:
-                if req.n_pages:
-                    self._plan(req)
-
     def _drop_plan(self, req: Request) -> None:
         self._release_holds(req)
         req.shared_n, req.shared_full = 0, False
@@ -477,6 +1024,11 @@ class ServingEngine:
 
     def _count_prefix_hit(self, req: Request) -> None:
         """Admission succeeded: count the planned hit."""
+        self.telemetry.registry.histogram(
+            "spa_prefix_hit_depth_pages",
+            "index pages attached per admission (0 = miss)",
+            buckets=_HIT_DEPTH_BUCKETS).observe(req.shared_n
+                                                if req.holds else 0)
         if not req.holds:
             return
         self.stats.prefix_hits += 1
@@ -557,12 +1109,19 @@ class ServingEngine:
     def _evict_index(self, n_pages: int) -> int:
         """Index eviction; the evicted pages split into demoted and dropped
         (as the index reports them)."""
-        freed, demoted, dropped = self.prefix.evict(self.pool, n_pages)
+        freed, demoted, dropped, full, stable = self.prefix.evict(
+            self.pool, n_pages)
         self.stats.prefix_demoted_pages += demoted
         self.stats.prefix_dropped_pages += dropped
+        self.stats.tier_dropped_full += full
+        self.stats.tier_dropped_stable += stable
         if freed:
             self.stats.prefix_evicted_pages += freed
             self._prefix_epoch += 1
+            self._tr.instant(
+                PID_EVENTS, 2, "demote", cat="tier",
+                args={"freed": freed, "step": self.stats.steps,
+                      "demoted": demoted, "dropped": dropped})
         return freed
 
     # ------------------------------------------------------------------
@@ -633,7 +1192,7 @@ class ServingEngine:
         refs = list(match.host_refs)
         try:
             sig, blocks = self.tier.promote(refs)
-        except HostPageCorruption:
+        except HostPageCorruption as e:
             # corrupt bytes never reach the device; the tier freed the
             # entry's slots, the trie drops its refs, the request is
             # planned again and prefilled cold
@@ -641,6 +1200,7 @@ class ServingEngine:
             self.pool.release(list(match.pages))
             self.prefix.scrub_host_sites(match)
             self.stats.host_checksum_failures += 1
+            self.stats.host_corrupt_pages += e.bad
             self.stats.cold_prefill_fallbacks += 1
             req.plan_epoch = None
             self._prefix_epoch += 1
@@ -655,6 +1215,8 @@ class ServingEngine:
         req.shared_full = match.full
         self.stats.prefix_promoted_pages += n
         self.stats.prefix_promotions += 1
+        self._tr.instant(PID_REQUESTS, req.uid, "promote", cat="tier",
+                         args={"pages": n, "step": self.stats.steps})
         self._prefix_epoch += 1         # planned misses may now hit
         req.plan_epoch = self._prefix_epoch
         self._admission_dirty = True
@@ -682,6 +1244,16 @@ class ServingEngine:
         slots[slot] = None
         self._running.pop(victim.uid, None)
         self.queue.appendleft(victim)
+        tr = self._tr
+        if tr.enabled:
+            tr.end(PID_REQUESTS, victim.uid, "running",
+                   args={"exit": "preempt"})
+            tr.instant(PID_REQUESTS, victim.uid, "preempt",
+                       cat="lifecycle",
+                       args={"step": self.stats.steps,
+                             "preemptions": victim.preemptions})
+            tr.begin(PID_REQUESTS, victim.uid, "queued", cat="lifecycle",
+                     args={"resumed": True})
 
     def _admit_one(self, lane: LaneKey, slots: List[Optional[Request]],
                    sess: Optional[DecodeSession],
@@ -689,22 +1261,24 @@ class ServingEngine:
         """Admit one lane request: it needs a free SLOT and (paged mode)
         enough free PAGES.  When either is short, strictly lower-priority
         running requests are preempted, lowest priority first and most
-        recently started first within a priority, until the candidate
-        fits; if they cannot cover it the candidate stalls and the next
-        candidate gets a chance.  With the prefix index, a page shortage
+        recently started first within a priority (effective priorities
+        under an SLO policy), until the candidate fits; if they cannot
+        cover it the candidate stalls and the next candidate gets a
+        chance.  With the prefix index, a page shortage
         first evicts reader-less index entries, but only when that (with
         the preemptible victims) can admit the candidate.  Returns the
         admitted request (popped from the queue, pages allocated) or None.
         ``protected`` slots were admitted this swap round and have no
         session state yet, so they are never victims."""
         stalled = False
+        now = self._now()
         for req in self._lane_candidates(lane):
             slot_free = any(s is None for s in slots)
             if not self.paged:
                 if not slot_free:
                     return None     # dense mode: no preemption
                 self.queue.remove(req)
-                self._running[req.uid] = req
+                self._admit_bookkeep(req)
                 return req
             # plan the prefix hit FIRST: its read holds protect the
             # matched entry from this admission's own index eviction
@@ -713,11 +1287,12 @@ class ServingEngine:
                           if req.n_pages else 0)
             victims = []
             if sess is not None:
+                req_eff = self._eff_priority(req, now)
                 victims = sorted(
                     ((i, r) for i, r in enumerate(slots)
                      if r is not None and i not in protected
-                     and r.priority < req.priority),
-                    key=lambda ir: (ir[1].priority,
+                     and self._eff_priority(r, now) < req_eff),
+                    key=lambda ir: (self._eff_priority(ir[1], now),
                                     -(ir[1].started_at or 0.0)))
             freeable = sum(len(r.pages or []) for _, r in victims)
             if page_short and self.prefix is not None:
@@ -747,11 +1322,24 @@ class ServingEngine:
             self.queue.remove(req)
             req.pages = pages
             self._count_prefix_hit(req)
-            self._running[req.uid] = req
+            self._admit_bookkeep(req)
             return req
         if stalled:
             self.stats.admission_stalls += 1
         return None
+
+    def _admit_bookkeep(self, req: Request) -> None:
+        self._running[req.uid] = req   # cancel() finds in-flight by uid
+        tr = self._tr
+        if tr.enabled:
+            tr.end(PID_REQUESTS, req.uid, "queued")
+            kind = ("resume" if req.preemptions > 0
+                    else "full_hit" if req.shared_full
+                    else "partial_prefill" if req.shared_n
+                    else "prefill")
+            tr.begin(PID_REQUESTS, req.uid, "running", cat="lifecycle",
+                     args={"prefill": kind, "pages": req.n_pages,
+                           "shared_pages": req.shared_n})
 
     # ------------------------------------------------------------------
     # Canvas rows
@@ -781,16 +1369,22 @@ class ServingEngine:
                  p_len: int) -> None:
         req.output = toks_row[p_len: p_len + req.gen_len].copy()
         req.completed_at = self._now()
-        self.stats.e2e_latencies.append(req.completed_at - req.submitted_at)
+        e2e = req.completed_at - req.submitted_at
+        self.stats.e2e_latencies.append(e2e)
         if req.started_at is not None:
             self.stats.queue_waits.append(req.started_at - req.submitted_at)
+        ttft = float("inf")
         if req.first_token_at is not None:
-            self.stats.ttft_latencies.append(
-                req.first_token_at - req.submitted_at)
+            ttft = req.first_token_at - req.submitted_at
+            self.stats.ttft_latencies.append(ttft)
             if req.last_commit_at is not None and req.tokens_done > 1:
                 self.stats.tpot_latencies.append(
                     (req.last_commit_at - req.first_token_at)
                     / (req.tokens_done - 1))
+        if req.slo is None or req.slo.met(ttft, e2e):
+            self.stats.slo_met += 1
+        else:
+            self.stats.slo_missed += 1
         if self.paged:
             self._release_holds(req)
             if req.pages:
@@ -799,6 +1393,14 @@ class ServingEngine:
         self._running.pop(req.uid, None)
         self.done.append(req)
         self.stats.requests_done += 1
+        tr = self._tr
+        if tr.enabled:
+            tr.end(PID_REQUESTS, req.uid, "running",
+                   args={"exit": "done", "steps": req.served_steps})
+            tr.end(PID_REQUESTS, req.uid, "request",
+                   args={"outcome": "done", "tokens": req.tokens_done,
+                         "preemptions": req.preemptions})
+        self._emit(req, "done", tokens=tuple(int(t) for t in req.output))
 
     # ------------------------------------------------------------------
 
@@ -806,11 +1408,59 @@ class ServingEngine:
         """Serve the queue to completion.  ``max_steps`` is each request's
         step budget (a request that exhausts it is harvested as it is).
         ``on_step(engine)`` fires after every engine step; submissions made
-        from it join the live run and are admitted mid-loop."""
+        from it join the live run and are admitted mid-loop.  The mailbox
+        is drained and hopeless requests shed before each lane."""
         t0 = self._now()
-        while self.queue:
+        while True:
+            self._drain_mailbox()
+            self._shed_hopeless()
+            if not self.queue:
+                break
+            steps0 = self.stats.steps
             self._run_lane(self.queue[0].lane, max_steps, on_step)
+            if self.queue and self.stats.steps == steps0:
+                # nothing admitted: tick the step clock so that time moves
+                # on instead of spinning
+                self.stats.steps += 1
         self._wall = self._now() - t0
+        self._note_pool_stats()
+        return self.stats
+
+    def run_online(self, stop: threading.Event, *, max_steps: int = 256,
+                   idle_wait: float = 0.01, on_step=None) -> EngineStats:
+        """Serve arrivals until ``stop`` is set: the front end's engine
+        thread loop.  While idle it blocks on the mailbox; while serving,
+        arrivals ride the overlap point into the live batch.  On stop,
+        in-flight requests are aborted (canceled, resources released) and
+        queued requests stay queued with their prefix plans dropped, so the
+        engine can be resumed or drained later."""
+        self._stop = stop
+        t0 = self._now()
+        try:
+            while not stop.is_set():
+                self._drain_mailbox()
+                self._shed_hopeless()
+                if self.queue:
+                    steps0 = self.stats.steps
+                    self._run_lane(self.queue[0].lane, max_steps, on_step)
+                    if self.queue and self.stats.steps == steps0:
+                        self.stats.steps += 1   # idle tick, as in run()
+                    continue
+                try:
+                    fn = self._mailbox.get(timeout=idle_wait)
+                except queue_mod.Empty:
+                    continue
+                fn()
+        finally:
+            self._stop = None
+            self._drain_mailbox()
+            for r in list(self.queue):   # stopping never leaks holds
+                self._drop_plan(r)
+            self._wall = self._now() - t0
+            self._note_pool_stats()
+        return self.stats
+
+    def _note_pool_stats(self) -> None:
         if self.paged:
             self.stats.peak_pool_util = (self.pool.peak_used
                                          / max(self.pool.capacity, 1))
@@ -819,12 +1469,13 @@ class ServingEngine:
             self.stats.peak_host_util = (self.host_pool.peak_units
                                          / max(self.host_pool.capacity_units,
                                                1))
-        return self.stats
 
     def _run_lane(self, lane: LaneKey, max_steps: int,
                   on_step=None) -> None:
         sess = self._session_for(lane)
         strategy = lane[1]
+        tr = self._tr
+        lid = self._lane_id(lane)
         slots: List[Optional[Request]] = [None] * self.max_batch
         batch: List[Request] = []
         while len(batch) < self.max_batch:
@@ -879,23 +1530,54 @@ class ServingEngine:
                 committed0).to(self.device))
 
         while any(s is not None for s in slots):
+            if tr.enabled:
+                tr.begin(PID_ENGINE, lid, "dispatch", cat="phase")
             info = sess.step()
-            self._plan_ahead(lane)    # host work while the step runs
+            # the step is launched but not synced: mailbox intake, SLO
+            # shedding and the next candidate's prefix plan run on the
+            # host while it runs on the card
+            if tr.enabled:
+                self._phase_end(lid, "dispatch")
+                tr.begin(PID_ENGINE, lid, "host_overlap", cat="phase")
+            self._host_overlap(lane, slots)
+            if tr.enabled:
+                self._phase_end(lid, "host_overlap")
             self.stats.steps += 1
             if self.paged:
                 self.pool.note_step()
-            n_comm = info["n_committed"].cpu().numpy()   # host sync
+            if tr.enabled:
+                tr.begin(PID_ENGINE, lid, "host_sync", cat="phase")
+            n_comm = info["n_committed"].cpu().numpy()   # first host sync
+            if tr.enabled:
+                self._phase_end(lid, "host_sync")
+                if self.paged:
+                    tr.counter(PID_ENGINE, "pool_pages",
+                               {"used": self.pool.used,
+                                "free": self.pool.available})
+                if self.host_pool is not None:
+                    tr.counter(PID_ENGINE, "host_tier_units",
+                               {"used": self.host_pool.used_units})
+                tr.counter(PID_ENGINE, "queue_depth",
+                           {"queued": len(self.queue),
+                            "running": len(self._running)})
             self.stats.tokens_committed += int(n_comm.sum())
+            # cache-dynamics sampling: host-side proxy diffing after the
+            # step's first host sync, never on the launch path
+            dyn = self.telemetry.dynamics_every
+            if dyn and strategy.uses_cache and self.stats.steps % dyn == 0:
+                self._note_cache_dynamics(
+                    sess, strategy, n_live=sum(s is not None for s in slots))
             if on_step is not None:
                 on_step(self)
             now = self._now()
             for i, s in enumerate(slots):     # TTFT / TPOT bookkeeping
-                if s is None or n_comm[i] <= 0:
+                if s is None or s.fault is not None or n_comm[i] <= 0:
                     continue
                 if s.first_token_at is None:
                     s.first_token_at = now
                 s.last_commit_at = now
                 s.tokens_done += int(n_comm[i])
+            self._stream_tokens(slots, sess, p_lens)
             n_masked = sess.state.n_masked.cpu().numpy()
             finished, dead = [], []
             for i, s in enumerate(slots):
@@ -903,7 +1585,7 @@ class ServingEngine:
                     continue
                 ages[i] += 1
                 s.served_steps = ages[i]
-                if s.canceled:
+                if s.canceled or s.fault is not None:
                     dead.append(i)
                 elif n_masked[i] <= 0 or ages[i] >= max_steps:
                     finished.append(i)
@@ -918,7 +1600,7 @@ class ServingEngine:
                 for i in dead:
                     req = slots[i]
                     slots[i] = None
-                    self._finalize_canceled(req)
+                    self._finalize_aborted(req)
                 if self.paged:
                     # zero the rows' page-table entries BEFORE their pages
                     # can be re-allocated below: a stale entry would let

@@ -91,7 +91,12 @@ def page_stability(proxy_block) -> float:
 class HostPageCorruption(RuntimeError):
     """A host-tier page failed its checksum on promotion.  The tier has
     already freed the whole entry's slots (corrupt bytes never reach the
-    device); the engine falls back to a cold prefill."""
+    device); the engine falls back to a cold prefill.  ``bad`` counts the
+    entry's pages that failed."""
+
+    def __init__(self, message: str, bad: int = 0):
+        super().__init__(message)
+        self.bad = bad
 
 
 @dataclasses.dataclass(frozen=True)
@@ -236,7 +241,8 @@ class HostPagePool:
 
     def debug_state(self) -> Dict:
         """JSON-safe unit accounting and per-(signature, representation)
-        slot occupancy (never the arena contents)."""
+        slot occupancy (never the arena contents).  The engine adds the
+        pages in and out from its statistics."""
         stores = {f"{sig}/{repr_}": {
             "n_slots": e["n_slots"], "free_slots": len(e["free"]),
             "resident": e["n_slots"] - len(e["free"])}
@@ -247,7 +253,6 @@ class HostPagePool:
             "peak_units": self.peak_units,
             "utilization": round(self.utilization, 6),
             "resident_pages": self.used_pages,
-            "pinned": self.pin,
             "stores": stores,
         }
 
@@ -387,6 +392,9 @@ class TierManager:
         self.device = resolve_device(device)
         self._sig_of: Dict[int, Tuple] = {}       # device page -> sig
         self._stability: Dict[int, float] = {}    # device page -> score
+        # why the last demote returned None under host pressure: "full",
+        # or "stable" (every page stable: cheap to prefill again)
+        self.refusal: Optional[str] = None
 
     # ---- engine registration ----------------------------------------
 
@@ -443,6 +451,7 @@ class TierManager:
         (unknown signature, no read path, or the host budget cannot take
         it: a tail is all or nothing).  The caller releases the device
         pages either way."""
+        self.refusal = None
         if not pages or self.read_pages is None:
             return None
         sig = self._sig_of.get(pages[0])
@@ -451,6 +460,11 @@ class TierManager:
         plan = [self._repr_for(sig, self.stability(p), exact_in)
                 for p in pages]
         if not self.host.fits(sum(u for _, u, _ in plan)):
+            # under host pressure stable pages skip the tier (they are the
+            # cheap ones to prefill again)
+            self.refusal = ("stable" if all(
+                self.stability(p) >= self.stable_threshold for p in pages)
+                else "full")
             return None
         blocks = self.read_pages(sig, list(pages))
         refs: List[Optional[HostPageRef]] = [None] * len(pages)
@@ -493,7 +507,7 @@ class TierManager:
                 self.host.free(sig, r.repr_, [r.slot], r.units)
             raise HostPageCorruption(
                 f"{bad}/{len(refs)} host pages failed checksum "
-                f"verification on promotion")
+                f"verification on promotion", bad)
         parts = []                      # (ref positions, blocks)
         for repr_ in _REPRS:
             at = [i for i, r in enumerate(refs) if r.repr_ == repr_]

@@ -173,6 +173,32 @@ class PagePool:
                               for t in bufs.values())
                 for sig, arenas in self._arenas.items()}
 
+    def telemetry_gauges(self):
+        """Occupancy gauges for the metrics registry, ``name -> (help,
+        value)``: the pool owns its exposition names."""
+        frag = self.free_fragmentation()
+        return {
+            "spa_pool_pages_used":
+                ("allocated composite pages", self.used),
+            "spa_pool_pages_capacity":
+                ("allocatable pages", self.capacity),
+            "spa_pool_utilization_ratio":
+                ("used / capacity", self.utilization),
+            "spa_pool_peak_utilization_ratio":
+                ("high-water used / capacity",
+                 self.peak_used / max(self.capacity, 1)),
+            "spa_pool_peak_pages_used":
+                ("high-water allocated pages", self.peak_used),
+            "spa_pool_free_runs":
+                ("contiguous free-page runs", frag["free_runs"]),
+            "spa_pool_max_contiguous_free_run":
+                ("longest contiguous free-page run",
+                 frag["max_contiguous_run"]),
+            "spa_pool_arena_bytes_total":
+                ("device bytes across all cache-signature arenas",
+                 sum(self.arena_bytes().values())),
+        }
+
     def debug_state(self) -> Dict:
         """JSON-safe accounting, fragmentation, per-signature bytes and the
         refcount histogram (never the arena contents)."""

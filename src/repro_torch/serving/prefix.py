@@ -59,10 +59,13 @@ TokenRun = Tuple[int, ...]
 class Eviction(NamedTuple):
     """What one :meth:`PrefixIndex.evict` did: device pages freed, pages
     demoted to the host tier, and pages dropped (host refs pruned
-    included)."""
+    included); of the dropped, the pages the tier refused for want of
+    room, and those it skipped as stable under that pressure."""
     freed: int
     demoted: int
     dropped: int
+    dropped_full: int = 0
+    dropped_stable: int = 0
 
 
 @dataclasses.dataclass
@@ -339,9 +342,11 @@ class PrefixIndex:
         and stay in the trie unless the tier refuses (host budget full, or
         stable under pressure); a dropped node severs the path through it,
         so host refs below it are pruned.  Returns the device pages freed
-        (fewer when everything left has readers), and how many pages were
-        demoted and dropped (host refs pruned included)."""
+        (fewer when everything left has readers), how many pages were
+        demoted and dropped (host refs pruned included), and which drops
+        the tier refused as full or as stable."""
         freed = demoted = dropped = 0
+        refused = {"full": 0, "stable": 0, None: 0}
         tier = self.tier
         while freed < n_pages:
             units = self._evictable(pool)
@@ -361,6 +366,7 @@ class PrefixIndex:
                 else:
                     node.tails.pop(tail_key)
                     if tier is not None:
+                        refused[tier.refusal] += len(pages)
                         tier.forget(pages)
                     dropped += len(pages)
             else:
@@ -373,13 +379,15 @@ class PrefixIndex:
                     demoted += 1
                 else:
                     if tier is not None:
+                        refused[tier.refusal] += 1
                         tier.forget(pages)
                         dropped += self._prune_host(node)
                     dropped += 1
                 node.page = None
             pool.release(pages)
             freed += len(pages)
-        return Eviction(freed, demoted, dropped)
+        return Eviction(freed, demoted, dropped, refused["full"],
+                        refused["stable"])
 
     def _prune_host(self, node: _Node) -> int:
         """A dropped node severs the lookup path through it: host refs at or
@@ -531,3 +539,14 @@ class PrefixIndex:
         """Host-tier pages the trie references (the host pool must hold
         exactly these)."""
         return len(self._host_refs())
+
+    def telemetry_gauges(self):
+        """Index-occupancy gauges for the metrics registry
+        (``name -> (help, value)``)."""
+        return {
+            "spa_prefix_held_pages":
+                ("device pages held by the index", self.held_pages),
+            "spa_prefix_host_held_pages":
+                ("host-tier pages referenced by the index",
+                 self.host_held_pages),
+        }

@@ -133,16 +133,19 @@ def assert_caches_close(j_cache, t_cache):
                                            err_msg=f"{kind}/{name}")
 
 
-def engine_pair(cfg, params, strategies, **kw):
+def engine_pair(cfg, params, strategies, jextra=None, textra=None, **kw):
     """The JAX engine and the port's (CPU) on the same weights, both
     scoring with the JAX strategy's proxies (when it builds any), with the
-    same engine arguments.  Returns (JAX engine, port engine)."""
+    same engine arguments (``jextra`` / ``textra``: arguments of one side
+    only, such as each package's SLO policy, clock or telemetry).  Returns
+    (JAX engine, port engine)."""
     from repro.serving.engine import ServingEngine as JEngine
     from repro_torch.serving.engine import ServingEngine as TEngine
-    jeng = JEngine(cfg, params, strategy=strategies[0], **kw)
+    jeng = JEngine(cfg, params, strategy=strategies[0], **kw,
+                   **(jextra or {}))
     tcfg = port_cfg(cfg)
     teng = TEngine(tcfg, port_params(params, tcfg), strategy=strategies[1],
-                   device="cpu", **kw)
+                   device="cpu", **kw, **(textra or {}))
     jprox = jeng._proxies_for(jeng.strategy)
     if jprox is not None:
         teng._proxies[teng.strategy] = port_proxies(jprox, tcfg)
@@ -171,6 +174,54 @@ def serve_both(cfg, params, requests, *, strategies, on_step=None, **kw):
 
     jeng, teng = engine_pair(cfg, params, strategies, **kw)
     return run(jeng), run(teng)
+
+
+def slo_engines(cfg, params, policy, page=4, canvas=16):
+    """The JAX and the port engine of the JAX ``tests/test_slo.py`` (2
+    slots, canvas 16, pages of 4, a pool of 2 canvases + 1, SPACache with
+    ``refresh_interval=1``), each with its package's ``StepClock`` and
+    ``SLOPolicy(**policy)`` (none for ``policy=None``).  Returns ((JAX
+    engine, clock, slo module), (port engine, clock, slo module))."""
+    from repro.core.strategy import SPACache as JSPACache
+    from repro.serving import slo as jslo
+    from repro_torch.core.strategy import SPACache as TSPACache
+    from repro_torch.serving import slo as tslo
+    jclock, tclock = jslo.StepClock(), tslo.StepClock()
+    spec = dict(rank=16, schedule="uniform", rho_peak=0.3,
+                refresh_interval=1)
+    jpol = tpol = None
+    if policy is not None:
+        jpol, tpol = jslo.SLOPolicy(**policy), tslo.SLOPolicy(**policy)
+    jeng, teng = engine_pair(
+        cfg, params, (JSPACache(**spec), TSPACache(**spec)),
+        jextra=dict(slo_policy=jpol, clock=jclock),
+        textra=dict(slo_policy=tpol, clock=tclock),
+        max_batch=2, canvas_len=canvas,
+        pool_pages=2 * (canvas // page) + 1, page_size=page)
+    return (jeng, jclock, jslo), (teng, tclock, tslo)
+
+
+def assert_slo_runs_match(jeng, teng):
+    """Two engines' runs of one SLO scenario: the same outputs, shed and
+    canceled sets, admission / first-token / completion times, counters
+    and TTFT / TPOT percentiles, and both pools empty."""
+    j = {r.uid: r for r in jeng.done}
+    t = {r.uid: r for r in teng.done}
+    assert sorted(j) == sorted(t)
+    for uid, jr in j.items():
+        tr = t[uid]
+        assert (tr.shed, tr.canceled) == (jr.shed, jr.canceled), uid
+        assert (tr.started_at, tr.first_token_at, tr.completed_at) \
+            == (jr.started_at, jr.first_token_at, jr.completed_at), uid
+        if jr.output is None:
+            assert tr.output is None, uid
+        else:
+            np.testing.assert_array_equal(tr.output, np.asarray(jr.output))
+    for name in ("steps", "preemptions", "requests_done", "requests_shed",
+                 "slo_met", "slo_missed", "tokens_committed", "swaps"):
+        assert getattr(teng.stats, name) == getattr(jeng.stats, name), name
+    assert teng.stats.percentiles() == jeng.stats.percentiles()
+    assert teng.pool.used == jeng.pool.used == 0
 
 
 ENGINE_STATS = ("steps", "swaps", "preemptions", "requests_done",

@@ -192,6 +192,44 @@ def test_corrupt_slot_is_served_cold_without_leaks(bench_model):
     assert jeng.host_pool.used_pages == 0
 
 
+_TIER_KEYS = ("demoted_pages", "promoted_pages", "dropped_full",
+              "dropped_stable", "store_faults", "checksum_failures")
+
+
+def test_tier_counters_and_debug_state_match_jax(bench_model):
+    """A host tier of two pages under the bench traffic, every host slot
+    corrupted between the two passes (no reset): the port engine's
+    ``pool_debug_state`` reports the JAX tier manager's counters (demoted,
+    promoted, dropped for want of room, corrupt pages, not promotions) and
+    the JAX host pool's pages in / out, with the JAX keys."""
+    cfg, params = bench_model
+    reqs = _workload(cfg)
+    spec = dict(rank=16, schedule="uniform", rho_peak=0.3)
+    jeng, teng = engine_pair(
+        cfg, params, (JSPACache(**spec), TSPACache(**spec)), max_batch=2,
+        canvas_len=CANVAS, pool_pages=POOL, page_size=PAGE,
+        prefix_cache=True, host_pages=2, host_dtype="auto")
+    for eng, refs in ((jeng, _jax_host_refs), (teng,
+                                               lambda i: i._host_refs())):
+        _waves(eng, reqs)
+        for r in refs(eng.prefix):
+            eng.host_pool.corrupt_slot(r.sig, r.repr_, r.slot)
+        _waves(eng, reqs)
+    assert_engines_match(jeng, teng)
+    view = teng.pool_debug_state()
+    want = {name: getattr(jeng.tier, name) for name in _TIER_KEYS}
+    assert view["tier"] == want
+    assert want == {"demoted_pages": 4, "promoted_pages": 2,
+                    "dropped_full": 2, "dropped_stable": 0,
+                    "store_faults": 0, "checksum_failures": 2}
+    assert teng.stats.host_checksum_failures == 1   # one entry of 2 pages
+    jhost = jeng.host_pool.debug_state()
+    assert set(view["host_pool"]) == set(jhost)
+    for key in ("unit_budget", "units_used", "peak_units", "resident_pages",
+                "pages_in", "pages_out"):
+        assert view["host_pool"][key] == jhost[key], key
+
+
 def test_promoted_pages_decode_like_the_publisher(bench_model):
     """The measured f32 pass: a request whose full hit was promoted from the
     host tier decodes the tokens its own warm-pass run decoded."""

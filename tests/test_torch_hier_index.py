@@ -60,20 +60,27 @@ class Side:
                 read_pages=self._read)
         self.idx.tier = self.tier
         self.held = []
-        self.tally = {"demoted": 0, "dropped": 0, "promoted": 0}
+        self.tally = {"demoted": 0, "dropped": 0, "promoted": 0, "full": 0,
+                      "stable": 0}
 
     def evict(self, n):
-        """``evict``'s freed, demoted and dropped pages (JAX's split read
-        off its index's counters), added to the tally."""
+        """``evict``'s freed, demoted and dropped pages and the drops the
+        tier refused as full / as stable (JAX's split read off its index's
+        and its tier manager's counters), added to the tally."""
         if self.jax:
             d0, x0 = self.idx.demoted_pages, self.idx.dropped_pages
+            f0, s0 = self.tier.dropped_full, self.tier.dropped_stable
             freed = self.idx.evict(self.pool, n)
             out = (freed, self.idx.demoted_pages - d0,
-                   self.idx.dropped_pages - x0)
+                   self.idx.dropped_pages - x0,
+                   self.tier.dropped_full - f0,
+                   self.tier.dropped_stable - s0)
         else:
             out = tuple(self.idx.evict(self.pool, n))
         self.tally["demoted"] += out[1]
         self.tally["dropped"] += out[2]
+        self.tally["full"] += out[3]
+        self.tally["stable"] += out[4]
         return out
 
     def _read(self, sig, pages):
@@ -193,7 +200,9 @@ def test_tiered_index_matches_jax(tiny_cfg, seed, host_dtype):
     assert tside.tally == jside.tally
     assert jside.tally == {"demoted": jside.idx.demoted_pages,
                            "dropped": jside.idx.dropped_pages,
-                           "promoted": jside.idx.promoted_pages}
+                           "promoted": jside.idx.promoted_pages,
+                           "full": jside.tier.dropped_full,
+                           "stable": jside.tier.dropped_stable}
 
 
 def _both(tiny_cfg, host_pages, host_dtype="f32"):
@@ -214,7 +223,7 @@ def test_demote_promote_handshake_matches_jax(tiny_cfg):
     key, prompt = (CANVAS, "spec"), np.arange(10, dtype=np.int32)
     for side in _both(tiny_cfg, 8):
         pages = _insert_run(side, prompt)
-        assert side.evict(N_LOG) == (N_LOG, N_LOG, 0)
+        assert side.evict(N_LOG) == (N_LOG, N_LOG, 0, 0, 0)
         assert side.pool.used == 0 and side.idx.held_pages == 0
         assert side.idx.host_held_pages == N_LOG == side.tier.host.used_pages
         m = side.idx.lookup(key, prompt)
@@ -240,11 +249,12 @@ def test_dropped_node_prunes_its_host_subtree(tiny_cfg):
     for side in _both(tiny_cfg, 2):              # room for the 2-page tail
         prompt = np.arange(8, dtype=np.int32)    # 2 path pages + 2 tail
         _insert_run(side, prompt)
-        freed, demoted, dropped = side.evict(N_LOG)
+        freed, demoted, dropped, full, stable = side.evict(N_LOG)
         m = side.idx.lookup((CANVAS, "spec"), prompt)
-        out.append((freed, demoted, dropped, side.idx.host_held_pages, side.tier.host.used_pages,
+        out.append((freed, demoted, dropped, full, stable,
+                    side.idx.host_held_pages, side.tier.host.used_pages,
                     m.full, len(m.host_refs)))
-    assert out[0] == out[1] == (4, 3, 3, 1, 1, False, 1)
+    assert out[0] == out[1] == (4, 3, 3, 1, 0, 1, 1, False, 1)
 
 
 def test_insert_supersedes_host_refs(tiny_cfg):

@@ -286,3 +286,4 @@ def test_corrupt_slot_raises_and_frees_the_entry():
     with pytest.raises(thier.HostPageCorruption, match="1/3 host pages"):
         tt.promote(refs)
     assert tt.host.used_units == 0 and tt.host.used_pages == 0
+

@@ -78,13 +78,18 @@ def test_paged_mixed_gen_len_matches_jax_and_alone(tiny_cfg, tiny_params):
 
 def test_engine_refuses_parts_that_wait(tiny_cfg):
     """Arguments of the engine parts not ported yet raise; their "off"
-    values are accepted."""
+    values are accepted, and so are the ported SLO policy and telemetry."""
     from repro_torch.models import transformer
+    from repro_torch.serving.slo import SLOPolicy
+    from repro_torch.serving.telemetry import Telemetry
     tcfg = port_cfg(tiny_cfg)
     params = transformer.init_params(tcfg, seed=0, device="cpu")
-    TEngine(tcfg, params, device="cpu", fault_plan=None, telemetry=None)
-    for kw in (dict(fault_plan=object()),
-               dict(slo_policy=object()), dict(supervise=True),
+    TEngine(tcfg, params, device="cpu", fault_plan=None, supervise=False,
+            profiler=None)
+    eng = TEngine(tcfg, params, device="cpu", slo_policy=SLOPolicy(),
+                  telemetry=Telemetry.enabled())
+    assert eng.slo_policy is not None and eng.telemetry.tracing
+    for kw in (dict(fault_plan=object()), dict(supervise=True),
                dict(profiler=object())):
         with pytest.raises(NotImplementedError, match=next(iter(kw))):
             TEngine(tcfg, params, device="cpu", **kw)
@@ -103,8 +108,31 @@ def test_serve_cli_paged_in_process(capsys):
 
 def test_serve_cli_names_flags_that_wait(capsys):
     with pytest.raises(SystemExit):
-        tserve.main(["--device", "cpu", "--prefix-cache", "--slo-ttft",
-                     "4", "--serve"])
+        tserve.main(["--device", "cpu", "--prefix-cache", "--supervise",
+                     "--slo-ttft", "4", "--profile"])
     error = capsys.readouterr().err.strip().splitlines()[-1]
-    assert "--slo-ttft" in error and "--serve" in error
+    assert "--supervise" in error and "--profile" in error
     assert "--prefix-cache" not in error    # ported: accepted
+    assert "--slo-ttft" not in error
+
+
+def test_serve_cli_slo_trace_and_metrics(capsys, tmp_path):
+    """``--slo-ttft 50 --slo-deadline 200 --trace-out --metrics``: the
+    summary has the SLO line and the registry dump, and the trace file
+    loads as a Chrome trace with request and engine-phase spans."""
+    import json
+    trace = tmp_path / "trace.json"
+    assert tserve.main(["--device", "cpu", "--arch", "internlm2-1.8b",
+                        "--requests", "4", "--gen-len", "6", "--canvas",
+                        "24", "--max-batch", "2", "--pool-pages", "10",
+                        "--page-size", "4", "--slo-ttft", "50",
+                        "--slo-deadline", "200", "--trace-out", str(trace),
+                        "--metrics"]) == 0
+    out = capsys.readouterr().out
+    assert "SLO 4 met / 0 missed, 0 shed, 0 canceled" in out
+    assert "spa_engine_steps_total" in out
+    assert f"-> {trace}" in out
+    doc = json.loads(trace.read_text())
+    names = {e["name"] for e in doc["traceEvents"] if e["ph"] == "X"}
+    assert {"request", "queued", "running", "dispatch", "host_overlap",
+            "host_sync"} <= names
