@@ -55,7 +55,11 @@ Phases (each asserts; any failure exits non-zero):
    K+V rows and H + proxy at k=4096) bit for bit, and gather_norm beyond
    its record's k=128 (LLaDA k=16, the hybrid's k=4096 and 720, f32,
    d=1000 / 120), each timed beside its bound and plain version (scatter
-   also beside ``index_copy_``), with their ``-Xptxas -v`` lines;
+   also beside ``index_copy_``), with their ``-Xptxas -v`` lines; the NaN
+   rows (``check_nan_rows``): sparse_attention (bf16 and int8 K/V),
+   proxy_score, proxy_score_paged, cosine_drift and gather_norm with one
+   batch row's cache holding NaN, each non-finite mask equal to the plain
+   version's and every other row bit-equal to a clean call;
 4. decode parity: a 2-layer, full-width LLaDA, in f32 and in bf16 (the
    main path's kernel variants), through ``CudaBackend`` and
    ``TorchBackend`` (whose side of every comparison in phases 4, 8 and 10
@@ -69,15 +73,17 @@ Phases (each asserts; any failure exits non-zero):
    (adaptive, r=128), the confidence scheduler and ``CudaBackend``; every
    slot must commit, the hidden states stay finite and every kernel of the
    path must have launched; then 16 steps of the ``NoCache`` baseline;
-6. the baselines: the same decode under each baseline strategy (the
-   config's adaptive budget; value and the incremental identifier to
+6. the baselines: the same decode on LLaDA-8B's first 8 layers
+   (``llada_cut``: phases 6, 7, 12, 14 and 15 serve many steps, and at
+   this depth they fit the script's time limit) under each baseline
+   strategy (the config's adaptive budget; value and the incremental identifier to
    completion, the others for 64 steps), ms/step and generated tokens/s
    each, a ``torch.profiler`` window on each; hidden states finite, the
    path's new kernels launched; then all of them and SPA side by side in
    rotating blocks (wall ms/step comparable within the call);
-7. what paging costs a step (the main path's decode on a dense cache and
-   on the pool, in turns), then the server: the same model and proxies
-   through ``ServingEngine`` over
+7. on the same 8 layers, what paging costs a step (the main path's
+   decode on a dense cache and on the pool, in turns), then the server:
+   the same model and proxies through ``ServingEngine`` over
    the paged pool (canvas 512, 97 pages of 16, 4 slots), nine requests of
    mixed lengths, 1.67x the pool, one of them a priority-5 arrival that
    must preempt; all complete, the pool drains, every paged kernel
@@ -91,7 +97,7 @@ Phases (each asserts; any failure exits non-zero):
    identical tokens, bf16 in lockstep (strict);
 9. the hybrid main path: RecurrentGemma-9B (38 layers, bf16, random
    weights), B=2, prompt 16128 + gen 256, ``DecodeSession.run`` with
-   ``SPACache`` and ``CudaBackend`` for 16 steps (hidden states finite;
+   ``SPACache`` and ``CudaBackend`` for 32 steps (hidden states finite;
    the banded grid, the dense grid and rglru_scan launched, counted per
    step), a profiled window, then NoCache steps (SPA/NoCache on wall and
    device time);
@@ -115,7 +121,7 @@ Phases (each asserts; any failure exits non-zero):
    partial rows, over a partial row's suffix only, and never for full
    hits alone; a suffix-only prefill over the cold prefill's prefix K/V
    must give the cold prefill's suffix rows within 1e-5; prints how many
-   hits decode the prefix-off tokens; (b) LLaDA-8B through
+   hits decode the prefix-off tokens; (b) LLaDA-8B's 8 layers through
    ``ServingEngine`` (canvas 512, pages of 16, 4 slots, 257 pages) on the
    shared-system-prompt traffic (224-token system prompt, 6 questions of
    32 tokens asked twice, gen 256), prefix index off and on, each after
@@ -146,8 +152,8 @@ Phases (each asserts; any failure exits non-zero):
    those of an engine that never evicts, an int8 round trip on the card
    within max|row|/254 plus the f16 scale's cast, every host slot
    corrupted before the repeats raising on its checksum and served cold,
-   both tiers leak-free and emptied by ``drop_prefix_cache``; (b) LLaDA-8B
-   on the JAX serving benchmark's host-tier traffic scaled 16x in tokens
+   both tiers leak-free and emptied by ``drop_prefix_cache``; (b) LLaDA-8B's
+   8 layers on the JAX serving benchmark's host-tier traffic scaled 16x in tokens
    (8 requests, prompt 64-176, gen 64-256, waves of 2 slots, canvas 512,
    60 pages of 16, host budget the prefix set's pages, 16 steps a
    request), a warm then a measured pass with the tier off, at f32 and at
@@ -163,7 +169,8 @@ Phases (each asserts; any failure exits non-zero):
    and ``TorchBackend``: identical event streams and shed sets across the
    backends, byte-identical outputs of every request both passes
    complete, SLO-aware goodput at least FIFO's, a traced pass
-   (``dynamics_every=1``) with the same events; (b) LLaDA-8B (canvas 512,
+   (``dynamics_every=1``) with the same events; (b) LLaDA-8B's 8 layers
+   (canvas 512,
    130 pages of 16, 4 slots, ``refresh_interval=1``) on the Poisson trace
    x16 in tokens and virtual time (its first 7 requests), FIFO then
    SLO-aware: every stream
@@ -173,14 +180,33 @@ Phases (each asserts; any failure exits non-zero):
    / TPOT in steps, wall ms an engine step, the ``dispatch`` /
    ``host_overlap`` / ``host_sync`` span medians, the streaming and
    ``cache_dynamics`` costs and how many outputs the passes share; (c) an
-   ``AsyncFrontend`` on 127.0.0.1 over LLaDA-8B (the config's SPA
+   ``AsyncFrontend`` on 127.0.0.1 over the same 8 layers (the config's SPA
    schedule, real clock, tracer on) with six HTTP clients, one hanging up
    after its first token: streams equal their ``done`` outputs, the
    dropped request canceled with its pages freed, ``/metrics`` Prometheus
    text, the debug views JSON mid-stream, the exported trace's step spans
    inside the serving window; prints TTFT / TPOT in ms, ms an engine step
    online and offline, the event delivery latency and the share of steps
-   still on the card when ``_host_overlap`` ended.
+   still on the card when ``_host_overlap`` ended;
+16. fault injection and the supervisor, after phase 15 on the same
+   weights: (a) the JAX serving benchmark's fault storm (part 5: its six
+   requests, canvas 32, pages of 4, 41 pages, host tier of 16 pages in
+   f32, 4 slots, ``refresh_interval=1``) on a 2-layer full-width f32
+   LLaDA, clean then under ``FAULT_STORM``, through ``CudaBackend`` and
+   ``TorchBackend``: the same injector log, aborted uids, counters and
+   outputs on both, survivors byte-identical to the clean pass, a
+   poisoned page handed out again, both tiers drained, and the counters
+   of the JAX engine (``FAULT_STORM_RECORD``); (b) LLaDA-8B, all 32
+   layers (canvas 256,
+   73 pages of 16, host tier of 32 pages, 4 slots, the config's SPA with
+   ``refresh_interval=1``) on five of those requests x8 in tokens and two
+   repeats, clean under ``supervise=True``, then under ``FAULT_PLAN``
+   (all six sites) and ``FAULT_SUPERVISOR``: the rehearsal's log, aborted
+   and canceled uids and ladder walk (``FAULT_EXPECT``), a NaN
+   quarantine, a cold prefill after the corrupted page, a watchdog
+   recovery, an invariant check every iteration, both tiers drained;
+   prints survivors equal to their clean twins, ms a step of both passes
+   and the ``supervisor`` span's median.
 
 Phase 3 also times ``scatter_pages`` beside one ``index_put_`` of the
 whole view (``arena[:, pt] = dense``), its library call.
@@ -193,7 +219,8 @@ those of its path: phase 5 for the session kernels, phase 6 for
 cosine_drift and the wide proxy_score, phase 7's first server for the
 paged kernels and its drift lanes for cosine_drift_paged, phase 9 for
 the banded grid and rglru_scan, phase 11 for ssd_chunk_scan), the card
-line and ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without
+line and ``{"ok": true, "device": {...}}``.  Each phase prints its wall
+seconds, and the script its total before the JSON lines.  Without a CUDA device, or without
 the repository's ``src/`` beside it, the script exits non-zero before
 printing any result.
 """
@@ -257,6 +284,7 @@ MAMBA_GEN = 256
 MAMBA_STEPS = 32          # NoCache steps of the Mamba2 main path
 HYBRID_GEN = 256          # hybrid: prompt 16128 + gen 256 = N
 GEN_LEN = 256             # main path: prompt 256 + gen 256 = N
+CUT_LAYERS = 8            # LLaDA-8B's depth in phases 6, 7, 12, 14, 15
 SPIN_CYCLES = 4_000_000   # ~2 ms of a spin kernel at H100 clocks
 
 
@@ -689,6 +717,7 @@ def check_kernels(torch, flush):
     records.update(check_hybrid_kernels(torch, flush, gen, randn, randint,
                                         assert_close))
     records.update(check_ssd_kernel(torch, flush, gen))
+    check_nan_rows(torch, gen, randn, randint)
     for name, rec in records.items():
         lib = ("-" if rec["library_ms"] is None
                else f"{rec['library_ms']:.4f}")
@@ -697,6 +726,105 @@ def check_kernels(torch, flush):
               f"{rec['bound'][0]:.4f} ms ({rec['bound'][1]})")
     _lib.reset_launch_counts()
     return records
+
+
+NAN_ROW = 1               # phase 3's NaN rows: the batch row whose cache
+NAN_SPAN = (16, 32)       # holds NaN in these rows (one page of 16)
+
+
+def check_nan_rows(torch, gen, randn, randint):
+    """Phase 3's NaN rows: the kernels the engine's NaN guard relies on,
+    at the slice shapes, with batch row ``NAN_ROW``'s cache rows
+    ``NAN_SPAN`` set to NaN as a ``step_nan`` fault leaves them (K/V,
+    int8 K/V scales, cached proxies, hidden states).  Each kernel's
+    non-finite mask must equal its plain version's element for element,
+    reach the output, and leave every other batch row bit-equal to a
+    clean call of the kernel."""
+    from repro_torch.kernels import proxy_score as ps
+    from repro_torch.kernels import scatter_update as sc
+    from repro_torch.kernels import sparse_attention as sa
+
+    B, N, d, r = SLICE["B"], SLICE["N"], SLICE["d"], SLICE["r"]
+    H, KVH, hd = SLICE["H"], SLICE["KVH"], SLICE["hd"]
+    lo, hi = NAN_SPAN
+    others = [b for b in range(B) if b != NAN_ROW]
+    dev = gen.device
+
+    def poison(t):
+        t = t.clone()
+        t[NAN_ROW, lo:hi] = float("nan")
+        return t
+
+    def check(name, kernel, plain, clean_args, bad_args):
+        outs = (kernel(*bad_args), plain(*bad_args), kernel(*clean_args))
+        if isinstance(outs[0], torch.Tensor):
+            outs = tuple((o,) for o in outs)
+        notes = []
+        for got, want, clean in zip(*outs):
+            bad = ~torch.isfinite(got)
+            assert torch.equal(bad, ~torch.isfinite(want)), \
+                f"{name}: non-finite masks differ in " \
+                f"{int((bad != ~torch.isfinite(want)).sum())} elements"
+            assert not bool(bad[others].any())
+            assert torch.equal(got[others], clean[others]), \
+                f"{name}: a clean row changed"
+            notes.append(f"{int(bad.sum())}/{bad.numel()}")
+        assert notes[0] != f"0/{outs[0][0].numel()}", \
+            f"{name}: the NaN never reached the output"
+        print(f"  NaN rows, {name}: non-finite {', '.join(notes)} as the "
+              f"plain version's; other rows bit-equal to a clean call")
+
+    qpos = torch.sort(torch.randperm(N, generator=gen, device=dev)[:128]
+                      ).values.to(torch.int32).expand(B, 128).contiguous()
+    q = randn(B, 128, H, hd)
+    kc, vc = randn(B, N, KVH, hd), randn(B, N, KVH, hd)
+    check("sparse_attention bf16 K/V", sa.sparse_attention,
+          sa.sparse_attention_plain, (q, kc, vc, qpos),
+          (q, poison(kc), poison(vc), qpos))
+    k8 = randint(-127, 128, B, N, KVH, hd).to(torch.int8)
+    v8 = randint(-127, 128, B, N, KVH, hd).to(torch.int8)
+    ks = (torch.rand((B, N, KVH), generator=gen, device=dev) * 0.02
+          ).to(torch.float16)
+    vs = (torch.rand((B, N, KVH), generator=gen, device=dev) * 0.02
+          ).to(torch.float16)
+
+    def attn8(fn):
+        return lambda q_, k_s, v_s: fn(q_, k8, v8, qpos, k_scale=k_s,
+                                       v_scale=v_s)
+    check("sparse_attention int8 K/V (NaN scales)",
+          attn8(sa.sparse_attention), attn8(sa.sparse_attention_plain),
+          (q, ks, vs), (q, poison(ks), poison(vs)))
+    x, w, pc = randn(B, N, d), randn(d, r, scale=0.05), randn(B, N, r)
+    check("proxy_score (cached proxies)", ps.proxy_score,
+          ps.proxy_score_plain, (x, w, pc), (x, w, poison(pc)))
+    check("proxy_score (hidden states)", ps.proxy_score,
+          ps.proxy_score_plain, (x, w, pc), (poison(x), w, pc))
+    page = 16
+    n_log = N // page
+    pages = torch.randperm(B * n_log, generator=gen, device=dev) + 1
+    pt = pages.view(B, n_log).to(torch.int32)
+    arena = randn(B * n_log + 1, page, r)
+    bad_arena = arena.clone()
+    bad_arena[pt[NAN_ROW, lo // page:hi // page].long()] = float("nan")
+    check("proxy_score_paged (a poisoned page)",
+          lambda a: ps.proxy_score_paged(x, w, a, pt),
+          lambda a: ps.proxy_score_paged_plain(x, w, a, pt),
+          (arena,), (bad_arena,))
+    assert torch.equal(sc.gather_pages(bad_arena[None], pt)[0].isnan(),
+                       poison(sc.gather_pages(arena[None], pt)[0]).isnan())
+    xd = randn(B, N, r)
+    check("cosine_drift (cached proxies)", ps.cosine_drift,
+          ps.cosine_drift_plain, (xd, pc), (xd, poison(pc)))
+    h = randn(B, N, d)
+    wn = randn(d, scale=0.1)
+    idx = torch.sort(torch.randperm(N, generator=gen, device=dev)[:128]
+                     ).values
+    idx[:4] = torch.tensor([lo, lo + 3, hi - 1, hi], device=dev)
+    idx = torch.sort(idx).values.to(torch.int32).expand(B, 128).contiguous()
+    check("gather_norm (hidden states)",
+          lambda h_: ps.gather_norm(h_, idx, wn, 1e-6),
+          lambda h_: ps.gather_norm_plain(h_, idx, wn, 1e-6),
+          (h,), (poison(h),))
 
 
 def row_movers_ptxas() -> str:
@@ -2067,7 +2195,8 @@ def report_profile(prof, n_steps: int, wall_us: float, label: str) -> None:
 
 def llada_setup(torch):
     """LLaDA-8B's random bf16 weights, its ``SPACache`` and SVD proxies:
-    (cfg, params, strat, proxies), shared by phases 5-7."""
+    (cfg, params, strat, proxies), shared by phases 5-7, 12 and 14-16
+    (``llada_cut`` of them in phases 6, 7, 12, 14 and 15)."""
     from repro_torch.configs import get_arch
     from repro_torch.core.strategy import SPACache
     from repro_torch.models import transformer
@@ -2085,6 +2214,28 @@ def llada_setup(torch):
     print(f"  SVD proxies (32 x [4096, 4096] -> r=128): "
           f"{time.perf_counter() - t0:.2f} s")
     return cfg, params, strat, proxies
+
+
+def llada_cut(cfg, params, proxies, layers: int = CUT_LAYERS):
+    """LLaDA-8B cut to its first ``layers`` layers: the same widths, the
+    weights and SVD proxies views of the full model's first layers, the
+    budget's peak layer scaled with the depth.  Returns (cfg, params,
+    strat, proxies)."""
+    from repro_torch.core.strategy import SPACache
+
+    assert len(set(cfg.layer_kinds)) == 1, "one stack of layers to cut"
+
+    def head(tree):
+        if isinstance(tree, dict):
+            return {k: head(v) for k, v in tree.items()}
+        return tree[:layers]
+
+    peak = cfg.spa.resolved_layer_peak(cfg.n_layers)
+    spa = dataclasses.replace(
+        cfg.spa, layer_peak=max(1, round(peak * layers / cfg.n_layers)))
+    cut = dataclasses.replace(cfg, n_layers=layers, spa=spa)
+    return (cut, dict(params, blocks=head(params["blocks"])),
+            SPACache.from_spec(spa), head(proxies))
 
 
 def main_path(torch, cfg, params, strat, proxies):
@@ -4419,7 +4570,6 @@ def online_http(torch, cfg, params, strat, proxies):
 
 
 def online_serving(torch, cfg, params, strat, proxies, card: str):
-    t0 = time.perf_counter()
     c = ONLINE_SMALL
     print(f"online exactness (2-layer full-width f32 LLaDA through "
           f"ServingEngine, canvas {c['canvas']}, pages of {c['page']}, "
@@ -4428,34 +4578,407 @@ def online_serving(torch, cfg, params, strat, proxies, card: str):
           f"CudaBackend and TorchBackend)")
     online_exactness(torch)
     c = ONLINE_FULL
-    print(f"online serving, virtual time (LLaDA-8B bf16 through "
+    print(f"online serving, virtual time (LLaDA-8B bf16, {cfg.n_layers} "
+          f"layers, through "
           f"ServingEngine, canvas {c['canvas']}, pool {c['pool']} pages of "
           f"{PAGE}, {c['slots']} slots, refresh_interval=1; the JAX bench's "
           f"Poisson trace x{c['scale']}; {card})")
     online_full_width(torch, cfg, params, strat, proxies)
-    print(f"online serving over HTTP (LLaDA-8B bf16, AsyncFrontend on "
+    print(f"online serving over HTTP (LLaDA-8B bf16, {cfg.n_layers} "
+          f"layers, AsyncFrontend on "
           f"127.0.0.1, the config's SPA schedule, real clock, tracer on; "
           f"{card})")
     online_http(torch, cfg, params, strat, proxies)
-    print(f"  phase 15: {time.perf_counter() - t0:.1f} s")
 
 
-ALL_PHASES = tuple(range(3, 16))
+# Phase 16: fault injection and the engine supervisor.  16(a) runs the JAX
+# serving bench's part 5 (``benchmarks/bench_serving.py``, the seeded fault
+# storm) at its own shape on a 2-layer f32 LLaDA; 16(b) five of its
+# requests x8 in tokens and two repeats on LLaDA-8B under a plan that fires
+# every site.
+FAULT_SMALL = dict(canvas=32, page=4, pool=41, host=16, slots=4, scale=1,
+                   requests=(0, 1, 2, 3, 4, 5), repeats=(), stream=())
+# 16(b): those requests x8 but the fourth, then the fifth and the second
+# again at priority 0: without repeats nothing is ever evicted at this
+# pool, so no host-tier fault could fire and nothing could be promoted.
+# The fewest requests at which every site fires (the six and a repeat of
+# each took 1324 s for the whole script, measured on one H100, over its
+# 1100 s budget).  The fourth submitted (the fifth request) streams: the
+# disconnect burst cancels it.
+FAULT_FULL = dict(canvas=256, page=PAGE, pool=73, host=32, slots=4, scale=8,
+                  requests=(0, 1, 2, 4, 5), repeats=(4, 1), stream=(3,))
+# part 5's storm, and the JAX engine's counters under it at 16(a)'s shape
+# (BENCH_serving.json["faults"]["storm"]; the JAX engine on the CPU gives
+# the same, tests/test_torch_supervisor_bench.py)
+FAULT_STORM = dict(seed=7, rates={"pool_alloc": 0.03, "lane_stall": 0.02,
+                                  "step_nan": 0.02, "host_store": 0.3,
+                                  "host_corrupt": 0.3})
+FAULT_STORM_RECORD = dict(steps=21, done=5, faulted=1, faults_injected=1,
+                          alloc_faults=0, nan_quarantines=1,
+                          watchdog_fires=0, checksum_failures=0,
+                          cold_prefill_fallbacks=0, max_degrade_level=0)
+# 16(b)'s plan and supervisor, chosen by 16(b)'s functions on the CPU at 2
+# reduced layers (the probe sequence follows commits and admissions, not
+# widths): every site fires once within the first 7 steps, the ladder
+# climbs to L3 and is back at L0 by step 26 of the pass's 198; and what the
+# chaos pass must give.  Which index entries an eviction demotes first
+# follows their pages' stability, so it depends on the weights: the store
+# refusal comes at the third demotion, after the corrupted first one is
+# promoted (refused at the second, it pruned the corrupted unit for some
+# weights, measured on one H100).  Six weight seeds at 2 reduced layers
+# give these constants, and so does the JAX engine
+# (tests/test_torch_faults_rehearsal*.py).
+FAULT_PLAN = dict(at={"pool_alloc": (0,), "host_corrupt": (0,),
+                      "host_store": (2,), "disconnect": (2,),
+                      "step_nan": (4,), "lane_stall": (6,)})
+FAULT_SUPERVISOR = dict(watchdog_budget=4, pressure_window=8, escalate_at=2,
+                        cooldown=4)
+FAULT_EXPECT = dict(
+    log=[("pool_alloc", 0), ("host_corrupt", 0), ("host_store", 2),
+         ("disconnect", 2), ("step_nan", 4), ("lane_stall", 6)],
+    aborted=[4], canceled=[3],
+    degradation_events=[(1, 1), (2, 2), (3, 3), (18, 2), (22, 1), (26, 0)])
+
+
+def fault_workload(n: int, scale: int = 1, canvas: int = 32):
+    """The JAX bench's ``_workload(cfg, n)`` at its config's vocab of 256
+    (seed 0: prompts of 4-9 tokens, gens 6 to ``canvas`` - prompt,
+    priorities 0-2), with every prompt token repeated and every gen
+    multiplied ``scale`` times: (prompt, gen, priority) triples."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    out = []
+    for _ in range(n):
+        p_len = int(rng.integers(4, 10))
+        gen = int(rng.integers(6, canvas - p_len + 1))
+        prompt = rng.integers(0, 255, p_len).astype(np.int32)
+        out.append((np.repeat(prompt, scale), gen * scale,
+                    int(rng.integers(0, 3))))
+    return out
+
+
+def fault_traffic(c: dict):
+    """``c``'s requests of the six-request workload, then its repeats at
+    priority 0 (so they are admitted last)."""
+    reqs = fault_workload(6, c["scale"])
+    return ([reqs[i] for i in c["requests"]]
+            + [reqs[i][:2] + (0,) for i in c["repeats"]])
+
+
+def fault_engine(cfg, params, strat, proxies, c: dict, *, plan=None,
+                 sup=None, telemetry=None, device=None):
+    """A supervised ``ServingEngine`` of shape ``c`` (prefix index on, host
+    tier in f32) under ``FaultPlan(**plan)`` and
+    ``SupervisorConfig(**sup)``, scoring with ``proxies``."""
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.faults import FaultPlan
+    from repro_torch.serving.supervisor import SupervisorConfig
+    engine = ServingEngine(
+        cfg, params, max_batch=c["slots"], canvas_len=c["canvas"],
+        strategy=strat, pool_pages=c["pool"], page_size=c["page"],
+        prefix_cache=True, host_pages=c["host"], host_dtype="f32",
+        fault_plan=None if plan is None else FaultPlan(**plan),
+        supervise=True,
+        supervisor_cfg=None if sup is None else SupervisorConfig(**sup),
+        telemetry=telemetry, device=device)
+    engine._proxies[engine.strategy] = proxies
+    return engine
+
+
+def serve_faults(engine, reqs, stream=()):
+    """Submit every request at once (those indexed in ``stream`` streaming
+    to a sink) and run the engine to the end.  Returns (output bytes, as
+    int32 tokens, by request index; wall seconds)."""
+    import numpy as np
+    uids = []
+    for i, (prompt, gen, prio) in enumerate(reqs):
+        on = i in stream
+        uids.append(engine.submit(prompt, gen, priority=prio, stream=on,
+                                  sink=(lambda ev: None) if on else None))
+    t0 = time.perf_counter()
+    engine.run()
+    wall = time.perf_counter() - t0
+    by_uid = {r.uid: r for r in engine.done}
+    return ({i: np.asarray(by_uid[u].output, np.int32).tobytes()
+             for i, u in enumerate(uids) if by_uid[u].output is not None},
+            wall)
+
+
+class PoisonReuse:
+    """While entered: the pages each ``step_nan`` fault poisons, and how
+    many later page allocations hand those pages to a new owner (the NaN
+    must not follow them: the pass's survivors match their clean twins)."""
+
+    def __enter__(self):
+        from repro_torch.dlm.session import DecodeSession
+        from repro_torch.serving.pool import PagePool
+        self.poisoned, self.reused = set(), 0
+        self._saved = (DecodeSession.poison_cache_pages, PagePool.alloc)
+        poison, alloc = self._saved
+
+        def record_poison(sess, pages):
+            self.poisoned.update(pages)
+            return poison(sess, pages)
+
+        def record_alloc(pool, n):
+            pages = alloc(pool, n)
+            self.reused += len(set(pages or ()) & self.poisoned)
+            return pages
+        DecodeSession.poison_cache_pages = record_poison
+        PagePool.alloc = record_alloc
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.dlm.session import DecodeSession
+        from repro_torch.serving.pool import PagePool
+        DecodeSession.poison_cache_pages, PagePool.alloc = self._saved
+
+    def line(self) -> str:
+        return (f"{len(self.poisoned)} poisoned pages, handed out again "
+                f"{self.reused} times")
+
+
+def fault_counters(engine) -> dict:
+    """The JAX bench's ``_serve_chaos`` counters."""
+    s = engine.stats
+    return dict(steps=s.steps, done=s.requests_done,
+                faulted=s.requests_faulted,
+                faults_injected=s.faults_injected,
+                alloc_faults=s.alloc_faults,
+                nan_quarantines=s.nan_quarantines,
+                watchdog_fires=s.watchdog_fires,
+                checksum_failures=s.host_checksum_failures,
+                cold_prefill_fallbacks=s.cold_prefill_fallbacks,
+                max_degrade_level=max(
+                    [lvl for _, lvl in s.degradation_events], default=0))
+
+
+def fault_outcome(engine) -> dict:
+    """What a chaos pass must replay: the injector's log, the aborted and
+    canceled uids and the ladder's moves."""
+    return dict(
+        log=list(engine.faults.log) if engine.faults else [],
+        aborted=sorted(r.uid for r in engine.done if r.fault is not None),
+        canceled=sorted(r.uid for r in engine.done
+                        if r.canceled and r.fault is None),
+        degradation_events=list(engine.stats.degradation_events))
+
+
+def drain_tiers(engine) -> None:
+    """Aborted work left nothing behind: the pool holds the index's pages
+    only, the host tier the trie's refs; both empty after
+    ``drop_prefix_cache``."""
+    assert engine.pool.used == engine.prefix.held_pages, "pool leak"
+    assert engine.host_pool.used_pages == engine.prefix.host_held_pages, \
+        "host tier leak"
+    engine.drop_prefix_cache()
+    assert engine.pool.used == 0 and engine.host_pool.used_pages == 0
+
+
+def storm_passes(cfg, params, strat, proxies, *, device=None):
+    """16(a)'s two passes through one backend (``strat``'s): clean, then
+    under ``FAULT_STORM``.  Returns (clean outputs, storm outputs, storm
+    counters, storm outcome, (clean wall, storm wall))."""
+    c = FAULT_SMALL
+    reqs = fault_traffic(c)
+    clean = fault_engine(cfg, params, strat, proxies, c, device=device)
+    clean_out, clean_wall = serve_faults(clean, reqs)
+    drain_tiers(clean)
+    storm = fault_engine(cfg, params, strat, proxies, c, plan=FAULT_STORM,
+                         device=device)
+    storm_out, storm_wall = serve_faults(storm, reqs)
+    counters, outcome = fault_counters(storm), fault_outcome(storm)
+    assert counters["done"] + counters["faulted"] == len(reqs), \
+        "the storm lost requests"
+    drain_tiers(storm)
+    return clean_out, storm_out, counters, outcome, (clean_wall, storm_wall)
+
+
+def chaos_passes(cfg, params, strat, proxies, *, device=None,
+                 telemetry=None):
+    """16(b)'s two passes: clean under ``supervise=True``, then under
+    ``FAULT_PLAN`` and ``FAULT_SUPERVISOR``.  Returns (clean outputs,
+    chaos outputs, chaos engine (its tiers drained), (clean wall, chaos
+    wall, clean steps))."""
+    c = FAULT_FULL
+    reqs = fault_traffic(c)
+    clean = fault_engine(cfg, params, strat, proxies, c, device=device)
+    clean_out, clean_wall = serve_faults(clean, reqs, c["stream"])
+    drain_tiers(clean)
+    steps = clean.stats.steps
+    del clean
+    chaos = fault_engine(cfg, params, strat, proxies, c, plan=FAULT_PLAN,
+                         sup=FAULT_SUPERVISOR, telemetry=telemetry,
+                         device=device)
+    chaos_out, chaos_wall = serve_faults(chaos, reqs, c["stream"])
+    drain_tiers(chaos)
+    return clean_out, chaos_out, chaos, (clean_wall, chaos_wall, steps)
+
+
+def faults_small(torch):
+    """Phase 16(a): the JAX bench's part 5 at its own shape (canvas 32,
+    pages of 4, 41 pages, 4 slots, host tier of 16 pages in f32, prefix
+    index on, ``SPACache(rank=16, uniform, rho_peak=0.3,
+    refresh_interval=1)``) on a 2-layer, full-width f32 LLaDA, through
+    ``CudaBackend`` and ``TorchBackend``: a clean pass, then the seeded
+    storm.  Asserts the same injector log, aborted uids, counters and
+    outputs on both backends, survivors byte-identical to the clean pass,
+    both tiers drained, and the counters equal to the JAX engine's
+    (``FAULT_STORM_RECORD``)."""
+    from repro_torch.core.strategy import SPACache
+    from repro_torch.kernels import _lib
+
+    cfg, params, _, _, _ = _parity_setup(torch, "float32")
+    strat = SPACache(rank=16, schedule="uniform", rho_peak=0.3,
+                     refresh_interval=1)
+    proxies = strat.build_proxies(params, cfg)
+    runs = {}
+    _lib.reset_launch_counts()
+    for backend in ("cuda", "torch"):
+        with oracle_launches_nothing(f"16(a) {backend}",
+                                     active=backend == "torch"), \
+                PoisonReuse() as reuse:
+            runs[backend] = storm_passes(cfg, params,
+                                         strat.with_backend(backend),
+                                         proxies)
+        torch.cuda.synchronize()
+        print(f"  {backend}: {reuse.line()}")
+        assert reuse.reused, "16(a): no poisoned page was handed out again"
+    launches = _lib.launch_counts()
+    clean, storm, counters, outcome, walls = runs["cuda"]
+    assert runs["torch"][1:4] == (storm, counters, outcome), \
+        "16(a): the backends diverged"
+    assert runs["torch"][0] == clean
+    survivors = sorted(storm)
+    assert all(storm[i] == clean[i] for i in survivors), \
+        "16(a): a survivor differs from its fault-free twin"
+    print(f"  storm {FAULT_STORM['rates']} (seed {FAULT_STORM['seed']}): "
+          f"log {outcome['log']}, aborted uids {outcome['aborted']}; the "
+          f"same on TorchBackend; {len(survivors)} survivors "
+          f"byte-identical to the clean pass")
+    print("  counters (JAX engine's in brackets): " + ", ".join(
+        f"{k} {counters[k]} ({v})" for k, v in FAULT_STORM_RECORD.items()))
+    print(f"  wall: clean {walls[0]:.2f} s, storm {walls[1]:.2f} s "
+          f"(CudaBackend); launches {launches}")
+    assert counters == FAULT_STORM_RECORD, "16(a): counters differ from JAX"
+    for name in SERVING_KERNELS:
+        assert launches.get(name, 0) > 0, f"kernel {name} never launched"
+    del params, proxies
+    torch.cuda.empty_cache()
+
+
+def faults_full(torch, cfg, params, strat, proxies):
+    """Phase 16(b): LLaDA-8B through ``ServingEngine`` (canvas 256, pages of
+    16, 4 slots, 73 pages, host tier of 32 pages in f32, prefix index on,
+    the config's SPA with ``refresh_interval=1``) on five of 16(a)'s
+    requests x8 in tokens and two repeats: a clean pass under
+    ``supervise=True``,
+    then a chaos pass under ``FAULT_PLAN`` (every site fires) and
+    ``FAULT_SUPERVISOR``, the tracer on.  Asserts the rehearsal's
+    injector log, aborted and canceled uids and ladder moves
+    (``FAULT_EXPECT``; up to L3 and back to L0), a NaN quarantine, a cold
+    prefill after the corrupted page, a watchdog recovery, an invariant
+    check every iteration and both tiers drained.  Prints how many
+    survivors equal their clean twins byte for byte (bf16: only lockstep
+    parity holds), wall ms a step of both passes and the ``supervisor``
+    span's median against the step's."""
+    from repro_torch.kernels import _lib
+    from repro_torch.serving.telemetry import Telemetry, Tracer
+
+    strat = dataclasses.replace(strat, refresh_interval=1)
+    tel = Telemetry(tracer=Tracer(enabled=True))
+    _lib.reset_launch_counts()
+    with PoisonReuse() as reuse:
+        clean, chaos_out, chaos, (cw, xw, csteps) = chaos_passes(
+            cfg, params, strat, proxies, telemetry=tel)
+    torch.cuda.synchronize()
+    print(f"  {reuse.line()}")
+    launches = _lib.launch_counts()
+    s = chaos.stats
+    outcome = fault_outcome(chaos)
+    print(f"  chaos: log {outcome['log']}; aborted {outcome['aborted']}, "
+          f"canceled {outcome['canceled']}; ladder "
+          f"{outcome['degradation_events']}")
+    print(f"  counters: {fault_counters(chaos)}, preemptions "
+          f"{s.preemptions}, disconnect bursts {s.disconnect_bursts}, "
+          f"refused stores {s.tier_store_faults}, pages demoted "
+          f"{s.prefix_demoted_pages} / dropped {s.prefix_dropped_pages} / "
+          f"promoted {s.prefix_promoted_pages}, publications paused "
+          f"{s.publish_paused_skips}, invariant checks "
+          f"{s.invariant_checks}")
+    same = sum(chaos_out[i] == clean[i] for i in chaos_out)
+    samples = phase_samples(chaos)
+    sup = chaos.telemetry.registry.histogram(
+        "spa_engine_phase_seconds", labels={"phase": "supervisor"}).samples
+    step_ms = [sum(x) * 1e3 for x in zip(*samples.values())]
+    print(f"  {same} of {len(chaos_out)} survivors equal their clean twins "
+          f"byte for byte (bf16); wall ms a step: clean "
+          f"{cw / max(csteps, 1) * 1e3:.2f} ({csteps} steps), chaos "
+          f"{xw / max(s.steps, 1) * 1e3:.2f} ({s.steps} steps); span "
+          f"medians ms: supervisor {statistics.median(sup) * 1e3:.3f}, "
+          f"dispatch + host_overlap + host_sync "
+          f"{statistics.median(step_ms):.2f}")
+    print(f"  launches: {launches}")
+    for key, want in FAULT_EXPECT.items():
+        assert outcome[key] == want, f"16(b): {key} {outcome[key]} != {want}"
+    levels = [lvl for _, lvl in outcome["degradation_events"]]
+    assert 3 in levels and levels[-1] == 0, "16(b): the ladder's walk"
+    assert {site for site, _ in outcome["log"]} == set(
+        FAULT_PLAN["at"]), "16(b): a fault site never fired"
+    assert s.nan_quarantines >= 1, "16(b): no NaN quarantine"
+    assert s.cold_prefill_fallbacks >= 1, "16(b): no cold fallback"
+    assert s.watchdog_fires >= 1, "16(b): no watchdog recovery"
+    assert s.invariant_checks >= s.steps - s.watchdog_fires, \
+        "16(b): an iteration went unchecked"
+    for name in SERVING_KERNELS:
+        assert launches.get(name, 0) > 0, f"kernel {name} never launched"
+    del chaos
+    torch.cuda.empty_cache()
+
+
+def faults_phase(torch, cfg, params, strat, proxies, card: str):
+    c = FAULT_SMALL
+    print(f"fault storm (2-layer full-width f32 LLaDA through "
+          f"ServingEngine, canvas {c['canvas']}, pages of {c['page']}, pool "
+          f"{c['pool']}, host tier {c['host']} pages f32, {c['slots']} "
+          f"slots; the JAX bench's part 5, CudaBackend and TorchBackend)")
+    faults_small(torch)
+    c = FAULT_FULL
+    print(f"faults at full width (LLaDA-8B bf16 through ServingEngine, "
+          f"canvas {c['canvas']}, pool {c['pool']} pages of {c['page']}, "
+          f"host tier {c['host']} pages f32, {c['slots']} slots, "
+          f"refresh_interval=1; {len(c['requests'])} of the storm's "
+          f"requests x{c['scale']} and {len(c['repeats'])} repeats; {card})")
+    faults_full(torch, cfg, params, strat, proxies)
+
+
+ALL_PHASES = tuple(range(3, 17))
+
+
+START = time.perf_counter()
+
+
+@contextlib.contextmanager
+def timed(phase: int):
+    """Print the phase's wall seconds when it ends."""
+    t0 = time.perf_counter()
+    yield
+    print(f"  phase {phase}: {time.perf_counter() - t0:.1f} s")
 
 
 def parse_phases(argv) -> tuple:
-    """``--phases 3,6,7`` runs only those of phases 3-15 (the card line and
+    """``--phases 3,6,7`` runs only those of phases 3-16 (the card line and
     the build always run) and prints no result line: for development
     calls and for comparing two trees' kernels in one call.  Without it,
     every phase runs."""
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
-                    help="comma-separated subset of phases 3-15")
+                    help="comma-separated subset of phases 3-16")
     phases = tuple(sorted({int(p) for p in ap.parse_args(argv).phases
                            .split(",") if p}))
     if not phases or not set(phases) <= set(ALL_PHASES):
-        ap.error(f"phases must lie in 3-15, got {phases}")
+        ap.error(f"phases must lie in 3-16, got {phases}")
     return phases
 
 
@@ -4485,107 +5008,122 @@ def main(argv=None) -> int:
             print(f"  {entry}: {line.strip()}")
 
     flush = L2Flush(torch)
-    records = check_kernels(torch, flush) if 3 in phases else {}
+    records = {}
+    if 3 in phases:
+        with timed(3):
+            records = check_kernels(torch, flush)
     if 4 in phases:
-        decode_parity_phase(torch)
+        with timed(4):
+            decode_parity_phase(torch)
     launches = base = lanes = served = {}
-    if {5, 6, 7, 12, 14, 15} & set(phases):
+    if {5, 6, 7, 12, 14, 15, 16} & set(phases):
         print(f"LLaDA-8B (bf16, B=4, prompt 256 + gen {GEN_LEN}; phases "
-              f"5-7, 12, 14 and 15)")
+              f"5-7, 12 and 14-16; 32 layers in 5 and 16, the first "
+              f"{CUT_LAYERS} in 6, 7, 12, 14 and 15)")
         cfg, params, strat, proxies = llada_setup(torch)
+        cut = llada_cut(cfg, params, proxies)
         if 5 in phases:
             print(f"main path (LLaDA-8B bf16, B=4, prompt 256 + gen "
                   f"{GEN_LEN})")
-            launches = main_path(torch, cfg, params, strat, proxies)
+            with timed(5):
+                launches = main_path(torch, cfg, params, strat, proxies)
             torch.cuda.empty_cache()
         if 6 in phases:
-            print(f"baselines (LLaDA-8B bf16, B=4, prompt 256 + gen "
-                  f"{GEN_LEN}, the config's adaptive budget)")
-            base = baselines(torch, cfg, params, proxies, strat)
+            print(f"baselines (LLaDA-8B bf16, {CUT_LAYERS} layers, B=4, "
+                  f"prompt 256 + gen {GEN_LEN}, the config's adaptive "
+                  f"budget)")
+            with timed(6):
+                c_cfg, c_params, c_strat, c_proxies = cut
+                base = baselines(torch, c_cfg, c_params, c_proxies, c_strat)
             for name in BASELINE_KERNELS:
                 assert base[name] > 0, \
                     f"kernel {name} never launched (baselines)"
         if 7 in phases:
-            print("server at full width (LLaDA-8B bf16 through "
-                  f"ServingEngine, canvas 512, pool of 97 pages of {PAGE}, "
-                  "4 slots)")
-            paging_cost(torch, cfg, params, strat, proxies)
-            served = serve_full_width(torch, cfg, params, strat, proxies)
-            for name in SERVING_KERNELS:
-                assert served[name] > 0, \
-                    f"kernel {name} never launched serving"
-            print("server drift lanes (paged attn_in, incremental singular, "
-                  "attn_out)")
-            lanes = serve_drift_lanes(torch, cfg, params, proxies)
+            print(f"server at full width (LLaDA-8B bf16, {CUT_LAYERS} "
+                  f"layers, through ServingEngine, canvas 512, pool of 97 "
+                  f"pages of {PAGE}, 4 slots)")
+            with timed(7):
+                paging_cost(torch, *cut)
+                served = serve_full_width(torch, *cut)
+                for name in SERVING_KERNELS:
+                    assert served[name] > 0, \
+                        f"kernel {name} never launched serving"
+                print("server drift lanes (paged attn_in, incremental "
+                      "singular, attn_out)")
+                c_cfg, c_params, _, c_proxies = cut
+                lanes = serve_drift_lanes(torch, c_cfg, c_params, c_proxies)
             for name in DRIFT_LANE_KERNELS:
                 assert lanes[name] > 0, \
                     f"kernel {name} never launched (lanes)"
         if 12 in phases:        # shares LLaDA-8B's weights and proxies
-            t0 = time.perf_counter()
-            print(f"prefix parity (2-layer full-width f32 LLaDA through "
-                  f"ServingEngine, canvas {PREFIX_SMALL['canvas']}, pages "
-                  f"of {PAGE}, prefix index on and off)")
-            prefix_parity(torch)
-            torch.cuda.empty_cache()
-            c = PREFIX_FULL
-            print(f"prefix serving (LLaDA-8B bf16 through ServingEngine, "
-                  f"canvas {c['canvas']}, pages of {PAGE}, {c['slots']} "
-                  f"slots, system prompt {c['system']} + {c['questions']} "
-                  f"questions of {c['question']} asked twice, gen "
-                  f"{c['gen']}; {card})")
-            prefix_serving(torch, cfg, params, strat, proxies)
-            print(f"  phase 12: {time.perf_counter() - t0:.1f} s")
+            with timed(12):
+                print(f"prefix parity (2-layer full-width f32 LLaDA through "
+                      f"ServingEngine, canvas {PREFIX_SMALL['canvas']}, "
+                      f"pages of {PAGE}, prefix index on and off)")
+                prefix_parity(torch)
+                torch.cuda.empty_cache()
+                c = PREFIX_FULL
+                print(f"prefix serving (LLaDA-8B bf16, {CUT_LAYERS} layers, "
+                      f"through ServingEngine, canvas {c['canvas']}, pages "
+                      f"of {PAGE}, {c['slots']} slots, system prompt "
+                      f"{c['system']} + {c['questions']} questions of "
+                      f"{c['question']} asked twice, gen {c['gen']}; "
+                      f"{card})")
+                prefix_serving(torch, *cut)
         if 14 in phases:        # shares LLaDA-8B's weights and proxies
-            t0 = time.perf_counter()
-            c = HIER_SMALL
-            print(f"host tier exactness (2-layer full-width f32 LLaDA "
-                  f"through ServingEngine, canvas {c['canvas']}, pages of "
-                  f"{PAGE}, pool {c['pool']}, host tier f32)")
-            hier_exactness(torch)
-            c = HIER
-            print(f"host tier serving (LLaDA-8B bf16 through ServingEngine "
-                  f"with the prefix index, canvas {c['canvas']}, pool "
-                  f"{c['pool']} pages of {PAGE}, {c['slots']} slots, "
-                  f"{HIER_STEPS} steps a request; tier off, f32, auto; "
-                  f"{card})")
-            hier_serving(torch, cfg, params, strat, proxies)
-            print(f"  phase 14: {time.perf_counter() - t0:.1f} s")
+            with timed(14):
+                c = HIER_SMALL
+                print(f"host tier exactness (2-layer full-width f32 LLaDA "
+                      f"through ServingEngine, canvas {c['canvas']}, pages "
+                      f"of {PAGE}, pool {c['pool']}, host tier f32)")
+                hier_exactness(torch)
+                c = HIER
+                print(f"host tier serving (LLaDA-8B bf16, {CUT_LAYERS} "
+                      f"layers, through ServingEngine with the prefix "
+                      f"index, canvas {c['canvas']}, pool {c['pool']} pages "
+                      f"of {PAGE}, {c['slots']} slots, {HIER_STEPS} steps a "
+                      f"request; tier off, f32, auto; {card})")
+                hier_serving(torch, *cut)
         if 15 in phases:        # shares LLaDA-8B's weights and proxies
-            online_serving(torch, cfg, params, strat, proxies, card)
-        del cfg, params, strat, proxies
+            with timed(15):
+                online_serving(torch, *cut, card)
+        if 16 in phases:        # shares LLaDA-8B's weights and proxies
+            with timed(16):
+                faults_phase(torch, cfg, params, strat, proxies, card)
+        del cfg, params, strat, proxies, cut
         torch.cuda.empty_cache()
     if 13 in phases:
-        t0 = time.perf_counter()
         print(f"dense configs at full width (bf16, CudaBackend, each "
               f"config's spa, {DENSE_SPA_STEPS} SPA + {DENSE_NOCACHE_STEPS}"
               f" NoCache steps; {card})")
-        dense_configs(torch)
-        print(f"  phase 13: {time.perf_counter() - t0:.1f} s")
+        with timed(13):
+            dense_configs(torch)
     hybrid = mamba = {}
     if 8 in phases:
         print("hybrid decode parity (3-layer full-width RecurrentGemma, "
               f"B=2, N={HYBRID['N']}, CudaBackend vs TorchBackend)")
-        hybrid_parity(torch)
+        with timed(8):
+            hybrid_parity(torch)
     if 9 in phases:
         print(f"hybrid main path (RecurrentGemma-9B bf16, B=2, prompt "
               f"{HYBRID['N'] - HYBRID_GEN} + gen {HYBRID_GEN}, "
               f"{HYBRID_STEPS} SPA steps)")
-        hybrid = hybrid_main_path(torch)
+        with timed(9):
+            hybrid = hybrid_main_path(torch)
         torch.cuda.empty_cache()
     if 10 in phases:
         print(f"mamba2 decode parity (3-layer full-width Mamba2, "
               f"B={MAMBA['B']}, N={MAMBA['N']}, CudaBackend vs "
               "TorchBackend)")
-        t0 = time.perf_counter()
-        mamba_parity(torch)
-        print(f"  phase 10: {time.perf_counter() - t0:.1f} s")
+        with timed(10):
+            mamba_parity(torch)
     if 11 in phases:
         print(f"mamba2 main path (Mamba2-370m bf16, B={MAMBA['B']}, prompt "
               f"{MAMBA['N'] - MAMBA_GEN} + gen {MAMBA_GEN}, {MAMBA_STEPS} "
               "NoCache steps)")
-        t0 = time.perf_counter()
-        mamba = mamba_main_path(torch)
-        print(f"  phase 11: {time.perf_counter() - t0:.1f} s")
+        with timed(11):
+            mamba = mamba_main_path(torch)
+    print(f"script: {time.perf_counter() - START:.1f} s")
     if phases != ALL_PHASES:
         print(f"phases {phases} passed; a partial run prints no result line")
         return 0

@@ -136,6 +136,8 @@ class DecodeSession:
         # (cache_dynamics); host-side only, never read by the step
         self._dyn_prev: Optional[Dict[str, np.ndarray]] = None
         self._dyn_prev_sel: Optional[Dict[str, List[set]]] = None
+        # pages the next step poisons after its refresh (a step_nan fault)
+        self._poison_pages: Optional[List[int]] = None
 
     # ------------------------------------------------------------------
     # State construction
@@ -297,6 +299,28 @@ class DecodeSession:
         assert isinstance(cache, PagedCache), "copy needs a paged cache"
         cache_lib.copy_arena_pages(cache.arenas, list(src), list(dst))
 
+    def poison_cache_pages(self, pages: Sequence[int]) -> None:
+        """Overwrite the float buffers of physical ``pages`` with NaN: the
+        ``step_nan`` fault's payload.  The poisoned K/V reach the owning
+        row's hidden states on the next step, where the supervisor's canvas
+        guard catches them.  Integer buffers (int8 codes) stay intact: the
+        fault models numeric bit rot, not structural damage."""
+        cache = self.state.cache
+        assert isinstance(cache, PagedCache), "poisoning needs a paged cache"
+        blocks = cache_lib.read_arena_pages(cache.arenas, list(pages))
+        poisoned = {kind: {nm: (torch.full_like(b, float("nan"))
+                                if b.is_floating_point() else b)
+                           for nm, b in bufs.items()}
+                    for kind, bufs in blocks.items()}
+        cache_lib.write_arena_pages(cache.arenas, list(pages), poisoned)
+
+    def poison_pages_after_refresh(self, pages: Sequence[int]) -> None:
+        """Arm a one-shot :meth:`poison_cache_pages` applied inside the next
+        ``step()`` after its refresh, so a ``refresh_interval=1`` strategy
+        cannot rebuild the pages before the step reads them (bit rot
+        landing on the freshly rebuilt arena)."""
+        self._poison_pages = list(pages)
+
     def _cow_if_shared(self) -> None:
         """Copy-on-write barrier: right before the first cache write (the
         first step, ``run_compiled``'s entry or a refresh), copy every
@@ -354,6 +378,9 @@ class DecodeSession:
         assert self.state is not None, "call prefill()/attach() first"
         self._cow_if_shared()     # first write: un-share prefix pages
         self._last_step_refreshed = self._maybe_refresh()
+        if self._poison_pages:
+            pages, self._poison_pages = self._poison_pages, None
+            self.poison_cache_pages(pages)
         self.state, info = decoding.serve_step(
             self.params, self.cfg, self.state, self.settings,
             spa_proxies=self.spa_proxies, strategy=self.strategy,

@@ -25,9 +25,15 @@ request against a running server and prints each event's arrival.
 samples the cache dynamics every step and prints the whole metrics
 registry (the non-zero part always prints).
 
-Flags of the engine parts that wait for later slices of the port (faults
-and supervision, profiling, checkpoints) are accepted by the parser and
-exit with an error that names them.
+``--supervise`` wraps the engine in the fault supervisor (invariant
+checks, NaN quarantine, watchdog, degradation ladder); ``--chaos-seed N``
+injects faults at every site at ``--chaos-rate`` a probe, replayable from
+the seed (it implies ``--supervise``).  The fault counters print with the
+registry at exit, and an aborted request's output as ``<faulted>``.
+
+Flags of the engine parts that wait for later slices of the port
+(profiling, checkpoints) are accepted by the parser and exit with an error
+that names them.
 """
 from __future__ import annotations
 
@@ -42,12 +48,12 @@ from repro_torch.core.strategy import REGISTRY, strategy_from_spec
 from repro_torch.dlm.decoding import DecodeSettings
 from repro_torch.models import transformer
 from repro_torch.serving.engine import ServingEngine
+from repro_torch.serving.faults import FAULT_SITES, FaultPlan
 from repro_torch.serving.slo import SLOPolicy
 from repro_torch.serving.telemetry import Telemetry, Tracer
 
 # flag -> the value that leaves it off; any other value is an error
-_LATER_FLAGS = {"ckpt": "", "supervise": False, "chaos_seed": -1,
-                "profile": False, "jax_trace_dir": ""}
+_LATER_FLAGS = {"ckpt": "", "profile": False, "jax_trace_dir": ""}
 
 
 def main(argv=None):
@@ -106,9 +112,16 @@ def main(argv=None):
     ap.add_argument("--client", default="",
                     help="HOST:PORT: run a streaming client against a "
                          "running --serve front end and exit")
-    ap.add_argument("--supervise", action="store_true")
-    ap.add_argument("--chaos-seed", type=int, default=-1)
-    ap.add_argument("--chaos-rate", type=float, default=0.02)
+    ap.add_argument("--supervise", action="store_true",
+                    help="wrap the engine in the fault supervisor: "
+                         "invariant checks, NaN quarantine, watchdog, "
+                         "degradation ladder")
+    ap.add_argument("--chaos-seed", type=int, default=-1,
+                    help="inject faults at every site, replayable from "
+                         "this seed; -1 = off")
+    ap.add_argument("--chaos-rate", type=float, default=0.02,
+                    help="firing probability a probe of every fault site "
+                         "with --chaos-seed")
     ap.add_argument("--trace-out", default="",
                     help="write a Chrome trace JSON of the run (request "
                          "lifecycle spans, engine phases) to this path")
@@ -122,9 +135,8 @@ def main(argv=None):
                for name, off in _LATER_FLAGS.items()
                if getattr(args, name) != off]
     if waiting:
-        ap.error(f"{', '.join(waiting)}: not ported yet (faults and "
-                 f"supervision, profiling and checkpoints wait for later "
-                 f"slices of the port)")
+        ap.error(f"{', '.join(waiting)}: not ported yet (profiling and "
+                 f"checkpoints wait for later slices of the port)")
     if args.client:
         return _run_client(args)
 
@@ -140,6 +152,12 @@ def main(argv=None):
         strategy = (strategy or strategy_from_spec(cfg.spa)) \
             .with_backend(args.kernel_backend)
     slo_policy = SLOPolicy() if args.slo_ttft or args.slo_deadline else None
+    fault_plan = None
+    if args.chaos_seed >= 0:
+        fault_plan = FaultPlan(seed=args.chaos_seed,
+                               rates={s: args.chaos_rate for s in FAULT_SITES})
+        print(f"chaos: seed={args.chaos_seed} rate={args.chaos_rate} on all "
+              f"sites")
     telemetry = None
     if args.trace_out or args.metrics:
         telemetry = Telemetry(tracer=Tracer(enabled=bool(args.trace_out)),
@@ -150,7 +168,7 @@ def main(argv=None):
         pool_pages=args.pool_pages, page_size=args.page_size,
         prefix_cache=args.prefix_cache, host_pages=args.host_pages,
         host_dtype=args.host_dtype, slo_policy=slo_policy,
-        telemetry=telemetry,
+        fault_plan=fault_plan, supervise=args.supervise, telemetry=telemetry,
         settings=DecodeSettings(parallel_threshold=args.parallel_threshold),
         device=args.device)
     if args.serve:
@@ -158,7 +176,9 @@ def main(argv=None):
     _run_offline(engine, args)
     _summarize(engine, args)
     for req in engine.done[:3]:
-        print(f"  req {req.uid}: out={req.output[:10]}...")
+        out = ("<faulted>" if req.output is None
+               else f"{req.output[:10]}...")
+        print(f"  req {req.uid}: out={out}")
     return 0
 
 

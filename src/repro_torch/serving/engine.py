@@ -87,10 +87,22 @@ Online serving (the front end in ``serving/frontend.py``):
 ``cancel(uid)`` aborts a queued or running request and releases its
 slot, pages and prefix read holds.
 
-Fault injection and supervision (and the degradation ladder they drive)
-and profiling wait for later slices: their constructor arguments raise
-``NotImplementedError``.
-So does a model with recurrent layers (the RG-LRU hybrid): serving it in
+Fault tolerance (``fault_plan=``, ``supervise=``, ``supervisor_cfg=``): a
+seeded :class:`~repro_torch.serving.faults.FaultPlan` fires faults at the
+pool's allocation, the host tier's demotion (a refused store, a corrupted
+page), a live row's cache pages (NaN), the lane's step (a stall) and the
+streaming clients (a disconnect burst); the same plan replays the same
+faults.  An :class:`~repro_torch.serving.supervisor.EngineSupervisor`
+contains them: a bounded allocation retry with exponential backoff on the
+step clock, a NaN guard that aborts only the poisoned rows (their
+lane-mates resume from preemption snapshots), a step-clock watchdog that
+force-preempts a stuck lane, an invariant check of the page accounting
+every iteration, and a degradation ladder that pauses publication (L1),
+bypasses the host tier (L2) and sheds low-priority work (L3) under fault
+pressure.  A fault plan implies supervision.
+
+Profiling waits for a later slice: ``profiler=`` raises
+``NotImplementedError``.  So does a model with recurrent layers (the RG-LRU hybrid): serving it in
 lanes waits for a later slice, since its bidirectional recurrence reaches
 past a short row's ``kv_len`` and stratified selection spends its quotas
 there.
@@ -117,11 +129,13 @@ from repro_torch.dlm.decoding import (DecodeSettings,
                                       partial_prefill_supported)
 from repro_torch.dlm.scheduler import UnmaskScheduler, resolve_scheduler
 from repro_torch.dlm.session import DecodeSession, SharedPrefix
+from repro_torch.serving.faults import FaultInjector, FaultPlan, choose_index
 from repro_torch.serving.hier import (HostPageCorruption, HostPagePool,
                                       TierManager)
 from repro_torch.serving.pool import OutOfPages, PagePool, cache_signature
 from repro_torch.serving.prefix import PrefixIndex, PrefixMatch
 from repro_torch.serving.slo import SLO, SLOPolicy
+from repro_torch.serving.supervisor import EngineSupervisor, SupervisorConfig
 from repro_torch.serving.telemetry import (PID_ENGINE, PID_EVENTS,
                                            PID_REQUESTS, Histogram, Telemetry)
 
@@ -130,8 +144,7 @@ LaneKey = Tuple[DecodeSettings, CacheStrategy, UnmaskScheduler]
 
 # Constructor arguments of the engine parts that wait for later slices,
 # with the value that means "off".
-_LATER = {"fault_plan": None, "supervise": False, "supervisor_cfg": None,
-          "profiler": None}
+_LATER = {"profiler": None}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -140,7 +153,8 @@ class RequestEvent:
 
     ``kind``: "token" (``positions`` / ``tokens`` carry the gen-span
     offsets and values committed since the last event), "done" (the output
-    in ``tokens``), "shed" (the SLO policy dropped it) or "canceled".
+    in ``tokens``), "shed" (the SLO policy or the degradation ladder
+    dropped it), "aborted" (fault containment killed it) or "canceled".
     Delivered to ``Request.sink`` if set, else to the engine-level
     ``event_sink`` for ``stream=True`` requests, always on the engine
     thread (the front end moves them onto its event loop)."""
@@ -198,9 +212,12 @@ class Request:
     # survives preemption, so a resumed request never repeats or drops one
     emitted: Optional[np.ndarray] = None
     boosted: bool = False           # urgency transition already seen
-    # the fault class that aborted the request: None until fault
-    # containment is ported
+    # fault containment: the fault class that aborted the request ("nan",
+    # "pool_alloc"), and the bounded retry with backoff of transient
+    # admission allocation failures
     fault: Optional[str] = None
+    alloc_retries: int = 0
+    retry_after_step: int = 0       # backoff gate on the step clock
 
 
 @dataclasses.dataclass
@@ -252,22 +269,24 @@ class EngineStats:
         default_factory=functools.partial(
             Histogram, "spa_engine_tpot_seconds",
             "per-request time per output token"))
-    # fault tolerance: the host tier's checksum counters count now; the
-    # rest stay 0 (and their spa_fault_* series render 0) until fault
-    # injection and supervision are ported
+    # fault tolerance
+    faults_injected: int = 0        # injector fires (replay fingerprint)
+    requests_faulted: int = 0       # aborted by fault containment
+    alloc_faults: int = 0           # transient admission alloc failures
     host_checksum_failures: int = 0  # promotions refused on a checksum
     host_corrupt_pages: int = 0     # ... and the corrupt pages they held
+    tier_store_faults: int = 0      # demotion writes the tier refused
     cold_prefill_fallbacks: int = 0  # corrupted promotions served cold
-    requests_faulted: int = 0
-    alloc_faults: int = 0
-    nan_quarantines: int = 0
-    disconnect_bursts: int = 0
-    watchdog_fires: int = 0
-    invariant_checks: int = 0
-    publish_paused_skips: int = 0
-    degrade_level: int = 0
-    degradations: int = 0
-    restorations: int = 0
+    nan_quarantines: int = 0        # poisoned rows aborted by the guard
+    disconnect_bursts: int = 0      # injected mass client hangups
+    watchdog_fires: int = 0         # stuck lanes force-preempted
+    invariant_checks: int = 0       # supervisor accounting audits run
+    publish_paused_skips: int = 0   # publications skipped at ladder L1+
+    degrade_level: int = 0          # current ladder rung (0 = full)
+    degradations: int = 0           # upward ladder transitions
+    restorations: int = 0           # downward ladder transitions
+    degradation_events: List[Tuple[int, int]] = dataclasses.field(
+        default_factory=list)       # (step, new level), both directions
 
     def tps(self, wall: float) -> float:
         return self.tokens_committed / max(wall, 1e-9)
@@ -376,6 +395,9 @@ class ServingEngine:
                  host_pages: int = 0, host_dtype: str = "auto",
                  slo_policy: Optional[SLOPolicy] = None,
                  clock: Optional[Callable[[], float]] = None,
+                 fault_plan: Optional[FaultPlan] = None,
+                 supervise: bool = False,
+                 supervisor_cfg: Optional[SupervisorConfig] = None,
                  telemetry: Optional[Telemetry] = None,
                  device: DeviceLike = None, **later):
         for name, value in later.items():
@@ -458,11 +480,27 @@ class ServingEngine:
             queue_mod.Queue()
         self._uid_lock = threading.Lock()
         self._stop: Optional[threading.Event] = None
-        # the degradation ladder's shedding knobs (the supervisor sets them
-        # in the JAX engine); off until fault supervision is ported
+        # fault tolerance: a seeded injector probed at the seams, and a
+        # supervisor around the step loop.  A plan without a supervisor
+        # would hang on a lane stall, so injection implies supervision
+        self.faults: Optional[FaultInjector] = None
+        if fault_plan is not None:
+            self.faults = FaultInjector(fault_plan)
+            if self.pool is not None:
+                self.pool.fault_hook = self.faults
+            if self.tier is not None:
+                self.tier.injector = self.faults
+            # every fire becomes a trace instant with the log's schema
+            self.faults.on_fire = self._trace_fault
+        # the degradation ladder's flags, set by the supervisor
+        self._publish_paused = False
+        self._host_tier_paused = False
         self._shed_low_priority = False
         self._shed_below = 0
         self._hopeless_margin = 0.0
+        self.supervisor: Optional[EngineSupervisor] = None
+        if supervise or supervisor_cfg is not None or fault_plan is not None:
+            EngineSupervisor(self, supervisor_cfg)   # attaches itself
 
     def _now(self) -> float:
         return self._clock()
@@ -470,6 +508,13 @@ class ServingEngine:
     # ------------------------------------------------------------------
     # Telemetry
     # ------------------------------------------------------------------
+
+    def _trace_fault(self, site: str, probe: int) -> None:
+        """An injector fire as a trace instant, with the schema of the
+        ``FaultInjector.log`` entry ``(site, probe)``."""
+        self._tr.instant(PID_EVENTS, 1, f"fault:{site}", cat="fault",
+                         args={"site": site, "probe": probe,
+                               "step": self.stats.steps})
 
     def _lane_id(self, lane: LaneKey) -> int:
         lid = self._lane_ids.get(lane)
@@ -541,6 +586,9 @@ class ServingEngine:
         reg, s = self.telemetry.registry, self.stats
         for field, metric, help_txt in _STATS_COUNTERS:
             reg.counter(metric, help_txt).set(getattr(s, field))
+        if self.faults is not None:
+            reg.counter("spa_fault_injected_total",
+                        "fault-injector fires").set(self.faults.total_fired)
         reg.gauge("spa_fault_degrade_level",
                   "graceful-degradation ladder rung (0 = full service)"
                   ).set(s.degrade_level)
@@ -608,12 +656,12 @@ class ServingEngine:
     def pool_debug_state(self) -> Dict:
         """JSON-able memory view (``GET /debug/pool``): device-pool
         occupancy, fragmentation and per-signature bytes, host-tier slot
-        accounting and the tier's page counts, the JAX engine's keys.  The
-        counts come from :class:`EngineStats`, so they run from its last
-        reset (JAX's tier manager counts for its lifetime).  The JAX engine
-        also reports ``live_executables`` (its compile tracker); that key
-        comes with the profiling slice.  Reads race the engine thread
-        benignly."""
+        accounting and the tier's page counts (refused stores included), the
+        JAX engine's keys.  The counts come from :class:`EngineStats`, so
+        they run from its last reset (JAX's tier manager counts for its
+        lifetime).  The JAX engine also reports ``live_executables`` (its
+        compile tracker); that key comes with the profiling slice.  Reads
+        race the engine thread benignly."""
         out: Dict = {"paged": self.paged}
         s = self.stats
         if self.pool is not None:
@@ -628,7 +676,7 @@ class ServingEngine:
                 "promoted_pages": s.prefix_promoted_pages,
                 "dropped_full": s.tier_dropped_full,
                 "dropped_stable": s.tier_dropped_stable,
-                "store_faults": 0,      # injected refusals: the faults slice
+                "store_faults": s.tier_store_faults,
                 "checksum_failures": s.host_corrupt_pages,
             }
         return out
@@ -783,10 +831,9 @@ class ServingEngine:
 
     def _shed_hopeless(self) -> None:
         """Drop queued requests that can no longer contribute goodput
-        (TTFT missed while waiting, or the e2e deadline passed).  The
-        ladder's low-priority shedding and margin are off until fault
-        supervision is ported (``_shed_low_priority``, ``_hopeless_margin``
-        keep their off values)."""
+        (TTFT missed while waiting, or the e2e deadline passed).  At ladder
+        L3 low-priority queued work is shed outright and the SLO deadlines
+        tighten by ``hopeless_margin``."""
         if self._shed_low_priority:
             for r in list(self.queue):
                 if r.priority < self._shed_below:
@@ -806,9 +853,9 @@ class ServingEngine:
                 self._finalize_aborted(r)
 
     def _finalize_aborted(self, req: Request) -> None:
-        """The exit of canceled and shed requests: release every resource
-        (a queued request's read holds were dropped by the caller; a
-        running one still owns pages) and finalize with no output."""
+        """The exit of canceled, shed and faulted requests: release every
+        resource (a queued request's read holds were dropped by the caller;
+        a running one still owns pages) and finalize with no output."""
         if self.paged:
             self._release_holds(req)
             if req.pages:
@@ -979,7 +1026,8 @@ class ServingEngine:
         match = self.prefix.lookup(
             self._prefix_key(req), self._prompt_in_canvas(req),
             partial_ok=self._partial_ok,
-            promote_ok=self.tier is not None and not req.no_promote)
+            promote_ok=(self.tier is not None and not req.no_promote
+                        and not self._host_tier_paused))
         if match is None:
             return
         if match.needs_promotion:
@@ -1065,6 +1113,11 @@ class ServingEngine:
         it; skipped when the pool has no slack."""
         if self.prefix is None or req.preemptions > 0 or not req.n_pages:
             return
+        if self._publish_paused:
+            # ladder L1: stop growing shared state under fault pressure
+            # (a miss costs prefill work, never correctness)
+            self.stats.publish_paused_skips += 1
+            return
         n_run = req.row_len // self.page_size
         m = req.shared_n if req.holds else 0
         if m >= n_run:
@@ -1108,9 +1161,14 @@ class ServingEngine:
 
     def _evict_index(self, n_pages: int) -> int:
         """Index eviction; the evicted pages split into demoted and dropped
-        (as the index reports them)."""
+        (as the index reports them).  Every ``host_store`` fire is one
+        store the tier refused."""
+        stores = self.faults.fired["host_store"] if self.faults else 0
         freed, demoted, dropped, full, stable = self.prefix.evict(
             self.pool, n_pages)
+        if self.faults is not None:
+            self.stats.tier_store_faults += (self.faults.fired["host_store"]
+                                             - stores)
         self.stats.prefix_demoted_pages += demoted
         self.stats.prefix_dropped_pages += dropped
         self.stats.tier_dropped_full += full
@@ -1202,6 +1260,8 @@ class ServingEngine:
             self.stats.host_checksum_failures += 1
             self.stats.host_corrupt_pages += e.bad
             self.stats.cold_prefill_fallbacks += 1
+            if self.supervisor is not None:
+                self.supervisor.note_pressure("host_corrupt")
             req.plan_epoch = None
             self._prefix_epoch += 1
             self._admission_dirty = True
@@ -1255,6 +1315,72 @@ class ServingEngine:
             tr.begin(PID_REQUESTS, victim.uid, "queued", cat="lifecycle",
                      args={"resumed": True})
 
+    # ------------------------------------------------------------------
+    # Fault handling
+    # ------------------------------------------------------------------
+
+    def _inject_nan(self, slots: List[Optional[Request]],
+                    sess: DecodeSession) -> None:
+        """Arm a NaN poisoning of one live row's cache pages, picked from
+        the fire's index.  The session applies it inside its next
+        ``step()`` after the refresh (so ``refresh_interval=1`` cannot wash
+        it out).  Rows still holding shared pages they have not copied are
+        never picked: poisoning a shared page would taint other requests
+        through the index."""
+        if not self.paged or self.faults is None:
+            return
+        victims = [s for s in slots
+                   if s is not None and not s.canceled and s.fault is None
+                   and s.pages and not s.holds]
+        if not victims:
+            return
+        k = self.faults.fired["step_nan"] - 1   # this probe already fired
+        pick = victims[choose_index(self.faults.plan.seed, "nan_row", k,
+                                    len(victims))]
+        sess.poison_pages_after_refresh(pick.pages)
+
+    def _disconnect_burst(self, slots: List[Optional[Request]]) -> None:
+        """Every streaming request of the batch loses its client at once: a
+        cancellation each; the dead-row scan reaps them this iteration."""
+        hit = 0
+        for s in slots:
+            if (s is not None and not s.canceled and s.fault is None
+                    and (s.stream or s.sink is not None)):
+                s.canceled = True
+                hit += 1
+        if hit:
+            self.stats.disconnect_bursts += 1
+            if self.supervisor is not None:
+                self.supervisor.note_pressure("disconnect")
+
+    def _watchdog_recover(self, lane: LaneKey,
+                          slots: List[Optional[Request]],
+                          sess: DecodeSession) -> None:
+        """The watchdog fired: the lane made no progress for a whole
+        budget.  Finalize the rows already canceled or faulted,
+        force-preempt the rest back to the queue through their snapshots,
+        and clear an injected stall so the rebuilt lane can run."""
+        self.stats.watchdog_fires += 1
+        dead = [i for i, s in enumerate(slots)
+                if s is not None and (s.canceled or s.fault is not None)]
+        for i in dead:
+            req = slots[i]
+            slots[i] = None
+            self._finalize_aborted(req)
+        if dead:
+            if self.paged:
+                sess.release_rows(dead)
+            else:
+                sess.deactivate_rows(dead)
+        for i, r in enumerate(slots):
+            if r is not None:
+                self._preempt(i, r, slots, sess)
+        if self.faults is not None:
+            self.faults.clear_stall(lane)
+        if self.supervisor is not None:
+            self.supervisor.note_pressure("watchdog")
+            self.supervisor.lane_started()
+
     def _admit_one(self, lane: LaneKey, slots: List[Optional[Request]],
                    sess: Optional[DecodeSession],
                    protected: Tuple[int, ...] = ()) -> Optional[Request]:
@@ -1266,13 +1392,19 @@ class ServingEngine:
         cover it the candidate stalls and the next candidate gets a
         chance.  With the prefix index, a page shortage
         first evicts reader-less index entries, but only when that (with
-        the preemptible victims) can admit the candidate.  Returns the
-        admitted request (popped from the queue, pages allocated) or None.
-        ``protected`` slots were admitted this swap round and have no
-        session state yet, so they are never victims."""
+        the preemptible victims) can admit the candidate.  An allocation
+        that fails anyway (an injected ``pool_alloc`` fault) is retried
+        after 1, 2, 4, ... steps, and past ``max_alloc_retries`` the request
+        is aborted.  Returns the admitted request (popped from the queue,
+        pages allocated) or None.  ``protected`` slots were admitted this
+        swap round and have no session state yet, so they are never
+        victims."""
         stalled = False
         now = self._now()
         for req in self._lane_candidates(lane):
+            if req.retry_after_step > self.stats.steps:
+                stalled = True      # backing off a transient alloc fault
+                continue
             slot_free = any(s is None for s in slots)
             if not self.paged:
                 if not slot_free:
@@ -1318,7 +1450,26 @@ class ServingEngine:
                             and any(s is None for s in slots)):
                         break
             pages = self.pool.alloc(req.n_pages) if req.n_pages else []
-            assert pages is not None, "admission checked the free pages"
+            if pages is None:
+                # a transient allocation fault (a real shortage was settled
+                # above by eviction or preemption): retry with exponential
+                # backoff on the step clock, then abort the request
+                self._drop_plan(req)
+                self.stats.alloc_faults += 1
+                req.alloc_retries += 1
+                max_r = (self.supervisor.cfg.max_alloc_retries
+                         if self.supervisor is not None else 3)
+                if req.alloc_retries > max_r:
+                    self.queue.remove(req)
+                    req.fault = "pool_alloc"
+                    self._finalize_aborted(req)
+                else:
+                    req.retry_after_step = (
+                        self.stats.steps + (1 << (req.alloc_retries - 1)))
+                if self.supervisor is not None:
+                    self.supervisor.note_pressure("pool_alloc")
+                stalled = True
+                continue
             self.queue.remove(req)
             req.pages = pages
             self._count_prefix_hit(req)
@@ -1419,8 +1570,9 @@ class ServingEngine:
             steps0 = self.stats.steps
             self._run_lane(self.queue[0].lane, max_steps, on_step)
             if self.queue and self.stats.steps == steps0:
-                # nothing admitted: tick the step clock so that time moves
-                # on instead of spinning
+                # nothing admitted (every candidate backs off a transient
+                # alloc fault): tick the step clock so the backoffs expire
+                # instead of spinning; max_alloc_retries bounds it
                 self.stats.steps += 1
         self._wall = self._now() - t0
         self._note_pool_stats()
@@ -1461,6 +1613,8 @@ class ServingEngine:
         return self.stats
 
     def _note_pool_stats(self) -> None:
+        if self.faults is not None:
+            self.stats.faults_injected = self.faults.total_fired
         if self.paged:
             self.stats.peak_pool_util = (self.pool.peak_used
                                          / max(self.pool.capacity, 1))
@@ -1529,7 +1683,26 @@ class ServingEngine:
             sess.state = sess.state._replace(committed=torch.as_tensor(
                 committed0).to(self.device))
 
+        sup = self.supervisor
+        guard = sup is not None and self.paged    # the NaN canvas guard
+        if sup is not None:
+            sup.lane_started()
         while any(s is not None for s in slots):
+            if self.faults is not None and self.faults.stall_lane(lane):
+                # a stuck lane: the step is never launched (a hung device).
+                # Host work and the step clock go on, so the watchdog fires
+                # within its budget and force-preempts the lane
+                self._host_overlap(lane, slots)
+                self.stats.steps += 1
+                if on_step is not None:
+                    on_step(self)
+                if sup is not None:
+                    if sup.watchdog(progressed=False):
+                        self._watchdog_recover(lane, slots, sess)
+                    sup.on_iteration()
+                continue
+            if self.faults is not None and self.faults.fire("step_nan"):
+                self._inject_nan(slots, sess)
             if tr.enabled:
                 tr.begin(PID_ENGINE, lid, "dispatch", cat="phase")
             info = sess.step()
@@ -1545,6 +1718,10 @@ class ServingEngine:
             self.stats.steps += 1
             if self.paged:
                 self.pool.note_step()
+            # the guard's flags are copied behind the step without a wait
+            # of their own: they are on the host once the sync below returns
+            row_finite = (info["row_finite"].to("cpu", non_blocking=True)
+                          if guard else None)
             if tr.enabled:
                 tr.begin(PID_ENGINE, lid, "host_sync", cat="phase")
             n_comm = info["n_committed"].cpu().numpy()   # first host sync
@@ -1567,6 +1744,10 @@ class ServingEngine:
             if dyn and strategy.uses_cache and self.stats.steps % dyn == 0:
                 self._note_cache_dynamics(
                     sess, strategy, n_live=sum(s is not None for s in slots))
+            if self.faults is not None and self.faults.fire("disconnect"):
+                self._disconnect_burst(slots)
+            nan_rows = (sup.nan_guard({"row_finite": row_finite.numpy()},
+                                      slots) if guard else [])
             if on_step is not None:
                 on_step(self)
             now = self._now()
@@ -1589,6 +1770,19 @@ class ServingEngine:
                     dead.append(i)
                 elif n_masked[i] <= 0 or ages[i] >= max_steps:
                     finished.append(i)
+            progressed = bool(int(n_comm.sum()) > 0 or finished or dead)
+            if sup is not None:
+                if tr.enabled:
+                    tr.begin(PID_ENGINE, lid, "supervisor", cat="phase")
+                fired = sup.watchdog(progressed)
+                if fired:
+                    self._watchdog_recover(lane, slots, sess)
+                else:
+                    sup.on_iteration()
+                if tr.enabled:
+                    self._phase_end(lid, "supervisor")
+                if fired:
+                    continue
             if not (finished or dead) and not (self.continuous
                                                and self._admission_dirty):
                 continue
@@ -1606,6 +1800,16 @@ class ServingEngine:
                     # can be re-allocated below: a stale entry would let
                     # the dead row's next write-back corrupt the new owner
                     sess.release_rows(finished + dead)
+            if nan_rows:
+                # NaN quarantine: the poisoned rows died above; every
+                # surviving lane-mate is force-preempted, so the batch is
+                # rebuilt from preemption snapshots and one poisoned canvas
+                # never taints its neighbours' outputs
+                self.stats.nan_quarantines += len(nan_rows)
+                for i, r in enumerate(slots):
+                    if r is not None:
+                        self._preempt(i, r, slots, sess)
+                continue
             swap_rows, swap_tokens, swap_active = [], [], []
             swap_kv, swap_pt, swap_com = [], [], []
             swap_shared: List[SharedPrefix] = []

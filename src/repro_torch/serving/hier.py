@@ -51,6 +51,7 @@ import torch
 
 from repro_torch.core.cache import dequantize_rows
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.serving.faults import flip_first_word
 
 # host-buffer suffix for the int8 representation's per-row scales: distinct
 # from the "_scale" buffers an int8 cache signature already carries (those
@@ -361,11 +362,11 @@ class HostPagePool:
 
     def corrupt_slot(self, sig: Tuple, repr_: str, slot: int) -> None:
         """Flip the first 8 bytes of one resident slot's first buffer: the
-        smallest rot the promotion checksum must catch."""
+        ``host_corrupt`` fault's payload, the smallest rot the promotion
+        checksum must catch."""
         for bufs in self._slot(sig, repr_, slot).values():
             for a in bufs.values():
-                flat = a.reshape(-1).view(torch.uint8)
-                flat[:8].bitwise_xor_(0xFF)
+                flip_first_word(a)
                 return
 
 
@@ -392,9 +393,15 @@ class TierManager:
         self.device = resolve_device(device)
         self._sig_of: Dict[int, Tuple] = {}       # device page -> sig
         self._stability: Dict[int, float] = {}    # device page -> score
-        # why the last demote returned None under host pressure: "full",
-        # or "stable" (every page stable: cheap to prefill again)
+        # why the last demote returned None: "full" (no host room),
+        # "stable" (no room, and every page stable: cheap to prefill
+        # again) or "store" (an injected write failure)
         self.refusal: Optional[str] = None
+        # fault seam: a FaultInjector wired by the engine; demote probes
+        # "host_store" (refuse the write: the victim drops) and
+        # "host_corrupt" (bit-flip the fresh slot, which the promotion
+        # checksum catches)
+        self.injector = None
 
     # ---- engine registration ----------------------------------------
 
@@ -448,9 +455,9 @@ class TierManager:
                exact_in: bool = True) -> Optional[List[HostPageRef]]:
         """Move one eviction unit's device pages host-ward.  Returns one
         :class:`HostPageRef` per page, or None to DROP the whole unit
-        (unknown signature, no read path, or the host budget cannot take
-        it: a tail is all or nothing).  The caller releases the device
-        pages either way."""
+        (unknown signature, no read path, the host budget cannot take it:
+        a tail is all or nothing; or an injected store failure).  The
+        caller releases the device pages either way."""
         self.refusal = None
         if not pages or self.read_pages is None:
             return None
@@ -465,6 +472,11 @@ class TierManager:
             self.refusal = ("stable" if all(
                 self.stability(p) >= self.stable_threshold for p in pages)
                 else "full")
+            return None
+        if self.injector is not None and self.injector.fire("host_store"):
+            # the tier refuses the write and the victim drops, as when
+            # the host budget is full
+            self.refusal = "store"
             return None
         blocks = self.read_pages(sig, list(pages))
         refs: List[Optional[HostPageRef]] = [None] * len(pages)
@@ -485,6 +497,9 @@ class TierManager:
                     sig=sig, repr_=repr_, slot=s, units=units,
                     exact=plan[i][2], stability=self.stability(pages[i]),
                     checksum=self.host.checksum(sig, repr_, s))
+        if self.injector is not None and self.injector.fire("host_corrupt"):
+            r = refs[0]
+            self.host.corrupt_slot(r.sig, r.repr_, r.slot)
         self.forget(pages)
         return refs
 

@@ -65,6 +65,10 @@ class PagePool:
         self._arenas: Dict[Tuple, Dict] = {}
         self.peak_used = 0
         self._util_samples: List[float] = []
+        # fault seam: when set (a FaultInjector), alloc() probes
+        # fault_hook.fire("pool_alloc") and fails on a hit, with the None
+        # its callers already handle for a full pool
+        self.fault_hook = None
 
     # ---- accounting --------------------------------------------------
 
@@ -92,6 +96,9 @@ class PagePool:
         """Allocate n pages at refcount 1 (all or nothing); None when
         short."""
         if n > len(self._free):
+            return None
+        if n and self.fault_hook is not None \
+                and self.fault_hook.fire("pool_alloc"):
             return None
         pages = [self._free.pop() for _ in range(n)]
         for p in pages:

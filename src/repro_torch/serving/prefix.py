@@ -60,7 +60,8 @@ class Eviction(NamedTuple):
     """What one :meth:`PrefixIndex.evict` did: device pages freed, pages
     demoted to the host tier, and pages dropped (host refs pruned
     included); of the dropped, the pages the tier refused for want of
-    room, and those it skipped as stable under that pressure."""
+    room (or on an injected store failure), and those it skipped as stable
+    under that pressure."""
     freed: int
     demoted: int
     dropped: int
@@ -127,6 +128,9 @@ class PrefixIndex:
         # Optional[hier.TierManager], wired by the engine; None: eviction
         # drops (the single-tier index)
         self.tier = None
+        # the degradation ladder's L2: while True, eviction drops victims
+        # instead of demoting them (the host tier's work is shed)
+        self.demote_paused = False
 
     # ---- keys ---------------------------------------------------------
 
@@ -340,14 +344,16 @@ class PrefixIndex:
         """Free at least ``n_pages`` device pages of reader-less entries
         (deepest first by construction).  With a host tier, victims demote
         and stay in the trie unless the tier refuses (host budget full, or
-        stable under pressure); a dropped node severs the path through it,
+        stable under pressure) or ``demote_paused`` is set (the degradation
+        ladder's L2: every victim drops); a dropped node severs the path
+        through it,
         so host refs below it are pruned.  Returns the device pages freed
         (fewer when everything left has readers), how many pages were
         demoted and dropped (host refs pruned included), and which drops
         the tier refused as full or as stable."""
         freed = demoted = dropped = 0
-        refused = {"full": 0, "stable": 0, None: 0}
-        tier = self.tier
+        refused = {"full": 0, "stable": 0, "store": 0, None: 0}
+        tier = None if self.demote_paused else self.tier
         while freed < n_pages:
             units = self._evictable(pool)
             if not units:
@@ -367,7 +373,8 @@ class PrefixIndex:
                     node.tails.pop(tail_key)
                     if tier is not None:
                         refused[tier.refusal] += len(pages)
-                        tier.forget(pages)
+                    if self.tier is not None:
+                        self.tier.forget(pages)
                     dropped += len(pages)
             else:
                 pages = [node.page]
@@ -380,14 +387,17 @@ class PrefixIndex:
                 else:
                     if tier is not None:
                         refused[tier.refusal] += 1
-                        tier.forget(pages)
+                    if self.tier is not None:
+                        self.tier.forget(pages)
                         dropped += self._prune_host(node)
                     dropped += 1
                 node.page = None
             pool.release(pages)
             freed += len(pages)
-        return Eviction(freed, demoted, dropped, refused["full"],
-                        refused["stable"])
+        # a refused store drops as a full tier does (the JAX tier counts it
+        # in dropped_full too)
+        return Eviction(freed, demoted, dropped,
+                        refused["full"] + refused["store"], refused["stable"])
 
     def _prune_host(self, node: _Node) -> int:
         """A dropped node severs the lookup path through it: host refs at or

@@ -384,3 +384,129 @@ def dense_decode_parity(cfg, params, prompt, gen, name, backend=None):
     assert t_info["steps"] == j_info["steps"]
     assert_caches_close(j_cache, sess.state.cache)
     return sess
+
+
+# -- fault injection and supervision ------------------------------------
+
+FAULT_STATS = ("steps", "tokens_committed", "swaps", "preemptions",
+               "requests_done", "requests_faulted", "requests_canceled",
+               "requests_shed", "faults_injected", "alloc_faults",
+               "host_checksum_failures", "cold_prefill_fallbacks",
+               "nan_quarantines", "disconnect_bursts", "watchdog_fires",
+               "invariant_checks", "publish_paused_skips", "degrade_level",
+               "degradations", "restorations", "degradation_events")
+
+
+def fault_engines(cfg, params, *, plan=None, sup=None, canvas=16, page=4,
+                  **kw):
+    """The JAX engine and the port's of the JAX ``tests/test_faults.py``
+    (``SPACache(rank=16, uniform, rho_peak=0.3, refresh_interval=1)``,
+    canvas 16, pages of 4, host tier in f32 when ``host_pages`` is given),
+    each with its own package's ``FaultPlan(**plan)`` and
+    ``SupervisorConfig(**sup)`` and a tracer (no cache dynamics) whose
+    fault instants :func:`assert_fault_runs_match` compares.  ``kw``: engine arguments of both (``max_batch``,
+    ``pool_pages``, ``prefix_cache``, ``supervise``, ...)."""
+    from repro.core.strategy import SPACache as JSPACache
+    from repro.serving import faults as jfaults
+    from repro.serving import supervisor as jsup
+    from repro.serving import telemetry as jtel
+    from repro_torch.core.strategy import SPACache as TSPACache
+    from repro_torch.serving import faults as tfaults
+    from repro_torch.serving import supervisor as tsup
+    from repro_torch.serving import telemetry as ttel
+    spec = dict(rank=16, schedule="uniform", rho_peak=0.3,
+                refresh_interval=1)
+    jextra, textra = {}, {}
+    for extra, faults, supmod, tel in ((jextra, jfaults, jsup, jtel),
+                                       (textra, tfaults, tsup, ttel)):
+        if plan is not None:
+            extra["fault_plan"] = faults.FaultPlan(**plan)
+        if sup is not None:
+            extra["supervisor_cfg"] = supmod.SupervisorConfig(**sup)
+        extra["telemetry"] = tel.Telemetry(tracer=tel.Tracer(enabled=True))
+    kw.setdefault("max_batch", 2)
+    kw.setdefault("host_dtype", "f32")
+    return engine_pair(cfg, params, (JSPACache(**spec), TSPACache(**spec)),
+                       jextra=jextra, textra=textra, canvas_len=canvas,
+                       page_size=page, **kw)
+
+
+def fault_instants(engine):
+    """The trace's ``fault:*`` and ``ladder`` instants as (name, args)."""
+    return [(e.name, e.args) for e in engine.telemetry.tracer.events
+            if e.ph == "i" and (e.name.startswith("fault:")
+                                or e.name == "ladder")]
+
+
+def fault_outcomes(engine):
+    """uid -> (fault, canceled, shed, output bytes or None)."""
+    return {r.uid: (r.fault, r.canceled, r.shed,
+                    None if r.output is None
+                    else np.asarray(r.output).astype(np.int32).tobytes())
+            for r in engine.done}
+
+
+def assert_fault_runs_match(jeng, teng):
+    """One fault scenario through both engines: the same injector log, the
+    same done / faulted / canceled / shed uids and outputs, the same fault
+    counters (``FAULT_STATS``; the tier's refused stores and corrupt pages
+    against the JAX tier manager's counters), the same ``fault:*`` and
+    ``ladder`` trace instants, and the same pages held on both tiers.
+    Returns the port's outcomes."""
+    if jeng.faults is not None:
+        assert teng.faults.log == jeng.faults.log
+        assert teng.faults.fired == jeng.faults.fired
+    out = fault_outcomes(teng)
+    assert out == fault_outcomes(jeng)
+    for name in FAULT_STATS:
+        assert getattr(teng.stats, name) == getattr(jeng.stats, name), name
+    if jeng.tier is not None:
+        assert teng.stats.tier_store_faults == jeng.tier.store_faults
+        assert teng.stats.host_corrupt_pages == jeng.tier.checksum_failures
+        tier = teng.pool_debug_state()["tier"]
+        assert tier["store_faults"] == jeng.tier.store_faults
+    assert fault_instants(teng) == fault_instants(jeng)
+    if teng.pool is not None:
+        held = teng.prefix.held_pages if teng.prefix is not None else 0
+        assert teng.pool.used == jeng.pool.used == held
+        assert teng.pool.refcounts == jeng.pool.refcounts
+    if teng.host_pool is not None:
+        assert (teng.host_pool.used_pages == jeng.host_pool.used_pages
+                == teng.prefix.host_held_pages)
+    return out
+
+
+def pressure_cycle(eng, cfg):
+    """cold(p0) -> eviction of p0's entry under pool pressure (demote) ->
+    warm(p0) (promote).  Returns (cold output, warm output)."""
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size - 1, 8).astype(np.int32)
+               for _ in range(3)]
+    u = eng.submit(prompts[0], gen_len=8)
+    eng.run()
+    cold = next(r for r in eng.done if r.uid == u).output
+    for p in prompts[1:]:
+        eng.submit(p, gen_len=8)
+    eng.run()
+    u = eng.submit(prompts[0], gen_len=8)
+    eng.run()
+    warm = next(r for r in eng.done if r.uid == u).output
+    return np.asarray(cold), np.asarray(warm)
+
+
+def cycle_both_tiers(cfg, params, site):
+    """The JAX ``tests/test_faults.py`` host-tier scenario through both
+    engines (pool of 9 pages, host tier of 16 pages in f32, prefix index
+    on) under a plan firing ``site`` at its first probe: the pressure
+    cycle's warm output equals its cold one and JAX's, and the runs match
+    (``assert_fault_runs_match``).  Returns (JAX engine, port engine)."""
+    jeng, teng = fault_engines(cfg, params, pool_pages=9, host_pages=16,
+                               prefix_cache=True,
+                               plan=dict(at={site: (0,)}))
+    (jcold, jwarm), (tcold, twarm) = (pressure_cycle(e, cfg)
+                                      for e in (jeng, teng))
+    assert_fault_runs_match(jeng, teng)
+    np.testing.assert_array_equal(tcold, twarm)
+    np.testing.assert_array_equal(tcold, jcold)
+    np.testing.assert_array_equal(twarm, jwarm)
+    return jeng, teng

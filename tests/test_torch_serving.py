@@ -78,8 +78,10 @@ def test_paged_mixed_gen_len_matches_jax_and_alone(tiny_cfg, tiny_params):
 
 def test_engine_refuses_parts_that_wait(tiny_cfg):
     """Arguments of the engine parts not ported yet raise; their "off"
-    values are accepted, and so are the ported SLO policy and telemetry."""
+    values are accepted, and so are the ported SLO policy, telemetry,
+    fault plan and supervisor."""
     from repro_torch.models import transformer
+    from repro_torch.serving.faults import FaultPlan
     from repro_torch.serving.slo import SLOPolicy
     from repro_torch.serving.telemetry import Telemetry
     tcfg = port_cfg(tiny_cfg)
@@ -87,12 +89,14 @@ def test_engine_refuses_parts_that_wait(tiny_cfg):
     TEngine(tcfg, params, device="cpu", fault_plan=None, supervise=False,
             profiler=None)
     eng = TEngine(tcfg, params, device="cpu", slo_policy=SLOPolicy(),
-                  telemetry=Telemetry.enabled())
+                  telemetry=Telemetry.enabled(), fault_plan=FaultPlan(),
+                  supervise=True)
     assert eng.slo_policy is not None and eng.telemetry.tracing
-    for kw in (dict(fault_plan=object()), dict(supervise=True),
-               dict(profiler=object())):
-        with pytest.raises(NotImplementedError, match=next(iter(kw))):
-            TEngine(tcfg, params, device="cpu", **kw)
+    assert eng.faults is not None and eng.supervisor is not None
+    with pytest.raises(NotImplementedError, match="profiler"):
+        TEngine(tcfg, params, device="cpu", profiler=object())
+    with pytest.raises(TypeError, match="bogus"):
+        TEngine(tcfg, params, device="cpu", bogus=1)
 
 
 def test_serve_cli_paged_in_process(capsys):
@@ -109,11 +113,11 @@ def test_serve_cli_paged_in_process(capsys):
 def test_serve_cli_names_flags_that_wait(capsys):
     with pytest.raises(SystemExit):
         tserve.main(["--device", "cpu", "--prefix-cache", "--supervise",
-                     "--slo-ttft", "4", "--profile"])
+                     "--slo-ttft", "4", "--profile", "--ckpt", "w.npz"])
     error = capsys.readouterr().err.strip().splitlines()[-1]
-    assert "--supervise" in error and "--profile" in error
+    assert "--profile" in error and "--ckpt" in error
     assert "--prefix-cache" not in error    # ported: accepted
-    assert "--slo-ttft" not in error
+    assert "--slo-ttft" not in error and "--supervise" not in error
 
 
 def test_serve_cli_slo_trace_and_metrics(capsys, tmp_path):
