@@ -2217,25 +2217,30 @@ def llada_setup(torch):
 
 
 def llada_cut(cfg, params, proxies, layers: int = CUT_LAYERS):
-    """LLaDA-8B cut to its first ``layers`` layers: the same widths, the
-    weights and SVD proxies views of the full model's first layers, the
-    budget's peak layer scaled with the depth.  Returns (cfg, params,
-    strat, proxies)."""
+    """A model cut to its first ``layers`` layers (LLaDA-8B in phases 6, 7,
+    12, 14, 15 and 17(a), RecurrentGemma-9B in 17(c)): the same widths, the
+    weights and SVD proxies views of the full model's first layers of each
+    kind, the budget's peak layer scaled with the depth.  Returns (cfg,
+    params, strat, proxies)."""
     from repro_torch.core.strategy import SPACache
 
-    assert len(set(cfg.layer_kinds)) == 1, "one stack of layers to cut"
+    cut_kinds = [cfg.kind_of_layer(l) for l in range(layers)]
 
-    def head(tree):
+    def head(tree, n):
         if isinstance(tree, dict):
-            return {k: head(v) for k, v in tree.items()}
-        return tree[:layers]
+            return {k: head(v, n) for k, v in tree.items()}
+        return tree[:n]
+
+    def heads(stacks):
+        return {kind: head(t, cut_kinds.count(kind))
+                for kind, t in stacks.items() if kind in cut_kinds}
 
     peak = cfg.spa.resolved_layer_peak(cfg.n_layers)
     spa = dataclasses.replace(
         cfg.spa, layer_peak=max(1, round(peak * layers / cfg.n_layers)))
     cut = dataclasses.replace(cfg, n_layers=layers, spa=spa)
-    return (cut, dict(params, blocks=head(params["blocks"])),
-            SPACache.from_spec(spa), head(proxies))
+    return (cut, dict(params, blocks=heads(params["blocks"])),
+            SPACache.from_spec(spa), heads(proxies))
 
 
 def main_path(torch, cfg, params, strat, proxies):
@@ -2350,12 +2355,13 @@ def hybrid_parity(torch):
     torch.cuda.empty_cache()
 
 
-def hybrid_main_path(torch):
+def hybrid_main_path(torch, keep: bool = False):
     """Phase 9: RecurrentGemma-9B (38 layers, bf16, random weights), B=2,
     prompt 16128 + gen 256 (N = 16384), DecodeSession.run with SPACache,
     the confidence scheduler and CudaBackend for HYBRID_STEPS steps; then
     a profiled window and a few NoCache steps.  Returns the launches of
-    the SPA run (prefill and steps)."""
+    the SPA run (prefill and steps), and with ``keep`` the weights and
+    proxies (phase 17(c) serves their first layers), else None."""
     from repro_torch.configs import get_arch
     from repro_torch.core import spa_layer
     from repro_torch.core.strategy import NoCache, SPACache
@@ -2438,9 +2444,11 @@ def hybrid_main_path(torch):
           f"{spa_wall / base_wall:.3f})"
           + (f", device time {spa_dev:.2f} / {base_dev:.2f} ms/step = "
              f"{spa_dev / base_dev:.3f}" if spa_dev and base_dev else ""))
-    del base, params, proxies
+    del base
+    kept = (params, proxies) if keep else None
+    del params, proxies
     torch.cuda.empty_cache()
-    return launches
+    return launches, kept
 
 
 # ---------------------------------------------------------------------------
@@ -4952,33 +4960,486 @@ def faults_phase(torch, cfg, params, strat, proxies, card: str):
     faults_full(torch, cfg, params, strat, proxies)
 
 
-ALL_PHASES = tuple(range(3, 17))
+# ---------------------------------------------------------------------------
+# Phase 17: profiling through the server; recurrent stacks in lanes
+# ---------------------------------------------------------------------------
+
+PROFILE17 = dict(canvas=256, slots=4, pool=4 * (256 // PAGE) + 1,
+                 requests=((128, 64), (64, 64), (192, 64), (96, 32)))
+PROBES17 = dict(batch=4, seq=512, n_selected=128, page=PAGE)
+PROBE_KERNELS = {"identify": "cosine_drift", "gather": "gather_norm",
+                 "attend": "sparse_attention",
+                 "scatter": "scatter_update_multi",
+                 "page_gather": "gather_pages"}
+# the hand-written kernels a ``serve --profile --torch-trace-dir`` trace
+# must name (KERNEL_GROUPS' keys): attention, gather_norm, the row commit
+# and the page copies
+TRACE_GROUPS = ("sparse_attention (dense + banded)", "gather_norm",
+                "scatter_update_multi", "gather_pages + scatter_pages")
+# 17(b): six requests (prompt, gen, priority) at canvas 32, pages of 4: the
+# first served alone (it publishes), then its repeat, three more, and a
+# priority-5 one arriving at the second step on a short pool (preempts)
+RECURRENT_SMALL = dict(canvas=32, page=4, slots=4, pool=25,
+                       first=(8, 8), wave=((8, 8), (6, 12), (8, 16), (8, 8)),
+                       late=(8, 16))
+HYBRID_CUT = 12            # RecurrentGemma-9B's first 12 of 38 layers
+# 17(c): 6 requests a server, the last two repeating the first two's
+# prompts and layouts (full hits); the pool holds 4 rows and the index's
+# copies of 4
+RECURRENT_FULL = {
+    "hybrid": dict(canvas=4096, slots=4, gen=32,
+                   prompts=(4064, 4000, 4032, 3968)),
+    "mamba2": dict(canvas=1024, slots=4, gen=32,
+                   prompts=(992, 960, 928, 896)),
+}
+RECURRENT_PROFILE = (6, 9)    # engine steps after which the trace starts/ends
+
+
+def _serve(engine, reqs):
+    """Submit (prompt, gen) pairs and run; returns (outputs by uid, wall)."""
+    import numpy as np
+    for prompt, gen in reqs:
+        engine.submit(prompt, gen)
+    t0 = time.perf_counter()
+    engine.run()
+    wall = time.perf_counter() - t0
+    return ({r.uid: np.asarray(r.output).tobytes() for r in engine.done},
+            wall)
+
+
+def tracker_host_us(sess, calls: int = 2000) -> float:
+    """Host µs the trace accounting adds to one step: a wrapped no-op at
+    the session's step signature against the bare no-op."""
+    from repro_torch.core import runtime
+    noop = (lambda state: None)
+    wrapped = runtime.CompileTracker().wrap(
+        noop, name="probe", signature=sess._state_signature)
+    times = []
+    for fn in (wrapped, noop):
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn(sess.state)
+        times.append(time.perf_counter() - t0)
+    return max(0.0, times[0] - times[1]) / calls * 1e6
+
+
+def trace_kernel_groups(path) -> dict:
+    """KERNEL_GROUPS -> kernel events of a Chrome trace of that group."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    found = {}
+    for ev in events:
+        if ev.get("cat") != "kernel":
+            continue
+        group = next((g for g, keys in KERNEL_GROUPS
+                      if any(_matches(ev.get("name", ""), k) for k in keys)),
+                     None)
+        if group is not None:
+            found[group] = found.get(group, 0) + 1
+    return found
+
+
+def profiling_serving(torch, cfg, params, strat, proxies, *, device=None):
+    """Phase 17(a): LLaDA-8B's cut through ``ServingEngine`` on CudaBackend
+    (canvas 256, pages of 16, 65 pages, 4 slots, four requests), without a
+    ``StepProfiler`` and with one: identical outputs and step counts, the
+    fenced segments tile the total; the refresh / dispatch / device_wait
+    shares, the trace accounting's host µs a step, the ``spa_runtime_*``
+    series and ``live_executables``; then ``KernelPhaseProbes`` at
+    LLaDA-8B's widths (bf16), and ``serve --profile --torch-trace-dir`` on
+    the reduced llada-8b, whose trace must name the hand-written
+    kernels."""
+    import io
+
+    import numpy as np
+    from repro_torch.core import runtime
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.serving.engine import ServingEngine
+    from repro_torch.serving.profiling import KernelPhaseProbes, StepProfiler
+    from repro_torch.serving.telemetry import MetricsRegistry, Telemetry
+
+    c = PROFILE17
+    rng = np.random.default_rng(17)
+    reqs = [(rng.integers(0, cfg.vocab_size - 1, p), g)
+            for p, g in c["requests"]]
+    runs = {}
+    for label, prof in (("warm", None), ("off", None),
+                        ("on", StepProfiler(Telemetry.enabled(
+                            dynamics_every=0)))):
+        engine = ServingEngine(cfg, params, max_batch=c["slots"],
+                               canvas_len=c["canvas"], strategy=strat,
+                               pool_pages=c["pool"], page_size=PAGE,
+                               telemetry=(prof.telemetry if prof else None),
+                               profiler=prof, device=device)
+        engine._proxies[engine.strategy] = proxies
+        out, wall = _serve(engine, reqs)
+        runs[label] = (out, engine.stats.steps, wall, engine, prof)
+    out_on, steps_on, wall_on, engine, prof = runs["on"]
+    out_off, steps_off, wall_off = runs["off"][:3]
+    assert out_on == out_off and steps_on == steps_off, \
+        "17(a): profiling changed the served outputs or steps"
+    for r in engine.done:
+        assert not (np.asarray(r.output) == cfg.mask_id).any()
+    assert prof.steps_observed == steps_on
+    snap = prof.registry.snapshot()
+    seg_sum = sum(snap[f'spa_profile_step_seconds{{segment="{s}"}}']["sum"]
+                  for s in StepProfiler.SEGMENTS)
+    total = snap['spa_profile_step_seconds{segment="total"}']["sum"]
+    assert abs(seg_sum - total) <= 1e-6 * total, \
+        f"17(a): segments sum to {seg_sum}, total {total}"
+    bd = prof.step_breakdown()
+    sess = next(iter(engine._sessions.values()))
+    print(f"  {len(reqs)} requests, {steps_on} engine steps either way, "
+          f"outputs identical; wall {wall_off:.3f} s unprofiled, "
+          f"{wall_on:.3f} s profiled ({wall_off / steps_off * 1e3:.2f} / "
+          f"{wall_on / steps_on * 1e3:.2f} ms an engine step)")
+    print("  fenced step: " + ", ".join(
+        f"{s} {bd[s]['mean_s'] * 1e3:.3f} ms ({bd[s]['share']:.1%})"
+        for s in StepProfiler.SEGMENTS)
+        + f"; segments sum to the total within {abs(seg_sum - total):.1e} s")
+    print(f"  trace accounting: {tracker_host_us(sess):.2f} host us a step; "
+          f"traces {runtime.compile_tracker().snapshot()['traces']}")
+    text = engine.render_metrics()
+    live = engine.pool_debug_state()["live_executables"]
+    for series in ("spa_runtime_trace_total", "spa_runtime_live_executables",
+                   "spa_profile_step_seconds"):
+        assert series in text, f"17(a): {series} missing from the render"
+    on_card = (device or "cuda") != "cpu"
+    assert live >= on_card, f"17(a): live_executables {live}"
+    print(f"  /metrics carries spa_runtime_*; live_executables {live}")
+    del runs, engine, sess
+    torch.cuda.empty_cache()
+
+    reg = MetricsRegistry()
+    probes = KernelPhaseProbes(cfg, strategy=strat, backend="cuda",
+                               registry=reg, dtype=torch.bfloat16,
+                               device=device, **PROBES17)
+    for phase, rec in probes.run(reps=5).items():
+        print(f"  probe {phase:>11}: first call {rec['compile_s'] * 1e3:8.3f}"
+              f" ms, steady {rec['steady_s'] * 1e3:8.3f} ms, launches "
+              f"{rec['launches']}")
+        if on_card:
+            assert rec["launches"].get(PROBE_KERNELS[phase], 0) >= 1, \
+                f"17(a): probe {phase} launched {rec['launches']}"
+
+    trace_dir = _lib.BUILD_DIR / "trace17"
+    argv = ["--arch", "llada-8b", "--requests", "4", "--gen-len", "16",
+            "--canvas", "64", "--max-batch", "2", "--pool-pages", "17",
+            "--page-size", str(PAGE), "--profile", "--torch-trace-dir",
+            str(trace_dir)]
+    if device is not None:
+        argv += ["--device", str(device)]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        assert serve_cli.main(argv) == 0
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        if line.startswith(("served ", "    refresh", "    dispatch",
+                            "    device_wait", "    total",
+                            "most-retraced", "     ", "torch trace")):
+            print(f"  serve: {line.strip()}")
+    found = trace_kernel_groups(trace_dir / "trace.json")
+    print(f"  serve trace kernels by group: {found}")
+    if on_card:
+        missing = [g for g in TRACE_GROUPS if not found.get(g)]
+        assert not missing, f"17(a): the trace names no {missing} kernel"
+
+
+def _recurrent_traffic(cfg, c: dict, seed: int = 0):
+    """RECURRENT_SMALL's prompts: (first, wave, late) as (prompt, gen)."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+
+    def req(p, g):
+        return rng.integers(0, cfg.vocab_size - 1, p).astype(np.int32), g
+    first = req(*c["first"])
+    wave = [first] + [req(p, g) for p, g in c["wave"][1:]]
+    return first, wave, req(*c["late"])
+
+
+def recurrent_churn(engine, cfg, c: dict) -> dict:
+    """17(b)'s traffic through ``engine``: the first request alone, then
+    its repeat and three more, a priority-5 arrival at the wave's second
+    step.  Returns the run's record (outputs by uid, counters)."""
+    import numpy as np
+    first, wave, late = _recurrent_traffic(cfg, c)
+    engine.submit(*first)
+    engine.run()
+    for prompt, gen in wave:
+        engine.submit(prompt, gen)
+    s0, pending = engine.stats.steps, [late]
+
+    def on_step(e):
+        if pending and e.stats.steps >= s0 + 2:
+            e.submit(*pending.pop(), priority=5)
+
+    engine.run(on_step=on_step)
+    s = engine.stats
+    return dict(outputs={r.uid: np.asarray(r.output).tobytes()
+                         for r in engine.done},
+                counters=dict(steps=s.steps, swaps=s.swaps,
+                              preemptions=s.preemptions,
+                              done=s.requests_done, hits=s.prefix_hits,
+                              full_hits=s.prefix_full_hits,
+                              published=s.prefix_published))
+
+
+def recurrent_small_cfgs(torch):
+    """17(b)'s models: full-width RecurrentGemma (rglru, rglru, local) and
+    Mamba2 of 3 layers each, in f32."""
+    from repro_torch.configs import get_arch
+    return {name: dataclasses.replace(get_arch(arch), n_layers=3,
+                                      param_dtype="float32")
+            for name, arch in (("hybrid", "recurrentgemma-9b"),
+                               ("mamba2", "mamba2-370m"))}
+
+
+def recurrent_exactness(torch, cfgs=None, *, device=None) -> dict:
+    """Phase 17(b): each of ``cfgs`` (default ``recurrent_small_cfgs``)
+    through ``ServingEngine`` (canvas 32, 4 slots; dense lanes, then paged
+    lanes of pages of 4 with the prefix index on) on CudaBackend and
+    TorchBackend: the same outputs, steps, swaps, preemptions and prefix
+    hits on both; every request served, the paged lanes preempt, the
+    hybrid's repeat is a full hit.  Returns {(name, mode): record}."""
+    from repro_torch.core.strategy import resolve_strategy
+    from repro_torch.kernels import _lib
+    from repro_torch.models import transformer
+    from repro_torch.serving.engine import ServingEngine
+
+    c = RECURRENT_SMALL
+    cfgs = cfgs or recurrent_small_cfgs(torch)
+    records = {}
+    for name, cfg in cfgs.items():
+        params = transformer.init_params(cfg, seed=7, device=device)
+        strat = resolve_strategy(cfg)
+        proxies = strat.build_proxies(params, cfg)
+        for mode in ("dense", "paged"):
+            paged = mode == "paged"
+            runs = {}
+            _lib.reset_launch_counts()
+            for backend in ("cuda", "torch"):
+                with oracle_launches_nothing(f"17(b) {name} {mode}",
+                                             active=backend == "torch"):
+                    engine = ServingEngine(
+                        cfg, params, max_batch=c["slots"],
+                        canvas_len=c["canvas"],
+                        strategy=strat.with_backend(backend),
+                        pool_pages=c["pool"] if paged else 0,
+                        page_size=c["page"], prefix_cache=paged,
+                        device=device)
+                    engine._proxies[engine.strategy] = proxies
+                    runs[backend] = recurrent_churn(engine, cfg, c)
+                if backend == "cuda":
+                    launches = _lib.launch_counts()
+            rec = runs["cuda"]
+            assert runs["torch"] == rec, \
+                f"17(b) {name} {mode}: the backends diverged"
+            n = rec["counters"]
+            assert n["done"] == 2 + len(c["wave"]), f"17(b): {n}"
+            assert (n["preemptions"] > 0) == paged, f"17(b) {name}: {n}"
+            if paged and name == "hybrid":
+                assert n["full_hits"] >= 1, f"17(b) hybrid: {n}"
+            if paged and name == "mamba2":
+                assert n["hits"] == n["published"] == 0, f"17(b): {n}"
+            scan = "rglru_scan" if name == "hybrid" else "ssd_chunk_scan"
+            if (device or "cuda") != "cpu":
+                assert launches[scan] > 0, f"17(b): {scan} never launched"
+            print(f"  {name} {mode}: {n}; the same on TorchBackend; "
+                  f"{scan} launches {launches[scan]}")
+            records[(name, mode)] = rec
+        del params, proxies
+        torch.cuda.empty_cache()
+    return records
+
+
+class StepLaunches:
+    """While entered: each lane step's kernel launches (the deltas of
+    ``_lib.LAUNCHES`` around ``DecodeSession._serve_step``, which runs the
+    step's layers and nothing of admission or refresh)."""
+
+    def __init__(self, kernels):
+        self.kernels = kernels
+        self.steps = []
+
+    def __enter__(self):
+        from repro_torch.dlm.session import DecodeSession
+        from repro_torch.kernels import _lib
+        self._real = real = DecodeSession._serve_step
+        probe = self
+
+        def counted(sess, state):
+            before = _lib.launch_counts()
+            out = real(sess, state)
+            after = _lib.launch_counts()
+            probe.steps.append({k: after[k] - before[k]
+                                for k in probe.kernels})
+            return out
+
+        DecodeSession._serve_step = counted
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.dlm.session import DecodeSession
+        DecodeSession._serve_step = self._real
+        return False
+
+
+def recurrent_server(torch, name, cfg, params, strat, proxies, c, expect,
+                     *, device=None):
+    """One 17(c) server: paged, pages of 16, prefix index on, ``c``'s four
+    prompts then repeats of the first two (full hits where the stack has
+    attention arenas), with a ``torch.profiler`` window.  Every request
+    completes with no [MASK] left and every lane step launches ``expect``
+    (kernel -> launches a step)."""
+    import numpy as np
+    from repro_torch.kernels import _lib
+    from repro_torch.serving.engine import ServingEngine
+
+    n_pages = c["canvas"] // PAGE
+    engine = ServingEngine(cfg, params, max_batch=c["slots"],
+                           canvas_len=c["canvas"], strategy=strat,
+                           pool_pages=2 * c["slots"] * n_pages + 1,
+                           page_size=PAGE, prefix_cache=True, device=device)
+    if proxies is not None:
+        engine._proxies[engine.strategy] = proxies
+    rng = np.random.default_rng(23)
+    prompts = [rng.integers(0, cfg.vocab_size - 1, p) for p in c["prompts"]]
+    on_card = (device or "cuda") != "cpu"
+    prof = new_profiler(torch) if on_card else None
+    seen = {}
+
+    def on_step(e):
+        if prof is not None and e.stats.steps in RECURRENT_PROFILE:
+            torch.cuda.synchronize()
+            if e.stats.steps == RECURRENT_PROFILE[0]:
+                prof.start()
+                seen["t0"] = time.perf_counter()
+            else:
+                prof.stop()
+                seen["wall_us"] = (time.perf_counter() - seen["t0"]) * 1e6
+
+    for p in prompts + prompts[:2]:
+        engine.submit(p, c["gen"])
+    _lib.reset_launch_counts()
+    with StepLaunches(tuple(expect)) as probe:
+        t0 = time.perf_counter()
+        stats = engine.run(on_step=on_step)
+        wall = time.perf_counter() - t0
+    assert stats.requests_done == len(prompts) + 2, \
+        f"17(c) {name}: {stats.requests_done} requests done"
+    for r in engine.done:
+        assert len(r.output) == c["gen"]
+        assert not (np.asarray(r.output) == cfg.mask_id).any(), \
+            f"17(c) {name}: uid {r.uid} left a mask"
+    if on_card:
+        bad = [d for d in probe.steps if d != expect]
+        assert not bad, f"17(c) {name}: step launches {bad[:2]}, want {expect}"
+    window = RECURRENT_PROFILE[1] - RECURRENT_PROFILE[0]
+    ms = ((wall - seen["wall_us"] / 1e6) / (stats.steps - window) * 1e3
+          if prof is not None else wall / stats.steps * 1e3)
+    print(f"  {name}: {stats.requests_done} requests, {stats.steps} engine "
+          f"steps, {ms:.2f} ms an engine step outside the profiled window "
+          f"(wall {wall:.2f} s), swaps {stats.swaps}, prefix hits "
+          f"{stats.prefix_hits} ({stats.prefix_full_hits} full), published "
+          f"{stats.prefix_published} pages; launches a step {expect} "
+          f"({len(probe.steps)} steps)")
+    if prof is not None:
+        _, dev_ms = report_profile(prof, window, seen["wall_us"],
+                                   f"{name} engine")
+        if dev_ms:
+            print(f"  {name}: {dev_ms:.2f} device ms a step against "
+                  f"{ms:.2f} unprofiled wall ms: busy {dev_ms / ms:.1%}")
+    del engine
+    torch.cuda.empty_cache()
+    return stats
+
+
+def recurrent_full_width(torch, hybrid=None, *, device=None):
+    """Phase 17(c): RecurrentGemma-9B cut to its first 12 layers (8 RG-LRU,
+    4 local; phase 9's weights when it ran, else the cut's own) and
+    Mamba2-370m at full depth through ``ServingEngine`` in bf16
+    (``RECURRENT_FULL``).  The launches a lane step are phases 9's and
+    11's: rglru_scan twice an RG-LRU layer, one attention call a local
+    layer (the banded grid where its q span engages it), ssd_chunk_scan
+    twice an SSD layer."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core import spa_layer
+    from repro_torch.core.strategy import SPACache, resolve_strategy
+    from repro_torch.kernels.sparse_attention import banded_engages
+    from repro_torch.models import transformer
+
+    full = get_arch("recurrentgemma-9b")
+    if hybrid is None:
+        cut_cfg = llada_cut(full, {"blocks": {}}, {}, HYBRID_CUT)[0]
+        params = transformer.init_params(cut_cfg, seed=0, device=device)
+        strat = SPACache.from_spec(cut_cfg.spa)
+        hybrid = (cut_cfg, params, strat, strat.build_proxies(params,
+                                                              cut_cfg))
+        print(f"  RecurrentGemma-9B's first {HYBRID_CUT} layers: own weights")
+    else:
+        hybrid = llada_cut(full, hybrid[0], hybrid[1], HYBRID_CUT)
+        print(f"  RecurrentGemma-9B's first {HYBRID_CUT} layers: phase 9's "
+              f"weights")
+    cfg, params, strat, proxies = hybrid
+    c = RECURRENT_FULL["hybrid"]
+    n = c["canvas"]
+    ks = spa_layer.layer_ks(cfg, strat, n)
+    attn = [l for l in range(cfg.n_layers) if cfg.kind_of_layer(l) == "local"]
+    banded = sum(banded_engages(n, cfg.window, True, spa_layer.q_span_bound(
+        n, ks[l], spa_layer.stratify_blocks_for(n, ks[l]))) for l in attn)
+    expect = {"rglru_scan": 2 * (cfg.n_layers - len(attn)),
+              "sparse_attention": len(attn) - banded,
+              "sparse_attention_banded": banded}
+    print(f"  hybrid cut {cfg.layer_kinds.count('rglru')} RG-LRU + "
+          f"{len(attn)} local layers; k {[ks[l] for l in attn]}")
+    h = recurrent_server(torch, "RecurrentGemma-9B cut", cfg, params, strat,
+                         proxies, c, expect, device=device)
+    assert h.prefix_full_hits >= 1, "17(c): the hybrid's repeats never hit"
+    del hybrid, params, proxies
+    torch.cuda.empty_cache()
+
+    cfg = get_arch("mamba2-370m")
+    params = transformer.init_params(cfg, seed=0, device=device)
+    m = recurrent_server(torch, "Mamba2-370m", cfg, params,
+                         resolve_strategy(cfg), None,
+                         RECURRENT_FULL["mamba2"],
+                         {"ssd_chunk_scan": 2 * cfg.n_layers}, device=device)
+    assert m.prefix_hits == 0
+    del params
+    torch.cuda.empty_cache()
+
+
+ALL_PHASES = tuple(range(3, 18))
 
 
 START = time.perf_counter()
+SECONDS = {}              # phase -> wall seconds (17: its parts summed)
 
 
 @contextlib.contextmanager
-def timed(phase: int):
-    """Print the phase's wall seconds when it ends."""
+def timed(phase, part: str = ""):
+    """Print the phase's (or its part's) wall seconds when it ends."""
     t0 = time.perf_counter()
     yield
-    print(f"  phase {phase}: {time.perf_counter() - t0:.1f} s")
+    dt = time.perf_counter() - t0
+    SECONDS[phase] = SECONDS.get(phase, 0.0) + dt
+    print(f"  phase {phase}{part}: {dt:.1f} s")
 
 
 def parse_phases(argv) -> tuple:
-    """``--phases 3,6,7`` runs only those of phases 3-16 (the card line and
+    """``--phases 3,6,7`` runs only those of phases 3-17 (the card line and
     the build always run) and prints no result line: for development
     calls and for comparing two trees' kernels in one call.  Without it,
     every phase runs."""
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
-                    help="comma-separated subset of phases 3-16")
+                    help="comma-separated subset of phases 3-17")
     phases = tuple(sorted({int(p) for p in ap.parse_args(argv).phases
                            .split(",") if p}))
     if not phases or not set(phases) <= set(ALL_PHASES):
-        ap.error(f"phases must lie in 3-16, got {phases}")
+        ap.error(f"phases must lie in 3-17, got {phases}")
     return phases
 
 
@@ -5016,10 +5477,10 @@ def main(argv=None) -> int:
         with timed(4):
             decode_parity_phase(torch)
     launches = base = lanes = served = {}
-    if {5, 6, 7, 12, 14, 15, 16} & set(phases):
+    if {5, 6, 7, 12, 14, 15, 16, 17} & set(phases):
         print(f"LLaDA-8B (bf16, B=4, prompt 256 + gen {GEN_LEN}; phases "
-              f"5-7, 12 and 14-16; 32 layers in 5 and 16, the first "
-              f"{CUT_LAYERS} in 6, 7, 12, 14 and 15)")
+              f"5-7, 12 and 14-17; 32 layers in 5 and 16, the first "
+              f"{CUT_LAYERS} in 6, 7, 12, 14, 15 and 17(a))")
         cfg, params, strat, proxies = llada_setup(torch)
         cut = llada_cut(cfg, params, proxies)
         if 5 in phases:
@@ -5090,6 +5551,17 @@ def main(argv=None) -> int:
         if 16 in phases:        # shares LLaDA-8B's weights and proxies
             with timed(16):
                 faults_phase(torch, cfg, params, strat, proxies, card)
+        if 17 in phases:        # shares LLaDA-8B's weights and proxies
+            c = PROFILE17
+            print(f"profiling through the server (LLaDA-8B bf16, "
+                  f"{CUT_LAYERS} layers, ServingEngine on CudaBackend, "
+                  f"canvas {c['canvas']}, {c['pool']} pages of {PAGE}, "
+                  f"{c['slots']} slots, {len(c['requests'])} requests, "
+                  f"StepProfiler off and on; phase probes at B="
+                  f"{PROBES17['batch']}, N={PROBES17['seq']}, k="
+                  f"{PROBES17['n_selected']}; {card})")
+            with timed(17, "(a)"):
+                profiling_serving(torch, *cut)
         del cfg, params, strat, proxies, cut
         torch.cuda.empty_cache()
     if 13 in phases:
@@ -5104,12 +5576,13 @@ def main(argv=None) -> int:
               f"B=2, N={HYBRID['N']}, CudaBackend vs TorchBackend)")
         with timed(8):
             hybrid_parity(torch)
+    kept = None
     if 9 in phases:
         print(f"hybrid main path (RecurrentGemma-9B bf16, B=2, prompt "
               f"{HYBRID['N'] - HYBRID_GEN} + gen {HYBRID_GEN}, "
               f"{HYBRID_STEPS} SPA steps)")
         with timed(9):
-            hybrid = hybrid_main_path(torch)
+            hybrid, kept = hybrid_main_path(torch, keep=17 in phases)
         torch.cuda.empty_cache()
     if 10 in phases:
         print(f"mamba2 decode parity (3-layer full-width Mamba2, "
@@ -5123,6 +5596,26 @@ def main(argv=None) -> int:
               "NoCache steps)")
         with timed(11):
             mamba = mamba_main_path(torch)
+    if 17 in phases:
+        c = RECURRENT_SMALL
+        print(f"recurrent lanes, exact (3-layer full-width RecurrentGemma and "
+              f"Mamba2, f32, through ServingEngine, canvas {c['canvas']}, "
+              f"{c['slots']} slots, dense and paged lanes of pages of "
+              f"{c['page']} with the prefix index, CudaBackend vs "
+              f"TorchBackend)")
+        with timed(17, "(b)"):
+            recurrent_exactness(torch)
+        h, m = RECURRENT_FULL["hybrid"], RECURRENT_FULL["mamba2"]
+        print(f"recurrent servers at full width (bf16, paged, pages of "
+              f"{PAGE}, prefix index on; RecurrentGemma-9B's first "
+              f"{HYBRID_CUT} layers at canvas {h['canvas']}, Mamba2-370m at "
+              f"canvas {m['canvas']}; {h['slots']} slots, 6 requests of gen "
+              f"{h['gen']} each; {card})")
+        with timed(17, "(c)"):
+            recurrent_full_width(torch, kept)
+        del kept
+        torch.cuda.empty_cache()
+        print(f"  phase 17: {SECONDS[17]:.1f} s")
     print(f"script: {time.perf_counter() - START:.1f} s")
     if phases != ALL_PHASES:
         print(f"phases {phases} passed; a partial run prints no result line")

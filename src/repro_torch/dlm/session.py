@@ -24,6 +24,16 @@ the active-position mask; ``events`` streams a ``StepEvent`` per step.
 ``run_compiled`` runs ``run``'s loop with ``run``'s exact semantics (the
 JAX package compiles the loop into one ``lax.while_loop``).
 
+Profiling (the JAX package's DESIGN.md §12): ``profiler=`` takes a
+``serving.profiling.StepProfiler``; a sampled ``step`` is fenced into
+refresh / dispatch / device_wait segments, ``run_compiled`` is observed
+as one loop, and an unsampled step runs the unprofiled path.  ``label``
+names the session's device track and its lane in the trace accounting:
+``core.runtime``'s tracker counts a trace of ``serve_step``,
+``prefill_partial`` or ``decode_loop`` at the first call at each
+signature (batch, canvas, paged or dense, cache dtype, strategy), where the
+JAX session retraces its jitted function.
+
 Shared prefixes (the engine's prefix cache): ``attach(shared=)`` and
 ``replace_rows(row_shared=)`` map a row's first logical pages to read-only
 pages of the prefix index (``SharedPrefix``); the row's prefill runs only
@@ -41,6 +51,7 @@ one (so a replay is seeded by default, as in the JAX package).
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -48,6 +59,7 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import cache as cache_lib
+from repro_torch.core import runtime
 from repro_torch.core.cache import PagedCache
 from repro_torch.core.strategy import CacheStrategy, resolve_strategy
 from repro_torch.device import DeviceLike, check_device, resolve_device
@@ -99,7 +111,7 @@ class DecodeSession:
                  settings: Optional[DecodeSettings] = None,
                  scheduler: Optional[UnmaskScheduler] = None,
                  spa_proxies=None, backend=None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None, profiler=None, label: str = ""):
         self.device = resolve_device(device)
         check_device(params["embed"], self.device, "params")
         self.params = params
@@ -117,6 +129,23 @@ class DecodeSession:
         for stack in (spa_proxies or {}).values():
             check_device(stack, self.device, "spa_proxies")
         self.spa_proxies = spa_proxies
+        # a StepProfiler (serving/profiling.py) or None: the unprofiled path
+        self.profiler = profiler
+        self.label = label or (
+            f"{self.strategy.name}/{self.strategy.backend.name}")
+        # trace accounting: each wrapper counts its first call at each
+        # signature, where the JAX session's jitted function traces
+        tracker = runtime.compile_tracker()
+        self._step_fn = tracker.wrap(self._serve_step, name="serve_step",
+                                     lane=self.label,
+                                     signature=self._state_signature)
+        self._partial_fn = tracker.wrap(
+            decoding.prefill_partial, name="prefill_partial",
+            lane=self.label, signature=self._partial_signature)
+        self._loop_fn = tracker.wrap(
+            self._loop, name="decode_loop", lane=self.label,
+            signature=lambda max_steps, can_refresh: (
+                can_refresh, self._state_signature(self.state)))
         # shared-prefix rows awaiting copy-on-write: {batch row: spec}
         self._shared_pending: Dict[int, SharedPrefix] = {}
         # called with the resolved specs right after a copy-on-write (the
@@ -284,7 +313,7 @@ class DecodeSession:
                                                            prefix_pt)
                                   for nm in ("k", "v")}
                            for kind, bufs in arenas.items()}
-                fresh = decoding.prefill_partial(
+                fresh = self._partial_fn(
                     self.params, self.cfg, {"tokens": tokens[idx]}, kv_view,
                     s0, kv_len=sub_kv, spa_proxies=self.spa_proxies,
                     strategy=self.strategy)
@@ -373,20 +402,70 @@ class DecodeSession:
             return self.refresh_count > before
         return False
 
-    def step(self) -> Dict[str, torch.Tensor]:
-        """One refinement step (auto-refresh applied first)."""
-        assert self.state is not None, "call prefill()/attach() first"
+    def _state_signature(self, state: DecodeState):
+        """What the JAX step's trace keys on, from what the session knows:
+        batch and canvas, paged or dense, whether a cache, kv_len and rng
+        are present, the cache dtype and the strategy (no tensor read)."""
+        cache = state.cache
+        return (tuple(state.tokens.shape), isinstance(cache, PagedCache),
+                bool(cache), state.kv_len is None, state.rng is None,
+                self.cfg.cache_dtype, self.strategy)
+
+    @staticmethod
+    def _partial_signature(params, cfg, inputs, kv_view, s0, *, kv_len,
+                           **_):
+        return tuple(inputs["tokens"].shape), s0, kv_len is None
+
+    def _serve_step(self, state: DecodeState):
+        return decoding.serve_step(
+            self.params, self.cfg, state, self.settings,
+            spa_proxies=self.spa_proxies, strategy=self.strategy,
+            scheduler=self.scheduler)
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _prepare_step(self) -> None:
         self._cow_if_shared()     # first write: un-share prefix pages
         self._last_step_refreshed = self._maybe_refresh()
         if self._poison_pages:
             pages, self._poison_pages = self._poison_pages, None
             self.poison_cache_pages(pages)
-        self.state, info = decoding.serve_step(
-            self.params, self.cfg, self.state, self.settings,
-            spa_proxies=self.spa_proxies, strategy=self.strategy,
-            scheduler=self.scheduler)
+
+    def _step(self, step_fn=None) -> Dict[str, torch.Tensor]:
+        self._prepare_step()
+        self.state, info = (step_fn or self._step_fn)(self.state)
         self.steps_taken += 1
         self.last_info = info
+        return info
+
+    def step(self) -> Dict[str, torch.Tensor]:
+        """One refinement step (auto-refresh applied first).
+
+        With a profiler attached and this step sampled, consecutive
+        ``perf_counter`` reads split it into segments that tile it:
+        ``refresh`` (copy-on-write, cache rebuild, then a device sync),
+        ``dispatch`` (the step's launches issued) and ``device_wait`` (the
+        sync on the step).  The fences only add syncs, so outputs are the
+        same."""
+        assert self.state is not None, "call prefill()/attach() first"
+        prof = self.profiler
+        if prof is None or not prof.should_sample(self.steps_taken):
+            return self._step()
+        t0 = time.perf_counter()
+        self._prepare_step()
+        self._sync()
+        t1 = time.perf_counter()
+        self.state, info = self._step_fn(self.state)
+        t2 = time.perf_counter()
+        self._sync()
+        t3 = time.perf_counter()
+        self.steps_taken += 1
+        self.last_info = info
+        prof.observe_step(self.label,
+                          {"refresh": t1 - t0, "dispatch": t2 - t1,
+                           "device_wait": t3 - t2}, t3 - t0)
         return info
 
     @property
@@ -505,6 +584,16 @@ class DecodeSession:
         return self.state.tokens, {"steps": n,
                                    "refreshes": self.refresh_count}
 
+    def _loop(self, max_steps: int, can_refresh: bool) -> int:
+        """``run``'s loop without step fences (``run_compiled``'s body; the
+        loop is traced as a whole, so its steps are no ``serve_step``
+        traces)."""
+        n = 0
+        while n < max_steps and not self.done:
+            self._step(self._serve_step)
+            n += 1
+        return n
+
     def run_compiled(self, max_steps: Optional[int] = None
                      ) -> Tuple[torch.Tensor, Dict[str, Any]]:
         """The decode loop with the JAX ``run_compiled``'s semantics: the
@@ -513,10 +602,22 @@ class DecodeSession:
         steps and refresh counts equal ``run``'s and a finished session
         runs 0 steps.  The JAX package compiles this loop into one
         ``lax.while_loop``; replaying the step as a CUDA graph is work for
-        a later performance change."""
+        a later performance change.  A profiler observes the loop as a
+        whole, as in the JAX package."""
         assert self.state is not None, "call prefill()/attach() first"
         self._cow_if_shared()
-        return self.run(max_steps)
+        if max_steps is None:
+            max_steps = int(self.state.n_masked.max()) + 4
+        can_refresh = bool(self.refresh_interval and self.strategy.uses_cache
+                           and self.state.cache)
+        prof = self.profiler
+        t0 = time.perf_counter()
+        n = self._loop_fn(max_steps, can_refresh)
+        if prof is not None:
+            self._sync()
+            prof.observe_loop(self.label, n, time.perf_counter() - t0)
+        return self.state.tokens, {"steps": n,
+                                   "refreshes": self.refresh_count}
 
     def events(self, max_steps: Optional[int] = None
                ) -> Iterator[StepEvent]:

@@ -5,7 +5,9 @@ its own ``nvcc`` process (all started together), then linked into one
 shared library under ``build/`` at the repository root.  The library name
 carries a hash of the sources and flags, so an edited kernel rebuilds and
 an unchanged one loads at once.  Nothing here runs at import time: the
-first kernel launch calls :func:`load`.
+first kernel launch calls :func:`load`.  A build is a ``backend_compile``
+event of ``core.runtime``'s tracker, and the loaded library is its live
+executable.
 
 Each C entry point launches on the stream it is given, allocates nothing
 and returns ``cudaGetLastError()``; :func:`check` raises on a non-zero
@@ -24,6 +26,8 @@ from pathlib import Path
 from typing import Dict, List, Optional
 
 import torch
+
+from repro_torch.core import runtime
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
@@ -156,17 +160,21 @@ def load() -> ctypes.CDLL:
     lib_path = BUILD_DIR / f"libspa_kernels-{_digest()}.so"
     log_path = lib_path.with_suffix(".log")
     t0 = time.perf_counter()
-    if not lib_path.exists():
+    built = not lib_path.exists()
+    if built:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         log_path.write_text(_build(lib_path, sources))
     _state["build_seconds"] = time.perf_counter() - t0
+    if built:
+        runtime.compile_tracker().record_event("backend_compile",
+                                               _state["build_seconds"])
     _state["build_log"] = log_path.read_text() if log_path.exists() else ""
     lib = ctypes.CDLL(str(lib_path))
     for fn, argtypes in _SIGNATURES.items():
         f = getattr(lib, fn)
         f.argtypes = argtypes
         f.restype = _RESTYPES.get(fn, ctypes.c_int)
-    _state["lib"] = lib
+    _state["lib"] = runtime.track_executables(lib)
     return lib
 
 

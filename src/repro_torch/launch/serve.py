@@ -31,29 +31,36 @@ injects faults at every site at ``--chaos-rate`` a probe, replayable from
 the seed (it implies ``--supervise``).  The fault counters print with the
 registry at exit, and an aborted request's output as ``<faulted>``.
 
-Flags of the engine parts that wait for later slices of the port
-(profiling, checkpoints) are accepted by the parser and exit with an error
-that names them.
+``--ckpt PATH`` serves the weights of a checkpoint (``training/
+checkpoint.py``; one the JAX package wrote loads too) instead of random
+ones.  ``--profile`` fences every lane step into refresh / dispatch /
+device_wait and prints the decomposition and the three lane signatures
+traced most; ``--torch-trace-dir DIR`` (with ``--profile``) also wraps the
+offline run in ``torch.profiler`` and writes ``DIR/trace.json``.  Any
+``--arch`` of ``repro_torch.configs`` serves, the recurrent RecurrentGemma
+and Mamba2 stacks included.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import sys
 
 import numpy as np
 
 from repro_torch.configs import get_arch, reduced
+from repro_torch.core import runtime
 from repro_torch.core.strategy import REGISTRY, strategy_from_spec
 from repro_torch.dlm.decoding import DecodeSettings
 from repro_torch.models import transformer
 from repro_torch.serving.engine import ServingEngine
 from repro_torch.serving.faults import FAULT_SITES, FaultPlan
+from repro_torch.serving.profiling import StepProfiler
 from repro_torch.serving.slo import SLOPolicy
 from repro_torch.serving.telemetry import Telemetry, Tracer
-
-# flag -> the value that leaves it off; any other value is an error
-_LATER_FLAGS = {"ckpt": "", "profile": False, "jax_trace_dir": ""}
+from repro_torch.training.checkpoint import load_checkpoint
+from repro_torch.weights import from_numpy_params
 
 
 def main(argv=None):
@@ -128,21 +135,28 @@ def main(argv=None):
     ap.add_argument("--metrics", action="store_true",
                     help="sample the SPA cache dynamics every step and "
                          "print the whole metrics registry at exit")
-    ap.add_argument("--profile", action="store_true")
-    ap.add_argument("--jax-trace-dir", default="")
+    ap.add_argument("--profile", action="store_true",
+                    help="fence every lane step into refresh / dispatch / "
+                         "device_wait and print the decomposition and the "
+                         "top-3 traced lane signatures at exit")
+    ap.add_argument("--torch-trace-dir", default="",
+                    help="with --profile: also wrap the offline run in "
+                         "torch.profiler and write DIR/trace.json (Chrome "
+                         "trace)")
     args = ap.parse_args(argv)
-    waiting = ["--" + name.replace("_", "-")
-               for name, off in _LATER_FLAGS.items()
-               if getattr(args, name) != off]
-    if waiting:
-        ap.error(f"{', '.join(waiting)}: not ported yet (profiling and "
-                 f"checkpoints wait for later slices of the port)")
+    if args.torch_trace_dir and not args.profile:
+        ap.error("--torch-trace-dir needs --profile")
     if args.client:
         return _run_client(args)
 
     cfg = reduced(get_arch(args.arch))
-    params = transformer.init_params(cfg, seed=0, device=args.device)
-    print("no checkpoint given; serving an untrained reduced model")
+    if args.ckpt:
+        tree, meta = load_checkpoint(args.ckpt)
+        params = from_numpy_params(tree, cfg, args.device)
+        print(f"loaded checkpoint {args.ckpt} ({meta})")
+    else:
+        params = transformer.init_params(cfg, seed=0, device=args.device)
+        print("no checkpoint given; serving an untrained reduced model")
 
     strategy = None
     if args.strategy:
@@ -159,9 +173,13 @@ def main(argv=None):
         print(f"chaos: seed={args.chaos_seed} rate={args.chaos_rate} on all "
               f"sites")
     telemetry = None
-    if args.trace_out or args.metrics:
+    if args.trace_out or args.metrics or args.profile:
         telemetry = Telemetry(tracer=Tracer(enabled=bool(args.trace_out)),
                               dynamics_every=1 if args.metrics else 0)
+    profiler = None
+    if args.profile:
+        profiler = StepProfiler(
+            telemetry, torch_trace_dir=args.torch_trace_dir or None)
     engine = ServingEngine(
         cfg, params, max_batch=args.max_batch, canvas_len=args.canvas,
         strategy=strategy, continuous=not args.static_batching,
@@ -169,12 +187,17 @@ def main(argv=None):
         prefix_cache=args.prefix_cache, host_pages=args.host_pages,
         host_dtype=args.host_dtype, slo_policy=slo_policy,
         fault_plan=fault_plan, supervise=args.supervise, telemetry=telemetry,
+        profiler=profiler,
         settings=DecodeSettings(parallel_threshold=args.parallel_threshold),
         device=args.device)
     if args.serve:
         return _serve_online(engine, args)
-    _run_offline(engine, args)
+    with (profiler.torch_trace() if profiler is not None
+          else contextlib.nullcontext()):
+        _run_offline(engine, args)
     _summarize(engine, args)
+    if profiler is not None and profiler.trace_path:
+        print(f"torch trace -> {profiler.trace_path}")
     for req in engine.done[:3]:
         out = ("<faulted>" if req.output is None
                else f"{req.output[:10]}...")
@@ -253,6 +276,8 @@ def _summarize(engine, args) -> None:
               f"{stats.requests_canceled} canceled")
     else:
         print("latency: no requests completed")
+    if engine.profiler is not None:
+        _print_profile(engine)
     if engine.paged:
         print(f"pool: peak {stats.peak_pool_util:.1%} steady "
               f"{stats.steady_pool_util:.1%} of {engine.pool.capacity} "
@@ -282,6 +307,20 @@ def _summarize(engine, args) -> None:
         engine.export_trace(args.trace_out)
         print(f"trace: {len(engine.telemetry.tracer.events)} events -> "
               f"{args.trace_out} (load in Perfetto / chrome://tracing)")
+
+
+def _print_profile(engine) -> None:
+    """``--profile`` report: the step-time decomposition and the three lane
+    signatures traced most (zero profiled steps print a placeholder)."""
+    print("step-time decomposition " + "-" * 39)
+    print(engine.profiler.format_summary())
+    top = runtime.compile_tracker().top_retraced(3)
+    if top:
+        print("most-retraced lane signatures:")
+        for lane, n in top:
+            print(f"  {n:4d} traces  {lane or '<unlabeled>'}")
+    else:
+        print("most-retraced lane signatures: none recorded")
 
 
 def _serve_online(engine, args) -> int:

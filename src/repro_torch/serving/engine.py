@@ -101,11 +101,18 @@ every iteration, and a degradation ladder that pauses publication (L1),
 bypasses the host tier (L2) and sheds low-priority work (L3) under fault
 pressure.  A fault plan implies supervision.
 
-Profiling waits for a later slice: ``profiler=`` raises
-``NotImplementedError``.  So does a model with recurrent layers (the RG-LRU hybrid): serving it in
-lanes waits for a later slice, since its bidirectional recurrence reaches
-past a short row's ``kv_len`` and stratified selection spends its quotas
-there.
+Profiling (the JAX package's DESIGN.md §12): ``profiler=`` takes a
+``serving.profiling.StepProfiler`` that every lane session fences its steps
+into; the collector exports ``core.runtime``'s ``spa_runtime_*`` series and
+``pool_debug_state`` the live-executable count.
+
+Recurrent stacks (the RG-LRU hybrid, Mamba2's SSD) serve in dense and paged
+lanes as the JAX engine serves them: recurrent layers carry no cache and
+are recomputed every step, so only attention kinds get arenas (an SSD
+stack's paged lanes have none, and its prefix index never hits).  As in
+the JAX engine, the bidirectional recurrence runs over the whole canvas,
+past a short row's ``kv_len``, so a hybrid's paged lanes decode other
+tokens than its dense lanes.
 """
 from __future__ import annotations
 
@@ -120,8 +127,9 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import ATTENTION_KINDS, ModelConfig
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core import cache as cache_lib
+from repro_torch.core import runtime
 from repro_torch.core.cache import PagedCache, n_logical_pages
 from repro_torch.core.strategy import CacheStrategy, resolve_strategy
 from repro_torch.device import DeviceLike, check_device, resolve_device
@@ -141,10 +149,6 @@ from repro_torch.serving.telemetry import (PID_ENGINE, PID_EVENTS,
 
 # (settings, strategy, scheduler): one DecodeSession per distinct key.
 LaneKey = Tuple[DecodeSettings, CacheStrategy, UnmaskScheduler]
-
-# Constructor arguments of the engine parts that wait for later slices,
-# with the value that means "off".
-_LATER = {"profiler": None}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -399,20 +403,7 @@ class ServingEngine:
                  supervise: bool = False,
                  supervisor_cfg: Optional[SupervisorConfig] = None,
                  telemetry: Optional[Telemetry] = None,
-                 device: DeviceLike = None, **later):
-        for name, value in later.items():
-            if name not in _LATER:
-                raise TypeError(f"unexpected argument {name!r}")
-            if value != _LATER[name]:
-                raise NotImplementedError(
-                    f"{name}= belongs to a part of the serving engine that "
-                    f"waits for a later slice of the port")
-        recurrent = sorted(set(cfg.layer_kinds) - set(ATTENTION_KINDS))
-        if recurrent:
-            raise NotImplementedError(
-                f"serving a model with {recurrent} layers ({cfg.name}) waits "
-                "for a later slice of the port; decode it through "
-                "DecodeSession")
+                 profiler=None, device: DeviceLike = None):
         self.device = resolve_device(device)
         check_device(params["embed"], self.device, "params")
         self.cfg = cfg
@@ -471,6 +462,9 @@ class ServingEngine:
         self.telemetry.tracer.clock = self._clock
         self._tr = self.telemetry.tracer
         self.telemetry.registry.add_collector(self._collect_metrics)
+        # step-time decomposition: a StepProfiler handed to every lane
+        # session, or None (the unprofiled path)
+        self.profiler = profiler
         self._lane_ids: Dict[LaneKey, int] = {}
         self.event_sink: Optional[Callable[[RequestEvent], None]] = None
         # thread-safe intake: closures put by submit_threadsafe /
@@ -579,10 +573,9 @@ class ServingEngine:
 
     def _collect_metrics(self) -> None:
         """Registry collector: mirror live engine state (EngineStats
-        counters, pool and tier occupancy, queue depth) into the registry
-        right before every render() / snapshot().  The JAX engine also
-        exports its compile tracker's ``spa_runtime_*`` series here; they
-        come with the profiling slice."""
+        counters, pool and tier occupancy, queue depth, the trace tracker's
+        ``spa_runtime_*`` series) into the registry right before every
+        render() / snapshot()."""
         reg, s = self.telemetry.registry, self.stats
         for field, metric, help_txt in _STATS_COUNTERS:
             reg.counter(metric, help_txt).set(getattr(s, field))
@@ -607,6 +600,8 @@ class ServingEngine:
             if obj is not None:
                 for name, (help_txt, val) in obj.telemetry_gauges().items():
                     reg.gauge(name, help_txt).set(val)
+        # trace accounting and the live-executable count (core/runtime.py)
+        runtime.compile_tracker().export_metrics(reg)
         if self.pool is not None:
             for sig, nbytes in self.pool.arena_bytes().items():
                 reg.gauge("spa_pool_arena_bytes",
@@ -656,13 +651,13 @@ class ServingEngine:
     def pool_debug_state(self) -> Dict:
         """JSON-able memory view (``GET /debug/pool``): device-pool
         occupancy, fragmentation and per-signature bytes, host-tier slot
-        accounting and the tier's page counts (refused stores included), the
+        accounting, the tier's page counts (refused stores included) and the
+        live-executable count (loaded kernel libraries and CUDA graphs), the
         JAX engine's keys.  The counts come from :class:`EngineStats`, so
         they run from its last reset (JAX's tier manager counts for its
-        lifetime).  The JAX engine also reports ``live_executables`` (its
-        compile tracker); that key comes with the profiling slice.  Reads
-        race the engine thread benignly."""
-        out: Dict = {"paged": self.paged}
+        lifetime).  Reads race the engine thread benignly."""
+        out: Dict = {"paged": self.paged,
+                     "live_executables": runtime.live_executable_count()}
         s = self.stats
         if self.pool is not None:
             out["pool"] = self.pool.debug_state()
@@ -974,12 +969,14 @@ class ServingEngine:
     def _session_for(self, lane: LaneKey) -> DecodeSession:
         if lane not in self._sessions:
             settings, strategy, scheduler = lane
-            self._lane_id(lane)       # lane tracks numbered as sessions
+            # lane tracks numbered as sessions; the label is the JAX one
+            label = (f"{strategy.name}/{strategy.backend.name}"
+                     f"/{type(scheduler).__name__}#{self._lane_id(lane)}")
             self._sessions[lane] = DecodeSession(
                 self.params, self.cfg, strategy=strategy,
                 settings=settings, scheduler=scheduler,
                 spa_proxies=self._proxies_for(strategy),
-                device=self.device)
+                device=self.device, profiler=self.profiler, label=label)
         return self._sessions[lane]
 
     def _lane_candidates(self, lane: LaneKey) -> List[Request]:
@@ -1112,6 +1109,10 @@ class ServingEngine:
         partial hit only the depths past its match.  A page copy pays for
         it; skipped when the pool has no slack."""
         if self.prefix is None or req.preemptions > 0 or not req.n_pages:
+            return
+        if not sess.state.cache.arenas:
+            # a stack without attention layers (all RG-LRU) caches nothing,
+            # so it has no pages to share (the JAX engine fails its copy)
             return
         if self._publish_paused:
             # ladder L1: stop growing shared state under fault pressure

@@ -7,8 +7,9 @@ stacked blocks ``blocks[kind][name]`` with a leading ``[L_kind]`` axis
 (nested dicts too: an RG-LRU or SSD block's ``mixer`` and every block's
 ``ffn``).
 ``from_numpy_params`` turns it into the port's parameters leaf for leaf
-(dtype kept, bfloat16 included), so both packages run the same weights;
-``from_numpy_proxies`` does the same for a ``{kind: [Lk, d, r]}`` stack of
+(dtype kept, bfloat16 included), so both packages run the same weights
+(a checkpoint's tree from ``training.checkpoint.load_checkpoint`` goes the
+same way); ``from_numpy_proxies`` does the same for a ``{kind: [Lk, d, r]}`` stack of
 singular proxies, so both packages score with the same proxy matrices.
 """
 from __future__ import annotations
@@ -32,7 +33,10 @@ _POST_NORMS = {"norm_post_attn", "norm_post_ffn"}
 def to_tensor(arr: Any, device: torch.device) -> torch.Tensor:
     """One numpy array -> torch tensor of the same dtype on ``device``.
     bfloat16 (numpy's ``ml_dtypes`` extension type) travels as its raw
-    16-bit pattern."""
+    16-bit pattern.  A tensor (a loaded checkpoint's leaf) is copied to
+    ``device`` as it is."""
+    if isinstance(arr, torch.Tensor):
+        return arr.detach().to(device, copy=True)
     a = np.array(arr, order="C", copy=True)   # writable, owned by torch
     if a.dtype.name == "bfloat16":
         return torch.from_numpy(a.view(np.uint16)).view(

@@ -510,3 +510,66 @@ def cycle_both_tiers(cfg, params, site):
     np.testing.assert_array_equal(tcold, jcold)
     np.testing.assert_array_equal(twarm, jwarm)
     return jeng, teng
+
+
+RECURRENT_CANVAS, RECURRENT_PAGE, RECURRENT_POOL = 24, 4, 13
+
+
+def recurrent_cfg(name):
+    """The reduced recurrent stacks the engine tests serve: ``hybrid``, a
+    RecurrentGemma of 3 layers (rglru, rglru, local), or ``ssd``, a Mamba2
+    of 2 layers."""
+    from repro.configs import get_arch, reduced
+    if name == "hybrid":
+        return reduced(get_arch("recurrentgemma-9b"), n_layers=3)
+    return reduced(get_arch("mamba2-370m"), n_layers=2)
+
+
+def recurrent_churn(eng, cfg):
+    """A prompt served alone (a paged run publishes it), then its repeat,
+    two more prompts (gen 12 and 16) and a priority-5 request two steps
+    in: slot swaps, a preemption, and with the prefix index a full hit."""
+    rng = np.random.default_rng(0)
+    hi = cfg.vocab_size - 1
+    p0, p1, p2, p3 = (rng.integers(0, hi, n).astype(np.int32)
+                      for n in (8, 6, 8, 8))
+    eng.submit(p0, gen_len=8)
+    eng.run()
+    for p, g in ((p0, 8), (p1, 12), (p2, 16)):
+        eng.submit(p, gen_len=g)
+    s0, late = eng.stats.steps, [p3]
+
+    def on_step(e):
+        if late and e.stats.steps >= s0 + 2:
+            e.submit(late.pop(), gen_len=8, priority=5)
+
+    eng.run(on_step=on_step)
+    return eng
+
+
+def recurrent_lanes_match(name, mode):
+    """``recurrent_churn`` through the JAX engine and the port's on one
+    reduced recurrent stack, in ``mode``: ``dense`` lanes, ``paged`` lanes
+    (pool of 13 pages of 4, canvas 24) or ``prefix`` (paged, prefix index
+    on).  Asserts equal outputs, steps, swaps, preemptions and prefix
+    counters (``assert_engines_match``), slot swaps and (paged: the pool
+    is short) a preemption.  Returns (JAX engine, port engine)."""
+    from repro.core import strategy as jstrategy
+    from repro.models import transformer as jt
+    from repro_torch.core import strategy as tstrategy
+    cfg = recurrent_cfg(name)
+    kw = dict(max_batch=2, canvas_len=RECURRENT_CANVAS)
+    if mode != "dense":
+        kw.update(pool_pages=RECURRENT_POOL, page_size=RECURRENT_PAGE,
+                  prefix_cache=mode == "prefix")
+    jeng, teng = engine_pair(
+        cfg, jt.init_params(cfg, jax.random.PRNGKey(0)),
+        (jstrategy.strategy_from_spec(cfg.spa),
+         tstrategy.strategy_from_spec(port_cfg(cfg).spa)), **kw)
+    for eng in (jeng, teng):
+        recurrent_churn(eng, cfg)
+    assert_engines_match(jeng, teng)
+    assert teng.stats.swaps > 0
+    assert (teng.stats.preemptions > 0) == (mode != "dense")
+    assert teng.stats.requests_done == 5
+    return jeng, teng

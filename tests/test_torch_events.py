@@ -13,8 +13,7 @@ event (kind, uid, step, positions, tokens; not the clock stamp) is the
 same in both, a preempted-then-resumed request streams each gen position
 exactly once, ``cancel`` emits "canceled" for a queued and a running
 request, and ``request_states`` / ``pool_debug_state`` have the JAX
-engine's keys (``pool_debug_state``'s ``live_executables`` comes with the
-profiling slice).
+engine's keys (``pool_debug_state``'s ``live_executables`` included).
 """
 import numpy as np
 import pytest
@@ -187,7 +186,7 @@ def _keys(x):
 def test_debug_views_have_jax_keys(tiny_cfg, tiny_params):
     """Mid-run, with requests queued, running and done, and the host tier
     on: the key structure of ``request_states`` and ``pool_debug_state``
-    equals the JAX engine's (but for ``live_executables``)."""
+    equals the JAX engine's, ``live_executables`` included."""
     views = []
     for eng, clock in _engines(tiny_cfg, tiny_params, host_pages=8):
         rng = np.random.default_rng(4)
@@ -205,7 +204,8 @@ def test_debug_views_have_jax_keys(tiny_cfg, tiny_params):
     for name in ("queued", "running", "done"):
         assert tv["states"][name] and jv["states"][name], name
     assert _keys(tv["states"]) == _keys(jv["states"])
-    jpool = dict(jv["pool"])
-    assert jpool.pop("live_executables") >= 0
-    assert set(tv["pool"]) == {"paged", "pool", "host_pool", "tier"}
-    assert _keys(tv["pool"]) == _keys(jpool)
+    assert jv["pool"]["live_executables"] >= 0
+    assert tv["pool"]["live_executables"] == 0      # nothing loaded on CPU
+    assert set(tv["pool"]) == {"paged", "pool", "host_pool", "tier",
+                               "live_executables"}
+    assert _keys(tv["pool"]) == _keys(jv["pool"])

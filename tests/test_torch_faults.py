@@ -297,12 +297,13 @@ def test_poison_cache_pages_float_buffers_only(tiny_cfg, cache_dtype):
 def test_engine_accepts_fault_arguments(tiny_cfg):
     """``fault_plan=``, ``supervise=`` and ``supervisor_cfg=`` are ported:
     the injector is wired into the pool and the tier, a plan implies a
-    supervisor; only ``profiler=`` still refuses."""
+    supervisor; ``profiler=`` is ported too, so nothing waits."""
     from repro_torch.models import transformer
     from repro_torch.serving import engine as tengine
     from repro_torch.serving.supervisor import (EngineSupervisor,
                                                 SupervisorConfig)
-    assert tengine._LATER == {"profiler": None}
+    from repro_torch.serving.profiling import StepProfiler
+    assert not hasattr(tengine, "_LATER")
     tcfg = port_cfg(tiny_cfg)
     params = transformer.init_params(tcfg, seed=0, device="cpu")
     eng = tengine.ServingEngine(
@@ -316,8 +317,10 @@ def test_engine_accepts_fault_arguments(tiny_cfg):
     assert eng.supervisor is not None and eng.faults is None
     assert tengine.ServingEngine(tcfg, params, device="cpu").supervisor \
         is None
-    with pytest.raises(NotImplementedError, match="profiler"):
-        tengine.ServingEngine(tcfg, params, device="cpu", profiler=object())
+    prof = StepProfiler()
+    assert tengine.ServingEngine(tcfg, params, device="cpu",
+                                 fault_plan=tfaults.FaultPlan(seed=1),
+                                 profiler=prof).profiler is prof
 
 
 # ---------------------------------------------------------------------------
@@ -328,7 +331,7 @@ def test_serve_cli_supervise_and_chaos(capsys):
     """``--supervise --chaos-seed 7`` (every site at ``--chaos-rate``) runs
     offline on the CPU: the chaos line, the served count, the fault
     counters in the registry dump, and ``<faulted>`` for an aborted
-    request's output; ``--profile`` still refuses."""
+    request's output; with ``--profile`` the step decomposition too."""
     argv = ["--device", "cpu", "--arch", "internlm2-1.8b", "--requests",
             "6", "--gen-len", "6", "--canvas", "24", "--max-batch", "2",
             "--pool-pages", "16", "--page-size", "4", "--host-pages", "8",
@@ -339,9 +342,7 @@ def test_serve_cli_supervise_and_chaos(capsys):
     assert "spa_fault_injected_total" in out
     assert "spa_fault_invariant_checks_total" in out
     assert "served " in out
-    with pytest.raises(SystemExit):
-        tserve.main(["--device", "cpu", "--supervise", "--chaos-seed", "7",
-                     "--profile"])
-    error = capsys.readouterr().err.strip().splitlines()[-1]
-    assert "--profile" in error
-    assert "--supervise" not in error and "--chaos-seed" not in error
+    assert tserve.main(argv + ["--profile"]) == 0
+    out = capsys.readouterr().out
+    assert "step-time decomposition (host-loop, fenced)" in out
+    assert "chaos: seed=7 rate=0.2 on all sites" in out

@@ -14,7 +14,7 @@ Also the repairs a hybrid needs: the weights bridge checks each layer
 kind's own leaves, the test helper carries ``RGLRUConfig`` (and
 ``SSMConfig``) across and still refuses MoE configs, the incremental
 identifier identifies in full after a recurrent block, and the serving
-engine refuses a hybrid (a later slice) instead of serving it wrongly.
+engine serves a hybrid and an SSD stack (MoE still refuses).
 """
 import dataclasses
 
@@ -158,16 +158,24 @@ def test_incremental_identifies_in_full_after_a_recurrent_block(
 
 
 def test_engine_refuses_a_hybrid(hybrid):
+    """The engine used to refuse recurrent stacks; it serves them now, in
+    dense and paged lanes (parity with the JAX engine:
+    ``test_torch_recurrent_lanes*.py``).  MoE still refuses."""
     from repro_torch.serving.engine import ServingEngine
     cfg, params = hybrid
     tcfg = port_cfg(cfg)
-    with pytest.raises(NotImplementedError, match="later slice"):
-        ServingEngine(tcfg, port_params(params, tcfg), device="cpu")
-    # an SSD stack initialises now, and the engine names its kind
     ssd_cfg = dataclasses.replace(tcfg, layer_pattern=("ssd",))
-    with pytest.raises(NotImplementedError, match="ssd"):
-        ServingEngine(ssd_cfg, tt.init_params(ssd_cfg, device="cpu"),
-                      device="cpu")
+    prompt = np.arange(1, 9, dtype=np.int32)
+    for c, p in ((tcfg, port_params(params, tcfg)),
+                 (ssd_cfg, tt.init_params(ssd_cfg, device="cpu"))):
+        for pool in (0, 9):
+            eng = ServingEngine(c, p, max_batch=2, canvas_len=16,
+                                pool_pages=pool, page_size=4, device="cpu")
+            eng.submit(prompt, gen_len=8)
+            eng.run()
+            (req,) = eng.done
+            assert req.output.shape == (8,)
+            assert (req.output != c.mask_id).all()
     with pytest.raises(NotImplementedError, match="MoE"):
         tt.init_params(dataclasses.replace(
             tcfg, moe=TMoE(n_experts=4, top_k=2, d_ff_expert=64)),

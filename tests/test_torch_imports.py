@@ -37,7 +37,9 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.kernels.rglru_scan",
             "repro_torch.configs.recurrentgemma_9b",
             "repro_torch.models.ssd", "repro_torch.kernels.ssd_chunk",
-            "repro_torch.configs.mamba2_370m"} <= set(mods)
+            "repro_torch.configs.mamba2_370m", "repro_torch.core.runtime",
+            "repro_torch.serving.profiling",
+            "repro_torch.training.checkpoint"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"

@@ -11,8 +11,8 @@ within 1e-4 (f32 sums in another order, then 2-4 layers of them).
 
 Also: the port's init has the JAX package's parameter tree, the weights
 bridge checks an SSD block's own leaf, the test helper carries
-``SSMConfig`` across, and the serving engine refuses the model (serving
-a recurrent model is a later slice).
+``SSMConfig`` across, and the serving engine serves the model as the JAX
+engine does.
 """
 import dataclasses
 
@@ -147,9 +147,18 @@ def test_port_cfg_carries_ssm():
 
 
 def test_engine_refuses_mamba2():
-    from repro_torch.serving.engine import ServingEngine
+    """The engine used to refuse an SSD stack; it serves Mamba2 now, with
+    the JAX engine's outputs and steps (dense lanes here; paged and prefix
+    lanes in ``test_torch_recurrent_lanes_ssd.py``)."""
+    from repro.core.strategy import NoCache as JNoCache
+    from _torch_parity import assert_engines_match, serve_both
+    from repro_torch.core.strategy import NoCache as TNoCache
     cfg = _cfg(2)
-    tcfg = port_cfg(cfg)
-    tparams = port_params(jt.init_params(cfg, jax.random.PRNGKey(0)), tcfg)
-    with pytest.raises(NotImplementedError, match="ssd"):
-        ServingEngine(tcfg, tparams, device="cpu")
+    rng = np.random.default_rng(3)
+    reqs = [(rng.integers(0, cfg.vocab_size - 1, 6).astype(np.int32), g, 0)
+            for g in (6, 10, 6)]
+    jeng, teng = serve_both(cfg, jt.init_params(cfg, jax.random.PRNGKey(0)),
+                            reqs, strategies=(JNoCache(), TNoCache()),
+                            max_batch=2, canvas_len=16)
+    assert_engines_match(jeng, teng)
+    assert teng.stats.requests_done == 3

@@ -77,11 +77,12 @@ def test_paged_mixed_gen_len_matches_jax_and_alone(tiny_cfg, tiny_params):
 
 
 def test_engine_refuses_parts_that_wait(tiny_cfg):
-    """Arguments of the engine parts not ported yet raise; their "off"
-    values are accepted, and so are the ported SLO policy, telemetry,
-    fault plan and supervisor."""
+    """Every argument of the JAX engine is ported: the "off" values, the
+    SLO policy, telemetry, fault plan, supervisor and (now) a profiler,
+    which every lane session gets.  An unknown argument still raises."""
     from repro_torch.models import transformer
     from repro_torch.serving.faults import FaultPlan
+    from repro_torch.serving.profiling import StepProfiler
     from repro_torch.serving.slo import SLOPolicy
     from repro_torch.serving.telemetry import Telemetry
     tcfg = port_cfg(tiny_cfg)
@@ -93,8 +94,12 @@ def test_engine_refuses_parts_that_wait(tiny_cfg):
                   supervise=True)
     assert eng.slo_policy is not None and eng.telemetry.tracing
     assert eng.faults is not None and eng.supervisor is not None
-    with pytest.raises(NotImplementedError, match="profiler"):
-        TEngine(tcfg, params, device="cpu", profiler=object())
+    prof = StepProfiler()
+    eng = TEngine(tcfg, params, device="cpu", canvas_len=16, profiler=prof)
+    eng.submit(np.arange(1, 9, dtype=np.int32), gen_len=8)
+    eng.run()
+    (sess,) = eng._sessions.values()
+    assert sess.profiler is prof and prof.steps_observed == eng.stats.steps
     with pytest.raises(TypeError, match="bogus"):
         TEngine(tcfg, params, device="cpu", bogus=1)
 
@@ -111,13 +116,20 @@ def test_serve_cli_paged_in_process(capsys):
 
 
 def test_serve_cli_names_flags_that_wait(capsys):
+    """No flag waits any more: ``--profile`` and ``--ckpt`` are accepted
+    (``--ckpt`` of a missing file fails opening it, not in the parser), and
+    the one flag the parser refuses is ``--torch-trace-dir`` without
+    ``--profile``, named in the error."""
     with pytest.raises(SystemExit):
         tserve.main(["--device", "cpu", "--prefix-cache", "--supervise",
-                     "--slo-ttft", "4", "--profile", "--ckpt", "w.npz"])
+                     "--slo-ttft", "4", "--torch-trace-dir", "t"])
     error = capsys.readouterr().err.strip().splitlines()[-1]
-    assert "--profile" in error and "--ckpt" in error
+    assert "--torch-trace-dir" in error and "--profile" in error
     assert "--prefix-cache" not in error    # ported: accepted
     assert "--slo-ttft" not in error and "--supervise" not in error
+    with pytest.raises(FileNotFoundError, match="missing.npz"):
+        tserve.main(["--device", "cpu", "--profile", "--ckpt",
+                     "missing.npz"])
 
 
 def test_serve_cli_slo_trace_and_metrics(capsys, tmp_path):
