@@ -206,7 +206,32 @@ Phases (each asserts; any failure exits non-zero):
    quarantine, a cold prefill after the corrupted page, a watchdog
    recovery, an invariant check every iteration, both tiers drained;
    prints survivors equal to their clean twins, ms a step of both passes
-   and the ``supervisor`` span's median.
+   and the ``supervisor`` span's median;
+17. profiling through the server and the recurrent lanes (see
+   ``profiling_serving``, ``recurrent_exactness``, ``recurrent_full_width``);
+18. MoE and VLM at full width, each config's first 8 layers (bf16 random
+   weights, its own ``spa`` and int8 cache, ``CudaBackend``): (a)
+   Mixtral-8x22B and Qwen3-MoE-235B-A22B at B=4, prompt 256 + gen 256, 16
+   SPA then 4 NoCache steps: hidden states finite, every kernel of the
+   path launched, one attention call a layer at prefill and a step; ms a
+   step, device ms a step by group (expert products, routing / gather /
+   combine, attention, the SPA kernels, other) and the busy share over 4
+   SPA steps, assignments dropped to capacity a step; layer 0's MoE twice
+   bit for bit, its combine equal to a plain sum in expert order; (b) Qwen3-MoE's cut
+   through ``ServingEngine`` (paged, pages of 16, prefix index on, 4
+   requests of gen 32, the last repeating the first: a full hit that
+   decodes the first request's tokens); (c) InternVL2-76B with 1024 patch
+   embeddings from a seed + prompt 256 + gen 256, as (a);
+19. training, the forward and backward on ``TorchBackend`` (no kernel
+   launched), AdamW: (a) InternLM2-1.8B at full size, B=8, seq 512, 6
+   steps; (b) the JAX ``tests/test_system.py`` recipe (the tiny reduced
+   InternLM2, 200 steps: the loss falls; then decoded through the CUDA
+   kernels, SPA agreeing with vanilla on more than 60% of tokens and
+   computing fewer rows); (c) Qwen3-MoE at full width with 1 layer, B=8,
+   seq 256, 8 microbatches, 2 steps, the aux loss in the total; (d)
+   HuBERT-XLarge at full depth, ``encoder_loss``, B=4, 1024 frames, 4
+   steps.  Each step's loss and gradient norm finite and no step skipped;
+   ms a step, tokens a second and peak memory.
 
 Phase 3 also times ``scatter_pages`` beside one ``index_put_`` of the
 whole view (``arena[:, pt] = dense``), its library call.
@@ -2493,8 +2518,8 @@ def mamba_parity(torch):
             sess.prefill(prompt, 16)
             toks, info = sess.run()
             h = transformer.embed_inputs(params, cfg, {"tokens": toks})
-            h, _ = transformer.forward_hidden(
-                params, cfg, h, strategy=strat.with_backend(name))
+            h = transformer.forward_hidden(
+                params, cfg, h, strategy=strat.with_backend(name))[0]
             torch.cuda.synchronize()
         out[name] = (toks.cpu(), info["steps"], h)
         if name == "cuda":
@@ -3010,7 +3035,8 @@ class AdmissionProbe:
             (sa, "sparse_attention", sa.sparse_attention)]
         orig = {n: f for _, n, f in self._saved}
 
-        def paged_fill(sess, arenas, tokens, kv_len, read_pt, shared):
+        def paged_fill(sess, arenas, tokens, extras, kv_len, read_pt,
+                       shared):
             m, n = tokens.shape
             page = n // read_pt.shape[1]
             kv = kv_len.tolist() if kv_len is not None else [n] * m
@@ -3035,8 +3061,8 @@ class AdmissionProbe:
             before = _lib.launch_counts()["sparse_attention"]
             start = probe._event()
             try:
-                orig["_paged_fill"](sess, arenas, tokens, kv_len, read_pt,
-                                    shared)
+                orig["_paged_fill"](sess, arenas, tokens, extras, kv_len,
+                                    read_pt, shared)
             finally:
                 seen, probe._kq = probe._kq, None
             probe.fills.append((
@@ -5410,7 +5436,547 @@ def recurrent_full_width(torch, hybrid=None, *, device=None):
     torch.cuda.empty_cache()
 
 
-ALL_PHASES = tuple(range(3, 18))
+# ---------------------------------------------------------------------------
+# Phase 18: MoE and VLM decode and serving at full width, cut by depth
+# ---------------------------------------------------------------------------
+
+MOE_CUT = 8               # the MoE and VLM configs' first 8 layers
+MOE = (("mixtral-8x22b", 4, 256), ("qwen3-moe-235b-a22b", 4, 256))
+MOE_GEN = 256
+MOE_SPA_STEPS = 16
+MOE_NOCACHE_STEPS = 4
+MOE_SERVE = dict(canvas=256, slots=4, gen=32, prompts=(160, 96, 200))
+VLM = dict(name="internvl2-76b", b=4, patches=1024, prompt=256)
+# the MoE stages a profiled window attributes by name (models/moe.py)
+MOE_RANGES = {"_dispatch": "routing / gather / combine",
+              "_gather": "routing / gather / combine",
+              "_combine": "routing / gather / combine",
+              "_experts": "expert products"}
+SPA_KERNEL_KEYS = ("proxy_wgmma", "proxy_score_f32", "PagedRows",
+                   "cosine_drift_kernel", "gather_norm", "scatter_kernel",
+                   "page_copy_kernel", "rows_paged_kernel")
+ATTENTION_KEYS = ("attention_bf16_wgmma", "attention_kernel")
+
+
+class MoeRanges:
+    """While entered, each MoE stage function runs inside a
+    ``torch.profiler.record_function`` range named ``moe<stage>``, so a
+    trace can attribute the kernels each stage launches."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import moe
+        self._saved = {name: getattr(moe, name) for name in MOE_RANGES}
+        for name, fn in self._saved.items():
+            def ranged(*a, _fn=fn, _name=f"moe{name}", **kw):
+                with torch.profiler.record_function(_name):
+                    return _fn(*a, **kw)
+            setattr(moe, name, ranged)
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        for name, fn in self._saved.items():
+            setattr(moe, name, fn)
+        return False
+
+
+def moe_profile(torch, step, n_steps: int, label: str):
+    """A ``torch.profiler`` window of ``n_steps`` steps under
+    :class:`MoeRanges`: device ms a step of the expert products, the
+    routing / gather / combine, the attention kernel, the SPA kernels
+    (identification, gather + norm, commits, page movers) and all other
+    kernels, and the device-busy share.  A stage's time is the kernels its
+    CPU range launched (not the range's own device annotation).  Returns
+    (wall ms, device ms) a step."""
+    from torch.autograd import DeviceType
+    names = {f"moe{n}": g for n, g in MOE_RANGES.items()}
+    torch.cuda.synchronize()
+    with MoeRanges(), new_profiler(torch) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            step()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+
+    def launched(ev):
+        return (sum(k.duration for k in ev.kernels if k.name not in names)
+                + sum(launched(ch) for ch in ev.cpu_children))
+
+    groups = dict.fromkeys(("expert products", "routing / gather / combine",
+                            "attention (int8 K/V or bf16)", "SPA kernels",
+                            "other kernels"), 0.0)
+    for ev in prof.events():
+        if ev.device_type == DeviceType.CPU and ev.name in names:
+            groups[names[ev.name]] += launched(ev)
+    busy = 0.0
+    for ev in prof.key_averages():
+        if (ev.device_type != DeviceType.CUDA or ev.key in names
+                or getattr(ev, "is_user_annotation", False)):
+            continue
+        t = getattr(ev, "self_device_time_total", None)
+        if t is None:
+            t = ev.self_cuda_time_total
+        busy += t
+        if any(k in ev.key for k in ATTENTION_KEYS):
+            groups["attention (int8 K/V or bf16)"] += t
+        elif any(k in ev.key for k in SPA_KERNEL_KEYS):
+            groups["SPA kernels"] += t
+    wall_ms = wall_us / n_steps / 1e3
+    if busy == 0:
+        print(f"  {label} profile: the trace shows no device time")
+        return wall_ms, None
+    groups["other kernels"] = busy - sum(groups.values())
+    print(f"  {label} profile over {n_steps} steps: {wall_ms:.2f} ms/step "
+          f"wall, {busy / n_steps / 1e3:.2f} device ms/step, device busy "
+          f"{busy / wall_us:.1%}")
+    for name, t in groups.items():
+        print(f"    {name:>28}: {t / n_steps / 1e3:8.3f} ms/step "
+              f"({t / busy:.1%} of device time)")
+    return wall_ms, busy / n_steps / 1e3
+
+
+def _cut_setup(torch, name: str, layers: int, *, device=None):
+    """A config cut to its first ``layers`` layers (full widths), random
+    bf16 weights from seed 0, its ``SPACache`` and SVD proxies."""
+    from repro_torch.configs import get_arch
+    from repro_torch.core.strategy import SPACache
+    from repro_torch.models import transformer
+    from repro_torch.training.optimizer import tree_leaves
+    full = get_arch(name)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    t0 = time.perf_counter()
+    params = transformer.init_params(cfg, seed=0, device=device)
+    strat = SPACache.from_spec(cfg.spa)
+    proxies = strat.build_proxies(params, cfg)
+    _sync(torch, device)
+    nbytes = sum(t.numel() * t.element_size() for t in tree_leaves(params))
+    print(f"  {name}: {layers} of {full.n_layers} layers, "
+          f"{nbytes / 1e9:.1f} GB of {cfg.param_dtype} weights, d="
+          f"{cfg.d_model}, {cfg.n_heads} q heads on {cfg.n_kv_heads} kv "
+          f"heads of {cfg.head_dim}, cache {cfg.cache_dtype}, r="
+          f"{cfg.spa.rank}"
+          + (f", {cfg.moe.n_experts} experts top-{cfg.moe.top_k} of "
+             f"d_ff {cfg.moe.d_ff_expert}" if cfg.moe else "")
+          + f"; weights and proxies {time.perf_counter() - t0:.2f} s")
+    return cfg, params, strat, proxies
+
+
+def _sync(torch, device=None):
+    if (device or "cuda") != "cpu":
+        torch.cuda.synchronize()
+
+
+def _free(torch, device=None):
+    """Collect cycles (a session's wrapped step refers back to it) before
+    the cache is emptied, so a freed model's memory returns at once."""
+    gc.collect()
+    if (device or "cuda") != "cpu":
+        torch.cuda.empty_cache()
+
+
+def spa_then_nocache(torch, label, cfg, params, strat, proxies, prompt,
+                     gen: int, *, extras=None, device=None):
+    """``DecodeSession`` on ``CudaBackend``: prefill, ``MOE_SPA_STEPS`` SPA
+    steps (timed), a profiled window of 4 SPA steps, then
+    ``MOE_NOCACHE_STEPS`` timed ``NoCache`` steps.  Asserts finite hidden
+    states, the path's kernels launched, one attention call a layer at
+    prefill and a step, an int8 cache where the config has one.  Returns
+    (launches, SPA ms a step, NoCache ms a step, dropped assignments a
+    SPA step)."""
+    from repro_torch.core import spa_layer
+    from repro_torch.core.strategy import NoCache
+    from repro_torch.dlm.session import DecodeSession
+    from repro_torch.kernels import _lib
+    from repro_torch.models import moe
+
+    layers = cfg.n_layers
+    n = prompt.shape[1] + gen + (0 if extras is None
+                                 else extras["patches"].shape[1])
+    print(f"    per-layer k at N={n}: {spa_layer.layer_ks(cfg, strat, n)}")
+    _lib.reset_launch_counts()
+    sess = DecodeSession(params, cfg, strategy=strat, backend="cuda",
+                         spa_proxies=proxies, device=device)
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    with moe.count_drops() as pre_drops:
+        sess.prefill(prompt, gen, extras=extras)
+    _sync(torch, device)
+    t_prefill = time.perf_counter() - t0
+    at_prefill = _lib.launch_counts()
+    t0 = time.perf_counter()
+    with moe.count_drops() as drops:
+        _, info = sess.run(MOE_SPA_STEPS)
+    _sync(torch, device)
+    t_run = time.perf_counter() - t0
+    launches = _lib.launch_counts()
+    steps = info["steps"]
+    assert steps == MOE_SPA_STEPS, f"{label} ran {steps} steps"
+    assert bool(sess.last_info["row_finite"].all()), f"{label}: non-finite"
+    on_card = (device or "cuda") != "cpu"
+    if on_card:
+        for kname in DENSE_KERNELS:
+            assert launches[kname] > 0, \
+                f"{label}: kernel {kname} never launched"
+        per_step = (launches["sparse_attention"]
+                    - at_prefill["sparse_attention"]) / steps
+        assert at_prefill["sparse_attention"] == layers, at_prefill
+        assert per_step == layers, per_step
+    kind = cfg.layer_pattern[0]
+    if cfg.cache_dtype == "int8":
+        assert sess.state.cache[kind]["k"].dtype == torch.int8
+    dropped = float(sum(int(d) for d in drops)) / steps if drops else 0.0
+    pre = sum(int(d) for d in pre_drops)
+    del drops, pre_drops
+    spa_ms = t_run / steps * 1e3
+    b = prompt.shape[0]
+    committed = int((sess.state.tokens[:, prompt.shape[1]:]
+                     != cfg.mask_id).sum())
+    print(f"    SPA: prefill {t_prefill:.3f} s, {steps} steps in "
+          f"{t_run:.3f} s, {spa_ms:.2f} ms/step; committed {committed} of "
+          f"{b * gen} slots"
+          + (f"; assignments dropped to capacity: {pre} at prefill (of "
+             f"{b * n * cfg.moe.top_k * layers}), {dropped:.1f} a SPA step"
+             if cfg.moe else ""))
+    spa_dev = None
+    if on_card:
+        _, spa_dev = moe_profile(torch, sess.step, 4, f"{label} SPA")
+    del sess
+    _free(torch, device)
+    base = DecodeSession(params, cfg, strategy=NoCache(), backend="cuda",
+                         device=device)
+    base.prefill(prompt, gen, use_cache=False, extras=extras)
+    base.step()
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    for _ in range(MOE_NOCACHE_STEPS):
+        base.step()
+    _sync(torch, device)
+    base_ms = (time.perf_counter() - t0) / MOE_NOCACHE_STEPS * 1e3
+    assert bool(base.last_info["row_finite"].all()), f"{label} NoCache"
+    print(f"    NoCache: {base_ms:.2f} ms/step over {MOE_NOCACHE_STEPS} "
+          f"steps; SPA/NoCache wall {spa_ms / base_ms:.3f}"
+          + (f"; SPA device {spa_dev:.2f} ms/step" if spa_dev else ""))
+    del base
+    _free(torch, device)
+    return launches, spa_ms, base_ms, dropped
+
+
+def moe_determinism(torch, cfg, params, *, device=None):
+    """Layer 0's MoE FFN on a seeded bf16 input of the prefill's shape
+    (B=4, T=512): two calls give the same bits (the combine's adds do not
+    depend on thread order), and the combine equals a plain sum of each
+    token's k rows in the order of its experts' indices."""
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import layer_params
+    bp = layer_params(params, cfg, 0)["moe"]
+    gen = torch.Generator().manual_seed(29)
+    x = torch.randn((4, 512, cfg.d_model), generator=gen).to(
+        params["embed"].dtype).to(params["embed"].device)
+    outs = [moe.apply_moe(bp, x, cfg.moe, cfg.act)[0] for _ in range(2)]
+    assert torch.equal(outs[0], outs[1]), "MoE: two calls differ"
+    t, k = x.shape[1], cfg.moe.top_k
+    slots, gates, ranks, _ = moe._dispatch(bp["router"], x, cfg.moe,
+                                           moe._capacity(t, cfg.moe))
+    eo = moe._experts(bp, moe._gather(x, slots), gates, cfg.act)
+    got = moe._combine(eo, slots, ranks, t, k)
+    want = torch.zeros_like(got)
+    flat = eo.reshape(-1, eo.shape[-1])
+    for r in range(k):            # each token's rank-r row, a plain add
+        sel = torch.zeros(want.shape[:2], dtype=torch.long,
+                          device=x.device) - 1
+        b_i, e_i, c_i = torch.nonzero((slots < t) & (ranks == r),
+                                      as_tuple=True)
+        sel[b_i, slots[b_i, e_i, c_i]] = (
+            (b_i * eo.shape[1] + e_i) * eo.shape[2] + c_i)
+        rows = torch.where(sel[..., None] >= 0, flat[sel.clamp(min=0)],
+                           torch.zeros((), dtype=flat.dtype,
+                                       device=x.device))
+        want = want + rows
+    assert torch.equal(got, want), "MoE: the combine's sums differ"
+    print(f"    {cfg.name} MoE layer 0 at B=4, T=512: two calls bit for "
+          f"bit, the combine equal to the plain sum in expert order")
+
+
+def moe_serving(torch, cfg, params, strat, proxies, *, device=None):
+    """18(b): the MoE cut through ``ServingEngine``: paged lanes of pages
+    of 16, prefix index on, ``MOE_SERVE``'s three prompts, then (once they
+    are done, so the first has published its pages) a repeat of the first.
+    Every request completes with no [MASK] left, the repeat is a full hit
+    and decodes the first request's tokens, and the paged kernels
+    launched."""
+    import numpy as np
+    from repro_torch.kernels import _lib
+    from repro_torch.models import moe
+    from repro_torch.serving.engine import ServingEngine
+
+    c = MOE_SERVE
+    n_pages = c["canvas"] // PAGE
+    engine = ServingEngine(cfg, params, max_batch=c["slots"],
+                           canvas_len=c["canvas"], strategy=strat,
+                           pool_pages=2 * c["slots"] * n_pages + 1,
+                           page_size=PAGE, prefix_cache=True, device=device)
+    engine._proxies[engine.strategy] = proxies
+    rng = np.random.default_rng(31)
+    prompts = [rng.integers(0, cfg.vocab_size - 1, p).astype(np.int32)
+               for p in c["prompts"]]
+    _lib.reset_launch_counts()
+    with moe.count_drops() as drops:
+        _, wall = _serve(engine, [(p, c["gen"]) for p in prompts])
+        outs, wall2 = _serve(engine, [(prompts[0], c["gen"])])
+    wall += wall2
+    stats = engine.stats
+    assert stats.requests_done == 4, f"18(b): {stats.requests_done} done"
+    for r in engine.done:
+        assert not (np.asarray(r.output) == cfg.mask_id).any(), \
+            f"18(b): uid {r.uid} left a mask"
+    assert stats.prefix_full_hits >= 1, "18(b): the repeat never hit"
+    by_uid = [outs[uid] for uid in sorted(outs)]
+    assert by_uid[3] == by_uid[0], "18(b): the repeat decoded other tokens"
+    launches = _lib.launch_counts()
+    if (device or "cuda") != "cpu":
+        for name in SERVING_KERNELS:
+            assert launches[name] > 0, f"18(b): {name} never launched"
+    print(f"  served 4 requests in {stats.steps} engine steps, "
+          f"{wall / stats.steps * 1e3:.2f} ms an engine step (wall "
+          f"{wall:.2f} s), swaps {stats.swaps}, prefix hits "
+          f"{stats.prefix_hits} ({stats.prefix_full_hits} full), the repeat "
+          f"equal to the first request; assignments dropped to capacity "
+          f"{sum(int(d) for d in drops) / stats.steps:.1f} an engine step "
+          f"(admissions' prefills included)")
+    del engine
+    _free(torch, device)
+    return launches
+
+
+def moe_phase(torch, card: str, *, device=None, layers: int = MOE_CUT):
+    """Phase 18: (a) each MoE config's first ``layers`` layers decoding
+    (``spa_then_nocache``), (b) Qwen3-MoE's cut served (``moe_serving``),
+    (c) InternVL2-76B's first ``layers`` layers decoding 1024 patch
+    embeddings + prompt 256 + gen 256.  Each model is freed before the
+    next."""
+    for name, b, p_len in MOE:
+        t0 = time.perf_counter()
+        print(f"  18(a) {name} (bf16, CudaBackend, its spa, B={b}, prompt "
+              f"{p_len} + gen {MOE_GEN}, {MOE_SPA_STEPS} SPA + "
+              f"{MOE_NOCACHE_STEPS} NoCache steps; {card})")
+        cfg, params, strat, proxies = _cut_setup(torch, name, layers,
+                                                 device=device)
+        gen = torch.Generator().manual_seed(19)
+        prompt = torch.randint(0, cfg.vocab_size - 1, (b, p_len),
+                               generator=gen)
+        spa_then_nocache(torch, name, cfg, params, strat, proxies, prompt,
+                         MOE_GEN, device=device)
+        moe_determinism(torch, cfg, params, device=device)
+        if name.startswith("qwen3"):
+            c = MOE_SERVE
+            print(f"  18(b) {name}'s {layers} layers through ServingEngine "
+                  f"(paged, pages of {PAGE}, prefix index on, canvas "
+                  f"{c['canvas']}, {c['slots']} slots, prompts "
+                  f"{c['prompts']} + a repeat of the first, gen {c['gen']};"
+                  f" {card})")
+            moe_serving(torch, cfg, params, strat, proxies, device=device)
+        del params, proxies
+        _free(torch, device)
+        print(f"    {name}: {time.perf_counter() - t0:.1f} s")
+    v = VLM
+    t0 = time.perf_counter()
+    print(f"  18(c) {v['name']} (bf16, CudaBackend, its spa, B={v['b']}, "
+          f"{v['patches']} patch embeddings + prompt {v['prompt']} + gen "
+          f"{MOE_GEN}; {card})")
+    cfg, params, strat, proxies = _cut_setup(torch, v["name"], layers,
+                                             device=device)
+    gen = torch.Generator().manual_seed(23)
+    prompt = torch.randint(0, cfg.vocab_size - 1, (v["b"], v["prompt"]),
+                           generator=gen)
+    patches = (torch.randn((v["b"], v["patches"], cfg.d_model),
+                           generator=gen) * 0.02).to(
+        params["embed"].dtype).to(params["embed"].device)
+    spa_then_nocache(torch, v["name"], cfg, params, strat, proxies, prompt,
+                     MOE_GEN, extras={"patches": patches}, device=device)
+    del params, proxies, patches
+    _free(torch, device)
+    print(f"    {v['name']}: {time.perf_counter() - t0:.1f} s")
+
+
+# ---------------------------------------------------------------------------
+# Phase 19: training on the card
+# ---------------------------------------------------------------------------
+
+TRAIN_FULL = dict(batch=8, seq=512, steps=6)          # InternLM2-1.8B
+TRAIN_TINY = dict(vocab_size=64, d_model=64, n_layers=2, d_ff=128, steps=200,
+                  batch=8, seq=32)                   # the JAX test_system
+TRAIN_MOE = dict(batch=8, seq=256, steps=2)          # Qwen3-MoE, 1 layer
+TRAIN_AUDIO = dict(batch=4, seq=1024, steps=4)       # HuBERT-XLarge
+
+
+def train_steps(torch, cfg, batch: int, seq: int, steps: int, label: str,
+                *, device=None):
+    """``steps`` AdamW steps (the default schedule: its warmup keeps these
+    first steps' updates small) of ``cfg`` (random weights from seed 0) on
+    synthetic batches (seed 0) with the masking from a seeded generator,
+    on ``TorchBackend``: no kernel launches, finite loss and gradient
+    norm, no step skipped.  Prints each step's loss, ms a step (after the
+    first), tokens a second and peak device memory.  Returns (params,
+    metrics of the last step)."""
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.kernels import _lib
+    from repro_torch.models import transformer
+    from repro_torch.training.optimizer import (AdamWConfig, init_opt_state,
+                                                tree_leaves)
+    from repro_torch.training.trainer import batch_to_device, train_step
+
+    on_card = (device or "cuda") != "cpu"
+    dev = torch.device(device or "cuda")
+    _free(torch, device)
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    params = transformer.init_params(cfg, seed=0, device=dev)
+    opt = init_opt_state(params)
+    data = token_batches(cfg, batch, seq, seed=0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    opt_cfg = AdamWConfig()
+    _lib.reset_launch_counts()
+    times, losses, m = [], [], None
+    for _ in range(steps):
+        b = batch_to_device(next(data), dev)
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        params, opt, m = train_step(params, opt, b, gen, cfg=cfg,
+                                    opt_cfg=opt_cfg)
+        _sync(torch, device)
+        times.append(time.perf_counter() - t0)
+        losses.append(float(m["loss"]))
+        assert torch.isfinite(m["loss"]) and torch.isfinite(m["grad_norm"]), \
+            f"{label}: loss {float(m['loss'])}, grad norm " \
+            f"{float(m['grad_norm'])}"
+        assert float(m["nonfinite_grads"]) == 0, f"{label}: a step skipped"
+    assert not any(_lib.launch_counts().values()), \
+        f"{label}: training launched a kernel"
+    ms = statistics.median(times[1:] or times) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else 0.0
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    print(f"    {label}: {n_params / 1e9:.3f} B parameters, B={batch}, "
+          f"seq {seq}, microbatches {max(cfg.microbatch, 1)}, remat "
+          f"{cfg.remat}: {steps} steps, first {times[0] * 1e3:.1f} ms, then "
+          f"{ms:.1f} ms a step (median), {batch * seq / ms * 1e3:,.0f} "
+          f"tokens/s, losses {[round(x, 4) for x in losses]}, last grad "
+          f"norm {float(m['grad_norm']):.3f}, peak {peak:.1f} GiB")
+    return params, m
+
+
+def tiny_recipe(torch, *, device=None):
+    """19(b): the JAX ``tests/test_system.py`` recipe on the card: the tiny
+    reduced InternLM2 trained 200 steps (mean of the last 5 losses below
+    the first 5's), then decoded through the CUDA kernels: SPA at the
+    paper's budget agrees with vanilla on more than 60% of tokens and
+    computes fewer rows."""
+    import numpy as np
+    from repro_torch.configs import get_arch, reduced
+    from repro_torch.configs.base import SPAConfig
+    from repro_torch.core import budget, spa_layer
+    from repro_torch.core.strategy import SPACache
+    from repro_torch.data.synthetic import token_batches
+    from repro_torch.dlm import decoding
+    from repro_torch.kernels import _lib
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.trainer import Trainer
+
+    c = TRAIN_TINY
+    cfg = reduced(get_arch("internlm2-1.8b"), vocab_size=c["vocab_size"],
+                  d_model=c["d_model"], n_layers=c["n_layers"],
+                  d_ff=c["d_ff"])
+    tr = Trainer(cfg, AdamWConfig(lr=3e-3, warmup_steps=5,
+                                  total_steps=220),
+                 device=device or "cuda").init(0)
+    t0 = time.perf_counter()
+    hist = tr.fit(token_batches(cfg, c["batch"], c["seq"], seed=0),
+                  n_steps=c["steps"], seed=1, log_every=0)
+    wall = time.perf_counter() - t0
+    first, last = np.mean(hist["loss"][:5]), np.mean(hist["loss"][-5:])
+    print(f"    trained {c['steps']} steps in {wall:.2f} s "
+          f"({wall / c['steps'] * 1e3:.2f} ms a step): mean loss of the "
+          f"first 5 {first:.4f}, of the last 5 {last:.4f}")
+    assert last < first, f"19(b): the loss did not fall ({first}, {last})"
+    params = tr.params
+    prompt = torch.from_numpy(next(token_batches(cfg, 2, 8, seed=4))[
+        "tokens"])
+    cfg_spa = dataclasses.replace(cfg, spa=SPAConfig(
+        identifier="singular", rank=16, schedule="adaptive",
+        rho_peak=0.5, rho_first=0.2, rho_last=0.3))
+    cfg_v = dataclasses.replace(cfg, spa=SPAConfig(identifier="none"))
+    _lib.reset_launch_counts()
+    t_spa, _ = decoding.decode(params, cfg_spa, prompt, gen_len=10,
+                               device=device)
+    spa_launches = _lib.launch_counts()
+    t_v, _ = decoding.decode(params, cfg_v, prompt, gen_len=10,
+                             device=device)
+    assert int((t_spa == cfg.mask_id).sum()) == 0
+    agree = float((t_spa == t_v).float().mean())
+    n = prompt.shape[1] + 10
+    ks = spa_layer.layer_ks(cfg_spa, SPACache.from_spec(cfg_spa.spa), n)
+    adaptive = SPAConfig(identifier="singular", rank=16, schedule="adaptive",
+                         rho_peak=0.25, rho_first=0.05, rho_last=0.1)
+    uniform = SPAConfig(identifier="singular", rank=16, schedule="uniform",
+                        rho_peak=0.25)
+    ks_a = budget.k_schedule(adaptive, cfg.n_layers, 4096)
+    ks_u = budget.k_schedule(uniform, cfg.n_layers, 4096)
+    print(f"    decode (CudaBackend, gen 10): SPA agrees with vanilla on "
+          f"{agree:.1%} of tokens; SPA ks {ks} of N={n} a layer; at N=4096 "
+          f"adaptive {sum(ks_a)} rows against uniform {sum(ks_u)}; SPA "
+          f"launches {({k: v for k, v in spa_launches.items() if v})}")
+    if (device or "cuda") != "cpu":
+        for kname in DENSE_KERNELS:
+            assert spa_launches[kname] > 0, f"19(b): {kname} never launched"
+    assert agree > 0.6, f"19(b): SPA agrees with vanilla on {agree:.1%}"
+    assert sum(ks) < cfg.n_layers * n and sum(ks_a) < sum(ks_u)
+
+
+def training_phase(torch, card: str, *, device=None, full_layers=None):
+    """Phase 19: (a) InternLM2-1.8B at full width and depth, (b) the tiny
+    recipe, (c) Qwen3-MoE at full width with 1 layer (the aux loss in the
+    total), (d) HuBERT-XLarge at full depth through ``encoder_loss``.
+    ``full_layers`` (a CPU rehearsal) cuts (a) and (d)."""
+    from repro_torch.configs import get_arch
+
+    def cut(cfg, layers):
+        return cfg if layers is None else dataclasses.replace(
+            cfg, n_layers=layers)
+
+    c = TRAIN_FULL
+    print(f"  19(a) internlm2-1.8b, AdamW on TorchBackend ({card})")
+    cfg = cut(get_arch("internlm2-1.8b"), full_layers)
+    params, _ = train_steps(torch, cfg, c["batch"], c["seq"], c["steps"],
+                            "internlm2-1.8b", device=device)
+    del params
+    _free(torch, device)
+    print(f"  19(b) the tiny recipe ({card})")
+    tiny_recipe(torch, device=device)
+    c = TRAIN_MOE
+    cfg = dataclasses.replace(get_arch("qwen3-moe-235b-a22b"), n_layers=1)
+    print(f"  19(c) qwen3-moe-235b-a22b, 1 layer at full width ({card})")
+    params, m = train_steps(torch, cfg, c["batch"], c["seq"], c["steps"],
+                            "qwen3-moe-235b-a22b/1", device=device)
+    aux, ce = float(m["aux"]), float(m["ce"])
+    assert aux > 0, "19(c): no aux loss"
+    total = ce + cfg.moe.router_aux_weight * aux
+    assert abs(float(m["loss"]) - total) <= 1e-5 * max(1.0, abs(total)), \
+        f"19(c): loss {float(m['loss'])} is not ce + w * aux = {total}"
+    print(f"    aux {aux:.4f} (x {cfg.moe.router_aux_weight}) in the total "
+          f"{float(m['loss']):.4f} = ce {ce:.4f} + w * aux")
+    del params, m
+    _free(torch, device)
+    c = TRAIN_AUDIO
+    print(f"  19(d) hubert-xlarge, encoder_loss ({card})")
+    cfg = cut(get_arch("hubert-xlarge"), full_layers)
+    params, _ = train_steps(torch, cfg, c["batch"], c["seq"], c["steps"],
+                            "hubert-xlarge", device=device)
+    del params
+    _free(torch, device)
+
+
+ALL_PHASES = tuple(range(3, 20))
 
 
 START = time.perf_counter()
@@ -5428,18 +5994,18 @@ def timed(phase, part: str = ""):
 
 
 def parse_phases(argv) -> tuple:
-    """``--phases 3,6,7`` runs only those of phases 3-17 (the card line and
+    """``--phases 3,6,7`` runs only those of phases 3-19 (the card line and
     the build always run) and prints no result line: for development
     calls and for comparing two trees' kernels in one call.  Without it,
     every phase runs."""
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
-                    help="comma-separated subset of phases 3-17")
+                    help="comma-separated subset of phases 3-19")
     phases = tuple(sorted({int(p) for p in ap.parse_args(argv).phases
                            .split(",") if p}))
     if not phases or not set(phases) <= set(ALL_PHASES):
-        ap.error(f"phases must lie in 3-17, got {phases}")
+        ap.error(f"phases must lie in 3-19, got {phases}")
     return phases
 
 
@@ -5494,8 +6060,7 @@ def main(argv=None) -> int:
                   f"prompt 256 + gen {GEN_LEN}, the config's adaptive "
                   f"budget)")
             with timed(6):
-                c_cfg, c_params, c_strat, c_proxies = cut
-                base = baselines(torch, c_cfg, c_params, c_proxies, c_strat)
+                base = baselines(torch, cut[0], cut[1], cut[3], cut[2])
             for name in BASELINE_KERNELS:
                 assert base[name] > 0, \
                     f"kernel {name} never launched (baselines)"
@@ -5511,8 +6076,7 @@ def main(argv=None) -> int:
                         f"kernel {name} never launched serving"
                 print("server drift lanes (paged attn_in, incremental "
                       "singular, attn_out)")
-                c_cfg, c_params, _, c_proxies = cut
-                lanes = serve_drift_lanes(torch, c_cfg, c_params, c_proxies)
+                lanes = serve_drift_lanes(torch, cut[0], cut[1], cut[3])
             for name in DRIFT_LANE_KERNELS:
                 assert lanes[name] > 0, \
                     f"kernel {name} never launched (lanes)"
@@ -5562,8 +6126,10 @@ def main(argv=None) -> int:
                   f"{PROBES17['n_selected']}; {card})")
             with timed(17, "(a)"):
                 profiling_serving(torch, *cut)
+        # the cut's tensors are views of the whole model: no name may keep
+        # one, or the whole model's storage stays on the card
         del cfg, params, strat, proxies, cut
-        torch.cuda.empty_cache()
+        _free(torch)
     if 13 in phases:
         print(f"dense configs at full width (bf16, CudaBackend, each "
               f"config's spa, {DENSE_SPA_STEPS} SPA + {DENSE_NOCACHE_STEPS}"
@@ -5616,6 +6182,17 @@ def main(argv=None) -> int:
         del kept
         torch.cuda.empty_cache()
         print(f"  phase 17: {SECONDS[17]:.1f} s")
+    if 18 in phases:
+        print(f"MoE and VLM configs at full width, their first {MOE_CUT} "
+              f"layers (bf16, random weights, each config's spa and int8 "
+              f"cache, CudaBackend; {card})")
+        with timed(18):
+            moe_phase(torch, card)
+    if 19 in phases:
+        print(f"training on the card (AdamW, the forward and backward on "
+              f"TorchBackend, random weights; {card})")
+        with timed(19):
+            training_phase(torch, card)
     print(f"script: {time.perf_counter() - START:.1f} s")
     if phases != ALL_PHASES:
         print(f"phases {phases} passed; a partial run prints no result line")

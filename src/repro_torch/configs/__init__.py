@@ -1,20 +1,29 @@
 """Architecture registry of the port (own copy; imports nothing of ``repro``).
 
-The configurations the port runs so far: the paper's LLaDA-8B and Dream-7B,
-the reduced InternLM2 the tests use, the dense Gemma2-2B (local and global
+The configurations the port runs: the paper's LLaDA-8B and Dream-7B, the
+reduced InternLM2 the tests use, the dense Gemma2-2B (local and global
 layers, softcaps, post-norms), H2O-Danube3-4B (sliding window, head_dim
 120) and DeepSeek-67B (int8 cache), the RecurrentGemma-9B hybrid (RG-LRU
-and local-attention layers) and the attention-free Mamba2-370m (SSD).
+and local-attention layers), the attention-free Mamba2-370m (SSD), the
+MoE Mixtral-8x22B and Qwen3-MoE-235B-A22B, and the stub-frontend
+InternVL2-76B (vision patches) and HuBERT-XLarge (audio frames,
+encoder-only).
 """
 from repro_torch.configs import (deepseek_67b, dream_7b, gemma2_2b,
-                                 h2o_danube3_4b, internlm2_1_8b, llada_8b,
-                                 mamba2_370m, recurrentgemma_9b)
-from repro_torch.configs.base import ModelConfig, SPAConfig, reduced
+                                 h2o_danube3_4b, hubert_xlarge,
+                                 internlm2_1_8b, internvl2_76b, llada_8b,
+                                 mamba2_370m, mixtral_8x22b,
+                                 qwen3_moe_235b_a22b, recurrentgemma_9b)
+from repro_torch.configs.base import (ModelConfig, MoEConfig, SPAConfig,
+                                      reduced)
 
 ARCHS = {c.name: c for c in (internlm2_1_8b.CONFIG, llada_8b.CONFIG,
                              dream_7b.CONFIG, gemma2_2b.CONFIG,
                              h2o_danube3_4b.CONFIG, deepseek_67b.CONFIG,
-                             recurrentgemma_9b.CONFIG, mamba2_370m.CONFIG)}
+                             recurrentgemma_9b.CONFIG, mamba2_370m.CONFIG,
+                             mixtral_8x22b.CONFIG,
+                             qwen3_moe_235b_a22b.CONFIG,
+                             internvl2_76b.CONFIG, hubert_xlarge.CONFIG)}
 
 
 def get_arch(name: str) -> ModelConfig:
@@ -23,4 +32,5 @@ def get_arch(name: str) -> ModelConfig:
     return ARCHS[name]
 
 
-__all__ = ["ARCHS", "ModelConfig", "SPAConfig", "get_arch", "reduced"]
+__all__ = ["ARCHS", "ModelConfig", "MoEConfig", "SPAConfig", "get_arch",
+           "reduced"]

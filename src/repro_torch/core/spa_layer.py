@@ -181,7 +181,7 @@ def spa_attn_block(cfg: ModelConfig, kind: str, bp: Params,
 
     # ---- Phase 3: FFN & output update ----
     y = common.rms_norm(h_mid, bp["norm2"], cfg.norm_eps)
-    ffn_out = apply_ffn_or_moe(bp, y, cfg)
+    ffn_out, _ = apply_ffn_or_moe(bp, y, cfg)
     if cfg.post_norms:
         ffn_out = common.rms_norm(ffn_out, bp["norm_post_ffn"],
                                   cfg.norm_eps)
@@ -221,7 +221,7 @@ def _attn_out_identifier_block(cfg, kind, bp, cache_sl, h, k_upd, policy,
     h_mid = selection.gather_rows(h, idx) + selection.gather_rows(
         attn_all, idx)
     y = common.rms_norm(h_mid, bp["norm2"], cfg.norm_eps)
-    ffn_out = apply_ffn_or_moe(bp, y, cfg)
+    ffn_out, _ = apply_ffn_or_moe(bp, y, cfg)
     if cfg.post_norms:
         ffn_out = common.rms_norm(ffn_out, bp["norm_post_ffn"],
                                   cfg.norm_eps)
@@ -311,8 +311,8 @@ def spa_forward(params: Params, cfg: ModelConfig,
             if incremental:
                 prev = pad_idx(idx)
         else:
-            h, _ = apply_block_dense(cfg, kind, bp, h, strategy=strategy,
-                                     kv_len=kv_len)
+            h, _, _ = apply_block_dense(cfg, kind, bp, h,
+                                        strategy=strategy, kv_len=kv_len)
             # a recurrent block recomputes every row, so every input of
             # the next attention layer changed: full identification there
             if incremental and kind not in ATTENTION_KINDS:

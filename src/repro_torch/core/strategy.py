@@ -171,14 +171,18 @@ class CacheStrategy:
 
     def refresh_cache(self, params: Params, cfg: ModelConfig,
                       tokens: torch.Tensor, spa_proxies=None,
-                      kv_len: Optional[torch.Tensor] = None
+                      kv_len: Optional[torch.Tensor] = None,
+                      extras: Optional[Dict[str, torch.Tensor]] = None
                       ) -> Dict[str, Dict[str, torch.Tensor]]:
-        """Full cache rebuild from the current canvas (a prefill)."""
+        """Full cache rebuild from the current canvas (a prefill);
+        ``extras`` are the canvas's modality stubs (a VLM's patches)."""
         if not self.uses_cache:
             return {}
         from repro_torch.dlm import decoding
-        _, cache = decoding.prefill(params, cfg, {"tokens": tokens},
-                                    spa_proxies, self, kv_len=kv_len)
+        inputs = dict(extras) if extras else {}
+        inputs["tokens"] = tokens
+        _, cache = decoding.prefill(params, cfg, inputs, spa_proxies, self,
+                                    kv_len=kv_len)
         return cache
 
     # ---- offline artefacts ----

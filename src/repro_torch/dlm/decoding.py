@@ -45,6 +45,10 @@ class DecodeState(NamedTuple):
     # the stochastic schedulers' random numbers (a ``scheduler.Draws``:
     # a seeded torch.Generator, or recorded draws replayed in order)
     rng: Optional[Any] = None
+    # modality stubs ({"patches": [B, F, d]} for a VLM); None, not a dict
+    # literal (a NamedTuple default is shared by every instance), and the
+    # session keeps a fresh dict per state
+    extras: Optional[Dict[str, torch.Tensor]] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,7 +76,7 @@ def prefill(params: Params, cfg: ModelConfig,
     strategy = resolve_strategy(cfg, strategy)
     policy = CachePolicy.from_config(cfg)
     h = transformer.embed_inputs(params, cfg, inputs)
-    h, raw = transformer.forward_hidden(
+    h, _, raw = transformer.forward_hidden(
         params, cfg, h, collect_cache=True, spa_proxies=spa_proxies,
         strategy=strategy, kv_len=kv_len)
     return h, {kind: cache_lib.fill_from_prefill(entries, policy,
@@ -154,7 +158,7 @@ def prefill_partial(params: Params, cfg: ModelConfig,
                                        cfg.norm_eps)
         h_mid = h + attn_out
         y = common.rms_norm(h_mid, bp["norm2"], cfg.norm_eps)
-        ffn_out = transformer.apply_ffn_or_moe(bp, y, cfg)
+        ffn_out, _ = transformer.apply_ffn_or_moe(bp, y, cfg)
         if cfg.post_norms:
             ffn_out = common.rms_norm(ffn_out, bp["norm_post_ffn"],
                                       cfg.norm_eps)
@@ -207,9 +211,12 @@ def serve_step(params: Params, cfg: ModelConfig, state: DecodeState,
     tokens, cache = state.tokens, state.cache
     mask_id = cfg.mask_id
 
-    h = transformer.embed_inputs(params, cfg, {"tokens": tokens})
-    n = h.shape[1]
-    scores_override = strategy.pre_scores(n, state.committed)
+    inputs = dict(state.extras) if state.extras else {}
+    inputs["tokens"] = tokens
+    h = transformer.embed_inputs(params, cfg, inputs)
+    n = h.shape[1]                     # full canvas (patch rows included)
+    offset = n - tokens.shape[1]       # VLM: the text follows the patches
+    scores_override = strategy.pre_scores(n, state.committed + offset)
     # Paged cache: every buffer but the identifier pages is gathered into
     # a dense view through the page table, the step runs on it and the
     # view is scattered back; all through strategy.backend.
@@ -217,8 +224,9 @@ def serve_step(params: Params, cfg: ModelConfig, state: DecodeState,
     view = (cache_lib.paged_step_view(cache, backend=strategy.backend)
             if paged else cache)
     if not strategy.uses_cache or not view:
-        h, _ = transformer.forward_hidden(params, cfg, h, strategy=strategy,
-                                          kv_len=state.kv_len)
+        h, _, _ = transformer.forward_hidden(params, cfg, h,
+                                             strategy=strategy,
+                                             kv_len=state.kv_len)
     else:
         h, view = spa_layer.spa_forward(
             params, cfg, view, h, spa_proxies=spa_proxies,
@@ -232,7 +240,7 @@ def serve_step(params: Params, cfg: ModelConfig, state: DecodeState,
     # Candidate-limited logit evaluation + commit.
     cand_idx, is_masked = _candidate_positions(
         tokens, mask_id, settings.n_candidates, state.active)
-    h_cand = selection.gather_rows(h, cand_idx)
+    h_cand = selection.gather_rows(h, cand_idx + offset)
     logits = transformer.logits_from_hidden(params, cfg, h_cand)
     # the model must never commit the [MASK] token itself
     logits[..., mask_id] = -torch.inf
@@ -274,7 +282,8 @@ def serve_step(params: Params, cfg: ModelConfig, state: DecodeState,
     new_state = DecodeState(
         tokens=new_tokens, cache=cache, step=state.step + 1,
         committed=committed, n_masked=state.n_masked - n_committed,
-        active=state.active, kv_len=state.kv_len, rng=state.rng)
+        active=state.active, kv_len=state.kv_len, rng=state.rng,
+        extras=state.extras)
     info = {"n_committed": n_committed,
             "mean_conf": torch.where(torch.isfinite(conf), conf,
                                      torch.zeros_like(conf)).mean(),

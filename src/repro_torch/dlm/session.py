@@ -176,9 +176,11 @@ class DecodeSession:
                 use_cache: bool = True,
                 kv_len: Optional[torch.Tensor] = None, arenas=None,
                 page_table: Optional[torch.Tensor] = None,
-                rng=None) -> DecodeState:
+                rng=None, extras=None) -> DecodeState:
         """Build the canvas (prompt + gen_len [MASK] slots) and run the
-        full prefill forward that populates the strategy's caches."""
+        full prefill forward that populates the strategy's caches.
+        ``extras``: per-row modality stubs ({"patches": [B, F, d]} for a
+        VLM, whose text canvas follows the patches)."""
         from repro_torch.dlm.noise import mask_canvas
         prompt = torch.as_tensor(prompt).to(self.device, torch.long)
         canvas = mask_canvas(prompt, gen_len, self.cfg.mask_id)
@@ -189,7 +191,8 @@ class DecodeSession:
                               device=self.device)
         state = self.attach(canvas, active=active, n_masked=n_masked,
                             use_cache=use_cache, kv_len=kv_len,
-                            arenas=arenas, page_table=page_table, rng=rng)
+                            arenas=arenas, page_table=page_table, rng=rng,
+                            extras=extras)
         self._gen_span = (prompt.shape[1], n)
         return state
 
@@ -199,7 +202,7 @@ class DecodeSession:
                use_cache: bool = True,
                kv_len: Optional[torch.Tensor] = None, arenas=None,
                page_table: Optional[torch.Tensor] = None,
-               shared=None, rng=None) -> DecodeState:
+               shared=None, rng=None, extras=None) -> DecodeState:
         """Adopt an externally built canvas (the serving engine's path).
 
         Paged mode: pass pooled ``arenas`` ({kind: {name: [Lk, P, page,
@@ -213,8 +216,14 @@ class DecodeSession:
         A shared row's page table maps its prefix to read-only index pages;
         its prefill runs only over the unmatched suffix, or not at all when
         the whole row span is covered, and the shared pages are copied into
-        the row's ``reserve`` pages right before the first cache write."""
+        the row's ``reserve`` pages right before the first cache write.
+
+        ``extras`` (per-row modality stubs, a VLM's ``patches``) are copied
+        into a fresh dict on the session's device: the state never aliases
+        the caller's dict."""
         tokens = torch.as_tensor(tokens).to(self.device, torch.long)
+        extras = {k: torch.as_tensor(v).to(self.device)
+                  for k, v in (extras or {}).items()}
         b = tokens.shape[0]
         if active is None:
             active = torch.ones_like(tokens, dtype=torch.bool)
@@ -232,17 +241,18 @@ class DecodeSession:
             if page_table is None:
                 raise ValueError("a paged attach needs page_table")
             pt = torch.as_tensor(page_table).to(self.device, torch.int32)
-            self._paged_fill(arenas, tokens, kv_len, pt, shared)
+            self._paged_fill(arenas, tokens, extras, kv_len, pt, shared)
             cache = PagedCache(arenas, pt)
             self._shared_pending = {s.row: s for s in shared}
         else:
-            cache = self._build_cache(tokens, kv_len)
+            cache = self._build_cache(tokens, extras, kv_len)
         self.state = DecodeState(
             tokens=tokens, cache=cache, step=0,
             committed=torch.full((b, self.settings.commit_ring), -1,
                                  dtype=torch.int32, device=self.device),
             n_masked=torch.as_tensor(n_masked).to(self.device, torch.int32),
-            active=active, kv_len=kv_len, rng=self._as_rng(rng))
+            active=active, kv_len=kv_len, rng=self._as_rng(rng),
+            extras=extras)
         self.steps_taken = 0
         self.refresh_count = 0
         self._dyn_prev = None          # new canvas: old diffs meaningless
@@ -266,15 +276,16 @@ class DecodeSession:
         raise TypeError(f"rng must be an int, a torch.Generator, a Draws "
                         f"source or None, got {type(rng).__name__}")
 
-    def _build_cache(self, tokens, kv_len=None):
+    def _build_cache(self, tokens, extras, kv_len=None):
         return self.strategy.refresh_cache(self.params, self.cfg, tokens,
-                                           self.spa_proxies, kv_len=kv_len)
+                                           self.spa_proxies, kv_len=kv_len,
+                                           extras=extras)
 
     # ------------------------------------------------------------------
     # Shared-prefix attach + copy-on-write
     # ------------------------------------------------------------------
 
-    def _paged_fill(self, arenas, tokens: torch.Tensor,
+    def _paged_fill(self, arenas, tokens: torch.Tensor, extras,
                     kv_len: Optional[torch.Tensor], read_pt: torch.Tensor,
                     shared: Sequence[SharedPrefix]) -> None:
         """Prefill a (sub-)batch into pooled arenas, in place, honouring
@@ -305,8 +316,9 @@ class DecodeSession:
         for s0, rows in sorted(groups.items()):
             idx = slice(None) if len(rows) == m else self._rows(rows)
             sub_kv = kv_len[idx] if kv_len is not None else None
+            sub_extras = {k: v[idx] for k, v in (extras or {}).items()}
             if s0 == 0:
-                fresh = self._build_cache(tokens[idx], sub_kv)
+                fresh = self._build_cache(tokens[idx], sub_extras, sub_kv)
             else:
                 prefix_pt = read_pt[idx, :s0 // page]
                 kv_view = {kind: {nm: backend.gather_pages(bufs[nm],
@@ -314,7 +326,8 @@ class DecodeSession:
                                   for nm in ("k", "v")}
                            for kind, bufs in arenas.items()}
                 fresh = self._partial_fn(
-                    self.params, self.cfg, {"tokens": tokens[idx]}, kv_view,
+                    self.params, self.cfg,
+                    dict(sub_extras, tokens=tokens[idx]), kv_view,
                     s0, kv_len=sub_kv, spa_proxies=self.spa_proxies,
                     strategy=self.strategy)
             cache_lib.paged_from_dense(arenas, write_pt[idx], fresh, backend)
@@ -386,7 +399,8 @@ class DecodeSession:
                 or not self.state.cache):
             return
         self._cow_if_shared()     # the rebuild scatters into every page
-        cache = self._build_cache(self.state.tokens, self.state.kv_len)
+        cache = self._build_cache(self.state.tokens, self.state.extras,
+                                  self.state.kv_len)
         old = self.state.cache
         if isinstance(old, PagedCache):
             cache = cache_lib.repage(old.arenas, old.page_table, cache,
@@ -692,7 +706,9 @@ class DecodeSession:
                      row_kv_len: Optional[np.ndarray] = None,
                      row_page_table: Optional[np.ndarray] = None,
                      row_committed: Optional[np.ndarray] = None,
-                     row_shared=None) -> None:
+                     row_shared=None,
+                     row_extras: Optional[Dict[str, np.ndarray]] = None
+                     ) -> None:
         """Swap canvas rows and re-prefill ONLY those rows.
 
         The fresh cache comes from a prefill over just the swapped rows
@@ -705,7 +721,8 @@ class DecodeSession:
         commit ring; by default the ring is cleared.  ``row_shared``
         attaches shared prefix pages for incoming rows as
         ``attach(shared=)`` does; its specs carry BATCH row ids (members of
-        ``rows``)."""
+        ``rows``).  ``row_extras`` splices the incoming rows' modality stubs
+        (a VLM's patches) into the state's extras."""
         assert self.state is not None
         st = self.state
         idx = self._rows(rows)
@@ -718,6 +735,12 @@ class DecodeSession:
             self.device, torch.bool)
         n_masked = ((tokens == self.cfg.mask_id) & active).sum(
             dim=-1).to(torch.int32)
+        extras = dict(st.extras or {})
+        for k, v in (row_extras or {}).items():
+            extras[k] = extras[k].clone()
+            extras[k][idx] = torch.as_tensor(np.asarray(v)).to(
+                self.device, extras[k].dtype)
+        sub_extras = {k: v[idx] for k, v in extras.items()}
         committed = st.committed.clone()
         committed[idx] = (-1 if row_committed is None else torch.as_tensor(
             np.asarray(row_committed)).to(self.device, torch.int32))
@@ -741,7 +764,7 @@ class DecodeSession:
                     self.device, torch.int32)
                 row_shared = list(row_shared or [])
                 self._paged_fill(
-                    cache.arenas, row_tokens, sub_kv, row_pt,
+                    cache.arenas, row_tokens, sub_extras, sub_kv, row_pt,
                     [dataclasses.replace(s, row=rows.index(s.row))
                      for s in row_shared])
                 for s in row_shared:
@@ -750,13 +773,13 @@ class DecodeSession:
                 pt[idx] = row_pt
                 cache = PagedCache(cache.arenas, pt)
             else:
-                fresh = self._build_cache(row_tokens, sub_kv)
+                fresh = self._build_cache(row_tokens, sub_extras, sub_kv)
                 for kind, bufs in cache.items():
                     for name, t in bufs.items():
                         t[:, idx] = fresh[kind][name]
         self.state = st._replace(tokens=tokens, active=active,
                                  n_masked=n_masked, committed=committed,
-                                 cache=cache, kv_len=kv_len)
+                                 cache=cache, kv_len=kv_len, extras=extras)
 
     def deactivate_rows(self, rows: Sequence[int]) -> None:
         """Park finished slots with no replacement request."""

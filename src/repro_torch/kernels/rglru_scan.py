@@ -23,8 +23,15 @@ from repro_torch.kernels import _lib
 
 
 def rglru_scan_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """a, b: [B, T, d] -> h [B, T, d] in a.dtype (sequential, f32 carry)."""
+    """a, b: [B, T, d] -> h [B, T, d] in a.dtype (sequential, f32 carry).
+    When autograd records (training), the same steps run out of place."""
     af, bf = a.float(), b.float()
+    if torch.is_grad_enabled() and (a.requires_grad or b.requires_grad):
+        h, hs = torch.zeros_like(af[:, 0]), []
+        for t in range(a.shape[1]):
+            h = af[:, t] * h + bf[:, t]
+            hs.append(h)
+        return torch.stack(hs, dim=1).to(a.dtype)
     out = torch.empty_like(af)
     h = torch.zeros_like(af[:, 0])
     ah = torch.empty_like(h)

@@ -1,0 +1,183 @@
+"""Mixture-of-Experts FFN with capacity-based gather / scatter dispatch.
+
+The port of the JAX package's ``models/moe.py``.  Each expert slot (e, c)
+records the token index that fills it; the expert inputs are a gather, the
+outputs a gate-weighted scatter-add, so the work scales with the experts'
+capacity, not with the whole token set.
+
+Routing follows the JAX ``_route_one`` exactly, including one behaviour
+that is reproduced, not fixed: an assignment past an expert's capacity is
+clamped to slot ``cap - 1`` and writes the sentinel token ``T`` there,
+after the assignment that legitimately took that slot.  So every expert
+that overflows loses its last slot; its gate stays in ``slot_gates`` but
+its output lands in the discarded sentinel row.  The port writes that
+outcome explicitly instead of relying on the order of duplicate-index
+writes (undefined on CUDA).
+
+The combine adds each token's contributions in the order of its experts'
+indices, one ``index_add_`` per rank of the choice: within one call every
+token row receives exactly one source row (a zero row where capacity
+dropped the choice), so the sums never depend on thread order.
+
+The stages (``_dispatch``, ``_gather``, ``_experts``, ``_combine``) are
+module functions, so a profiler can wrap each in a named range.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import List, Optional, Tuple
+
+import torch
+
+from repro_torch.configs.base import MoEConfig
+from repro_torch.core.selection import topk_lowest_first
+from repro_torch.models import common, ffn
+
+# set by ``count_drops``: a list collecting each call's dropped assignments
+_DROPS: Optional[List[torch.Tensor]] = None
+
+
+@contextlib.contextmanager
+def count_drops():
+    """Collect, for every ``apply_moe`` call inside the block, the number of
+    token-to-expert assignments capacity dropped (a device scalar each; no
+    host sync).  Yields the list."""
+    global _DROPS
+    prev, _DROPS = _DROPS, []
+    try:
+        yield _DROPS
+    finally:
+        _DROPS = prev
+
+
+def init_moe_params(cfg_moe: MoEConfig, d_model: int, act: str, lk: int,
+                    empty, zeros, gen: torch.Generator):
+    """Random leaves of ``lk`` stacked MoE blocks (router [lk, d, E],
+    experts [lk, E, d, f] / [lk, E, f, d], optional ``shared`` FFN)."""
+    e, f = cfg_moe.n_experts, cfg_moe.d_ff_expert
+    p = {"router": common.dense_init_(empty(lk, d_model, e), gen),
+         "w_gate": common.dense_init_(empty(lk, e, d_model, f), gen),
+         "w_up": common.dense_init_(empty(lk, e, d_model, f), gen),
+         "w_down": common.dense_init_(empty(lk, e, f, d_model), gen)}
+    if cfg_moe.n_shared_experts:
+        p["shared"] = ffn.init_ffn_params(
+            d_model, cfg_moe.n_shared_experts * cfg_moe.d_ff_shared, act,
+            lk, empty, zeros, gen)
+    return p
+
+
+def _capacity(n_tokens: int, moe: MoEConfig) -> int:
+    cap = int(moe.top_k * n_tokens * moe.capacity_factor / moe.n_experts)
+    return max(4, ((cap + 3) // 4) * 4)
+
+
+def _route(probs: torch.Tensor, k: int, e: int, cap: int):
+    """Per-sequence routing, batched.  probs: [B, T, E] f32.
+
+    Returns (slots [B, E, cap] token index or T (sentinel), slot_gates
+    [B, E, cap] f32, slot_rank [B, E, cap] (the rank of the slot's expert
+    among its token's experts, by index), gate_idx [B, T, k], count [B, E]
+    (the assignments each expert was offered))."""
+    b, t, _ = probs.shape
+    dev = probs.device
+    gate_idx = topk_lowest_first(probs, k)                    # [B, T, k]
+    gate_vals = torch.gather(probs, -1, gate_idx)
+    gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True).clamp(min=1e-9)
+
+    flat_expert = gate_idx.reshape(b, t * k)                  # [B, T*k]
+    flat_gate = gate_vals.reshape(b, t * k)
+    flat_token = torch.arange(t, device=dev).repeat_interleave(k)
+    onehot = torch.nn.functional.one_hot(flat_expert, e)      # [B, T*k, E]
+    # token-major position of each assignment among its expert's
+    pos = torch.cumsum(onehot, dim=1) - onehot
+    slot = torch.gather(pos, -1, flat_expert[..., None])[..., 0]
+    count = onehot.sum(dim=1)                                 # [B, E]
+    # every rejected assignment writes column ``cap``, which is dropped
+    col = torch.where(slot < cap, slot, cap)
+    rank = (gate_idx[..., None, :] < gate_idx[..., :, None]).sum(-1)
+    bi = torch.arange(b, device=dev)[:, None].expand(b, t * k)
+    slots = torch.full((b, e, cap + 1), t, dtype=torch.long, device=dev)
+    slots[bi, flat_expert, col] = flat_token.expand(b, t * k)
+    gates = torch.zeros((b, e, cap + 1), dtype=torch.float32, device=dev)
+    gates[bi, flat_expert, col] = flat_gate
+    ranks = torch.zeros((b, e, cap + 1), dtype=torch.long, device=dev)
+    ranks[bi, flat_expert, col] = rank.reshape(b, t * k)
+    slots, gates, ranks = slots[..., :cap], gates[..., :cap], ranks[..., :cap]
+    # the JAX sentinel overwrite: an overflowing expert's last slot (held
+    # by the assignment that took it legitimately) reads the sentinel T
+    slots[..., cap - 1] = torch.where(count > cap, t, slots[..., cap - 1])
+    return slots, gates, ranks, gate_idx, count
+
+
+def _dispatch(router: torch.Tensor, x: torch.Tensor, moe: MoEConfig,
+              cap: int):
+    """Router logits and softmax in f32, routing and the Switch aux loss
+    (E * mean_e f_e * p_e).  Returns (slots, slot_gates, slot_rank, aux)."""
+    e = moe.n_experts
+    probs = torch.softmax(x.float() @ router.float(), dim=-1)  # [B, T, E]
+    slots, gates, ranks, gate_idx, count = _route(probs, moe.top_k, e, cap)
+    if _DROPS is not None:
+        # rejected assignments, plus the last slot of each overflowing expert
+        _DROPS.append((count - cap).clamp(min=0).sum()
+                      + (count > cap).sum())
+    me = probs.mean(dim=1)                                    # [B, E]
+    ce = torch.nn.functional.one_hot(gate_idx[..., 0], e).float().mean(1)
+    aux = (me * ce).sum(-1).mean() * e
+    return slots, gates, ranks, aux
+
+
+def _gather(x: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
+    """Expert inputs [B, E, C, d]; the sentinel row T reads zeros."""
+    b, _, d = x.shape
+    x_pad = torch.cat([x, x.new_zeros(b, 1, d)], dim=1)       # [B, T+1, d]
+    return x_pad[torch.arange(b, device=x.device)[:, None, None], slots]
+
+
+def _experts(params, expert_in: torch.Tensor, slot_gates: torch.Tensor,
+             act: str) -> torch.Tensor:
+    """The three batched expert products, gated: [B, E, C, d]."""
+    fn = common.act_fn(act)
+    gate = fn(torch.einsum("becd,edf->becf", expert_in, params["w_gate"]))
+    up = torch.einsum("becd,edf->becf", expert_in, params["w_up"])
+    out = torch.einsum("becf,efd->becd", gate * up, params["w_down"])
+    return out * slot_gates[..., None].to(out.dtype)
+
+
+def _combine(expert_out: torch.Tensor, slots: torch.Tensor,
+             slot_rank: torch.Tensor, t: int, k: int) -> torch.Tensor:
+    """Scatter-add the expert rows back to their tokens: [B, T, d].
+
+    A scatter first maps each (token, rank of choice) to the slot that
+    holds it (a zero row where capacity dropped it; every real pair has at
+    most one slot, the sentinel's duplicates land in a discarded row).
+    Then one ``index_add_`` per rank adds those rows into the token rows:
+    each call's indices are distinct, so the sums, made in the order of
+    the experts' indices, never depend on thread order."""
+    b, e, c, d = expert_out.shape
+    dev = expert_out.device
+    src = torch.cat([expert_out.reshape(-1, d),
+                     expert_out.new_zeros(1, d)])         # last row: zeros
+    flat = torch.arange(b * e * c, device=dev).reshape(b, e, c)
+    inv = torch.full((b, t + 1, k), b * e * c, dtype=torch.long, device=dev)
+    bi = torch.arange(b, device=dev)[:, None, None].expand(b, e, c)
+    inv[bi, slots, slot_rank] = flat
+    rows = torch.arange(b * t, device=dev)
+    out = torch.zeros((b * t, d), dtype=expert_out.dtype, device=dev)
+    for r in range(k):
+        out.index_add_(0, rows, src.index_select(
+            0, inv[:, :t, r].reshape(-1)))
+    return out.reshape(b, t, d)
+
+
+def apply_moe(params, x: torch.Tensor, moe: MoEConfig, act: str
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: [B, T, d] -> (out [B, T, d], Switch aux loss scalar f32).
+    Capacity follows this call's token count T."""
+    t = x.shape[1]
+    slots, slot_gates, slot_rank, aux = _dispatch(
+        params["router"], x, moe, _capacity(t, moe))
+    expert_out = _experts(params, _gather(x, slots), slot_gates, act)
+    out = _combine(expert_out, slots, slot_rank, t, moe.top_k)
+    if "shared" in params:
+        out = out + ffn.apply_ffn(params["shared"], x, act)
+    return out.to(x.dtype), aux.float()

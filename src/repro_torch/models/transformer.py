@@ -1,19 +1,23 @@
 """Dense masked-diffusion transformer assembled from a ``ModelConfig``.
 
-The port of the JAX package's ``models/transformer.py`` for attention
-layer kinds with a dense FFN (LLaDA / InternLM2 shapes), the RG-LRU
-hybrid (RecurrentGemma) and the attention-free SSD stack (Mamba2).
+The port of the JAX package's ``models/transformer.py``: attention layer
+kinds with a dense FFN (LLaDA / InternLM2 shapes) or a MoE FFN (Mixtral,
+Qwen3-MoE), the RG-LRU hybrid (RecurrentGemma), the attention-free SSD
+stack (Mamba2) and the stub frontends (vision patches prepended to the
+text, audio frames with learned positions).
 Parameters keep the JAX layout: a plain dict with ``embed``,
 ``final_norm``, ``lm_head`` (when untied) and per-kind STACKED blocks
 ``blocks[kind][name]`` with a leading ``[L_kind]`` axis, so the JAX
 package's weights carry over leaf for leaf (``repro_torch.weights``).
-MoE and the stub frontends wait for later slices.  The layer loop is
-unrolled, so a hybrid needs no period plan (JAX scans a period only to
-compile it as one loop).
+The layer loop is unrolled, so a hybrid needs no period plan (JAX scans
+a period only to compile it as one loop); ``cfg.remat`` checkpoints each
+block when the forward records gradients.
 
 Attention and the SSD scan go through the strategy's ``KernelBackend`` (the
 CUDA kernels on the card); attention with contiguous query positions, so
-prefill and the SPA step share one attention implementation.
+prefill and the SPA step share one attention implementation.  Training
+names the ``TorchBackend``, whose plain versions autograd differentiates
+(the JAX training path runs XLA there, no Pallas kernel).
 """
 from __future__ import annotations
 
@@ -21,11 +25,12 @@ import zlib
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import (ATTENTION_KINDS, ATTN_LOCAL, ATTN_SWA,
                                       RGLRU, SSD, ModelConfig)
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
-from repro_torch.models import common, ffn, rglru, ssd
+from repro_torch.models import common, ffn, moe, rglru, ssd
 
 Params = Dict[str, Any]
 
@@ -38,13 +43,7 @@ def _check_supported(cfg: ModelConfig) -> None:
     ported = set(ATTENTION_KINDS) | {RGLRU, SSD}
     kinds = set(cfg.layer_kinds)
     if not kinds <= ported:
-        raise NotImplementedError(
-            f"layer kinds {sorted(kinds - ported)} wait for a later slice")
-    if cfg.moe is not None:
-        raise NotImplementedError("MoE blocks wait for a later slice")
-    if cfg.frontend is not None or cfg.max_position:
-        raise NotImplementedError("stub frontends / learned positions wait "
-                                  "for a later slice")
+        raise NotImplementedError(f"layer kinds {sorted(kinds - ported)}")
 
 
 # ---------------------------------------------------------------------------
@@ -77,6 +76,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     }
     if not cfg.tie_embeddings:
         params["lm_head"] = common.dense_init_(empty(d, cfg.vocab_size), gen)
+    if cfg.max_position:
+        params["pos_embed"] = common.embed_init_(empty(cfg.max_position, d),
+                                                 gen)
     blocks: Dict[str, Params] = {}
     for kind in sorted(set(cfg.layer_kinds)):
         lk = cfg.n_layers_of_kind(kind)
@@ -100,19 +102,12 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
                 "wo": common.dense_init_(empty(lk, cfg.q_dim, d), gen),
                 "norm2": zeros(lk, d),
             }
-        if cfg.d_ff > 0:
-            f = cfg.d_ff
-            if cfg.act in ("silu", "gelu"):
-                bp["ffn"] = {
-                    "w_gate": common.dense_init_(empty(lk, d, f), gen),
-                    "w_up": common.dense_init_(empty(lk, d, f), gen),
-                    "w_down": common.dense_init_(empty(lk, f, d), gen)}
-            else:
-                bp["ffn"] = {
-                    "w_up": common.dense_init_(empty(lk, d, f), gen),
-                    "b_up": zeros(lk, f),
-                    "w_down": common.dense_init_(empty(lk, f, d), gen),
-                    "b_down": zeros(lk, d)}
+        if cfg.moe is not None and kind in ATTENTION_KINDS:
+            bp["moe"] = moe.init_moe_params(cfg.moe, d, cfg.act, lk, empty,
+                                            zeros, gen)
+        elif cfg.d_ff > 0:
+            bp["ffn"] = ffn.init_ffn_params(d, cfg.d_ff, cfg.act, lk, empty,
+                                            zeros, gen)
         if cfg.post_norms and kind != SSD:
             bp["norm_post_attn"] = zeros(lk, d)
             bp["norm_post_ffn"] = zeros(lk, d)
@@ -140,11 +135,22 @@ def _index_tree(tree, i: int):
 
 def embed_inputs(params: Params, cfg: ModelConfig,
                  inputs: Dict[str, torch.Tensor]) -> torch.Tensor:
-    """inputs: {"tokens": [B, T]} -> h0 [B, T, d] (token path only)."""
+    """inputs: {"tokens": [B, T]} | {"frames": [B, T, d]} (audio) |
+    {"tokens": [B, T_text], "patches": [B, F, d]} (vision: the patches
+    come first) -> h0 [B, N, d]; learned positions added when the config
+    has them."""
     _check_supported(cfg)
-    h = params["embed"][inputs["tokens"].long()]
+    if cfg.frontend == "audio":
+        h = inputs["frames"].to(torch_dtype(cfg.param_dtype))
+    elif cfg.frontend == "vision":
+        text = params["embed"][inputs["tokens"].long()]
+        h = torch.cat([inputs["patches"].to(text.dtype), text], dim=1)
+    else:
+        h = params["embed"][inputs["tokens"].long()]
     if cfg.embed_scale:
         h = h * torch.tensor(cfg.d_model ** 0.5, dtype=h.dtype)
+    if cfg.max_position:
+        h = h + params["pos_embed"][:h.shape[1]][None]
     return h
 
 
@@ -159,18 +165,22 @@ def qkv_project(bp: Params, x: torch.Tensor, cfg: ModelConfig,
     q = (x @ bp["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
     k = (x @ bp["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     v = (x @ bp["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    q = common.apply_rope(q, positions, cfg.rope_theta)
-    k = common.apply_rope(k, positions, cfg.rope_theta)
+    if not cfg.max_position:   # rope unless learned absolute positions
+        q = common.apply_rope(q, positions, cfg.rope_theta)
+        k = common.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
 def apply_ffn_or_moe(bp: Params, x: torch.Tensor, cfg: ModelConfig
-                     ) -> torch.Tensor:
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(FFN or MoE output, the MoE aux loss or 0); a MoE routes with the
+    capacity of x's own token count."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if "moe" in bp:
-        raise NotImplementedError("MoE blocks wait for a later slice")
+        return moe.apply_moe(bp["moe"], x, cfg.moe, cfg.act)
     if "ffn" in bp:
-        return ffn.apply_ffn(bp["ffn"], x, cfg.act)
-    return torch.zeros_like(x)
+        return ffn.apply_ffn(bp["ffn"], x, cfg.act), zero
+    return torch.zeros_like(x), zero
 
 
 def apply_block_dense(cfg: ModelConfig, kind: str, bp: Params,
@@ -178,17 +188,18 @@ def apply_block_dense(cfg: ModelConfig, kind: str, bp: Params,
                       proxy_mat: Optional[torch.Tensor] = None,
                       strategy=None,
                       kv_len: Optional[torch.Tensor] = None
-                      ) -> Tuple[torch.Tensor,
+                      ) -> Tuple[torch.Tensor, torch.Tensor,
                                  Optional[Dict[str, torch.Tensor]]]:
-    """One block over the full sequence.  Returns (h_out, cache entries or
-    None); an attention block's entries hold the raw k/v/h (+ proxy)
-    tensors, a recurrent block keeps no cache."""
+    """One block over the full sequence.  Returns (h_out, aux loss, cache
+    entries or None); an attention block's entries hold the raw k/v/h (+
+    proxy) tensors, a recurrent block keeps no cache."""
     from repro_torch.core.strategy import resolve_strategy
     strat = resolve_strategy(cfg, strategy)
+    zero = torch.zeros((), dtype=torch.float32, device=h.device)
     if kind == RGLRU:
-        return _apply_rglru_block(cfg, bp, h, strat.backend), None
+        return _apply_rglru_block(cfg, bp, h, strat.backend), zero, None
     if kind == SSD:
-        return _apply_ssd_block(cfg, bp, h, strat.backend), None
+        return _apply_ssd_block(cfg, bp, h, strat.backend), zero, None
     if kind not in ATTENTION_KINDS:
         raise NotImplementedError(f"layer kind {kind!r}")
     b, n, _ = h.shape
@@ -205,7 +216,7 @@ def apply_block_dense(cfg: ModelConfig, kind: str, bp: Params,
                                    cfg.norm_eps)
     h_mid = h + attn_out
     y = common.rms_norm(h_mid, bp["norm2"], cfg.norm_eps)
-    ffn_out = apply_ffn_or_moe(bp, y, cfg)
+    ffn_out, aux = apply_ffn_or_moe(bp, y, cfg)
     if cfg.post_norms:
         ffn_out = common.rms_norm(ffn_out, bp["norm_post_ffn"], cfg.norm_eps)
     h_out = h_mid + ffn_out
@@ -215,7 +226,7 @@ def apply_block_dense(cfg: ModelConfig, kind: str, bp: Params,
         prox = strat.prefill_proxy(bp, proxy_mat, h, x, attn_out, h_out)
         if prox is not None:
             entries["proxy"] = prox
-    return h_out, entries
+    return h_out, aux, entries
 
 
 def _apply_rglru_block(cfg: ModelConfig, bp: Params, h: torch.Tensor,
@@ -250,12 +261,17 @@ def _apply_ssd_block(cfg: ModelConfig, bp: Params, h: torch.Tensor,
 def forward_hidden(params: Params, cfg: ModelConfig, h: torch.Tensor, *,
                    collect_cache: bool = False, spa_proxies=None,
                    strategy=None, kv_len: Optional[torch.Tensor] = None
-                   ) -> Tuple[torch.Tensor, Optional[Dict]]:
-    """Run all blocks.  Returns (h, caches); caches (when collect_cache)
-    is {kind: {"k": [Lk,B,N,KVH,HD], ...}} with fresh stacked tensors in
-    layer order.  spa_proxies ({kind: [Lk, d, r]}) are needed only when
-    collecting with the singular identifier."""
+                   ) -> Tuple[torch.Tensor, torch.Tensor, Optional[Dict]]:
+    """Run all blocks.  Returns (h, total aux loss, caches); caches (when
+    collect_cache) is {kind: {"k": [Lk,B,N,KVH,HD], ...}} with fresh
+    stacked tensors in layer order.  spa_proxies ({kind: [Lk, d, r]}) are
+    needed only when collecting with the singular identifier.  With
+    ``cfg.remat``, a forward that records gradients recomputes each block
+    in the backward pass (``torch.utils.checkpoint``), as the JAX
+    ``jax.checkpoint`` per block does."""
     _check_supported(cfg)
+    remat = cfg.remat and not collect_cache and h.requires_grad
+    aux_total = torch.zeros((), dtype=torch.float32, device=h.device)
     caches: Dict[str, List[Dict[str, torch.Tensor]]] = {}
     for l in range(cfg.n_layers):
         kind = cfg.kind_of_layer(l)
@@ -263,17 +279,29 @@ def forward_hidden(params: Params, cfg: ModelConfig, h: torch.Tensor, *,
         bp = layer_params(params, cfg, l)
         pm = (spa_proxies[kind][ki]
               if spa_proxies is not None and kind in spa_proxies else None)
-        h, entries = apply_block_dense(cfg, kind, bp, h,
-                                       collect_cache=collect_cache,
-                                       proxy_mat=pm, strategy=strategy,
-                                       kv_len=kv_len)
+        if remat:
+            h, aux = torch.utils.checkpoint.checkpoint(
+                _block_remat, cfg, kind, bp, h, strategy, kv_len,
+                use_reentrant=False)
+            entries = None
+        else:
+            h, aux, entries = apply_block_dense(
+                cfg, kind, bp, h, collect_cache=collect_cache, proxy_mat=pm,
+                strategy=strategy, kv_len=kv_len)
+        aux_total = aux_total + aux
         if entries is not None:
             caches.setdefault(kind, []).append(entries)
     if not collect_cache:
-        return h, None
-    return h, {kind: {name: torch.stack([e[name] for e in lst])
-                      for name in lst[0]}
-               for kind, lst in caches.items()}
+        return h, aux_total, None
+    return h, aux_total, {kind: {name: torch.stack([e[name] for e in lst])
+                                 for name in lst[0]}
+                          for kind, lst in caches.items()}
+
+
+def _block_remat(cfg, kind, bp, h, strategy, kv_len):
+    h_out, aux, _ = apply_block_dense(cfg, kind, bp, h, strategy=strategy,
+                                      kv_len=kv_len)
+    return h_out, aux
 
 
 def logits_from_hidden(params: Params, cfg: ModelConfig,

@@ -7,7 +7,11 @@ CacheStrategy / UnmaskScheduler / priority) are padded onto fixed canvas
 rows and served by a ``DecodeSession`` at step granularity: when a row
 finishes, its slot is swapped for the next queued request mid-loop
 (``DecodeSession.replace_rows``) while sibling rows keep stepping with
-their evolved caches.
+their evolved caches.  A request carries token ids only: as in the JAX
+engine, a VLM (whose canvas needs per-row ``patches``) fails at its first
+prefill with ``KeyError: 'patches'``; decode a VLM through
+``DecodeSession.prefill(extras=)``.  A MoE model routes every canvas row,
+the tail past a paged row's ``kv_len`` included, as the JAX engine does.
 
 The queue is partitioned into lanes keyed on the
 ``(DecodeSettings, CacheStrategy, UnmaskScheduler)`` triple: a lane's batch
@@ -653,26 +657,26 @@ class ServingEngine:
         occupancy, fragmentation and per-signature bytes, host-tier slot
         accounting, the tier's page counts (refused stores included) and the
         live-executable count (loaded kernel libraries and CUDA graphs), the
-        JAX engine's keys.  The counts come from :class:`EngineStats`, so
-        they run from its last reset (JAX's tier manager counts for its
-        lifetime).  Reads race the engine thread benignly."""
+        JAX engine's keys.  The tier's counts are the tier manager's
+        lifetime tallies, and the host pool's pages in / out run from its
+        last ``reset_telemetry``, as in the JAX engine: resetting
+        :class:`EngineStats` leaves both.  Reads race the engine thread
+        benignly."""
         out: Dict = {"paged": self.paged,
                      "live_executables": runtime.live_executable_count()}
-        s = self.stats
         if self.pool is not None:
             out["pool"] = self.pool.debug_state()
         if self.host_pool is not None:
-            out["host_pool"] = dict(self.host_pool.debug_state(),
-                                    pages_in=s.prefix_demoted_pages,
-                                    pages_out=s.prefix_promoted_pages)
+            out["host_pool"] = self.host_pool.debug_state()
         if self.tier is not None:
+            t = self.tier
             out["tier"] = {
-                "demoted_pages": s.prefix_demoted_pages,
-                "promoted_pages": s.prefix_promoted_pages,
-                "dropped_full": s.tier_dropped_full,
-                "dropped_stable": s.tier_dropped_stable,
-                "store_faults": s.tier_store_faults,
-                "checksum_failures": s.host_corrupt_pages,
+                "demoted_pages": t.demoted_pages,
+                "promoted_pages": t.promoted_pages,
+                "dropped_full": t.dropped_full,
+                "dropped_stable": t.dropped_stable,
+                "store_faults": t.store_faults,
+                "checksum_failures": t.checksum_failures,
             }
         return out
 

@@ -205,6 +205,8 @@ class HostPagePool:
         self._store: Dict[Tuple, Dict] = {}
         # (sig, repr, slot) -> event after a device-bound copy out of it
         self._reads: Dict[Tuple, torch.cuda.Event] = {}
+        self.pages_in = 0      # demotions accepted, since the last reset
+        self.pages_out = 0     # promotions served, since the last reset
 
     # ---- accounting --------------------------------------------------
 
@@ -223,6 +225,8 @@ class HostPagePool:
 
     def reset_telemetry(self) -> None:
         self.peak_units = self.used_units
+        self.pages_in = 0
+        self.pages_out = 0
 
     def telemetry_gauges(self):
         """Occupancy gauges (``name -> (help, value)``)."""
@@ -242,8 +246,8 @@ class HostPagePool:
 
     def debug_state(self) -> Dict:
         """JSON-safe unit accounting and per-(signature, representation)
-        slot occupancy (never the arena contents).  The engine adds the
-        pages in and out from its statistics."""
+        slot occupancy (never the arena contents), and the pages in and out
+        since the last :meth:`reset_telemetry`."""
         stores = {f"{sig}/{repr_}": {
             "n_slots": e["n_slots"], "free_slots": len(e["free"]),
             "resident": e["n_slots"] - len(e["free"])}
@@ -254,6 +258,8 @@ class HostPagePool:
             "peak_units": self.peak_units,
             "utilization": round(self.utilization, 6),
             "resident_pages": self.used_pages,
+            "pages_in": self.pages_in,
+            "pages_out": self.pages_out,
             "stores": stores,
         }
 
@@ -321,6 +327,7 @@ class HostPagePool:
             done.synchronize()
         self.used_units += n * units_per_page
         self.peak_units = max(self.peak_units, self.used_units)
+        self.pages_in += n
         return slots
 
     def load(self, sig: Tuple, repr_: str, slots: List[int],
@@ -402,6 +409,13 @@ class TierManager:
         # "host_corrupt" (bit-flip the fresh slot, which the promotion
         # checksum catches)
         self.injector = None
+        # lifetime counts (the engine's statistics reset; these do not)
+        self.demoted_pages = 0
+        self.promoted_pages = 0
+        self.dropped_full = 0      # demotions refused: host tier full
+        self.dropped_stable = 0    # demotions skipped: stable under pressure
+        self.store_faults = 0      # injected demotion-write refusals
+        self.checksum_failures = 0     # corrupt pages caught on promotion
 
     # ---- engine registration ----------------------------------------
 
@@ -472,11 +486,17 @@ class TierManager:
             self.refusal = ("stable" if all(
                 self.stability(p) >= self.stable_threshold for p in pages)
                 else "full")
+            if self.refusal == "stable":
+                self.dropped_stable += len(pages)
+            else:
+                self.dropped_full += len(pages)
             return None
         if self.injector is not None and self.injector.fire("host_store"):
             # the tier refuses the write and the victim drops, as when
             # the host budget is full
             self.refusal = "store"
+            self.store_faults += 1
+            self.dropped_full += len(pages)
             return None
         blocks = self.read_pages(sig, list(pages))
         refs: List[Optional[HostPageRef]] = [None] * len(pages)
@@ -500,6 +520,7 @@ class TierManager:
         if self.injector is not None and self.injector.fire("host_corrupt"):
             r = refs[0]
             self.host.corrupt_slot(r.sig, r.repr_, r.slot)
+        self.demoted_pages += len(pages)
         self.forget(pages)
         return refs
 
@@ -520,6 +541,7 @@ class TierManager:
         if bad:
             for r in refs:
                 self.host.free(sig, r.repr_, [r.slot], r.units)
+            self.checksum_failures += bad
             raise HostPageCorruption(
                 f"{bad}/{len(refs)} host pages failed checksum "
                 f"verification on promotion", bad)
@@ -547,6 +569,8 @@ class TierManager:
                     for at, got in parts:
                         out[:, at] = got[kind][name].float()
                     blocks[kind][name] = out
+        self.promoted_pages += len(refs)
+        self.host.pages_out += len(refs)
         return sig, blocks
 
     def note_promoted(self, sig: Tuple, pages: List[int],

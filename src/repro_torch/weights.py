@@ -4,8 +4,9 @@ The JAX package's parameter pytree, mapped to numpy
 (``jax.tree.map(np.asarray, params)``), has the layout the port uses:
 ``embed``, ``final_norm``, ``lm_head`` (untied models) and per-kind
 stacked blocks ``blocks[kind][name]`` with a leading ``[L_kind]`` axis
-(nested dicts too: an RG-LRU or SSD block's ``mixer`` and every block's
-``ffn``).
+(nested dicts too: an RG-LRU or SSD block's ``mixer``, a block's ``ffn``
+or a MoE block's ``moe`` with its optional ``shared`` FFN), plus
+``pos_embed`` for learned positions.
 ``from_numpy_params`` turns it into the port's parameters leaf for leaf
 (dtype kept, bfloat16 included), so both packages run the same weights
 (a checkpoint's tree from ``training.checkpoint.load_checkpoint`` goes the
@@ -69,6 +70,12 @@ def from_numpy_params(tree: Dict[str, Any], cfg: ModelConfig,
         raise ValueError(f"lm_head {'present' if cfg.tie_embeddings else 'missing'}"
                          f": {cfg.name} has tie_embeddings="
                          f"{cfg.tie_embeddings}")
+    if cfg.max_position:
+        _check_shape(params, "pos_embed", (cfg.max_position, cfg.d_model),
+                     cfg)
+    elif "pos_embed" in params:
+        raise ValueError(f"pos_embed present: {cfg.name} has no learned "
+                         "positions")
     for kind, bp in params["blocks"].items():
         lk = cfg.n_layers_of_kind(kind)
         if kind in ATTENTION_KINDS:
@@ -90,12 +97,52 @@ def from_numpy_params(tree: Dict[str, Any], cfg: ModelConfig,
         if got.shape != want_shape:
             raise ValueError(f"blocks[{kind!r}].{leaf} {tuple(got.shape)} "
                              f"does not match {cfg.name}")
+        if kind in ATTENTION_KINDS:
+            _check_ffn_or_moe(bp, kind, lk, cfg)
         post = _POST_NORMS & set(bp)
         if kind != SSD and post != (_POST_NORMS if cfg.post_norms
                                     else set()):
             raise ValueError(f"blocks[{kind!r}] post-norms {sorted(post)} "
                              f"do not match {cfg.name}")
     return params
+
+
+def _check_shape(tree, leaf: str, want, cfg: ModelConfig) -> None:
+    """``tree``'s dotted ``leaf`` must exist with shape ``want``."""
+    got = tree
+    for part in leaf.split("."):
+        if not isinstance(got, dict) or part not in got:
+            raise ValueError(f"{leaf} missing: {cfg.name} needs it")
+        got = got[part]
+    if tuple(got.shape) != tuple(want):
+        raise ValueError(f"{leaf} {tuple(got.shape)} does not match "
+                         f"{cfg.name} {tuple(want)}")
+
+
+def _check_ffn_or_moe(bp, kind: str, lk: int, cfg: ModelConfig) -> None:
+    """An attention block of a MoE config carries ``moe.{router, w_gate,
+    w_up, w_down}`` (and ``moe.shared.*`` with shared experts), each of the
+    config's shape; any other config's carries no ``moe``."""
+    m, d = cfg.moe, cfg.d_model
+    if m is None:
+        if "moe" in bp:
+            raise ValueError(f"blocks[{kind!r}].moe present: {cfg.name} "
+                             "has no MoE")
+        return
+    e, f = m.n_experts, m.d_ff_expert
+    want = {"router": (lk, d, e), "w_gate": (lk, e, d, f),
+            "w_up": (lk, e, d, f), "w_down": (lk, e, f, d)}
+    if m.n_shared_experts:
+        fs = m.n_shared_experts * m.d_ff_shared
+        want.update({"shared.w_up": (lk, d, fs),
+                     "shared.w_down": (lk, fs, d)})
+        if cfg.act in ("silu", "gelu"):
+            want["shared.w_gate"] = (lk, d, fs)
+    elif "shared" in bp.get("moe", {}):
+        raise ValueError(f"blocks[{kind!r}].moe.shared present: {cfg.name} "
+                         "has no shared experts")
+    for leaf, shape in want.items():
+        _check_shape(bp, f"moe.{leaf}", shape, cfg)
 
 
 def from_numpy_proxies(proxies: Dict[str, Any], cfg: ModelConfig,

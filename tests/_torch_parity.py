@@ -18,6 +18,7 @@ from repro_torch.dlm.scheduler import Draws
 
 def port_cfg(cfg):
     """The JAX package's ModelConfig -> the port's (same field values)."""
+    from repro_torch.configs.base import MoEConfig as TMoE
     from repro_torch.configs.base import RGLRUConfig as TRGLRU
     from repro_torch.configs.base import SPAConfig as TSPA
     from repro_torch.configs.base import SSMConfig as TSSM
@@ -28,7 +29,8 @@ def port_cfg(cfg):
         fields["rglru"] = TRGLRU(**dataclasses.asdict(cfg.rglru))
     if cfg.ssm is not None:
         fields["ssm"] = TSSM(**dataclasses.asdict(cfg.ssm))
-    assert fields["moe"] is None, "moe configs are not ported yet"
+    if cfg.moe is not None:
+        fields["moe"] = TMoE(**dataclasses.asdict(cfg.moe))
     return tconfigs.ModelConfig(**fields)
 
 
@@ -573,3 +575,25 @@ def recurrent_lanes_match(name, mode):
     assert (teng.stats.preemptions > 0) == (mode != "dense")
     assert teng.stats.requests_done == 5
     return jeng, teng
+
+
+# -- MoE ------------------------------------------------------------------
+
+MOE_CFGS = {
+    # Mixtral: SWA layers (window cut to 64), f32 cache
+    "mixtral-8x22b": {},
+    # Qwen3-MoE: its int8 cache (int8 K/V attention on the decode path)
+    "qwen3-moe-235b-a22b": {"cache_dtype": "int8"},
+}
+
+
+def moe_model(name, p_len):
+    """(cfg, JAX params, prompt [2, p_len]) of a reduced 2-layer MoE config
+    (4 experts, top-2) with :data:`MOE_CFGS`' overrides."""
+    from repro.configs import get_arch, reduced
+    from repro.models import transformer as jt
+    cfg = reduced(get_arch(name), n_layers=2, **MOE_CFGS[name])
+    params = jt.init_params(cfg, jax.random.PRNGKey(0))
+    prompt = np.random.default_rng(3).integers(
+        0, cfg.vocab_size - 1, (2, p_len)).astype(np.int32)
+    return cfg, params, prompt

@@ -27,10 +27,16 @@ PORTED = sorted(tconfigs.ARCHS)
 
 
 def test_port_registers_the_dense_configs():
+    """The dense configs, and since the MoE FFN and the stub frontends are
+    ported, every configuration of the JAX registry (InternVL2-76B was
+    refused before)."""
+    from repro.configs import ARCHS
     assert {"dream-7b", "gemma2-2b", "h2o-danube-3-4b",
             "deepseek-67b"} <= set(PORTED)
+    assert set(PORTED) == set(ARCHS)
+    assert tconfigs.get_arch("internvl2-76b").frontend == "vision"
     with pytest.raises(KeyError):
-        tconfigs.get_arch("internvl2-76b")   # waits for its frontend
+        tconfigs.get_arch("llama-unknown")
 
 
 @pytest.mark.parametrize("name", PORTED)

@@ -198,10 +198,12 @@ _TIER_KEYS = ("demoted_pages", "promoted_pages", "dropped_full",
 
 def test_tier_counters_and_debug_state_match_jax(bench_model):
     """A host tier of two pages under the bench traffic, every host slot
-    corrupted between the two passes (no reset): the port engine's
-    ``pool_debug_state`` reports the JAX tier manager's counters (demoted,
-    promoted, dropped for want of room, corrupt pages, not promotions) and
-    the JAX host pool's pages in / out, with the JAX keys."""
+    corrupted and the statistics reset between the two passes (as the JAX
+    bench resets after its warm pass): the port engine's
+    ``pool_debug_state`` reports the JAX tier manager's lifetime counters
+    (demoted, promoted, dropped for want of room, corrupt pages, not
+    promotions) and the JAX host pool's pages in / out since the reset,
+    with the JAX keys."""
     cfg, params = bench_model
     reqs = _workload(cfg)
     spec = dict(rank=16, schedule="uniform", rho_peak=0.3)
@@ -214,6 +216,7 @@ def test_tier_counters_and_debug_state_match_jax(bench_model):
         _waves(eng, reqs)
         for r in refs(eng.prefix):
             eng.host_pool.corrupt_slot(r.sig, r.repr_, r.slot)
+        _reset(eng)
         _waves(eng, reqs)
     assert_engines_match(jeng, teng)
     view = teng.pool_debug_state()

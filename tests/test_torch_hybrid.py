@@ -85,7 +85,7 @@ def test_hybrid_prefill_matches_jax(hybrid):
         params, cfg, {"tokens": jax.numpy.asarray(tokens)}))
     tparams = port_params(params, tcfg)
     _, tstrat = hybrid_strategies(cfg, "singular")
-    got, caches = tt.forward_hidden(tparams, tcfg, tt.embed_inputs(
+    got, _, caches = tt.forward_hidden(tparams, tcfg, tt.embed_inputs(
         tparams, tcfg, {"tokens": torch.from_numpy(tokens)}),
         collect_cache=True, strategy=tstrat,
         spa_proxies=tstrat.build_proxies(tparams, tcfg))
@@ -117,8 +117,8 @@ def test_weights_check_each_kinds_own_leaves(hybrid):
 
 def test_port_cfg_carries_rglru_and_refuses_moe_and_ssm(hybrid):
     """Fault 3: the helper refused any config with ``rglru``.  It carries
-    ``SSMConfig`` too since the SSD mixer is ported, and still refuses
-    MoE."""
+    ``SSMConfig`` too since the SSD mixer is ported, and ``MoEConfig``
+    since the MoE FFN is (it refused MoE before)."""
     cfg, _ = hybrid
     tcfg = port_cfg(cfg)
     assert isinstance(tcfg.rglru, TRGLRU)
@@ -126,8 +126,10 @@ def test_port_cfg_carries_rglru_and_refuses_moe_and_ssm(hybrid):
     mamba = reduced(get_arch("mamba2-370m"))
     assert isinstance(port_cfg(mamba).ssm, TSSM)
     assert dataclasses.asdict(port_cfg(mamba)) == dataclasses.asdict(mamba)
-    with pytest.raises(AssertionError, match="not ported"):
-        port_cfg(reduced(get_arch("mixtral-8x22b")))
+    mixtral = reduced(get_arch("mixtral-8x22b"))
+    assert isinstance(port_cfg(mixtral).moe, TMoE)
+    assert dataclasses.asdict(port_cfg(mixtral)) == \
+        dataclasses.asdict(mixtral)
     assert dataclasses.asdict(tget_arch("recurrentgemma-9b")) == \
         dataclasses.asdict(get_arch("recurrentgemma-9b"))
 
@@ -160,7 +162,9 @@ def test_incremental_identifies_in_full_after_a_recurrent_block(
 def test_engine_refuses_a_hybrid(hybrid):
     """The engine used to refuse recurrent stacks; it serves them now, in
     dense and paged lanes (parity with the JAX engine:
-    ``test_torch_recurrent_lanes*.py``).  MoE still refuses."""
+    ``test_torch_recurrent_lanes*.py``).  MoE refused too; now its
+    attention blocks draw ``moe`` leaves in place of the FFN, while the
+    RG-LRU blocks keep theirs."""
     from repro_torch.serving.engine import ServingEngine
     cfg, params = hybrid
     tcfg = port_cfg(cfg)
@@ -176,10 +180,14 @@ def test_engine_refuses_a_hybrid(hybrid):
             (req,) = eng.done
             assert req.output.shape == (8,)
             assert (req.output != c.mask_id).all()
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tt.init_params(dataclasses.replace(
-            tcfg, moe=TMoE(n_experts=4, top_k=2, d_ff_expert=64)),
-            device="cpu")
+    moe_cfg = dataclasses.replace(
+        tcfg, moe=TMoE(n_experts=4, top_k=2, d_ff_expert=64))
+    blocks = tt.init_params(moe_cfg, device="cpu")["blocks"]
+    lk, d = moe_cfg.n_layers_of_kind("local"), moe_cfg.d_model
+    assert "ffn" not in blocks["local"] and "ffn" in blocks["rglru"]
+    assert {k: tuple(v.shape) for k, v in blocks["local"]["moe"].items()} \
+        == {"router": (lk, d, 4), "w_gate": (lk, 4, d, 64),
+            "w_up": (lk, 4, d, 64), "w_down": (lk, 4, 64, d)}
 
 
 def test_strata_and_span_bound_match_jax():

@@ -39,7 +39,14 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.models.ssd", "repro_torch.kernels.ssd_chunk",
             "repro_torch.configs.mamba2_370m", "repro_torch.core.runtime",
             "repro_torch.serving.profiling",
-            "repro_torch.training.checkpoint"} <= set(mods)
+            "repro_torch.training.checkpoint", "repro_torch.models.moe",
+            "repro_torch.dlm.loss", "repro_torch.training.optimizer",
+            "repro_torch.training.trainer", "repro_torch.data.synthetic",
+            "repro_torch.launch.train",
+            "repro_torch.configs.mixtral_8x22b",
+            "repro_torch.configs.qwen3_moe_235b_a22b",
+            "repro_torch.configs.internvl2_76b",
+            "repro_torch.configs.hubert_xlarge"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -74,6 +81,13 @@ def test_default_device_raises_without_cuda(monkeypatch):
         resolve_device("cuda")
     sess = DecodeSession(params, cfg, device="cpu")
     assert sess.device.type == "cpu"
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.training.optimizer import AdamWConfig
+    from repro_torch.training.trainer import Trainer
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, AdamWConfig()).init(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tlaunch.main(["--steps", "1"])
     from repro_torch.serving.engine import ServingEngine
     from repro_torch.serving.pool import PagePool
     with pytest.raises(RuntimeError, match="no CUDA device"):

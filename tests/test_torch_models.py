@@ -63,7 +63,7 @@ def test_forward_hidden_and_logits_match_jax(model):
     logits = jt.logits_from_hidden(params, cfg, h)
 
     th0 = tt.embed_inputs(tparams, tcfg, {"tokens": torch.from_numpy(toks)})
-    th, _ = tt.forward_hidden(tparams, tcfg, th0)
+    th, _, _ = tt.forward_hidden(tparams, tcfg, th0)
     tlogits = tt.logits_from_hidden(tparams, tcfg, th)
     np.testing.assert_array_equal(np32(th0), np32(h0))
     np.testing.assert_allclose(np32(th), np32(h), **TOL)

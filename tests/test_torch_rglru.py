@@ -145,7 +145,7 @@ def test_rglru_block_matches_jax():
     want, _, entries = jt.apply_block_dense(cfg, "rglru", bp, jnp.asarray(h),
                                             collect_cache=True)
     assert entries is None
-    got, t_entries = tt.apply_block_dense(tcfg, "rglru",
+    got, _, t_entries = tt.apply_block_dense(tcfg, "rglru",
                                           tt.layer_params(tparams, tcfg, 0),
                                           torch.from_numpy(h),
                                           collect_cache=True)

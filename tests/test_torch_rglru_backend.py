@@ -48,10 +48,10 @@ def test_hybrid_forward_scans_on_the_strategys_backend():
     cfg, params, h0 = _hybrid()
     counting = CountingBackend()
     strat = SPACache.from_spec(cfg.spa)
-    got, _ = tt.forward_hidden(params, cfg, h0,
-                               strategy=strat.with_backend(counting))
-    want, _ = tt.forward_hidden(params, cfg, h0,
-                                strategy=strat.with_backend("torch"))
+    got = tt.forward_hidden(params, cfg, h0,
+                            strategy=strat.with_backend(counting))[0]
+    want = tt.forward_hidden(params, cfg, h0,
+                             strategy=strat.with_backend("torch"))[0]
     n_rglru = sum(cfg.kind_of_layer(l) == RGLRU for l in range(cfg.n_layers))
     assert n_rglru == 4
     assert counting.calls == [(2, 24, counting_width(cfg))] * (2 * n_rglru)

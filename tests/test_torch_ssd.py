@@ -226,7 +226,7 @@ def test_ssd_block_matches_jax(d_ff):
     assert entries is None
     counter = _CountingBackend()
     strat = dataclasses.replace(NoCache(), backend=counter)
-    got, t_entries = tt.apply_block_dense(tcfg, "ssd",
+    got, _, t_entries = tt.apply_block_dense(tcfg, "ssd",
                                           tt.layer_params(tparams, tcfg, 0),
                                           torch.from_numpy(h),
                                           collect_cache=True, strategy=strat)
