@@ -231,7 +231,19 @@ Phases (each asserts; any failure exits non-zero):
    seq 256, 8 microbatches, 2 steps, the aux loss in the total; (d)
    HuBERT-XLarge at full depth, ``encoder_loss``, B=4, 1024 frames, 4
    steps.  Each step's loss and gradient norm finite and no step skipped;
-   ms a step, tokens a second and peak memory.
+   ms a step, tokens a second and peak memory;
+20. the dry run (``launch/dryrun.py``), fake CUDA tensors on the card's
+   host: (a) InternLM2-1.8B at full size, decode_32k and train_4k on the
+   fake 16 x 16 mesh and decode_32k on the 2 x 16 x 16 one, each ``ok``
+   with collectives, its argument bytes the sum of the rules' local
+   shards; (b) ``launch/hillclimb.py`` baseline and int8_cache on its
+   decode_32k with a store under ``build/`` (int8 holds less; baseline
+   again is a warm start); (c) its decode at B=4, N=4096 on the 1 x 1
+   host mesh against the same step run for real: argument bytes equal to
+   the real params and state, FLOPs equal to ``FlopCounterMode`` through
+   ``TorchBackend``, and the predicted peak memory and roofline time
+   beside the card's (``CudaBackend``, which launches proxy_score,
+   gather_norm, sparse_attention and scatter_update_multi).
 
 Phase 3 also times ``scatter_pages`` beside one ``index_put_`` of the
 whole view (``arena[:, pt] = dense``), its library call.
@@ -5976,7 +5988,208 @@ def training_phase(torch, card: str, *, device=None, full_layers=None):
     _free(torch, device)
 
 
-ALL_PHASES = tuple(range(3, 20))
+# ---------------------------------------------------------------------------
+# Phase 20: the dry run, the sharding rules and the hill-climb tools
+# ---------------------------------------------------------------------------
+
+DRYRUN_ARCH = "internlm2-1.8b"
+DRYRUN_COMBOS = (("decode_32k", "single"), ("train_4k", "single"),
+                 ("decode_32k", "multi"))
+DRYRUN_HOST = dict(B=4, N=4096)     # 20(c): a decode step one card holds
+HILLCLIMB_DIR = Path(__file__).resolve().parent / "build" / "hillclimb20"
+
+
+def spec_arg_bytes(dryrun, shd, abs_args, in_sh, mesh) -> int:
+    """Sum of every argument leaf's local shard, from its spec alone (the
+    rules' arithmetic, not the traced tensors)."""
+    total = 0
+
+    def add(leaf, spec):
+        nonlocal total
+        spec = tuple(spec or ()) + (None,) * (leaf.dim() - len(spec or ()))
+        n = 1
+        for size in shd.local_shape(tuple(leaf.shape), spec, mesh):
+            n *= size
+        total += n * leaf.element_size()
+        return leaf
+
+    for a, s in zip(abs_args, in_sh):
+        if a != "generator":
+            dryrun._zip_map(add, a, s)
+    return total
+
+
+def print_record(rec: dict, card: str) -> None:
+    mem = rec["memory"]
+    coll = ", ".join(f"{k} {v['count']:.0f}x {v['bytes'] / 2**20:.1f} MiB"
+                     for k, v in rec["collectives"].items() if v["count"])
+    print(f"    [{rec['arch']} x {rec['shape']} x {rec['mesh']}] "
+          f"{rec['status']}, {rec['n_chips']} ranks; per device "
+          f"{mem['per_device_total_gb']} GB of 80 (args "
+          f"{mem['argument_bytes'] / 2**30:.3f} GiB, temp "
+          f"{mem['temp_bytes'] / 2**30:.3f} GiB); FLOPs "
+          f"{rec['hlo_flops_per_device']:.4g}, useful "
+          f"{rec.get('useful_flop_ratio')}; collectives "
+          f"{coll or 'none'}; compute {rec['t_compute_s'] * 1e3:.3f} ms, "
+          f"memory {rec['t_memory_s'] * 1e3:.3f} ms, collective "
+          f"{rec['t_collective_s'] * 1e3:.3f} ms -> {rec['bottleneck']}; "
+          f"built in {rec['lower_s']} s, traced in {rec['compile_s']} s "
+          f"({card})")
+
+
+def dryrun_phase(torch, card: str, device: str = "cuda") -> None:
+    """Phase 20 (see the module docstring)."""
+    import shutil
+
+    from repro_torch.configs import SHAPES, get_arch
+    from repro_torch.distributed import sharding as shd
+    from repro_torch.launch import dryrun, hillclimb
+    from repro_torch.launch import mesh as mesh_lib
+    arch = DRYRUN_ARCH
+    cfg = get_arch(arch)
+
+    print(f"  20(a) {arch}, fake CUDA tensors on the production meshes")
+    for shape_name, mesh_kind in DRYRUN_COMBOS:
+        rec = dryrun.run_one(arch, shape_name, mesh_kind, verbose=False,
+                             cfg_override=cfg, device=device)
+        assert rec["status"] == "ok", rec
+        mesh = mesh_lib.make_production_mesh(
+            multi_pod=mesh_kind == "multi", device_type=device)
+        _, abs_args, in_sh, _, _ = dryrun.BUILDERS[SHAPES[shape_name].kind](
+            cfg, SHAPES[shape_name], mesh)
+        want = spec_arg_bytes(dryrun, shd, abs_args, in_sh, mesh)
+        mesh_lib.destroy_mesh()
+        print_record(rec, card)
+        assert rec["memory"]["argument_bytes"] == want, \
+            f"20(a): argument bytes {rec['memory']['argument_bytes']} != " \
+            f"the specs' local shards {want}"
+        assert rec["collective_bytes_per_device"] > 0, \
+            f"20(a): no collectives on the {mesh_kind} mesh"
+
+    print(f"  20(b) hillclimb on {arch} / decode_32k (store under "
+          f"build/)")
+    shutil.rmtree(HILLCLIMB_DIR, ignore_errors=True)
+    HILLCLIMB_DIR.mkdir(parents=True)
+    store, out = HILLCLIMB_DIR / "profiles.json", HILLCLIMB_DIR / "hc.jsonl"
+    recs = {}
+    for i, variant in enumerate(("baseline", "int8_cache", "baseline")):
+        t0 = time.perf_counter()
+        argv = ["--arch", arch, "--shape", "decode_32k", "--variant",
+                variant, "--profile-store", str(store), "--out", str(out),
+                "--device", device]
+        assert hillclimb.main(argv) == 0
+        rec = json.loads(out.read_text().splitlines()[-1])
+        recs[(variant, i)] = rec
+        print(f"    {variant}: {rec['memory']['per_device_total_gb']} GB "
+              f"a device, {rec['bottleneck']}, warm start "
+              f"{rec.get('warm_start', False)} "
+              f"({time.perf_counter() - t0:.1f} s)")
+    base, q, again = (recs[("baseline", 0)], recs[("int8_cache", 1)],
+                      recs[("baseline", 2)])
+    assert "warm_start" not in base and "warm_start" not in q
+    assert q["memory"]["per_device_total_gb"] < \
+        base["memory"]["per_device_total_gb"], "20(b): int8 holds no less"
+    assert again.get("warm_start") is True, "20(b): no warm start"
+
+    host = DRYRUN_HOST
+    print(f"  20(c) {arch} decode at B={host['B']}, N={host['N']} on the "
+          f"1 x 1 host mesh, then for real ({card})")
+    dryrun_vs_card(torch, cfg, host, card, device)
+
+
+def dryrun_vs_card(torch, cfg, host, card: str, device: str) -> None:
+    """20(c): the dry run of one decode step against the same step on the
+    card (``CudaBackend``) and through ``TorchBackend`` under
+    ``FlopCounterMode``."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.core.strategy import resolve_strategy
+    from repro_torch.dlm import decoding
+    from repro_torch.dlm.session import DecodeSession
+    from repro_torch.kernels import _lib
+    from repro_torch.launch import dryrun, hlo_cost
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.models import transformer
+
+    b, n = host["B"], host["N"]
+    shape = ShapeConfig("decode_host", n, b, "decode")
+    mesh = mesh_lib.make_host_mesh(device)
+    fn, abs_args, in_sh, donate, out_sh = dryrun.build_decode(cfg, shape,
+                                                              mesh)
+    res = dryrun.trace_step(fn, abs_args, in_sh, donate, out_sh, mesh,
+                            torch.device(device),
+                            dryrun.act_batch_axes(cfg, shape, mesh))
+    terms = dryrun.roofline_terms(res, cfg, shape, mesh)
+    mesh_lib.destroy_mesh()
+    mem = res["memory"]
+    print(f"    dry run: args {mem['argument_bytes'] / 2**30:.3f} GiB, "
+          f"peak {(mem['argument_bytes'] + mem['temp_bytes']) / 2**30:.3f}"
+          f" GiB, FLOPs {res['flops']:.6g}, compute "
+          f"{terms['t_compute_s'] * 1e3:.3f} ms + memory "
+          f"{terms['t_memory_s'] * 1e3:.3f} ms (traced in "
+          f"{res['compile_s']:.1f} s)")
+
+    gen = torch.Generator().manual_seed(20)
+    params = transformer.init_params(cfg, seed=20, device=device)
+    strat = resolve_strategy(cfg, None)
+    proxies = {k: (torch.randn(t.shape, generator=gen) / t.shape[1] ** 0.5
+                   ).to(device=device, dtype=t.dtype)
+               for k, t in (dryrun.spa_proxy_specs(cfg, strat) or {}).items()}
+    prompt = torch.randint(0, cfg.vocab_size - 1, (b, n // 2),
+                           generator=gen)
+    sess = DecodeSession(params, cfg, strategy=strat, backend="cuda",
+                         spa_proxies=proxies, device=device)
+    st = sess.prefill(prompt, n - n // 2)
+    live = dryrun._unique_bytes([params, st.tokens, st.cache, st.committed,
+                                 st.n_masked, st.active, proxies])
+    print(f"    real params, state and proxies: {live / 2**30:.3f} GiB")
+    assert live == mem["argument_bytes"], \
+        f"20(c): argument bytes {mem['argument_bytes']} != live {live}"
+
+    settings = decoding.DecodeSettings(n_candidates=64,
+                                       parallel_threshold=0.9,
+                                       max_parallel=8)
+    cuda_strat = strat.with_backend("cuda")
+    step = lambda: decoding.serve_step(params, cfg, sess.state, settings,
+                                       proxies, strategy=cuda_strat)
+    step()                                   # warm-up (and any build)
+    if device != "cpu":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    _lib.reset_launch_counts()
+    step()
+    launches = _lib.launch_counts()
+    wall_ms, dev_ms = profile_steps(torch, step, 3, "20(c) CudaBackend")
+    if device != "cpu":
+        peak = torch.cuda.max_memory_allocated()
+        for name in SESSION_KERNELS:
+            assert launches[name] > 0, f"20(c): {name} never launched"
+        print(f"    launches in one step: "
+              f"{ {k: launches[k] for k in SESSION_KERNELS} }")
+        pred = mem["argument_bytes"] + mem["temp_bytes"]
+        t_pred = (terms["t_compute_s"] + terms["t_memory_s"]) * 1e3
+        print(f"    predicted peak / card's peak: {pred / 2**30:.3f} / "
+              f"{peak / 2**30:.3f} GiB = {pred / peak:.3f}; predicted "
+              f"compute + memory / card's device ms: {t_pred:.3f} / "
+              f"{dev_ms if dev_ms is None else round(dev_ms, 3)} ms"
+              + ("" if not dev_ms else f" = {t_pred / dev_ms:.3f}")
+              + f"; wall {wall_ms:.3f} ms a step ({card})")
+
+    torch_strat = strat.with_backend("torch")
+    with FlopCounterMode(display=False) as fc:
+        decoding.serve_step(params, cfg, sess.state, settings, proxies,
+                            strategy=torch_strat)
+    counted = fc.get_total_flops()
+    print(f"    FLOPs: dry run {res['flops']:.6g}, FlopCounterMode through "
+          f"TorchBackend {counted:.6g}")
+    assert res["flops"] == counted, \
+        f"20(c): dry-run FLOPs {res['flops']} != counted {counted}"
+    del sess, st, params, proxies
+    _free(torch, device)
+
+
+ALL_PHASES = tuple(range(3, 21))
 
 
 START = time.perf_counter()
@@ -5994,18 +6207,18 @@ def timed(phase, part: str = ""):
 
 
 def parse_phases(argv) -> tuple:
-    """``--phases 3,6,7`` runs only those of phases 3-19 (the card line and
+    """``--phases 3,6,7`` runs only those of phases 3-20 (the card line and
     the build always run) and prints no result line: for development
     calls and for comparing two trees' kernels in one call.  Without it,
     every phase runs."""
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--phases", default=",".join(map(str, ALL_PHASES)),
-                    help="comma-separated subset of phases 3-19")
+                    help="comma-separated subset of phases 3-20")
     phases = tuple(sorted({int(p) for p in ap.parse_args(argv).phases
                            .split(",") if p}))
     if not phases or not set(phases) <= set(ALL_PHASES):
-        ap.error(f"phases must lie in 3-19, got {phases}")
+        ap.error(f"phases must lie in 3-20, got {phases}")
     return phases
 
 
@@ -6193,6 +6406,11 @@ def main(argv=None) -> int:
               f"TorchBackend, random weights; {card})")
         with timed(19):
             training_phase(torch, card)
+    if 20 in phases:
+        print(f"the dry run, the sharding rules and the hill-climb tools "
+              f"({DRYRUN_ARCH}; {card})")
+        with timed(20):
+            dryrun_phase(torch, card)
     print(f"script: {time.perf_counter() - START:.1f} s")
     if phases != ALL_PHASES:
         print(f"phases {phases} passed; a partial run prints no result line")

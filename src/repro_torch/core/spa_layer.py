@@ -49,12 +49,34 @@ from repro_torch.configs.base import ATTENTION_KINDS, ModelConfig
 from repro_torch.core import budget, cache as cache_lib, selection
 from repro_torch.core.cache import CachePolicy
 from repro_torch.core.strategy import CacheStrategy, resolve_strategy
+from repro_torch.distributed.hints import shard_hint
 from repro_torch.models import common
 from repro_torch.models.transformer import (apply_block_dense,
                                             apply_ffn_or_moe, layer_params,
                                             layer_window, qkv_project)
 
 Params = Dict[str, Any]
+
+
+def _seq_specs(b: int):
+    """(batch, sequence) hint dims of a [B, N, ...] tensor: batch over the
+    batch axes and the sequence over "model"; batch 1 (long context)
+    spreads the sequence over every axis."""
+    if b == 1:
+        return None, ("pod", "data", "model")
+    return "batch", "model"
+
+
+def _hint_cache_slice(cache_sl: Dict[str, torch.Tensor], b: int,
+                      skip: Tuple[str, ...] = ()) -> Dict[str, torch.Tensor]:
+    """The layer's cache buffers as the step reads them after its commits:
+    sequence-sharded over "model" under a mesh (the same dict's tensors
+    on plain ones).  ``skip`` names buffers left untouched (paged arenas
+    have no batch / sequence axes)."""
+    b_spec, n_spec = _seq_specs(b)
+    return {key: arr if key in skip else
+            shard_hint(arr, b_spec, n_spec, *((None,) * (arr.dim() - 2)))
+            for key, arr in cache_sl.items()}
 
 
 def stratify_blocks_for(n: int, k: int) -> int:
@@ -173,7 +195,8 @@ def spa_attn_block(cfg: ModelConfig, kind: str, bp: Params,
         q, kf, vf, k_scale=ks, v_scale=vs, q_positions=idx, window=w,
         soft_cap=cfg.attn_softcap, banded=(w > 0 and span > 0),
         q_span=span, kv_len=kv_len)
-    attn_out = attn.reshape(b, k_eff, cfg.q_dim) @ bp["wo"]
+    attn_out = shard_hint(attn.reshape(b, k_eff, cfg.q_dim) @ bp["wo"],
+                          "batch", "keep", None)
     if cfg.post_norms:
         attn_out = common.rms_norm(attn_out, bp["norm_post_attn"],
                                    cfg.norm_eps)
@@ -188,7 +211,11 @@ def spa_attn_block(cfg: ModelConfig, kind: str, bp: Params,
     y_rows = h_mid + ffn_out
     strategy.commit(cache_sl, idx, y_rows, policy, p_now=p_now,
                     proxy_now=proxy_now, page_table=page_table)
-    return cache_lib.read_h_full(cache_sl, policy, h.dtype), idx
+    cache_sl = _hint_cache_slice(
+        cache_sl, b, skip=(("proxy",) if page_table is not None else ()))
+    # sequence-parallel residual stream between layers (decode)
+    h_out = cache_lib.read_h_full(cache_sl, policy, h.dtype)
+    return shard_hint(h_out, *_seq_specs(b), None), idx
 
 
 def _attn_out_identifier_block(cfg, kind, bp, cache_sl, h, k_upd, policy,
@@ -228,6 +255,8 @@ def _attn_out_identifier_block(cfg, kind, bp, cache_sl, h, k_upd, policy,
     y_rows = h_mid + ffn_out
     strategy.commit(cache_sl, idx, y_rows, policy, attn_all=attn_all,
                     page_table=page_table)
+    cache_sl = _hint_cache_slice(
+        cache_sl, b, skip=(("proxy",) if page_table is not None else ()))
     return cache_lib.read_h_full(cache_sl, policy, h.dtype), idx
 
 
@@ -318,3 +347,10 @@ def spa_forward(params: Params, cfg: ModelConfig,
             if incremental and kind not in ATTENTION_KINDS:
                 prev = None
     return h, cache
+
+
+def spa_proxy_specs(cfg: ModelConfig,
+                    strategy: Optional[CacheStrategy] = None
+                    ) -> Optional[Dict[str, torch.Tensor]]:
+    """Meta tensors of the proxy stacks (for the dry run)."""
+    return resolve_strategy(cfg, strategy).proxy_specs(cfg)

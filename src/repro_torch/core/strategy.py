@@ -191,6 +191,12 @@ class CacheStrategy:
                       ) -> Optional[Dict[str, torch.Tensor]]:
         return None
 
+    def proxy_specs(self, cfg: ModelConfig
+                    ) -> Optional[Dict[str, torch.Tensor]]:
+        """Meta tensors of the proxy stacks' shapes and dtype (the dry
+        run's abstract proxies); None for strategies without proxies."""
+        return None
+
 
 @register("singular")
 @dataclasses.dataclass(frozen=True)
@@ -247,6 +253,14 @@ class SPACache(CacheStrategy):
         from repro_torch.core.svd_proxy import build_proxy_stack
         return {kind: build_proxy_stack(params["blocks"][kind]["wv"],
                                         self.rank)
+                for kind in sorted(set(cfg.layer_kinds))
+                if kind in ATTENTION_KINDS}
+
+    def proxy_specs(self, cfg):
+        from repro_torch.device import torch_dtype
+        return {kind: torch.empty(
+                    (cfg.n_layers_of_kind(kind), cfg.d_model, self.rank),
+                    dtype=torch_dtype(cfg.param_dtype), device="meta")
                 for kind in sorted(set(cfg.layer_kinds))
                 if kind in ATTENTION_KINDS}
 

@@ -26,6 +26,7 @@ from repro_torch.core import cache as cache_lib
 from repro_torch.core import selection, spa_layer
 from repro_torch.core.cache import CachePolicy
 from repro_torch.core.strategy import CacheStrategy, resolve_strategy
+from repro_torch.distributed.hints import shard_hint
 from repro_torch.dlm.scheduler import (CommitView, UnmaskScheduler,
                                        resolve_scheduler)
 from repro_torch.models import transformer
@@ -152,7 +153,9 @@ def prefill_partial(params: Params, cfg: ModelConfig,
                                           q_positions=positions,
                                           soft_cap=cfg.attn_softcap,
                                           kv_len=kv_len)
-        attn_out = attn.reshape(b, n - s0, cfg.q_dim) @ bp["wo"]
+        attn_out = shard_hint(
+            attn.reshape(b, n - s0, cfg.q_dim) @ bp["wo"],
+            "batch", "keep", None)
         if cfg.post_norms:
             attn_out = common.rms_norm(attn_out, bp["norm_post_attn"],
                                        cfg.norm_eps)
@@ -216,6 +219,11 @@ def serve_step(params: Params, cfg: ModelConfig, state: DecodeState,
     h = transformer.embed_inputs(params, cfg, inputs)
     n = h.shape[1]                     # full canvas (patch rows included)
     offset = n - tokens.shape[1]       # VLM: the text follows the patches
+    # sequence-parallel residual stream under a mesh (batch 1: the
+    # sequence over every axis)
+    b = tokens.shape[0]
+    n_spec = ("pod", "data", "model") if b == 1 else "model"
+    h = shard_hint(h, None if b == 1 else "batch", n_spec, None)
     scores_override = strategy.pre_scores(n, state.committed + offset)
     # Paged cache: every buffer but the identifier pages is gathered into
     # a dense view through the page table, the step runs on it and the
@@ -240,10 +248,16 @@ def serve_step(params: Params, cfg: ModelConfig, state: DecodeState,
     # Candidate-limited logit evaluation + commit.
     cand_idx, is_masked = _candidate_positions(
         tokens, mask_id, settings.n_candidates, state.active)
-    h_cand = selection.gather_rows(h, cand_idx + offset)
+    # the candidate rows replicated over "model" under a mesh, as the
+    # gathered SPA rows are: the commit decision reads whole rows
+    h_cand = shard_hint(selection.gather_rows(h, cand_idx + offset),
+                        None if b == 1 else "batch", None, None)
     logits = transformer.logits_from_hidden(params, cfg, h_cand)
-    # the model must never commit the [MASK] token itself
-    logits[..., mask_id] = -torch.inf
+    # the model must never commit the [MASK] token itself (out of place:
+    # under a mesh the logits may still be partial sums)
+    is_mask_tok = torch.arange(logits.shape[-1],
+                               device=logits.device) == mask_id
+    logits = logits.masked_fill(is_mask_tok, -torch.inf)
     probs = torch.softmax(logits, dim=-1)
     conf = probs.amax(dim=-1)                          # [B, n_cand]
     pred = torch.argmax(probs, dim=-1).to(tokens.dtype)
@@ -266,8 +280,8 @@ def serve_step(params: Params, cfg: ModelConfig, state: DecodeState,
     commit = commit & cand_is_masked
 
     old = torch.gather(tokens, 1, cand_idx.long())
-    new_tokens = tokens.clone()
-    new_tokens.scatter_(1, cand_idx.long(), torch.where(commit, pred, old))
+    new_tokens = tokens.scatter(1, cand_idx.long(),
+                                torch.where(commit, pred, old))
 
     committed_pos = torch.where(commit, cand_idx, -1)
     ring = settings.commit_ring

@@ -72,12 +72,15 @@ def chunked_token_nll(params, cfg: ModelConfig, h: torch.Tensor,
 
 def diffusion_loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                    generator: Optional[torch.Generator] = None, *,
-                   masking: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                   masking: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+                   strategy=None
                    ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """batch: {"tokens": [B, T]} (plus a VLM's "patches" [B, F, d]).
     ``masking`` = (mask [B, T] bool, t [B]) replaces the draw from
-    ``generator``.  Returns (loss, metrics).  LLaDA ELBO: mean_b [(1/t_b)
-    sum_masked nll / T], plus ``router_aux_weight * aux`` for a MoE."""
+    ``generator``; ``strategy`` (default :data:`TRAINING_STRATEGY`) carries
+    the forward's backend.  Returns (loss, metrics).  LLaDA ELBO: mean_b
+    [(1/t_b) sum_masked nll / T], plus ``router_aux_weight * aux`` for a
+    MoE."""
     tokens = batch["tokens"]
     b, n = tokens.shape
     if masking is None:
@@ -89,7 +92,7 @@ def diffusion_loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     inputs["tokens"] = noisy
     h = transformer.embed_inputs(params, cfg, inputs)
     h, aux, _ = transformer.forward_hidden(
-        params, cfg, h, strategy=TRAINING_STRATEGY)
+        params, cfg, h, strategy=strategy or TRAINING_STRATEGY)
     if cfg.frontend == "vision":
         h = h[:, batch["patches"].shape[1]:]
     nll = chunked_token_nll(params, cfg, h, tokens)
@@ -104,7 +107,7 @@ def diffusion_loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
 
 def encoder_loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
                  generator: Optional[torch.Generator] = None, *,
-                 masking: Optional[torch.Tensor] = None
+                 masking: Optional[torch.Tensor] = None, strategy=None
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """HuBERT-style masked-frame cluster prediction (encoder-only):
     batch {"frames": [B, T, d], "targets": [B, T]}; each frame masked with
@@ -116,7 +119,7 @@ def encoder_loss(params, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
     frames = torch.where(mask[..., None], torch.zeros_like(frames), frames)
     h = transformer.embed_inputs(params, cfg, {"frames": frames})
     h, aux, _ = transformer.forward_hidden(
-        params, cfg, h, strategy=TRAINING_STRATEGY)
+        params, cfg, h, strategy=strategy or TRAINING_STRATEGY)
     nll = chunked_token_nll(params, cfg, h, targets)
     maskf = mask.float()
     loss = (nll * maskf).sum() / maskf.sum().clamp(min=1.0)

@@ -82,9 +82,9 @@ class CommitView(NamedTuple):
 
 def _argmax_commit(conf: torch.Tensor) -> torch.Tensor:
     """One-hot bool mask of the per-row argmax (first maximum)."""
-    hot = torch.zeros(conf.shape, dtype=torch.bool, device=conf.device)
-    hot.scatter_(-1, torch.argmax(conf, dim=-1, keepdim=True), True)
-    return hot
+    # out of place (zeros_like keeps a sharded conf's layout)
+    return torch.zeros_like(conf, dtype=torch.bool).scatter(
+        -1, torch.argmax(conf, dim=-1, keepdim=True), True)
 
 
 def _commit_with_parallel(score: torch.Tensor, par: Optional[torch.Tensor],
@@ -97,8 +97,7 @@ def _commit_with_parallel(score: torch.Tensor, par: Optional[torch.Tensor],
         if max_parallel > 0:
             topp = topk_lowest_first(score, min(max_parallel,
                                                 score.shape[-1]))
-            in_top = torch.zeros_like(par)
-            in_top.scatter_(-1, topp, True)
+            in_top = torch.zeros_like(par).scatter(-1, topp, True)
             par = par & in_top
         commit = commit | par
     return commit

@@ -39,6 +39,7 @@ from repro_torch.kernels import rglru_scan as rs
 from repro_torch.kernels import scatter_update as sc
 from repro_torch.kernels import sparse_attention as sa
 from repro_torch.kernels import ssd_chunk
+from repro_torch.models.attention import attention_hints
 
 Params = Dict[str, Any]
 
@@ -143,6 +144,8 @@ class TorchBackend(KernelBackend):
     def attention(self, q, k, v, *, k_scale=None, v_scale=None,
                   q_positions=None, window=0, soft_cap=0.0, banded=False,
                   q_span=0, kv_len=None):
+        q, k, v, k_scale, v_scale = attention_hints(q, k, v, k_scale,
+                                                    v_scale)
         q_positions, q_span = _positions(q, q_positions, q_span)
         band = sa.band_for(q_positions, k.shape[1], window, q_span,
                            banded=banded)

@@ -41,6 +41,16 @@ def rglru_scan_plain(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return out.to(a.dtype)
 
 
+def rglru_scan_cost(shape, itemsize: int):
+    """(FLOPs, bytes) of one scan of ``shape`` [B, T, d] with elements of
+    ``itemsize`` bytes, for a cost model that counts the scan as one
+    fused op (``launch/hlo_cost``): no matrix products, and one read of
+    a and x and one write of h, as the kernel moves them.  The plain
+    version above counts the same FLOPs step by step."""
+    n = shape[0] * shape[1] * shape[2]
+    return 0.0, 3.0 * n * itemsize
+
+
 def rglru_scan(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a, b: [B, T, d], one dtype (f32 or bf16) -> h [B, T, d] in a.dtype
     with ``h_t = a_t * h_{t-1} + b_t`` (see module docstring)."""

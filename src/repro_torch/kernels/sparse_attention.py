@@ -95,11 +95,11 @@ def _attend_plain(qr, qpos, k, v, k_scale, v_scale, kv_lo: int, kv_hi: int,
     [kv_lo, kv_hi) in blocks of bk.  Returns [B, sq, KVH, G, hd] f32."""
     b, sq, kvh, g, d = qr.shape
     scale = 1.0 / (d ** 0.5)
-    m = torch.full((b, sq, kvh, g), NEG_INF, dtype=torch.float32,
-                   device=qr.device)
-    l = torch.zeros((b, sq, kvh, g), dtype=torch.float32, device=qr.device)
-    acc = torch.zeros((b, sq, kvh, g, d), dtype=torch.float32,
-                      device=qr.device)
+    # the running state shaped like qr (its layout, under a mesh its
+    # sharding): max, sum, accumulator in f32
+    m = torch.full_like(qr[..., 0], NEG_INF)
+    l = torch.zeros_like(qr[..., 0])
+    acc = torch.zeros_like(qr)
     for s0 in range(kv_lo, kv_hi, bk):
         s1 = min(s0 + bk, kv_hi)
         kf = _deq(k[:, s0:s1], None if k_scale is None
@@ -110,20 +110,25 @@ def _attend_plain(qr, qpos, k, v, k_scale, v_scale, kv_lo: int, kv_hi: int,
         if soft_cap > 0.0:
             scores = soft_cap * torch.tanh(scores / soft_cap)
         kpos = torch.arange(s0, s1, device=qr.device)
-        mask = torch.ones((b, sq, s1 - s0), dtype=torch.bool,
-                          device=qr.device)
+        # the key mask, where one applies (none: every key visible)
+        mask = None
         if kv_len is not None:
-            mask = mask & (kpos[None, None, :] < kv_len.long()[:, None, None])
+            mask = kpos[None, None, :] < kv_len.long()[:, None, None]
         if window > 0:
-            mask = mask & ((qpos[:, :, None] - kpos[None, None, :]).abs()
-                           <= window)
-        mask5 = mask[:, :, None, None, :]
-        scores = torch.where(mask5, scores, NEG_INF)
+            near = (qpos[:, :, None] - kpos[None, None, :]).abs() <= window
+            mask = near if mask is None else mask & near
+        if mask is not None:
+            mask5 = mask[:, :, None, None, :]
+            scores = torch.where(mask5, scores, NEG_INF)
         m_new = torch.maximum(m, scores.amax(dim=-1))
-        # masked entries enter exp as 0, not as -1e30 (the CPU's exp is
-        # several times slower where it underflows); they are zeroed below
-        p = torch.exp(torch.where(mask5, scores - m_new[..., None], 0.0))
-        p = torch.where(mask5, p, 0.0)
+        if mask is None:
+            p = torch.exp(scores - m_new[..., None])
+        else:
+            # masked entries enter exp as 0, not as -1e30 (the CPU's exp
+            # is several times slower where it underflows); zeroed below
+            p = torch.exp(torch.where(mask5, scores - m_new[..., None],
+                                      0.0))
+            p = torch.where(mask5, p, 0.0)
         alpha = torch.exp(m - m_new)
         alpha = torch.where(m <= NEG_INF / 2, 0.0, alpha)
         l = alpha * l + p.sum(dim=-1)
@@ -132,6 +137,24 @@ def _attend_plain(qr, qpos, k, v, k_scale, v_scale, kv_lo: int, kv_hi: int,
         m = m_new
     l_safe = torch.where(l == 0.0, 1.0, l)
     return acc / l_safe[..., None]
+
+
+def kv_span(n: int, window: int, banded: bool, q_span: int,
+            block_k: int = BLOCK_K) -> int:
+    """Keys each query block visits: the whole canvas, or the banded
+    grid's ``n_band`` kv blocks where it engages (clipped to the canvas)."""
+    if not banded_engages(n, window, banded, q_span, block_k):
+        return n
+    bk = min(block_k, n)
+    return min(n, band_width(q_span, window, bk, -(-n // bk)) * bk)
+
+
+def sparse_attention_cost(b: int, sq: int, h: int, hd: int, span: int):
+    """Matrix-product FLOPs of one attention call, q [B, Sq, H, hd] over
+    ``span`` keys (:func:`kv_span`): QK^T and PV, 4 * B * Sq * H * hd *
+    span, as the plain version above counts them block by block.  The
+    fused kernel's bytes are its operands' and output's, one pass each."""
+    return 4.0 * b * sq * h * hd * span
 
 
 def banded_engages(n: int, window: int, banded: bool, q_span: int,

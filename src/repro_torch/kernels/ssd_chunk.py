@@ -80,6 +80,23 @@ def ssd_chunk_scan_plain(x: torch.Tensor, dt: torch.Tensor, la: torch.Tensor,
     return (y_intra + y_inter).reshape(bsz, t, h, hd).to(x.dtype)
 
 
+def ssd_chunk_scan_cost(x_shape, ds: int, chunk: int, x_itemsize: int):
+    """(FLOPs, bytes) of one ``ssd_chunk_scan`` of x [B, T, H, hd] with a
+    state of ``ds``, counted as one fused op (``launch/hlo_cost``): the
+    plain version's four matrix products (C B^T within a chunk, its
+    weighted sum over x, the chunk states, their read-out), 2 * B * T *
+    (cs * ds + cs * H * hd + 2 * H * hd * ds) with cs the chunk, and one
+    read of every operand (dt, la f32; b, c in x's dtype) and one write of
+    y, as the kernel moves them."""
+    bsz, t, h, hd = x_shape
+    cs = _chunk_of(t, chunk)
+    flops = 2.0 * bsz * t * (cs * ds + cs * h * hd + 2 * h * hd * ds)
+    byts = (2.0 * bsz * t * h * hd * x_itemsize      # x in, y out
+            + 2.0 * bsz * t * h * 4                  # dt, la
+            + 2.0 * bsz * t * ds * x_itemsize)       # b, c
+    return flops, byts
+
+
 def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                  bmat: torch.Tensor, cmat: torch.Tensor) -> torch.Tensor:
     """The sequential SSD recurrence (one step at a time, no chunks):

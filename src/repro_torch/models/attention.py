@@ -8,6 +8,8 @@ PyTorch version on the CPU).  ``flash_attention`` here is the plain
 version under the JAX function's name and signature, with contiguous query
 positions by default; ``band_width`` and ``banded_starts``, the banded
 grid's formulas, are the kernel module's, re-exported under the JAX names.
+``attention_hints`` holds the JAX function's sharding hints; the plain
+backend applies them, so they shape a step traced under a mesh.
 """
 from __future__ import annotations
 
@@ -15,11 +17,27 @@ from typing import Optional
 
 import torch
 
+from repro_torch.distributed.hints import shard_hint
 from repro_torch.kernels.sparse_attention import (NEG_INF, band_for,
                                                   band_width, banded_starts,
                                                   sparse_attention_plain)
 
-__all__ = ["NEG_INF", "band_width", "banded_starts", "flash_attention"]
+__all__ = ["NEG_INF", "attention_hints", "band_width", "banded_starts",
+           "flash_attention"]
+
+
+def attention_hints(q, k, v, k_scale=None, v_scale=None):
+    """Attention is model-axis-local: the row-parallel projections'
+    all-reduces land before it, and a sequence-sharded KV cache is
+    gathered ONCE per layer, not once per kv block.  Identity on plain
+    tensors."""
+    q = shard_hint(q, "batch", "keep", None, None)
+    k = shard_hint(k, "batch", None, None, None)
+    v = shard_hint(v, "batch", None, None, None)
+    if k_scale is not None:
+        k_scale = shard_hint(k_scale, "batch", None, None)
+        v_scale = shard_hint(v_scale, "batch", None, None)
+    return q, k, v, k_scale, v_scale
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -34,6 +52,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     q_positions: [B, Sq], default arange (contiguous: the span of a q block
     is ``min(block_q, Sq)``).  ``banded`` with a ``q_span`` bound runs the
     banded grid where it engages.  Returns [B, Sq, H, D] in q.dtype."""
+    q, k, v, k_scale, v_scale = attention_hints(q, k, v, k_scale, v_scale)
     b, sq = q.shape[:2]
     skv = k.shape[1]
     if q_positions is None:

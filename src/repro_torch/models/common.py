@@ -90,7 +90,10 @@ def dense_init_(out: torch.Tensor, generator: torch.Generator,
                 scale: float | None = None,
                 chunk_elems: int = 1 << 24) -> torch.Tensor:
     """Fill ``out`` ([..., d_in, d_out]) with N(0, 1/d_in) in place, a
-    chunk of rows at a time so no f32 copy of a whole tensor is ever live."""
+    chunk of rows at a time so no f32 copy of a whole tensor is ever live.
+    A meta tensor (shapes only) has nothing to fill."""
+    if out.is_meta:
+        return out
     fan_in = out.shape[-2] if out.dim() >= 2 else out.shape[-1]
     if scale is None:
         scale = 1.0 / np.sqrt(fan_in)

@@ -3,6 +3,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.hints import shard_hint
 from repro_torch.models import common
 
 
@@ -21,11 +22,17 @@ def init_ffn_params(d: int, f: int, act: str, lk: int, empty, zeros,
 
 
 def apply_ffn(params, x: torch.Tensor, act: str) -> torch.Tensor:
-    """x: [..., d_model] -> [..., d_model]."""
+    """x: [..., d_model] -> [..., d_model].  The row-parallel w_down
+    all-reduce is pinned at the dot output (see ``qkv_project``)."""
+
+    def pin(y):
+        return shard_hint(y, *(["batch"] + ["keep"] * (y.dim() - 2)
+                               + [None]))
+
     fn = common.act_fn(act)
     if "w_gate" in params:
         gate = fn(x @ params["w_gate"])
         up = x @ params["w_up"]
-        return (gate * up) @ params["w_down"]
+        return pin((gate * up) @ params["w_down"])
     h = fn(x @ params["w_up"] + params["b_up"])
-    return h @ params["w_down"] + params["b_down"]
+    return pin(h @ params["w_down"] + params["b_down"])

@@ -15,9 +15,10 @@ outcome explicitly instead of relying on the order of duplicate-index
 writes (undefined on CUDA).
 
 The combine adds each token's contributions in the order of its experts'
-indices, one ``index_add_`` per rank of the choice: within one call every
-token row receives exactly one source row (a zero row where capacity
-dropped the choice), so the sums never depend on thread order.
+indices, one gathered row per rank of the choice (a zero row where
+capacity dropped the choice), so the sums never depend on thread order.
+Routing, dispatch and combine write nothing in place: under a mesh (the
+dry run) each is an op DTensor can shard.
 
 The stages (``_dispatch``, ``_gather``, ``_experts``, ``_combine``) are
 module functions, so a profiler can wrap each in a named range.
@@ -31,6 +32,7 @@ import torch
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.core.selection import topk_lowest_first
+from repro_torch.distributed.hints import shard_hint
 from repro_torch.models import common, ffn
 
 # set by ``count_drops``: a list collecting each call's dropped assignments
@@ -95,17 +97,22 @@ def _route(probs: torch.Tensor, k: int, e: int, cap: int):
     # every rejected assignment writes column ``cap``, which is dropped
     col = torch.where(slot < cap, slot, cap)
     rank = (gate_idx[..., None, :] < gate_idx[..., :, None]).sum(-1)
-    bi = torch.arange(b, device=dev)[:, None].expand(b, t * k)
-    slots = torch.full((b, e, cap + 1), t, dtype=torch.long, device=dev)
-    slots[bi, flat_expert, col] = flat_token.expand(b, t * k)
-    gates = torch.zeros((b, e, cap + 1), dtype=torch.float32, device=dev)
-    gates[bi, flat_expert, col] = flat_gate
-    ranks = torch.zeros((b, e, cap + 1), dtype=torch.long, device=dev)
-    ranks[bi, flat_expert, col] = rank.reshape(b, t * k)
-    slots, gates, ranks = slots[..., :cap], gates[..., :cap], ranks[..., :cap]
+    # each row's [E, cap + 1] slots flattened: one out-of-place scatter a
+    # table (the kept columns receive at most one write each)
+    where = flat_expert * (cap + 1) + col                    # [B, T*k]
+
+    def place(fill, vals, dtype):
+        base = torch.full((b, e * (cap + 1)), fill, dtype=dtype, device=dev)
+        return base.scatter(1, where, vals.to(dtype)).reshape(
+            b, e, cap + 1)[..., :cap]
+
+    slots = place(t, flat_token.expand(b, t * k), torch.long)
+    gates = place(0.0, flat_gate, torch.float32)
+    ranks = place(0, rank.reshape(b, t * k), torch.long)
     # the JAX sentinel overwrite: an overflowing expert's last slot (held
     # by the assignment that took it legitimately) reads the sentinel T
-    slots[..., cap - 1] = torch.where(count > cap, t, slots[..., cap - 1])
+    last = torch.where(count > cap, t, slots[..., cap - 1])
+    slots = torch.cat([slots[..., :cap - 1], last[..., None]], dim=-1)
     return slots, gates, ranks, gate_idx, count
 
 
@@ -129,17 +136,22 @@ def _dispatch(router: torch.Tensor, x: torch.Tensor, moe: MoEConfig,
 def _gather(x: torch.Tensor, slots: torch.Tensor) -> torch.Tensor:
     """Expert inputs [B, E, C, d]; the sentinel row T reads zeros."""
     b, _, d = x.shape
+    _, e, c = slots.shape
     x_pad = torch.cat([x, x.new_zeros(b, 1, d)], dim=1)       # [B, T+1, d]
-    return x_pad[torch.arange(b, device=x.device)[:, None, None], slots]
+    idx = slots.reshape(b, e * c, 1).expand(b, e * c, d)
+    return torch.gather(x_pad, 1, idx).reshape(b, e, c, d)
 
 
 def _experts(params, expert_in: torch.Tensor, slot_gates: torch.Tensor,
              act: str) -> torch.Tensor:
     """The three batched expert products, gated: [B, E, C, d]."""
     fn = common.act_fn(act)
+    # expert parallelism: E over "model" (dropped when E % model != 0)
+    expert_in = shard_hint(expert_in, "batch", "model", None, None)
     gate = fn(torch.einsum("becd,edf->becf", expert_in, params["w_gate"]))
     up = torch.einsum("becd,edf->becf", expert_in, params["w_up"])
     out = torch.einsum("becf,efd->becd", gate * up, params["w_down"])
+    out = shard_hint(out, "batch", "model", None, None)
     return out * slot_gates[..., None].to(out.dtype)
 
 
@@ -150,23 +162,22 @@ def _combine(expert_out: torch.Tensor, slots: torch.Tensor,
     A scatter first maps each (token, rank of choice) to the slot that
     holds it (a zero row where capacity dropped it; every real pair has at
     most one slot, the sentinel's duplicates land in a discarded row).
-    Then one ``index_add_`` per rank adds those rows into the token rows:
-    each call's indices are distinct, so the sums, made in the order of
-    the experts' indices, never depend on thread order."""
+    Then, rank by rank, those rows are gathered and added to the token
+    rows, starting from zeros: the sums, made in the order of the experts'
+    indices, never depend on thread order."""
     b, e, c, d = expert_out.shape
     dev = expert_out.device
-    src = torch.cat([expert_out.reshape(-1, d),
-                     expert_out.new_zeros(1, d)])         # last row: zeros
-    flat = torch.arange(b * e * c, device=dev).reshape(b, e, c)
-    inv = torch.full((b, t + 1, k), b * e * c, dtype=torch.long, device=dev)
-    bi = torch.arange(b, device=dev)[:, None, None].expand(b, e, c)
-    inv[bi, slots, slot_rank] = flat
-    rows = torch.arange(b * t, device=dev)
-    out = torch.zeros((b * t, d), dtype=expert_out.dtype, device=dev)
+    src = torch.cat([expert_out.reshape(b, e * c, d),
+                     expert_out.new_zeros(b, 1, d)], dim=1)  # last: zeros
+    flat = torch.arange(e * c, device=dev).expand(b, e * c)
+    inv = torch.full((b, (t + 1) * k), e * c, dtype=torch.long, device=dev)
+    inv = inv.scatter(1, (slots * k + slot_rank).reshape(b, e * c),
+                      flat).reshape(b, t + 1, k)
+    out = expert_out.new_zeros(b, t, d)
     for r in range(k):
-        out.index_add_(0, rows, src.index_select(
-            0, inv[:, :t, r].reshape(-1)))
-    return out.reshape(b, t, d)
+        idx = inv[:, :t, r, None].expand(b, t, d)
+        out = out + torch.gather(src, 1, idx)
+    return out
 
 
 def apply_moe(params, x: torch.Tensor, moe: MoEConfig, act: str

@@ -25,6 +25,7 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.hints import shard_hint
 from repro_torch.kernels.backend import CUDA_BACKEND, KernelBackend
 from repro_torch.models import common
 
@@ -78,8 +79,8 @@ def _block_gate(xf: torch.Tensor, w: torch.Tensor,
     [B, T, dr]."""
     bsz, t, dr = xf.shape
     nb, c, _ = w.shape
-    out = torch.einsum("btnc,nck->btnk", xf.reshape(bsz, t, nb, c),
-                       w.float())
+    xh = shard_hint(xf.reshape(bsz, t, nb, c), "batch", None, "model", None)
+    out = torch.einsum("btnc,nck->btnk", xh, w.float())
     return torch.sigmoid(out.reshape(bsz, t, dr) + b.float())
 
 

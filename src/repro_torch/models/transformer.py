@@ -30,6 +30,7 @@ import torch.utils.checkpoint
 from repro_torch.configs.base import (ATTENTION_KINDS, ATTN_LOCAL, ATTN_SWA,
                                       RGLRU, SSD, ModelConfig)
 from repro_torch.device import DeviceLike, resolve_device, torch_dtype
+from repro_torch.distributed.hints import shard_hint
 from repro_torch.models import common, ffn, moe, rglru, ssd
 
 Params = Dict[str, Any]
@@ -56,12 +57,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, *,
     the caller names another), drawn from one seeded ``torch.Generator``
     tensor by tensor (no f32 copy of the model).  The values differ from
     the JAX package's ``jax.random`` init; carry JAX weights across with
-    ``repro_torch.weights.from_numpy_params`` instead."""
+    ``repro_torch.weights.from_numpy_params`` instead.  On ``"meta"`` the
+    tree holds shapes and dtypes only (the dry run's abstract params)."""
     _check_supported(cfg)
     dev = resolve_device(device)
     dtype = torch_dtype(cfg.param_dtype)
     d = cfg.d_model
-    gen = torch.Generator(device=dev)
+    gen = torch.Generator(device="cpu" if dev.type == "meta" else dev)
     gen.manual_seed(seed)
 
     def empty(*shape):
@@ -160,11 +162,18 @@ def embed_inputs(params: Params, cfg: ModelConfig,
 
 def qkv_project(bp: Params, x: torch.Tensor, cfg: ModelConfig,
                 positions: torch.Tensor):
-    """x: [B,S,d] (already normed) -> q [B,S,H,hd], k/v [B,S,KVH,hd]."""
+    """x: [B,S,d] (already normed) -> q [B,S,H,hd], k/v [B,S,KVH,hd].
+
+    Under a mesh the row-parallel partial-sum all-reduce is pinned HERE,
+    at the dot output, before rope's f32 math."""
     b, s, _ = x.shape
-    q = (x @ bp["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
-    k = (x @ bp["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
-    v = (x @ bp["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+
+    def proj(w):
+        return shard_hint(x @ w, "batch", "keep", None)
+
+    q = proj(bp["wq"]).reshape(b, s, cfg.n_heads, cfg.head_dim)
+    k = proj(bp["wk"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
+    v = proj(bp["wv"]).reshape(b, s, cfg.n_kv_heads, cfg.head_dim)
     if not cfg.max_position:   # rope unless learned absolute positions
         q = common.apply_rope(q, positions, cfg.rope_theta)
         k = common.apply_rope(k, positions, cfg.rope_theta)
@@ -210,7 +219,8 @@ def apply_block_dense(cfg: ModelConfig, kind: str, bp: Params,
                                    soft_cap=cfg.attn_softcap,
                                    banded=layer_window(cfg, kind) > 0,
                                    kv_len=kv_len)
-    attn_out = attn.reshape(b, n, cfg.q_dim) @ bp["wo"]
+    attn_out = shard_hint(attn.reshape(b, n, cfg.q_dim) @ bp["wo"],
+                          "batch", "keep", None)
     if cfg.post_norms:
         attn_out = common.rms_norm(attn_out, bp["norm_post_attn"],
                                    cfg.norm_eps)

@@ -120,11 +120,16 @@ def adamw_update(cfg: AdamWConfig, params, grads, state: OptState
     def upd(p, g, m, n):
         decay = p.dim() >= 2            # decay matrices only
         # elementwise, so a large leaf goes in slices: its f32 temporaries
-        # never exceed _SLICE elements each
-        fp, fg, fm, fn = (t.view(-1) for t in (p, g, m, n))
-        for a in range(0, fp.numel(), _SLICE):
-            sp, sm, sn = (t[a:a + _SLICE] for t in (fp, fm, fn))
-            sg = torch.nan_to_num(fg[a:a + _SLICE].float()).mul_(clip)
+        # never exceed _SLICE elements each (a sharded leaf, a DTensor,
+        # goes whole: each device updates its own shard)
+        if type(p) is torch.Tensor:
+            flat = [t.view(-1) for t in (p, g, m, n)]
+            pieces = [[t[a:a + _SLICE] for t in flat]
+                      for a in range(0, p.numel(), _SLICE)]
+        else:
+            pieces = [[p, g, m, n]]
+        for sp, sg, sm, sn in pieces:
+            sg = torch.nan_to_num(sg.float()).mul_(clip)
             sm.mul_(cfg.b1).add_(sg, alpha=1 - cfg.b1)
             sn.mul_(cfg.b2).addcmul_(sg, sg, value=1 - cfg.b2)
             delta = sm.div(b1c).div_(sn.div(b2c).sqrt_().add_(cfg.eps))

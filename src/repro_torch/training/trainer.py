@@ -45,12 +45,13 @@ def _slice_tree(tree, nm: int, i: int):
 
 def train_step(params, opt_state: OptState, batch: Dict[str, torch.Tensor],
                generator: Optional[torch.Generator] = None, *,
-               cfg: ModelConfig, opt_cfg: AdamWConfig, masking=None
+               cfg: ModelConfig, opt_cfg: AdamWConfig, masking=None,
+               strategy=None
                ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
     """One optimizer step on :func:`batch_grads`.  ``params`` are updated
     in place; returns (params, state, metrics)."""
     grads, metrics = batch_grads(params, batch, generator, cfg=cfg,
-                                 masking=masking)
+                                 masking=masking, strategy=strategy)
     params, opt_state, opt_metrics = adamw_update(
         opt_cfg, params, tree_unflatten(params, grads), opt_state)
     metrics.update(opt_metrics)
@@ -59,12 +60,13 @@ def train_step(params, opt_state: OptState, batch: Dict[str, torch.Tensor],
 
 def batch_grads(params, batch: Dict[str, torch.Tensor],
                 generator: Optional[torch.Generator] = None, *,
-                cfg: ModelConfig, masking=None):
+                cfg: ModelConfig, masking=None, strategy=None):
     """The loss gradients of one batch, in ``tree_leaves(params)`` order,
     and the loss metrics; with ``cfg.microbatch`` > 1, accumulated over
     interleaved microbatches in ``cfg.accum_dtype`` and averaged (f32).
     ``masking`` is the whole batch's given masking (the loss's
-    ``masking=``), split as the batch is."""
+    ``masking=``), split as the batch is; ``strategy`` is the loss's (the
+    forward's backend)."""
     loss_fn = loss_fn_for(cfg)
     nm = max(cfg.microbatch, 1)
     leaves = tree_leaves(params)
@@ -74,7 +76,7 @@ def batch_grads(params, batch: Dict[str, torch.Tensor],
             p.requires_grad_(True)
         try:
             loss, metrics = loss_fn(params, cfg, mb, generator,
-                                    masking=mb_masking)
+                                    masking=mb_masking, strategy=strategy)
             grads = torch.autograd.grad(loss, leaves, allow_unused=True)
         finally:
             for p in leaves:
@@ -87,8 +89,8 @@ def batch_grads(params, batch: Dict[str, torch.Tensor],
         grads, metrics = grads_of(batch, masking)
     else:
         acc_dt = torch_dtype(cfg.accum_dtype)
-        acc = [torch.zeros(p.shape, dtype=acc_dt, device=p.device)
-               for p in leaves]
+        # zeros_like: a sharded leaf's accumulator shards like the leaf
+        acc = [torch.zeros_like(p, dtype=acc_dt) for p in leaves]
         ms = []
         for i in range(nm):
             g, m = grads_of(_slice_tree(batch, nm, i),

@@ -46,7 +46,11 @@ def test_port_imports_neither_jax_nor_repro():
             "repro_torch.configs.mixtral_8x22b",
             "repro_torch.configs.qwen3_moe_235b_a22b",
             "repro_torch.configs.internvl2_76b",
-            "repro_torch.configs.hubert_xlarge"} <= set(mods)
+            "repro_torch.configs.hubert_xlarge",
+            "repro_torch.launch.mesh", "repro_torch.launch.hlo_cost",
+            "repro_torch.launch.dryrun", "repro_torch.launch.hillclimb",
+            "repro_torch.distributed.sharding",
+            "repro_torch.distributed.hints"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
@@ -95,6 +99,14 @@ def test_default_device_raises_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PagePool(cfg, n_pages=4, page_size=4)
     assert ServingEngine(cfg, params, device="cpu").device.type == "cpu"
+    from repro_torch.launch import dryrun, hillclimb
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.main(["--arch", "internlm2-1.8b", "--shape", "decode_32k",
+                     "--out", os.devnull])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        hillclimb.main(["--arch", "internlm2-1.8b", "--shape", "decode_32k",
+                        "--variant", "baseline", "--profile-store", "",
+                        "--out", os.devnull])
 
 
 def test_kernel_wrappers_build_nothing_on_cpu(monkeypatch):
