@@ -18,10 +18,15 @@ Phases (each asserts; any failure exits non-zero):
    library call where one computes the same function (attention against
    SDPA also at kq = N = 512, the NoCache and prefill shape, and at the
    hybrid's head_dim 256 dense grid and banded prefill with a window
-   mask), and the attention body's ``-Xptxas -v`` line.  Before every
-   timed call the L2 is left holding only clean lines (``L2Flush``), and
-   for the timing floor and six kernel rows the time under the earlier,
-   dirty ``zero_()`` flush is printed beside it;
+   mask), and the attention bodies' ``-Xptxas -v`` line.  Before every
+   timed call the L2 is left holding only clean lines (``L2Flush``);
+   the int8 K/V attention under bf16 q (``check_int8_attention``: the
+   tensor-core int8 body at GQA groups 6, 8 and 16, windows, ragged
+   kv_len with a 0 row, soft_cap, kq = 1 and ragged, head_dim 64 and 120,
+   the banded grid) against plain, timed at DeepSeek-67B's shape (kq =
+   128 and 512) and InternVL2-76B's N = 1536 beside the bf16 body on bf16
+   K/V and the f32-q FMA body on the same int8 K/V; its record's
+   launches come from phase 13's DeepSeek-67B run;
    bf16 proxy_score runs one TMA-fed wgmma GEMM (proxy_wgmma: d split
    across a thread-block cluster where the row tiles do not fill the
    card, the partials summed in rank order; a score epilogue for r <= 256,
@@ -339,12 +344,11 @@ class L2Flush:
     H100's L2 (50 MB, write-back) holding only clean lines of a buffer that
     no timed call touches, so a call reads its inputs from HBM, as on the
     decode path, and writes back nothing but its own stores.
-    ``zero_()`` of a 64 MB buffer alone (``dirty=True``, the flush of
-    earlier runs, kept to compare with them) left the L2 full of dirty
-    lines, and a call that read X bytes then also wrote back up to X dirty
-    bytes between its events.  The read sweep of a second 64 MB buffer (a
-    sum into a preallocated scalar) evicts those lines before the timed
-    call's spin kernel starts."""
+    ``zero_()`` of a 64 MB buffer alone left the L2 full of dirty lines,
+    and a call that read X bytes then also wrote back up to X dirty bytes
+    between its events; the read sweep of a second 64 MB buffer (a sum
+    into a preallocated scalar) evicts those lines before the timed call's
+    spin kernel starts."""
 
     def __init__(self, torch):
         self.torch = torch
@@ -354,25 +358,22 @@ class L2Flush:
                                 device="cuda")
         self.total = torch.zeros((), dtype=torch.float32, device="cuda")
 
-    def __call__(self, dirty: bool = False) -> None:
+    def __call__(self) -> None:
         self.written.zero_()
-        if not dirty:
-            self.torch.sum(self.swept, 0, out=self.total)
+        self.torch.sum(self.swept, 0, out=self.total)
 
 
-def median_ms(fn, torch, flush, runs: int = 30, warmup: int = 3,
-              dirty: bool = False) -> float:
+def median_ms(fn, torch, flush, runs: int = 30, warmup: int = 3) -> float:
     """Median device time of one call, from CUDA events.  ``flush`` (an
     :class:`L2Flush`) runs before every timed call, so inputs come from
-    HBM and the L2 holds no dirty line (``dirty=True``: the earlier
-    ``zero_()`` flush alone), and a spin kernel ahead of the start event
-    keeps the card busy while the host enqueues the call, so the events
-    bracket device work and not Python dispatch."""
+    HBM and the L2 holds no dirty line, and a spin kernel ahead of the
+    start event keeps the card busy while the host enqueues the call, so
+    the events bracket device work and not Python dispatch."""
     for _ in range(warmup):
         fn()
     times = []
     for _ in range(runs):
-        flush(dirty)
+        flush()
         torch.cuda._sleep(SPIN_CYCLES)
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
@@ -384,13 +385,11 @@ def median_ms(fn, torch, flush, runs: int = 30, warmup: int = 3,
     return statistics.median(times)
 
 
-def both_flushes(label: str, fn, torch, flush, **kw) -> float:
-    """:func:`median_ms` under the clean flush, printed beside the same
-    call under the earlier dirty one; returns the clean time."""
-    clean = median_ms(fn, torch, flush, **kw)
-    dirty = median_ms(fn, torch, flush, dirty=True, **kw)
-    print(f"  {label}: {clean:.4f} ms (dirty flush {dirty:.4f} ms)")
-    return clean
+def printed_ms(label: str, fn, torch, flush, **kw) -> float:
+    """:func:`median_ms`, printed under ``label``."""
+    ms = median_ms(fn, torch, flush, **kw)
+    print(f"  {label}: {ms:.4f} ms")
+    return ms
 
 
 def warm_us(fn, torch, kernel: str, calls: int = 200) -> tuple:
@@ -452,12 +451,17 @@ def ptxas_lines(pattern: str) -> dict:
 
 
 def attention_ptxas() -> str:
-    """``-Xptxas -v`` of the bf16 attention body, one entry per head_dim
-    width: registers, stack and spills (from the build log)."""
-    widths = ptxas_lines(r"attention_bf16_wgmmaILi(\d+)E")
-    return "; ".join(f"hd {w}: " + ", ".join(v)
-                     for w, v in sorted(widths.items(), key=lambda kv:
-                                        int(kv[0])))
+    """``-Xptxas -v`` of the wgmma attention bodies (bf16 and int8 K/V),
+    one entry per head_dim width: registers, stack and spills (from the
+    build log)."""
+    found = ptxas_lines(r"attention_((?:bf16|i8)_wgmmaILi\d+)E")
+
+    def key(name):
+        kind, width = name.split("_wgmmaILi")
+        return kind, int(width)
+    return "; ".join(f"{key(k)[0]} hd {key(k)[1]}: " + ", ".join(v)
+                     for k, v in sorted(found.items(),
+                                        key=lambda kv: key(kv[0])))
 
 
 def wgmma_ptxas() -> str:
@@ -543,7 +547,7 @@ def check_kernels(torch, flush):
     records["proxy_score"] = dict(
         source="src/repro_torch/csrc/proxy_score.cu",
         replaces="src/repro/kernels/proxy_score.py:101", max_abs_err=err,
-        ms=both_flushes("slice shape kernel", lambda: ps.proxy_score(
+        ms=printed_ms("slice shape kernel", lambda: ps.proxy_score(
             x, w, pc), torch, flush),
         plain_ms=median_ms(lambda: ps.proxy_score_plain(x, w, pc), torch,
                            flush),
@@ -589,7 +593,7 @@ def check_kernels(torch, flush):
     records["gather_norm"] = dict(
         source="src/repro_torch/csrc/gather_norm.cu",
         replaces="src/repro/kernels/proxy_score.py:308", max_abs_err=err,
-        ms=both_flushes("k=128 kernel", lambda: ps.gather_norm(
+        ms=printed_ms("k=128 kernel", lambda: ps.gather_norm(
             h, idx, wn, 1e-6), torch, flush),
         plain_ms=median_ms(lambda: ps.gather_norm_plain(h, idx, wn, 1e-6),
                            torch, flush),
@@ -632,7 +636,8 @@ def check_kernels(torch, flush):
           f"{sdpa512:.4f} ms, bound {b512:.4f} ms")
     del mask512
     # hd=128 bf16 runs the main path's wgmma body; hd=64 and 120 the same
-    # body at other widths; int8 (and every f32 case) the FMA tiles.
+    # body at other widths; int8 K/V under bf16 q the int8 wgmma body
+    # (check_int8_attention); every f32 case the FMA tiles.
     edge = [
         dict(name="hd128 GQA ragged N window soft_cap kv_len", b=2, kq=50,
              n=300, h=8, kvh=2, hd=128, window=32, soft_cap=30.0,
@@ -691,6 +696,8 @@ def check_kernels(torch, flush):
     print(f"  kq=128: kernel {records['sparse_attention']['ms']:.4f} ms, "
           f"SDPA {records['sparse_attention']['library_ms']:.4f} ms")
     print(f"  ptxas -v: {attention_ptxas()}")
+    records.update(check_int8_attention(torch, flush, gen, randn, randint,
+                                        assert_close))
 
     # -- scatter_update_multi -----------------------------------------------
     # a copy: results must be bit-identical.
@@ -740,7 +747,7 @@ def check_kernels(torch, flush):
     records["scatter_update_multi"] = dict(
         source="src/repro_torch/csrc/scatter_update.cu",
         replaces="src/repro/kernels/scatter_update.py:114", max_abs_err=err,
-        ms=both_flushes("k=128 K+V kernel", lambda: sc.scatter_update_multi(
+        ms=printed_ms("k=128 K+V kernel", lambda: sc.scatter_update_multi(
             k_bufs, idx, rows), torch, flush),
         plain_ms=median_ms(lambda: sc.scatter_update_multi_plain(
             k_bufs, idx, rows), torch, flush),
@@ -763,6 +770,153 @@ def check_kernels(torch, flush):
               f"{rec['bound'][0]:.4f} ms ({rec['bound'][1]})")
     _lib.reset_launch_counts()
     return records
+
+
+# DeepSeek-67B's decode (B=4, prompt 256 + gen 256; 64 q heads on 8 kv
+# heads of 128, int8 cache with f16 scales) and InternVL2-76B's canvas
+# (1024 patches + prompt 256 + gen 256, the same heads)
+INT8_ATTN = dict(B=4, N=512, H=64, KVH=8, hd=128, vlm_n=1536)
+# the int8 K/V body's record reads its launches from phase 13's run of
+INT8_CONFIG = "deepseek-67b"
+
+
+def check_int8_attention(torch, flush, gen, randn, randint, assert_close):
+    """Phase 3's int8 K/V attention under bf16 q (the int8 caches' path:
+    ``attention_i8_wgmma``, counted as ``sparse_attention_int8``) against
+    the plain version at 2^-7 of the largest output, with f16 scales as
+    the cache holds them: head_dim 128 at GQA groups 6, 8 and 16, a window
+    with a ragged kv_len and a 0 row, soft_cap, kq = 1 and a ragged kq,
+    head_dim 64 and 120 (8-byte copies, padded to 128), the banded grid
+    (bit for bit the dense grid, whose band covers the window).  Timed at
+    DeepSeek-67B's shape (kq = 128 and kq = N = 512) and InternVL2-76B's
+    N = 1536 (kq = 128), beside the bf16 body on bf16 K/V of the same
+    shape, the f32-q FMA body on the same int8 K/V (the body bf16 q ran
+    before; it agrees with plain within 1e-5) and the plain version.
+    Bound: int8 K/V, f16 scales, bf16 q and out and q_pos once each, and
+    4 * B * kq * N * H * hd operations at the bf16 peak.  Returns the
+    ``sparse_attention_int8`` record (DeepSeek-67B, kq = 128)."""
+    from repro_torch.kernels import _lib
+    from repro_torch.kernels import sparse_attention as sa
+
+    dev = gen.device
+    bf16, f32, f16 = torch.bfloat16, torch.float32, torch.float16
+    tol = dict(atol=0, rtol=2 ** -7)
+
+    def cache(b, n, kvh, hd):
+        k, v = (randint(-127, 128, b, n, kvh, hd).to(torch.int8)
+                for _ in range(2))
+        ks, vs = ((torch.rand((b, n, kvh), generator=gen, device=dev)
+                   * 0.02).to(f16) for _ in range(2))
+        return k, v, ks, vs
+
+    def positions(b, n, kq):
+        if kq == n:
+            return torch.arange(n, device=dev, dtype=torch.int32)[None] \
+                .expand(b, n).contiguous()
+        return torch.stack([torch.sort(torch.randperm(
+            n, generator=gen, device=dev)[:kq]).values for _ in range(b)]
+            ).to(torch.int32)
+
+    def launched(fn):
+        before = _lib.launch_counts()
+        out = fn()
+        after = _lib.launch_counts()
+        assert after["sparse_attention_int8"] == \
+            before["sparse_attention_int8"] + 1, "the int8 body did not run"
+        assert all(after[k] == before[k] for k in ("sparse_attention",
+                                                   "sparse_attention_banded"))
+        return out
+
+    print("sparse_attention, int8 K/V under bf16 q (attention_i8_wgmma)")
+    edges = (
+        ("hd128 G=6 window, ragged kv_len with a 0 row", 3, 300, 50, 12, 2,
+         128, dict(window=32, kv_len=[300, 170, 0])),
+        ("hd128 G=8 soft_cap", 2, 300, 37, 16, 2, 128,
+         dict(soft_cap=30.0)),
+        ("hd128 G=16 kq=1", 2, 300, 1, 16, 1, 128, {}),
+        ("hd128 G=16 ragged kq=77 window soft_cap kv_len", 2, 513, 77, 16, 1,
+         128, dict(window=64, soft_cap=20.0, kv_len=[513, 260])),
+        ("hd64 G=2 window kv_len", 2, 200, 70, 4, 2, 64,
+         dict(window=40, kv_len=[131, 200])),
+        ("hd120 (padded to 128) 32 on 8 window kv_len", 2, 300, 40, 32, 8,
+         120, dict(window=32, kv_len=[300, 170])),
+    )
+    for name, b, n, kq, h, kvh, hd, kw in edges:
+        k, v, ks, vs = cache(b, n, kvh, hd)
+        q, qp = randn(b, kq, h, hd), randint(0, n, b, kq)
+        dead = [i for i, n_i in enumerate(kw.get("kv_len", ())) if n_i == 0]
+        if "kv_len" in kw:
+            kw = dict(kw, kv_len=torch.tensor(kw["kv_len"], dtype=torch.int32,
+                                              device=dev))
+        got = launched(lambda: sa.sparse_attention(
+            q, k, v, qp, k_scale=ks, v_scale=vs, **kw))
+        assert_close(name, got, sa.sparse_attention_plain(
+            q, k, v, qp, k_scale=ks, v_scale=vs, **kw), **tol)
+        assert not got[dead].any(), "a kv_len 0 row must output 0"
+    # the banded grid, hd 128, G = 8: the last q block's 188 queries x 8
+    # heads end in a partial tile
+    b, n, kq = 2, 4100, 700
+    k, v, ks, vs = cache(b, n, 2, 128)
+    q = randn(b, kq, 16, 128)
+    pos = torch.cat([torch.sort(randint(0, 1500, b, 512)).values,
+                     torch.sort(randint(2000, 3000, b, kq - 512)).values],
+                    dim=1)
+    kw = dict(k_scale=ks, v_scale=vs, window=64, soft_cap=30.0,
+              kv_len=torch.tensor([n, 2600], dtype=torch.int32, device=dev))
+    got = launched(lambda: sa.sparse_attention(q, k, v, pos, banded=True,
+                                               q_span=1500, **kw))
+    assert_close(f"banded grid kq={kq} N={n} hd128 G=8", got,
+                 sa.sparse_attention_plain(
+                     q, k, v, pos, band=sa.band_for(pos, n, 64, 1500), **kw),
+                 **tol)
+    assert torch.equal(got, sa.sparse_attention(q, k, v, pos, **kw)), \
+        "int8 banded grid differs from the dense grid"
+    print("  banded grid: bit for bit equal to the dense grid")
+    del k, v, q, got
+
+    B, H, KVH, hd = (INT8_ATTN[x] for x in ("B", "H", "KVH", "hd"))
+    record = None
+    for label, n, kq in (("DeepSeek-67B kq=128", INT8_ATTN["N"], 128),
+                         ("DeepSeek-67B kq=N=512", INT8_ATTN["N"],
+                          INT8_ATTN["N"]),
+                         ("InternVL2-76B N=1536 kq=128", INT8_ATTN["vlm_n"],
+                          128)):
+        k, v, ks, vs = cache(B, n, KVH, hd)
+        q, pos = randn(B, kq, H, hd), positions(B, n, kq)
+        kw = dict(k_scale=ks, v_scale=vs)
+        err = assert_close(label, launched(lambda: sa.sparse_attention(
+            q, k, v, pos, **kw)), sa.sparse_attention_plain(q, k, v, pos,
+                                                             **kw), **tol)
+        qf = q.float()
+        assert_close(f"{label}, f32-q FMA body", sa.sparse_attention(
+            qf, k, v, pos, **kw), sa.sparse_attention_plain(qf, k, v, pos,
+                                                            **kw), 1e-5, 0)
+        kb = (k.float() * ks.float()[..., None]).to(bf16)
+        vb = (v.float() * vs.float()[..., None]).to(bf16)
+        ms = median_ms(lambda: sa.sparse_attention(q, k, v, pos, **kw),
+                       torch, flush)
+        bf16_ms = median_ms(lambda: sa.sparse_attention(q, kb, vb, pos),
+                            torch, flush)
+        fma_ms = median_ms(lambda: sa.sparse_attention(qf, k, v, pos, **kw),
+                           torch, flush, runs=10, warmup=1)
+        plain_ms = median_ms(lambda: sa.sparse_attention_plain(
+            q, k, v, pos, **kw), torch, flush, runs=10, warmup=1)
+        bnd = bound(2 * B * n * KVH * hd + 2 * 2 * B * n * KVH
+                    + 2 * 2 * B * kq * H * hd + 4 * B * kq,
+                    4 * B * kq * n * H * hd)
+        print(f"  {label}: int8 body {ms:.4f} ms, bf16 body on bf16 K/V "
+              f"{bf16_ms:.4f} ms ({ms / bf16_ms:.2f}x), f32-q FMA body "
+              f"{fma_ms:.4f} ms ({fma_ms / ms:.1f}x the int8 body), plain "
+              f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}; "
+              f"{bnd[0] / ms:.1%} of it)")
+        if record is None:
+            record = dict(
+                source="src/repro_torch/csrc/sparse_attention.cu",
+                replaces="src/repro/kernels/sparse_attention.py:219",
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound=bnd)
+        del k, v, kb, vb, q, qf
+    return {"sparse_attention_int8": record}
 
 
 NAN_ROW = 1               # phase 3's NaN rows: the batch row whose cache
@@ -920,7 +1074,7 @@ def check_row_movers(torch, flush):
 
     one = torch.zeros(1, device=dev)
     print("timing floor")
-    both_flushes("a one-element add_", lambda: one.add_(1), torch, flush)
+    printed_ms("a one-element add_", lambda: one.add_(1), torch, flush)
     print("scatter_update_multi at every commit shape (kernel / plain / "
           "index_copy_ per buffer / bound)")
     S, Hy = SLICE, HYBRID
@@ -1221,7 +1375,7 @@ def check_paged_kernels(torch, flush, gen, randn, randint, assert_close):
     records["scatter_rows_paged"] = dict(
         source="src/repro_torch/csrc/paged.cu",
         replaces="src/repro/kernels/scatter_update.py:296", max_abs_err=0.0,
-        ms=both_flushes("k=128 kernel", lambda: sc.scatter_rows_paged(
+        ms=printed_ms("k=128 kernel", lambda: sc.scatter_rows_paged(
             work[lay], pt, idx, rows), torch, flush),
         plain_ms=median_ms(lambda: sc.scatter_rows_paged_plain(
             work[lay], pt, idx, rows), torch, flush),
@@ -1349,9 +1503,8 @@ def check_drift_kernels(torch, flush, gen, randn, assert_close):
     r_inc = SLICE["r"]
     x_inc = randn(B, N, r_inc, dtype=f32)
     pc_inc = randn(B, N, r_inc)
-    inc_ms = both_flushes("f32/bf16 r=128 (incremental width) kernel",
-                          lambda: ps.cosine_drift(x_inc, pc_inc), torch,
-                          flush)
+    inc_ms = printed_ms("f32/bf16 r=128 (incremental width) kernel",
+                        lambda: ps.cosine_drift(x_inc, pc_inc), torch, flush)
     inc_bound = bound(4 * B * N * r_inc + 2 * B * N * r_inc + 4 * B * N,
                       6 * B * N * r_inc, F32_FLOPS)
     print(f"  f32/bf16 r=128: kernel {inc_ms:.4f} ms, bound "
@@ -1359,7 +1512,7 @@ def check_drift_kernels(torch, flush, gen, randn, assert_close):
     records["cosine_drift"] = dict(
         source="src/repro_torch/csrc/proxy_score.cu",
         replaces="src/repro/kernels/proxy_score.py:138", max_abs_err=err,
-        ms=both_flushes("bf16/bf16 r=4096 kernel", lambda: ps.cosine_drift(
+        ms=printed_ms("bf16/bf16 r=4096 kernel", lambda: ps.cosine_drift(
             x, pc), torch, flush),
         plain_ms=median_ms(lambda: ps.cosine_drift_plain(x, pc), torch,
                            flush),
@@ -1372,7 +1525,7 @@ def check_drift_kernels(torch, flush, gen, randn, assert_close):
     arena = randn(P, page, d)
     arena[0] = 0
     arena_inc = randn(P, page, r_inc)
-    inc_ms = both_flushes(
+    inc_ms = printed_ms(
         "f32/bf16 r=128 kernel", lambda: ps.cosine_drift_paged(
             x_inc, arena_inc, pt), torch, flush)
     print(f"  f32/bf16 r=128: kernel {inc_ms:.4f} ms, bound "
@@ -1380,7 +1533,7 @@ def check_drift_kernels(torch, flush, gen, randn, assert_close):
     records["cosine_drift_paged"] = dict(
         source="src/repro_torch/csrc/proxy_score.cu",
         replaces="src/repro/kernels/proxy_score.py:254", max_abs_err=err_paged,
-        ms=both_flushes("bf16 r=4096 kernel", lambda: ps.cosine_drift_paged(
+        ms=printed_ms("bf16 r=4096 kernel", lambda: ps.cosine_drift_paged(
             x, arena, pt), torch, flush),
         plain_ms=median_ms(lambda: ps.cosine_drift_paged_plain(
             x, arena, pt), torch, flush),
@@ -2162,7 +2315,8 @@ KERNEL_GROUPS = (("gather_pages + scatter_pages", ("page_copy_kernel",)),
                  ("proxy_score", ("proxy_wgmma", "proxy_score_f32")),
                  ("gather_norm", ("gather_norm",)),
                  ("sparse_attention (dense + banded)",
-                  ("attention_bf16_wgmma", "attention_kernel")),
+                  ("attention_bf16_wgmma", "attention_i8_wgmma",
+                   "attention_kernel")),
                  ("rglru_scan", ("rglru_lookback",)),
                  ("ssd_chunk_scan", ("ssd_chunk_",)),
                  ("scatter_update_multi", ("scatter_kernel",)),
@@ -3429,6 +3583,13 @@ DENSE_KERNELS = ("proxy_score", "gather_norm", "sparse_attention",
                  "scatter_update_multi")
 
 
+def attention_key(cfg) -> str:
+    """The launch count a bf16 decode step's attention adds to: the int8
+    body's where the cache is int8."""
+    return ("sparse_attention_int8" if cfg.cache_dtype == "int8"
+            else "sparse_attention")
+
+
 def _dense_setup(torch, name: str, dtype: str):
     """A 2-layer, full-width copy of a dense config (Gemma2: one local and
     one global layer), its proxies and a prompt: B=2 of 8192 - 16 rows for
@@ -3564,8 +3725,14 @@ def dense_main_path(torch, name: str, layers: int, b: int, p_len: int):
         assert launches[kname] > 0, f"{name}: kernel {kname} never launched"
     per_step = {k: (launches[k] - at_prefill[k]) / steps
                 for k in launches if launches[k]}
+    # prefill attends over its fresh bf16 K/V; a step over the cache,
+    # through the int8 body where the cache is int8
+    step_key = attention_key(cfg)
     assert at_prefill["sparse_attention"] == layers, at_prefill
-    assert per_step["sparse_attention"] == layers, per_step
+    assert per_step[step_key] == layers, per_step
+    assert sum(per_step.get(k, 0) for k in ("sparse_attention",
+                                             "sparse_attention_int8")) \
+        == layers, per_step
     assert launches["sparse_attention_banded"] == 0, "a banded grid ran"
     committed = int((sess.state.tokens[:, p_len:] != cfg.mask_id).sum())
     spa_ms = t_run / steps * 1e3
@@ -3575,7 +3742,7 @@ def dense_main_path(torch, name: str, layers: int, b: int, p_len: int):
     print(f"    launches at prefill: "
           f"{ {k: at_prefill[k] for k in at_prefill if at_prefill[k]} }; per "
           f"step: {per_step}; attention: the dense grid, {layers} calls at "
-          f"prefill and a step, no banded call")
+          f"prefill and a step ({step_key}), no banded call")
     if windowed:
         with WindowProbe() as probe:
             sess.step()
@@ -3611,16 +3778,21 @@ def dense_main_path(torch, name: str, layers: int, b: int, p_len: int):
     return launches
 
 
-def dense_configs(torch):
+def dense_configs(torch) -> dict:
     """Phase 13: for each dense config its 2-layer parity, then its main
-    path; the weights are freed between configs."""
+    path; the weights are freed between configs.  Returns the launches of
+    ``INT8_CONFIG``'s main path (the int8 K/V attention's record)."""
+    int8_launches = {}
     for name, layers, b, p_len in DENSE:
         t0 = time.perf_counter()
         print(f"  {name}: 2-layer full-width parity (CudaBackend vs "
               "TorchBackend)")
         dense_parity(torch, name)
-        dense_main_path(torch, name, layers, b, p_len)
+        launches = dense_main_path(torch, name, layers, b, p_len)
+        if name == INT8_CONFIG:
+            int8_launches = launches
         print(f"    {name}: {time.perf_counter() - t0:.1f} s")
+    return int8_launches
 
 
 # ---------------------------------------------------------------------------
@@ -5467,7 +5639,8 @@ MOE_RANGES = {"_dispatch": "routing / gather / combine",
 SPA_KERNEL_KEYS = ("proxy_wgmma", "proxy_score_f32", "PagedRows",
                    "cosine_drift_kernel", "gather_norm", "scatter_kernel",
                    "page_copy_kernel", "rows_paged_kernel")
-ATTENTION_KEYS = ("attention_bf16_wgmma", "attention_kernel")
+ATTENTION_KEYS = ("attention_bf16_wgmma", "attention_i8_wgmma",
+                  "attention_kernel")
 
 
 class MoeRanges:
@@ -5630,10 +5803,10 @@ def spa_then_nocache(torch, label, cfg, params, strat, proxies, prompt,
         for kname in DENSE_KERNELS:
             assert launches[kname] > 0, \
                 f"{label}: kernel {kname} never launched"
-        per_step = (launches["sparse_attention"]
-                    - at_prefill["sparse_attention"]) / steps
+        key = attention_key(cfg)
+        per_step = (launches[key] - at_prefill[key]) / steps
         assert at_prefill["sparse_attention"] == layers, at_prefill
-        assert per_step == layers, per_step
+        assert per_step == layers, (key, per_step)
     kind = cfg.layer_pattern[0]
     if cfg.cache_dtype == "int8":
         assert sess.state.cache[kind]["k"].dtype == torch.int8
@@ -5747,7 +5920,7 @@ def moe_serving(torch, cfg, params, strat, proxies, *, device=None):
     assert by_uid[3] == by_uid[0], "18(b): the repeat decoded other tokens"
     launches = _lib.launch_counts()
     if (device or "cuda") != "cpu":
-        for name in SERVING_KERNELS:
+        for name in SERVING_KERNELS + (attention_key(cfg),):
             assert launches[name] > 0, f"18(b): {name} never launched"
     print(f"  served 4 requests in {stats.steps} engine steps, "
           f"{wall / stats.steps * 1e3:.2f} ms an engine step (wall "
@@ -6343,12 +6516,13 @@ def main(argv=None) -> int:
         # one, or the whole model's storage stays on the card
         del cfg, params, strat, proxies, cut
         _free(torch)
+    int8_path = {}
     if 13 in phases:
         print(f"dense configs at full width (bf16, CudaBackend, each "
               f"config's spa, {DENSE_SPA_STEPS} SPA + {DENSE_NOCACHE_STEPS}"
               f" NoCache steps; {card})")
         with timed(13):
-            dense_configs(torch)
+            int8_path = dense_configs(torch)
     hybrid = mamba = {}
     if 8 in phases:
         print("hybrid decode parity (3-layer full-width RecurrentGemma, "
@@ -6420,6 +6594,7 @@ def main(argv=None) -> int:
     for name, rec in records.items():
         bound_ms, bound_by = rec.pop("bound")
         path = (launches if name in SESSION_KERNELS
+                else int8_path if name == "sparse_attention_int8"
                 else hybrid if name in HYBRID_ONLY_KERNELS
                 else mamba if name in MAMBA_KERNELS
                 else base if name in BASELINE_KERNELS

@@ -8,8 +8,9 @@
 
 namespace spa {
 
-// Element type codes passed from Python (kernels/_lib.py:dtype_code).
-enum DType : int { kF32 = 0, kBF16 = 1 };
+// Element type codes passed from Python (kernels/_lib.py:dtype_code; f16
+// only for the int8 cache's dequant scales).
+enum DType : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
 
 constexpr float kNegInf = -1e30f;  // the JAX kernels' NEG_INF
 

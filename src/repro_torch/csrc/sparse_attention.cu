@@ -8,18 +8,26 @@
 //   block) whose sequential kv axis carries (m, l, acc) in VMEM scratch, and
 //   its banded grid (_banded_kernel): JAX q block i (bq queries) visits kv
 //   blocks starts[i] .. starts[i] + n_band - 1 (of bk keys) only, keys
-//   outside that range dropped besides the masks.
+//   outside that range dropped besides the masks.  Both grids take int8 K/V
+//   with per-row scales ks / vs (_attn_step dequantizes k * ks, v * vs).
 // Semantics, term for term: s = (q . k) * scale, then soft_cap * tanh(s /
 //   soft_cap) when soft_cap > 0; masked keys (kv_pos >= N or >= kv_len[b], or
 //   |q_pos - kv_pos| > window when window > 0) score NEG_INF = -1e30 and get
 //   p = 0; alpha = 0 while the running max is <= NEG_INF / 2; rows with l == 0
 //   output 0; padded query rows sit at position 2^30.  GQA maps q head h to kv
-//   head h / (H / KVH); int8 K/V are dequantized with per-row f32 scales.
+//   head h / (H / KVH); int8 K/V are dequantized with per-row scales (f16, as
+//   the cache holds them, or f32).
 // Bound on the H100: bytes.  At B=4, N=512, 32 heads of 128, bf16, the K/V
 //   cache is 33.5 MB and kq=128 gathered queries need 4.3 GFLOP: about 10 us
 //   to read K/V once against about 4 us of tensor-core work.  Prefill
 //   (kq = N = 512) needs 17 GFLOP against 67 MB: 20 us of bytes, 17 us of
 //   operations.
+// Bound of the int8 K/V path: operations.  At DeepSeek-67B's decode (B=4,
+//   N=512, 64 q heads on 8 kv heads of 128, kq=128) 4 * B * kq * N * H * hd
+//   = 8.6 GFLOP is 8.7 us at the bf16 peak, against 21 MB (int8 K/V 4.2 MB,
+//   f16 scales 66 KB, bf16 q and out 16.8 MB), 6.3 us of bytes.  At
+//   InternVL2-76B's N=1536 (same heads, kq=128) 25.8 GFLOP, 26 us, against
+//   29 MB, 8.8 us.
 // Bound of the banded grid at RecurrentGemma-9B's decode (B=2, N=16384, 16
 //   query heads on one kv head of 256, window 2048, kq = 4096 stratified
 //   queries, n_band = 26 blocks of 512): operations.  K/V are 33.5 MB, but
@@ -38,22 +46,37 @@
 //   of the block's queries (kv_range).  A skipped tile is fully masked, and
 //   a fully masked tile leaves (m, l, acc) as they were, so the skip
 //   changes no bit and, where the band covers the window, banded equals
-//   dense bit for bit.  Two variants:
-//   - bf16 K/V (the main path), head_dim any multiple of 8 up to 256,
-//     padded with zero columns to 32, 64, 80, 128 or 256: rows are (query,
-//     head) pairs of one kv head, so a K/V tile staged once serves the whole
-//     GQA group; TMA streams K/V into a 4-stage ring for two consumer
-//     warpgroups of 64 rows, which run S = Q K^T and O += P V by wgmma and
-//     keep S, P, the softmax state and O in registers (namespace wg below).
-//     P enters P V as a bf16 hi/lo pair (two products), so it keeps f32
-//     accuracy to 2^-17, as in the f32 reference.
-//   - f32 K/V, or int8 K/V with dequant scales (q in f32 or bf16), head_dim
-//     up to 256: 16 queries per block, 32-key tiles dequantized to f32 in
-//     shared memory, exact f32 FMAs on the CUDA cores (not redesigned).
-//   bf16 K/V with scales, of a head_dim that is no multiple of 8, or not
-//   16-byte aligned are refused (cudaErrorInvalidValue), never run on a
-//   slower path.
+//   dense bit for bit.  Three bodies, chosen by dtype:
+//   - bf16 q with bf16 K/V (the main path), head_dim any multiple of 8 up
+//     to 256, padded with zero columns to 32, 64, 80, 128 or 256: rows are
+//     (query, head) pairs of one kv head, so a K/V tile staged once serves
+//     the whole GQA group; TMA streams K/V into a 4-stage ring for two
+//     consumer warpgroups of 64 rows, which run S = Q K^T and O += P V by
+//     wgmma and keep S, P, the softmax state and O in registers (namespace
+//     wg below).  P enters P V as a bf16 hi/lo pair (two products), so it
+//     keeps f32 accuracy to 2^-17, as in the f32 reference.
+//   - bf16 q with int8 K/V and scales (the int8 caches of DeepSeek-67B,
+//     InternVL2-76B, Mixtral-8x22B and Qwen3-MoE): the same consumers on
+//     the same ring.  The producer warpgroup streams the int8 tiles by
+//     cp.async into a staging ring (half the bf16 bytes; TMA's 16-byte
+//     strides do not fit every head_dim), converts them exactly to bf16
+//     (|code| <= 128) into the swizzled stage, and stores the tile's
+//     scales beside it.  The consumers apply ks[j] * scale to column j of
+//     the f32 S accumulator, and fold vs[j] into P (P'[:, j] = p[:, j] *
+//     vs[j], in f32) before the hi/lo split, so O += P' V_int8 keeps P's
+//     accuracy; l sums the unscaled p.  A NaN scale poisons what it
+//     poisons in the plain version: ks[j] the column's scores, vs[j] P'
+//     (0 * NaN where the key is masked, as p * (v * vs) there).
+//   - f32 q, with f32 K/V or int8 K/V and scales, head_dim up to 256 (the
+//     f32 models, which reach the card only in the CPU-parity phases): 16
+//     queries per block, 32-key tiles dequantized to f32 in shared memory,
+//     exact f32 FMAs on the CUDA cores.  Never redesigned: its users are
+//     parity checks, whose arithmetic it keeps.
+//   bf16 q with bf16 K/V and scales, of a head_dim that is no multiple of
+//   8, or with q, k or v not 16-byte aligned are refused
+//   (cudaErrorInvalidValue), never run on a slower body.
 #include <cuda.h>
+#include <cuda_fp16.h>
 
 #include <climits>
 
@@ -96,11 +119,18 @@ __device__ __forceinline__ float load_kv(const void* p, size_t i) {
   return spa::to_f32(static_cast<const T*>(p)[i]);
 }
 
+// Element i of a dequant scale array, f16 (f16 true) or f32.
+__device__ __forceinline__ float load_scale(const void* p, size_t i,
+                                            bool f16) {
+  return f16 ? __half2float(static_cast<const __half*>(p)[i])
+             : static_cast<const float*>(p)[i];
+}
+
 template <typename T, typename KV>
 __global__ void __launch_bounds__(kThreads) attention_kernel(
     const T* __restrict__ q, const void* __restrict__ k,
     const void* __restrict__ v, const int* __restrict__ qpos,
-    const float* __restrict__ ks, const float* __restrict__ vs,
+    const void* __restrict__ ks, const void* __restrict__ vs, bool ks_f16,
     const int* __restrict__ kvlen, T* __restrict__ out, int kq, int H, int N,
     int KVH, int hd, int window, float scale, float soft_cap,
     const int* __restrict__ starts, int n_band, int bq, int bk) {
@@ -150,8 +180,8 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(
         kf = load_kv<KV>(k, row * hd + c);
         vf = load_kv<KV>(v, row * hd + c);
         if (ks) {
-          kf *= ks[row];
-          vf *= vs[row];
+          kf *= load_scale(ks, row, ks_f16);
+          vf *= load_scale(vs, row, ks_f16);
         }
       }
       kt[j * (hd + 1) + c] = kf;
@@ -209,37 +239,51 @@ __global__ void __launch_bounds__(kThreads) attention_kernel(
   }
 }
 
-// ---- bf16 K/V: warp-specialised wgmma + TMA body ---------------------------
+// ---- bf16 q: warp-specialised wgmma body (bf16 or int8 K/V) ----------------
 // A CTA owns kRows = 128 rows, each a (query, head) pair of one kv head and
 // one batch row: row r of a q block is query r / G, head kvh * G + r % G
 // (G = H / KVH), so one staged K/V tile serves every head of the GQA group.
 // The rows of a CTA lie inside one JAX q block (the dense grid is one block
 // of kq queries), so on the banded grid they share starts[i].
 // Warps 0-7 are two consumer warpgroups of 64 rows; warps 8-11 are the
-// producer warpgroup, whose first lane streams K/V tiles of kBN keys by TMA
-// (a 4D tensor map over [B, N, KVH, hd], so keys past N and columns past hd
-// arrive as zeros) into a ring of kStages stages guarded by full/empty
-// mbarriers.  setmaxnreg moves registers from the producer (24) to the
-// consumers (240).  The consumers copy Q once into shared memory by 16-byte
-// cp.async; the producer starts once those copies are issued, so Q is not
-// queued behind the K/V stream.  Shared tiles are rows of 64 bf16 columns
-// (128 bytes) in the 128-byte swizzle, head_dim cut into such chunks;
-// chunks past ceil(hd / 64) are zeroed once and never copied into, so
+// producer warpgroup, which fills a ring of kStages stages of K/V tiles of
+// kBN keys, guarded by full/empty mbarriers.  bf16 K/V: its first lane
+// streams the tiles by TMA (a 4D tensor map over [B, N, KVH, hd], so keys
+// past N and columns past hd arrive as zeros).  int8 K/V: its 128 threads
+// copy the int8 tiles by cp.async into a staging ring of kRaw tiles (keys
+// at or past min(N, kv_len) and columns past hd zero-filled), two tiles
+// ahead, convert each to bf16 into its stage (byte permutes and an f32
+// subtract, i8x4_bf16: I2F and F2F share the conversion unit with the
+// consumers' ex2 and P rounding; with them the body took 1.63x the bf16
+// body's time at DeepSeek's shape on an H100, with byte permutes 1.42x),
+// store the tile's ks and vs (as f32) beside it, and arrive on the
+// stage's full barrier, 128 arrivals.
+// setmaxnreg moves registers from the producer (24; 40 for the int8
+// converter) to the consumers (240; 232).  The consumers copy Q once into
+// shared memory by 16-byte cp.async; the producer starts once those copies
+// are issued, so Q is not queued behind the K/V stream.  Shared tiles are
+// rows of 64 bf16 columns (128 bytes) in the 128-byte swizzle, head_dim cut
+// into such chunks; chunks past ceil(hd / 64) are zeroed once and never
+// copied into (bf16; the int8 converter writes every column up to HDP), so
 // head_dim is padded with zero columns up to the instantiated width HDP.
 // A consumer warpgroup issues, as one wgmma group, P V of the previous tile
 // and S = Q K^T of this one (S with both operands in shared memory; P V with
 // P in registers as the A fragment and V read transposed), then runs the
-// scale, soft cap, masks and online softmax on the S accumulator fragment
-// (a row lives on the four threads of a quad: max and sum are two
-// shuffles), splits P into P_hi = bf16(P) and P_lo = bf16(P - P_hi) and
-// rescales O, all in registers.  V is bf16, so both products are exact and
-// P keeps f32 accuracy to 2^-17.  The two warpgroups take turns to issue
-// (named barriers), so one's softmax overlaps the other's products.
-// Registers at HDP = 256: O is 128 f32 a thread, S 16 and P 16 (32-key
-// tiles), no spill at 240.
+// scale (with int8 K/V: ks[j] * scale on column j), soft cap, masks and
+// online softmax on the S accumulator fragment (a row lives on the four
+// threads of a quad: max and sum are two shuffles), scales P by vs (int8
+// K/V), splits P into P_hi = bf16(P) and P_lo = bf16(P - P_hi) and rescales
+// O, all in registers.  V is bf16 (or an int8 code), so both products are
+// exact and P keeps f32 accuracy to 2^-17.  The two warpgroups take turns
+// to issue (named barriers), so one's softmax overlaps the other's
+// products.  Registers at HDP = 256: O is 128 f32 a thread, S 16 and P 16
+// (32-key tiles), no spill at 240.
 // Bound: the LLaDA decode grid is 128 CTAs of 8 tiles, latency- and
 // HBM-bound; head_dim 256 is tensor-core-bound (S, P_hi V and P_lo V:
-// 1.5x the function's operations, plus the softmax between them).
+// 1.5x the function's operations, plus the softmax between them).  With
+// int8 K/V the tiles a CTA reads are half the bytes, and each tile is
+// converted once per CTA: G / 128 of a (query, head) row's share, so
+// kq * G / 128 times per kv head over the grid.
 namespace wg {
 
 constexpr int kConsumerWGs = 2;
@@ -247,32 +291,82 @@ constexpr int kRows = 64 * kConsumerWGs;           // rows per CTA
 constexpr int kThreads = 128 * (kConsumerWGs + 1);  // + a producer group
 constexpr int kStages = 4;
 
-template <int HDP>
+template <int HDP, bool kI8>
 struct Cfg {
   static constexpr int kBN = HDP == 256 ? 32 : 64;  // keys per tile
   static constexpr int kNch = (HDP + 63) / 64;      // 64-column chunks
   static constexpr int kQBytes = kNch * kRows * 128;
   static constexpr int kKvBytes = kNch * kBN * 128;  // one K or V tile
   static constexpr int kStageBytes = 2 * kKvBytes;
-  static constexpr int kBarOff = kQBytes + kStages * kStageBytes;
+  // int8 K/V: a staging ring of kRaw int8 K+V tiles (rows of HDP bytes;
+  // two at HDP = 256, where Q is 64 KB) and each stage's scales, [K: kBN |
+  // V: kBN] f32
+  static constexpr int kRaw = HDP == 256 ? 2 : 3;
+  static constexpr int kRawOff = kQBytes + kStages * kStageBytes;
+  static constexpr int kRawBytes = kI8 ? kRaw * 2 * kBN * HDP : 0;
+  static constexpr int kSclOff = kRawOff + kRawBytes;
+  static constexpr int kSclBytes = kI8 ? kStages * 2 * kBN * 4 : 0;
+  static constexpr int kBarOff = kSclOff + kSclBytes;
   // + full/empty barriers, the rows' position range, 1024-byte alignment
   static constexpr int kSmem = kBarOff + 16 * kStages + 16 + 1024;
+  static_assert(kSmem <= 232448, "over the H100's shared memory a block");
   static constexpr int kFull = HDP / 64;  // n64 column blocks of O
   static constexpr int kTail = HDP % 64;  // 0, 16 or 32 more columns
 };
 
 using namespace hopper;  // csrc/hopper.cuh
 
-template <int HDP>
-__global__ void __launch_bounds__(kThreads, 1) attention_bf16_wgmma(
-    const __grid_constant__ CUtensorMap tm_k,
-    const __grid_constant__ CUtensorMap tm_v,
+// The int8 K/V operands: codes [B, N, KVH, hd] and scales [B, N, KVH].
+struct I8Args {
+  const int8_t* k;
+  const int8_t* v;
+  const void* ks;
+  const void* vs;
+  bool f16;  // scales in f16, else f32
+};
+
+// cp.async of 8 or 16 bytes to shared address dst; pred false zero-fills
+// the destination and reads nothing.
+__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
+                                          bool pred) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
+               "l"(src), "r"(pred ? 8 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool pred) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(pred ? 16 : 0)
+               : "memory");
+}
+
+// The four int8 codes of w as four bf16 (two bf16x2 words), exactly and
+// without the conversion unit: byte u = code + 128 is placed in the
+// mantissa of 2^23 (the f32 2^23 + u), 2^23 + 128 is subtracted (exact:
+// the code as an f32 with at most 8 significant bits), and the f32's upper
+// half is its bf16, since its lower 16 bits are zero.
+__device__ __forceinline__ uint2 i8x4_bf16(uint32_t w) {
+  const uint32_t u = w ^ 0x80808080u;
+  float f[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 + i)) -
+           8388736.f;
+  return make_uint2(
+      __byte_perm(__float_as_uint(f[0]), __float_as_uint(f[1]), 0x7632),
+      __byte_perm(__float_as_uint(f[2]), __float_as_uint(f[3]), 0x7632));
+}
+
+template <int HDP, bool kI8>
+__device__ __forceinline__ void attention_body(
+    const CUtensorMap* tm_k, const CUtensorMap* tm_v, I8Args i8,
     const __nv_bfloat16* __restrict__ q, const int* __restrict__ qpos,
     const int* __restrict__ kvlen, __nv_bfloat16* __restrict__ out, int kq,
     int H, int N, int KVH, int hd, int window, float scale, float soft_cap,
     const int* __restrict__ starts, int n_band, int bq, int bk,
     int tiles_per_qb) {
-  using C = Cfg<HDP>;
+  using C = Cfg<HDP, kI8>;
   constexpr int BN = C::kBN;
   constexpr int kConsumers = 128 * kConsumerWGs;
   extern __shared__ unsigned char wg_smem[];
@@ -282,6 +376,7 @@ __global__ void __launch_bounds__(kThreads, 1) attention_bf16_wgmma(
   const uint32_t s_q = base;
   const uint32_t s_kv = base + C::kQBytes;  // stage s: K, then V
   const uint32_t s_bar = base + C::kBarOff;  // full[s], then empty[s]
+  float* scl = reinterpret_cast<float*>(sm + C::kSclOff);  // int8 K/V
   int* rng = reinterpret_cast<int*>(sm + C::kBarOff + 16 * kStages);
 
   const int G = H / KVH;
@@ -292,11 +387,12 @@ __global__ void __launch_bounds__(kThreads, 1) attention_bf16_wgmma(
   if (row0 >= row_end) return;  // a spare tile of a short last q block
   const int tid = threadIdx.x;
   const int kv_limit = kvlen ? kvlen[b] : N;
+  const int kv_cut = min(N, kv_limit);
   const int nch_load = (hd + 63) / 64;  // chunks the copies fill
 
   if (tid == 0) {
     for (int s = 0; s < kStages; ++s) {
-      mbar_init(s_bar + 8 * s, 1);
+      mbar_init(s_bar + 8 * s, kI8 ? 128 : 1);
       mbar_init(s_bar + 8 * (kStages + s), kConsumers);
     }
     rng[0] = INT_MAX;
@@ -317,11 +413,96 @@ __global__ void __launch_bounds__(kThreads, 1) attention_bf16_wgmma(
   const int warp = tid / 32;
 
   if (warp >= 4 * kConsumerWGs) {
-    // ---- producer warpgroup: one lane keeps the ring full ----
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    // ---- producer warpgroup: keeps the ring full ----
+    if constexpr (kI8) {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    } else {
+      asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    }
     // K/V requests queue behind the consumers' Q loads
     asm volatile("bar.sync 4, %0;\n" ::"n"(kThreads) : "memory");
-    if (tid == kConsumers) {
+    if constexpr (kI8) {
+      const int pt = tid - kConsumers;  // 0 .. 127
+      // 16-byte copies where every key row starts 16-byte aligned
+      const bool wide = hd % 16 == 0;
+      const int ub = wide ? 16 : 8, upr = HDP / ub;  // units a staged row
+      const size_t head0 = ((size_t)b * N * KVH + kvh) * hd;
+      const size_t key_stride = (size_t)KVH * hd;
+      // the int8 K+V of tile i into staging slot i % kRaw; one commit
+      // group a call (empty past the last tile)
+      auto stage_raw = [&](int i) {
+        if (i < n_tiles) {
+          const int kv0 = kv_lo + i * BN;
+          const uint32_t rk =
+              base + C::kRawOff + (i % C::kRaw) * 2 * BN * HDP;
+          for (int e = pt; e < BN * upr; e += 128) {
+            const int j = e / upr, col = (e % upr) * ub, p = kv0 + j;
+            const bool ok = p < kv_cut && col < hd;
+            const size_t off = ok ? head0 + (size_t)p * key_stride + col : 0;
+            const uint32_t dst = rk + j * HDP + col;
+            if (wide) {
+              cp_async16(dst, i8.k + off, ok);
+              cp_async16(dst + BN * HDP, i8.v + off, ok);
+            } else {
+              cp_async8(dst, i8.k + off, ok);
+              cp_async8(dst + BN * HDP, i8.v + off, ok);
+            }
+          }
+        }
+        spa::cp_async_commit();
+      };
+      // thread pt's scale of tile i: ks of key pt, or vs of key pt - BN;
+      // keys past N scale 0 (their codes are zero and their p is 0), keys
+      // past kv_len keep theirs (a NaN vs there poisons P', as in plain)
+      auto tile_scale = [&](int i) -> float {
+        const int j = pt % BN, p = kv_lo + i * BN + j;
+        if (i >= n_tiles || pt >= 2 * BN || p >= N) return 0.f;
+        return load_scale(pt < BN ? i8.ks : i8.vs,
+                          ((size_t)b * N + p) * KVH + kvh, i8.f16);
+      };
+      float scale_next = tile_scale(0);
+      for (int i = 0; i < C::kRaw - 1; ++i) stage_raw(i);
+      for (int i = 0; i < n_tiles; ++i) {
+        // tile i's copies landed, from every producer thread, and every
+        // thread is done with slot (i - 1) % kRaw: refill it
+        spa::cp_async_wait<C::kRaw - 2>();
+        asm volatile("bar.sync 5, 128;\n" ::: "memory");
+        stage_raw(i + C::kRaw - 1);
+        const float scale_i = scale_next;
+        scale_next = tile_scale(i + 1);
+        const int s = i % kStages;
+        if (i >= kStages)
+          mbar_wait(s_bar + 8 * (kStages + s), ((i / kStages) - 1) & 1);
+        const unsigned char* rk =
+            sm + C::kRawOff + (i % C::kRaw) * 2 * BN * HDP;
+        unsigned char* dk = sm + C::kQBytes + s * C::kStageBytes;
+        // 16 codes (16 bytes) -> two 16-byte units (u, u + 1) of the
+        // swizzled bf16 tile; every thread takes the same count
+        constexpr int kPairs = BN * (HDP / 16);  // of K, then of V
+        static_assert((2 * kPairs) % 128 == 0, "whole passes");
+#pragma unroll 2  // a full unroll spills at the producer's 40 registers
+        for (int it = 0; it < 2 * kPairs / 128; ++it) {
+          const int e = pt + 128 * it;
+          const int kv = e / kPairs, r = e % kPairs;
+          const int j = r / (HDP / 16), u = 2 * (r % (HDP / 16));
+          const uint4 w = *reinterpret_cast<const uint4*>(
+              rk + kv * BN * HDP + j * HDP + u * 8);
+          unsigned char* row = dk + kv * C::kKvBytes + (u / 8) * BN * 128 +
+                               j * 128;
+          const uint2 a = i8x4_bf16(w.x), b = i8x4_bf16(w.y);
+          const uint2 c = i8x4_bf16(w.z), d = i8x4_bf16(w.w);
+          *reinterpret_cast<uint4*>(row + (((u % 8) ^ (j & 7)) << 4)) =
+              make_uint4(a.x, a.y, b.x, b.y);
+          *reinterpret_cast<uint4*>(row + ((((u + 1) % 8) ^ (j & 7)) << 4)) =
+              make_uint4(c.x, c.y, d.x, d.y);
+        }
+        if (pt < 2 * BN) scl[s * 2 * BN + pt] = scale_i;
+        // the stage's (generic-proxy) writes -> visible to wgmma
+        fence_proxy_async();
+        mbar_arrive(s_bar + 8 * s);
+      }
+      spa::cp_async_wait<0>();
+    } else if (tid == kConsumers) {
       for (int i = 0; i < n_tiles; ++i) {
         const int s = i % kStages;
         if (i >= kStages)
@@ -331,23 +512,29 @@ __global__ void __launch_bounds__(kThreads, 1) attention_bf16_wgmma(
         const uint32_t k_s = s_kv + s * C::kStageBytes;
         const int kv0 = kv_lo + i * BN;
         for (int c = 0; c < nch_load; ++c) {
-          tma_load_4d(k_s + c * BN * 128, &tm_k, full, c * 64, kvh, kv0, b);
-          tma_load_4d(k_s + C::kKvBytes + c * BN * 128, &tm_v, full, c * 64,
+          tma_load_4d(k_s + c * BN * 128, tm_k, full, c * 64, kvh, kv0, b);
+          tma_load_4d(k_s + C::kKvBytes + c * BN * 128, tm_v, full, c * 64,
                       kvh, kv0, b);
         }
       }
     }
   } else {
     // ---- two consumer warpgroups of 64 rows ----
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
-    const uint4 zero = make_uint4(0, 0, 0, 0);
+    if constexpr (kI8) {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    } else {
+      asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    }
     // zero the chunks no copy fills (columns past ceil(hd / 64) * 64)
-    for (int e = tid; e < kStages * 2 * (C::kNch - nch_load) * BN * 8;
-         e += kConsumers) {
-      const int per = (C::kNch - nch_load) * BN * 8;
-      const int tile = e / per, rem = e % per;
-      *reinterpret_cast<uint4*>(sm + C::kQBytes + tile * C::kKvBytes +
-                                nch_load * BN * 128 + rem * 16) = zero;
+    if constexpr (!kI8) {
+      const uint4 zero = make_uint4(0, 0, 0, 0);
+      for (int e = tid; e < kStages * 2 * (C::kNch - nch_load) * BN * 8;
+           e += kConsumers) {
+        const int per = (C::kNch - nch_load) * BN * 8;
+        const int tile = e / per, rem = e % per;
+        *reinterpret_cast<uint4*>(sm + C::kQBytes + tile * C::kKvBytes +
+                                  nch_load * BN * 128 + rem * 16) = zero;
+      }
     }
     // Q -> shared memory in the swizzled layout by 16-byte cp.async, every
     // copy in flight at once: thread tid copies unit tid % 8 of rows tid / 8
@@ -391,7 +578,6 @@ __global__ void __launch_bounds__(kThreads, 1) attention_bf16_wgmma(
       rh[e] = kvh * G + grow % G;
       qp[e] = live[e] ? qpos[(size_t)b * kq + rq[e]] : (1 << 30);
     }
-    const int kv_cut = min(N, kv_limit);
     float m[2] = {spa::kNegInf, spa::kNegInf}, l[2] = {0.f, 0.f};
     float o[C::kFull > 0 ? C::kFull : 1][32];
     float o_tail[C::kTail > 0 ? C::kTail / 2 : 1];
@@ -418,9 +604,16 @@ __global__ void __launch_bounds__(kThreads, 1) attention_bf16_wgmma(
     // masked score becomes -inf, whose ex2 is exactly 0, and leaves the
     // row max as the NEG_INF sentinel would.  The code is straight-line
     // (the uniform soft-cap test sits outside the element loops); a warp
-    // whose rows all see every key of the tile skips the masks.
-    auto softmax = [&](int i, float (&alpha)[2]) {
+    // whose rows all see every key of the tile skips the masks.  int8 K/V:
+    // the tile's scales tsc ([ks: BN | vs: BN]) multiply S's columns
+    // before the scale and P's after the row sums.
+    auto softmax = [&](int i, const float* tsc, float (&alpha)[2]) {
       constexpr float kLog2e = 1.4426950408889634f;
+      if constexpr (kI8) {
+#pragma unroll
+        for (int idx = 0; idx < BN / 2; ++idx)
+          sc[idx] *= tsc[8 * (idx >> 2) + 2 * t + (idx & 1)];
+      }
       if (soft_cap > 0.f) {
 #pragma unroll
         for (int idx = 0; idx < BN / 2; ++idx)
@@ -475,6 +668,11 @@ __global__ void __launch_bounds__(kThreads, 1) attention_bf16_wgmma(
         rsum[e] += __shfl_xor_sync(0xffffffffu, rsum[e], 1);
         rsum[e] += __shfl_xor_sync(0xffffffffu, rsum[e], 2);
         l[e] = alpha[e] * l[e] + rsum[e];
+      }
+      if constexpr (kI8) {
+#pragma unroll
+        for (int idx = 0; idx < BN / 2; ++idx)
+          sc[idx] *= tsc[BN + 8 * (idx >> 2) + 2 * t + (idx & 1)];
       }
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk)
@@ -573,7 +771,7 @@ __global__ void __launch_bounds__(kThreads, 1) attention_bf16_wgmma(
         mbar_arrive(s_bar + 8 * (kStages + st_v));
       if (has_s) {
         float alpha[2];
-        softmax(ph, alpha);
+        softmax(ph, scl + st_s * 2 * BN, alpha);
         // alpha is exactly 1 where the row max did not move: skip the
         // product in a warp whose rows all kept theirs
         if (__any_sync(0xffffffffu, alpha[0] != 1.f || alpha[1] != 1.f))
@@ -616,6 +814,32 @@ __global__ void __launch_bounds__(kThreads, 1) attention_bf16_wgmma(
   }
 }
 
+template <int HDP>
+__global__ void __launch_bounds__(kThreads, 1) attention_bf16_wgmma(
+    const __grid_constant__ CUtensorMap tm_k,
+    const __grid_constant__ CUtensorMap tm_v,
+    const __nv_bfloat16* __restrict__ q, const int* __restrict__ qpos,
+    const int* __restrict__ kvlen, __nv_bfloat16* __restrict__ out, int kq,
+    int H, int N, int KVH, int hd, int window, float scale, float soft_cap,
+    const int* __restrict__ starts, int n_band, int bq, int bk,
+    int tiles_per_qb) {
+  attention_body<HDP, false>(&tm_k, &tm_v, I8Args{}, q, qpos, kvlen, out, kq,
+                             H, N, KVH, hd, window, scale, soft_cap, starts,
+                             n_band, bq, bk, tiles_per_qb);
+}
+
+template <int HDP>
+__global__ void __launch_bounds__(kThreads, 1) attention_i8_wgmma(
+    const I8Args i8, const __nv_bfloat16* __restrict__ q,
+    const int* __restrict__ qpos, const int* __restrict__ kvlen,
+    __nv_bfloat16* __restrict__ out, int kq, int H, int N, int KVH, int hd,
+    int window, float scale, float soft_cap, const int* __restrict__ starts,
+    int n_band, int bq, int bk, int tiles_per_qb) {
+  attention_body<HDP, true>(nullptr, nullptr, i8, q, qpos, kvlen, out, kq, H,
+                            N, KVH, hd, window, scale, soft_cap, starts,
+                            n_band, bq, bk, tiles_per_qb);
+}
+
 // The 4D map of a [B, N, KVH, hd] bf16 cache, boxes of 64 columns x bn keys
 // of one kv head and batch row, 128-byte swizzle, zeros out of bounds.
 bool kv_map(EncodeTiled enc, CUtensorMap* m, const void* base, int B, int N,
@@ -632,13 +856,26 @@ bool kv_map(EncodeTiled enc, CUtensorMap* m, const void* base, int B, int N,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// The grid of either body: q blocks x row tiles, kv heads, batch rows.
+struct Grid {
+  dim3 dims;
+  int qblock, tiles;
+};
+
+Grid grid_of(int B, int kq, int H, int KVH, const int* starts, int bq) {
+  const int G = H / KVH;
+  const int qblock = starts ? bq : kq;  // the dense grid: one q block
+  const int tiles = (qblock * G + kRows - 1) / kRows;
+  return {dim3(((kq + qblock - 1) / qblock) * tiles, KVH, B), qblock, tiles};
+}
+
 template <int HDP>
 int launch(const void* q, const void* k, const void* v, const int* qpos,
            const int* kvlen, void* out, int B, int kq, int H, int N, int KVH,
            int hd, int window, float scale, float soft_cap, const int* starts,
            int n_band, int bq, int bk, cudaStream_t s) {
   using bf16 = __nv_bfloat16;
-  using C = Cfg<HDP>;
+  using C = Cfg<HDP, false>;
   const EncodeTiled enc = encode_tiled();
   if (enc == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tk, tv;
@@ -649,14 +886,30 @@ int launch(const void* q, const void* k, const void* v, const int* qpos,
       attention_bf16_wgmma<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::kSmem);
   if (err != cudaSuccess) return (int)err;
-  const int G = H / KVH;
-  const int qblock = starts ? bq : kq;  // the dense grid: one q block
-  const int tiles = (qblock * G + kRows - 1) / kRows;
-  const dim3 grid(((kq + qblock - 1) / qblock) * tiles, KVH, B);
-  attention_bf16_wgmma<HDP><<<grid, kThreads, C::kSmem, s>>>(
+  const Grid g = grid_of(B, kq, H, KVH, starts, bq);
+  attention_bf16_wgmma<HDP><<<g.dims, kThreads, C::kSmem, s>>>(
       tk, tv, static_cast<const bf16*>(q), qpos, kvlen,
       static_cast<bf16*>(out), kq, H, N, KVH, hd, window, scale, soft_cap,
-      starts, n_band, qblock, bk, tiles);
+      starts, n_band, g.qblock, bk, g.tiles);
+  return (int)cudaGetLastError();
+}
+
+template <int HDP>
+int launch_i8(const void* q, const I8Args& i8, const int* qpos,
+              const int* kvlen, void* out, int B, int kq, int H, int N,
+              int KVH, int hd, int window, float scale, float soft_cap,
+              const int* starts, int n_band, int bq, int bk, cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
+  using C = Cfg<HDP, true>;
+  cudaError_t err = cudaFuncSetAttribute(
+      attention_i8_wgmma<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const Grid g = grid_of(B, kq, H, KVH, starts, bq);
+  attention_i8_wgmma<HDP><<<g.dims, kThreads, C::kSmem, s>>>(
+      i8, static_cast<const bf16*>(q), qpos, kvlen, static_cast<bf16*>(out),
+      kq, H, N, KVH, hd, window, scale, soft_cap, starts, n_band, g.qblock,
+      bk, g.tiles);
   return (int)cudaGetLastError();
 }
 
@@ -669,10 +922,10 @@ size_t smem_bytes(int hd) {
 
 template <typename T, typename KV>
 int launch(const void* q, const void* k, const void* v, const int* qpos,
-           const float* ks, const float* vs, const int* kvlen, void* out,
-           int B, int kq, int H, int N, int KVH, int hd, int window,
-           float scale, float soft_cap, const int* starts, int n_band, int bq,
-           int bk, cudaStream_t s) {
+           const void* ks, const void* vs, bool ks_f16, const int* kvlen,
+           void* out, int B, int kq, int H, int N, int KVH, int hd,
+           int window, float scale, float soft_cap, const int* starts,
+           int n_band, int bq, int bk, cudaStream_t s) {
   const size_t bytes = smem_bytes(hd);
   auto kern = attention_kernel<T, KV>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -680,7 +933,7 @@ int launch(const void* q, const void* k, const void* v, const int* qpos,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid((kq + kBQ - 1) / kBQ, H, B);
   kern<<<grid, kThreads, bytes, s>>>(
-      static_cast<const T*>(q), k, v, qpos, ks, vs, kvlen,
+      static_cast<const T*>(q), k, v, qpos, ks, vs, ks_f16, kvlen,
       static_cast<T*>(out), kq, H, N, KVH, hd, window, scale, soft_cap,
       starts, n_band, bq, bk);
   return (int)cudaGetLastError();
@@ -689,26 +942,28 @@ int launch(const void* q, const void* k, const void* v, const int* qpos,
 }  // namespace
 
 // q [B,kq,H,hd]; k/v [B,N,KVH,hd] (q's dtype, or int8 with ks/vs [B,N,KVH]
-// f32 scales; ks == vs == nullptr means unit scales); qpos [B,kq] int32;
-// kvlen [B] int32 or nullptr (= N); out [B,kq,H,hd] in q's dtype.
+// scales of scale_dtype kF16 or kF32; ks == vs == nullptr means unit
+// scales); qpos [B,kq] int32; kvlen [B] int32 or nullptr (= N); out
+// [B,kq,H,hd] in q's dtype.
 // starts == nullptr: the dense grid.  Else the banded grid: starts
 // [ceil(kq / bq)] int32 kv-block indices (of bk keys), n_band blocks each;
 // bq must be a multiple of 16 or at least kq, bk a multiple of 64.
-// bf16 K/V (no scales) take a head_dim that is a multiple of 8 up to 256
-// and 16-byte aligned q, k and v; anything else returns
-// cudaErrorInvalidValue.
+// bf16 q takes bf16 K/V (no scales) or int8 K/V (with scales), a head_dim
+// that is a multiple of 8 up to 256 and 16-byte aligned q, k and v;
+// anything else returns cudaErrorInvalidValue.
 extern "C" int spa_sparse_attention(const void* q, const void* k,
                                     const void* v, const void* qpos,
                                     const void* ks, const void* vs,
                                     const void* kvlen, void* out, int B,
                                     int kq, int H, int N, int KVH, int hd,
-                                    int dtype, int quant, int window,
-                                    float scale, float soft_cap,
+                                    int dtype, int quant, int scale_dtype,
+                                    int window, float scale, float soft_cap,
                                     const void* starts, int n_band, int bq,
                                     int bk, void* stream) {
   if (B <= 0 || kq <= 0) return 0;
   if (N <= 0 || KVH <= 0 || H % KVH || hd <= 0 || hd > 256 ||
-      (quant && (!ks || !vs)))
+      (quant && (!ks || !vs)) ||
+      (ks && scale_dtype != spa::kF32 && scale_dtype != spa::kF16))
     return (int)cudaErrorInvalidValue;
   const int* st = static_cast<const int*>(starts);
   if (st && (n_band <= 0 || bq <= 0 || bk <= 0 || bk % 64 ||
@@ -716,21 +971,27 @@ extern "C" int spa_sparse_attention(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* qp = static_cast<const int*>(qpos);
-  const float* kss = static_cast<const float*>(ks);
-  const float* vss = static_cast<const float*>(vs);
+  const bool f16 = scale_dtype == spa::kF16;
   const int* kvl = static_cast<const int*>(kvlen);
   if (dtype == spa::kBF16) {
-    if (quant)
-      return launch<__nv_bfloat16, int8_t>(q, k, v, qp, kss, vss, kvl, out,
-                                           B, kq, H, N, KVH, hd, window,
-                                           scale, soft_cap, st, n_band, bq,
-                                           bk, s);
     const bool aligned = ((reinterpret_cast<uintptr_t>(q) |
                            reinterpret_cast<uintptr_t>(k) |
                            reinterpret_cast<uintptr_t>(v)) & 15) == 0;
-    if (ks || !aligned || hd % 8) return (int)cudaErrorInvalidValue;
+    if ((ks && !quant) || !aligned || hd % 8)
+      return (int)cudaErrorInvalidValue;
     // head_dim padded with zero columns to the next instantiated width
     const int hp = (hd + 15) / 16 * 16;
+    if (quant) {
+      const wg::I8Args i8{static_cast<const int8_t*>(k),
+                          static_cast<const int8_t*>(v), ks, vs, f16};
+      auto body = hp <= 32    ? wg::launch_i8<32>
+                  : hp <= 64  ? wg::launch_i8<64>
+                  : hp <= 80  ? wg::launch_i8<80>
+                  : hp <= 128 ? wg::launch_i8<128>
+                              : wg::launch_i8<256>;
+      return body(q, i8, qp, kvl, out, B, kq, H, N, KVH, hd, window, scale,
+                  soft_cap, st, n_band, bq, bk, s);
+    }
     auto body = hp <= 32    ? wg::launch<32>
                 : hp <= 64  ? wg::launch<64>
                 : hp <= 80  ? wg::launch<80>
@@ -740,12 +1001,12 @@ extern "C" int spa_sparse_attention(const void* q, const void* k,
                 soft_cap, st, n_band, bq, bk, s);
   }
   if (dtype == spa::kF32) {
-    return quant ? launch<float, int8_t>(q, k, v, qp, kss, vss, kvl, out, B,
-                                         kq, H, N, KVH, hd, window, scale,
+    return quant ? launch<float, int8_t>(q, k, v, qp, ks, vs, f16, kvl, out,
+                                         B, kq, H, N, KVH, hd, window, scale,
                                          soft_cap, st, n_band, bq, bk, s)
-                 : launch<float, float>(q, k, v, qp, kss, vss, kvl, out, B, kq,
-                                        H, N, KVH, hd, window, scale, soft_cap,
-                                        st, n_band, bq, bk, s);
+                 : launch<float, float>(q, k, v, qp, ks, vs, f16, kvl, out, B,
+                                        kq, H, N, KVH, hd, window, scale,
+                                        soft_cap, st, n_band, bq, bk, s);
   }
   return (int)cudaErrorInvalidValue;
 }

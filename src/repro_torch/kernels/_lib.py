@@ -38,7 +38,8 @@ KERNELS = ("proxy_score", "gather_norm", "sparse_attention",
            "scatter_update_multi", "gather_pages", "scatter_pages",
            "scatter_rows_paged", "proxy_score_paged", "cosine_drift",
            "cosine_drift_paged", "proxy_score_wide",
-           "sparse_attention_banded", "rglru_scan", "ssd_chunk_scan")
+           "sparse_attention_banded", "sparse_attention_int8", "rglru_scan",
+           "ssd_chunk_scan")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 _P = ctypes.c_void_p
@@ -50,7 +51,7 @@ _SIGNATURES = {
     "spa_proxy_score": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "spa_gather_norm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
     "spa_sparse_attention": [_P, _P, _P, _P, _P, _P, _P, _P,
-                             _I, _I, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _I, _I, _I, _I, _I, _I, _I, _I, _I,
                              _F, _F, _P, _I, _I, _I, _P],
     "spa_scatter_update_multi": [_P, _I, _I, _I, _I, _P, _P, _P, _P, _P,
                                  _P, _P, _P, _P, _P, _I, _L, _I, _I, _P],
@@ -192,6 +193,14 @@ def dtype_code(dtype: torch.dtype) -> int:
     codes = {torch.float32: 0, torch.bfloat16: 1}
     if dtype not in codes:
         raise TypeError(f"kernel takes float32 or bfloat16, got {dtype}")
+    return codes[dtype]
+
+
+def scale_code(dtype: torch.dtype) -> int:
+    """csrc/common.cuh's code of an int8 cache's dequant scales."""
+    codes = {torch.float32: 0, torch.float16: 2}
+    if dtype not in codes:
+        raise TypeError(f"dequant scales are float16 or float32, got {dtype}")
     return codes[dtype]
 
 

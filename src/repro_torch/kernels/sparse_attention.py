@@ -28,10 +28,13 @@ dense grid's.
 (``flash_attention``'s kv-block loop, ``block_k = 512``, per q block on the
 banded grid); the wrapper takes it for CPU tensors and launches
 ``csrc/sparse_attention.cu`` for CUDA ones, counted as
-``sparse_attention`` (dense grid) or ``sparse_attention_banded``.  On the
-card, bf16 K/V take any head_dim that is a multiple of 8 up to 256 (padded
-with zero columns to the kernel's next width) and no scales; other bf16
-shapes raise.
+``sparse_attention_int8`` (bf16 q with int8 K/V: the tensor-core int8
+body, either grid), else ``sparse_attention`` (dense grid) or
+``sparse_attention_banded``.  On the card, bf16 q takes bf16 K/V (no
+scales) or int8 K/V (with scales) of any head_dim that is a multiple of 8
+up to 256 (padded with zero columns to the kernel's next width) and
+16-byte aligned q, k and v; other bf16 shapes raise.  The kernel reads the
+scales in their own dtype (the cache's f16, or f32).
 """
 from __future__ import annotations
 
@@ -237,19 +240,24 @@ def sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     q_pos = q_pos.to(torch.int32).contiguous()
     ks = vs = None
+    scale_code = 0
     if k_scale is not None:
         if k_scale.shape != (b, n, kvh) or v_scale.shape != (b, n, kvh):
             raise ValueError("scales must be [B, N, KVH]")
-        ks = k_scale.to(torch.float32).contiguous()
-        vs = v_scale.to(torch.float32).contiguous()
-    if q.dtype == torch.bfloat16 and not quant:
-        # bf16 K/V run only on the wgmma body
-        if hd % 8 or ks is not None:
-            raise ValueError("bf16 K/V attention takes a head_dim that is a "
-                             "multiple of 8 and no scales, got head_dim "
-                             f"{hd}, scales {ks is not None}")
+        if v_scale.dtype != k_scale.dtype:
+            raise TypeError("k_scale and v_scale must share a dtype")
+        scale_code = _lib.scale_code(k_scale.dtype)
+        ks, vs = k_scale.contiguous(), v_scale.contiguous()
+    if q.dtype == torch.bfloat16:
+        # bf16 q runs only on the wgmma bodies (bf16 or int8 K/V)
+        kind = "int8" if quant else "bf16"
+        if hd % 8:
+            raise ValueError(f"{kind} K/V attention takes a head_dim that is "
+                             f"a multiple of 8, got head_dim {hd}")
+        if ks is not None and not quant:
+            raise ValueError("bf16 K/V attention takes no scales")
         if any(t.data_ptr() % 16 for t in (q, k, v)):
-            raise ValueError("bf16 K/V attention needs 16-byte aligned "
+            raise ValueError(f"{kind} K/V attention needs 16-byte aligned "
                              "q, k and v")
     kvl = None if kv_len is None else kv_len.to(torch.int32).contiguous()
     starts, n_band, bq = (None, 0, 0) if band is None else band
@@ -263,9 +271,11 @@ def sparse_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         None if vs is None else vs.data_ptr(),
         None if kvl is None else kvl.data_ptr(), out.data_ptr(),
         b, kq, h, n, kvh, hd, _lib.dtype_code(q.dtype), int(quant),
-        int(window), 1.0 / (hd ** 0.5), float(soft_cap),
+        scale_code, int(window), 1.0 / (hd ** 0.5), float(soft_cap),
         None if starts is None else starts.data_ptr(), n_band, bq,
         min(BLOCK_K, n), _lib.stream_ptr(q)), "sparse_attention")
-    _lib.LAUNCHES["sparse_attention" if band is None
+    int8_body = quant and q.dtype == torch.bfloat16
+    _lib.LAUNCHES["sparse_attention_int8" if int8_body
+                  else "sparse_attention" if band is None
                   else "sparse_attention_banded"] += 1
     return out

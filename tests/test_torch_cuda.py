@@ -17,7 +17,9 @@ the plain version sum in different orders before rounding:
 - attention: 2^-7 of the largest output (one ulp of it), well below the
   ~1/25 of a value that one wrongly masked key in the 25-key window moves;
   bf16 K/V of any head_dim that is a multiple of 8 (40, 80, 120 padded with
-  zero columns) and GQA groups 1-16 keep that bound.
+  zero columns) and GQA groups 1-16 keep that bound, and so do int8 K/V
+  with scales under bf16 q (the tensor-core int8 body: bf16 q times an
+  exact int8 code in f32, the scales applied to the f32 sums).
 
 The paged kernels are copies and must match their plain versions exactly,
 drop rules included; ``proxy_score_paged`` shares its kernel body with
@@ -515,6 +517,88 @@ def test_cuda_banded_attention_matches_plain(dtype):
         got.float(), want.float(), rtol=0,
         atol=1e-5 if qdt == torch.float32
         else 2 ** -7 * float(want.float().abs().max()))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("group", [6, 8, 16])
+def test_cuda_int8_attention_matches_plain(group):
+    """bf16 q with int8 K/V and f16 scales (the int8 cache) runs the
+    tensor-core int8 body, counted as ``sparse_attention_int8`` and never
+    as the dense or banded count: head_dim 128 with a window, a ragged
+    kv_len with a 0 row, soft_cap, kq = 1 and 37; head_dim 120 (8-byte
+    copies, padded to 128) and 64; at G = 8 the banded grid (bit for bit
+    the dense grid, whose band covers the window).  Within 2^-7 of the
+    largest output of the plain version; f32 scales give the same bits as
+    the f16 ones; a NaN scale poisons exactly the plain version's rows."""
+    _cuda_or_skip()
+    from repro_torch.kernels import _lib
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(20 + group)
+    bf16 = torch.bfloat16
+    kvh = 16 // group if group != 6 else 2
+
+    def inputs(b, n, kq, hd):
+        q = torch.randn(b, kq, kvh * group, hd, generator=g,
+                        device=dev).to(bf16)
+        k, v = (torch.randint(-127, 128, (b, n, kvh, hd), generator=g,
+                              device=dev, dtype=torch.int8)
+                for _ in range(2))
+        ks, vs = ((torch.rand(b, n, kvh, generator=g, device=dev) * 0.02
+                   ).to(torch.float16) for _ in range(2))
+        pos = torch.randint(0, n, (b, kq), generator=g, device=dev)
+        return q, k, v, ks, vs, pos
+
+    def close(got, want):
+        torch.testing.assert_close(
+            got.float(), want.float(), rtol=0,
+            atol=2 ** -7 * float(want.float().abs().max()))
+
+    for hd, kq, kw in ((128, 37, dict(window=40, soft_cap=30.0)),
+                       (128, 1, {}), (120, 37, dict(window=25)),
+                       (64, 37, dict(soft_cap=20.0))):
+        q, k, v, ks, vs, pos = inputs(3, 300, kq, hd)
+        kw = dict(kw, kv_len=torch.tensor([300, 170, 0], device=dev))
+        before = _lib.launch_counts()
+        got = tsa.sparse_attention(q, k, v, pos, k_scale=ks, v_scale=vs,
+                                   **kw)
+        after = _lib.launch_counts()
+        assert after["sparse_attention_int8"] == \
+            before["sparse_attention_int8"] + 1
+        assert after["sparse_attention"] == before["sparse_attention"]
+        want = tsa.sparse_attention_plain(q, k, v, pos, k_scale=ks,
+                                          v_scale=vs, **kw)
+        close(got, want)
+        assert not got[2].any(), "a kv_len 0 row must output 0"
+        assert torch.equal(got, tsa.sparse_attention(
+            q, k, v, pos, k_scale=ks.float(), v_scale=vs.float(), **kw))
+    q, k, v, ks, vs, pos = inputs(3, 300, 37, 128)
+    bad_k, bad_v = ks.clone(), vs.clone()
+    bad_k[1, 20:30] = float("nan")
+    bad_v[0, 200:210] = float("nan")
+    got = tsa.sparse_attention(q, k, v, pos, k_scale=bad_k, v_scale=bad_v)
+    want = tsa.sparse_attention_plain(q, k, v, pos, k_scale=bad_k,
+                                      v_scale=bad_v)
+    assert torch.equal(got.isnan(), want.isnan()) and got.isnan().any()
+    if group != 8:
+        torch.cuda.synchronize()
+        return
+    n, kq = 4100, 700
+    q, k, v, ks, vs, _ = inputs(2, n, kq, 128)
+    pos = torch.cat([
+        torch.sort(torch.randint(0, 1500, (2, 512), generator=g,
+                                 device=dev)).values,
+        torch.sort(torch.randint(2000, 3000, (2, kq - 512), generator=g,
+                                 device=dev)).values], dim=1)
+    kw = dict(k_scale=ks, v_scale=vs, window=64,
+              kv_len=torch.tensor([n, 2600], device=dev))
+    before = _lib.launch_counts()
+    got = tsa.sparse_attention(q, k, v, pos, banded=True, q_span=1500, **kw)
+    assert _lib.launch_counts()["sparse_attention_banded"] == \
+        before["sparse_attention_banded"]
+    close(got, tsa.sparse_attention_plain(
+        q, k, v, pos, band=tsa.band_for(pos, n, 64, 1500), **kw))
+    assert torch.equal(got, tsa.sparse_attention(q, k, v, pos, **kw))
     torch.cuda.synchronize()
 
 

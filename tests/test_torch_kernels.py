@@ -100,6 +100,15 @@ ATTN_CASES = {
                        kv_len=[96, 40, 0]),
     "int8_scales_gqa": dict(b=2, kq=16, n=80, h=4, kvh=2, hd=16, quant=True,
                             window=10),
+    # the int8 caches' heads (DeepSeek-67B, InternVL2-76B, Mixtral-8x22B,
+    # Qwen3-MoE: head_dim 128, GQA groups 8, 8, 6, 16)
+    "int8_hd128_g6_window_kv_len": dict(b=2, kq=12, n=96, h=12, kvh=2,
+                                        hd=128, quant=True, window=20,
+                                        kv_len=[96, 41]),
+    "int8_hd128_g8_softcap": dict(b=2, kq=16, n=80, h=8, kvh=1, hd=128,
+                                  quant=True, soft_cap=30.0),
+    "int8_hd128_g16_ragged_kq": dict(b=1, kq=21, n=64, h=16, kvh=1, hd=128,
+                                     quant=True),
     # head_dims the CUDA body pads with zero columns (h2o-danube3's 120,
     # hubert-xlarge's 80)
     "hd120_gqa8on2_window": dict(b=2, kq=10, n=70, h=8, kvh=2, hd=120,
