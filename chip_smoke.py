@@ -25,8 +25,15 @@ Phases (each asserts; any failure exits non-zero):
    kv_len with a 0 row, soft_cap, kq = 1 and ragged, head_dim 64 and 120,
    the banded grid) against plain, timed at DeepSeek-67B's shape (kq =
    128 and 512) and InternVL2-76B's N = 1536 beside the bf16 body on bf16
-   K/V and the f32-q FMA body on the same int8 K/V; its record's
-   launches come from phase 13's DeepSeek-67B run;
+   K/V; its record's launches come from phase 13's DeepSeek-67B run;
+   the f32 rows (``check_f32_attention``, ``f32_row``: TF32 off for the
+   library calls), each beside its f32 CUDA-core bound and the
+   three-pass TF32 figure: f32 q on the same int8 K/V, f32 q and K/V at
+   LLaDA-8B's heads (kq = 128 and 512, beside SDPA), the banded grid at
+   phase 8's f32 local layer (hd 256, kq 2144, beside SDPA with the
+   window mask) and proxy_score in f32 (beside ``torch.matmul``), with
+   f32 edges (head_dim 36 and 256, GQA 1 and 8, unaligned q, k and v, f32
+   scales);
    bf16 proxy_score runs one TMA-fed wgmma GEMM (proxy_wgmma: d split
    across a thread-block cluster where the row tiles do not fill the
    card, the partials summed in rank order; a score epilogue for r <= 256,
@@ -61,7 +68,9 @@ Phases (each asserts; any failure exits non-zero):
    its record's k=128 (LLaDA k=16, the hybrid's k=4096 and 720, f32,
    d=1000 / 120), each timed beside its bound and plain version (scatter
    also beside ``index_copy_``), with their ``-Xptxas -v`` lines; the NaN
-   rows (``check_nan_rows``): sparse_attention (bf16 and int8 K/V),
+   rows (``check_nan_rows``): sparse_attention (bf16 and int8 K/V, and
+   f32 q on f32 and int8 K/V), proxy_score and proxy_score_paged also in
+   f32,
    proxy_score, proxy_score_paged, cosine_drift and gather_norm with one
    batch row's cache holding NaN, each non-finite mask equal to the plain
    version's and every other row bit-equal to a clean call;
@@ -451,13 +460,17 @@ def ptxas_lines(pattern: str) -> dict:
 
 
 def attention_ptxas() -> str:
-    """``-Xptxas -v`` of the wgmma attention bodies (bf16 and int8 K/V),
-    one entry per head_dim width: registers, stack and spills (from the
-    build log)."""
-    found = ptxas_lines(r"attention_((?:bf16|i8)_wgmmaILi\d+)E")
+    """``-Xptxas -v`` of the wgmma attention bodies (bf16 and int8 K/V under
+    bf16 q, f32 and int8 K/V under f32 q in TF32), one entry per head_dim
+    width: registers, stack and spills (from the build log)."""
+    found = ptxas_lines(r"attention_((?:bf16|i8)_wgmmaILi\d+|"
+                        r"tf32_wgmmaILi\d+ELb[01])E")
 
     def key(name):
         kind, width = name.split("_wgmmaILi")
+        if kind == "tf32":
+            width, i8 = width.split("ELb")
+            kind = "f32-q int8" if i8 == "1" else "f32-q f32"
         return kind, int(width)
     return "; ".join(f"{key(k)[0]} hd {key(k)[1]}: " + ", ".join(v)
                      for k, v in sorted(found.items(),
@@ -607,7 +620,8 @@ def check_kernels(torch, flush):
     # flip by one bf16 ulp, which is at most 2^-7 of the largest output.
     # Limit: 2^-7 * max|out|.  One key masked wrongly in the 65-key window
     # below moves an output by about 1/65 of a value, several times that.
-    # f32: FMA order only, 1e-5.
+    # f32: the kernel's three-pass TF32 products (about 2^-21 of each term)
+    # and sum order against the plain version's f32 products, 1e-5.
     bf16_attn_tol = dict(atol=0, rtol=2 ** -7)
     print("sparse_attention")
     kc = randn(B, N, KVH, hd)
@@ -637,7 +651,7 @@ def check_kernels(torch, flush):
     del mask512
     # hd=128 bf16 runs the main path's wgmma body; hd=64 and 120 the same
     # body at other widths; int8 K/V under bf16 q the int8 wgmma body
-    # (check_int8_attention); every f32 case the FMA tiles.
+    # (check_int8_attention); every f32 case the three-pass TF32 body.
     edge = [
         dict(name="hd128 GQA ragged N window soft_cap kv_len", b=2, kq=50,
              n=300, h=8, kvh=2, hd=128, window=32, soft_cap=30.0,
@@ -698,6 +712,7 @@ def check_kernels(torch, flush):
     print(f"  ptxas -v: {attention_ptxas()}")
     records.update(check_int8_attention(torch, flush, gen, randn, randint,
                                         assert_close))
+    check_f32_attention(torch, flush, gen, randn, randint, assert_close)
 
     # -- scatter_update_multi -----------------------------------------------
     # a copy: results must be bit-identical.
@@ -768,6 +783,9 @@ def check_kernels(torch, flush):
         print(f"  {name}: kernel {rec['ms']:.4f} ms, plain "
               f"{rec['plain_ms']:.4f} ms, library {lib} ms, bound "
               f"{rec['bound'][0]:.4f} ms ({rec['bound'][1]})")
+    print(f"  f32 rows ({card_line()}):")
+    for line in F32_ROWS:
+        print(f"    {line}")
     _lib.reset_launch_counts()
     return records
 
@@ -790,8 +808,8 @@ def check_int8_attention(torch, flush, gen, randn, randint, assert_close):
     (bit for bit the dense grid, whose band covers the window).  Timed at
     DeepSeek-67B's shape (kq = 128 and kq = N = 512) and InternVL2-76B's
     N = 1536 (kq = 128), beside the bf16 body on bf16 K/V of the same
-    shape, the f32-q FMA body on the same int8 K/V (the body bf16 q ran
-    before; it agrees with plain within 1e-5) and the plain version.
+    shape and the plain version, and the f32-q body on the same int8 K/V
+    (within 1e-5 of plain; a :func:`f32_row` each).
     Bound: int8 K/V, f16 scales, bf16 q and out and q_pos once each, and
     4 * B * kq * N * H * hd operations at the bf16 peak.  Returns the
     ``sparse_attention_int8`` record (DeepSeek-67B, kq = 128)."""
@@ -888,7 +906,7 @@ def check_int8_attention(torch, flush, gen, randn, randint, assert_close):
             q, k, v, pos, **kw)), sa.sparse_attention_plain(q, k, v, pos,
                                                              **kw), **tol)
         qf = q.float()
-        assert_close(f"{label}, f32-q FMA body", sa.sparse_attention(
+        assert_close(f"{label}, f32-q body", sa.sparse_attention(
             qf, k, v, pos, **kw), sa.sparse_attention_plain(qf, k, v, pos,
                                                             **kw), 1e-5, 0)
         kb = (k.float() * ks.float()[..., None]).to(bf16)
@@ -897,18 +915,23 @@ def check_int8_attention(torch, flush, gen, randn, randint, assert_close):
                        torch, flush)
         bf16_ms = median_ms(lambda: sa.sparse_attention(q, kb, vb, pos),
                             torch, flush)
-        fma_ms = median_ms(lambda: sa.sparse_attention(qf, k, v, pos, **kw),
-                           torch, flush, runs=10, warmup=1)
+        f32q_ms = median_ms(lambda: sa.sparse_attention(qf, k, v, pos, **kw),
+                            torch, flush, runs=10, warmup=1)
         plain_ms = median_ms(lambda: sa.sparse_attention_plain(
             q, k, v, pos, **kw), torch, flush, runs=10, warmup=1)
+        f32q_plain = median_ms(lambda: sa.sparse_attention_plain(
+            qf, k, v, pos, **kw), torch, flush, runs=10, warmup=1)
         bnd = bound(2 * B * n * KVH * hd + 2 * 2 * B * n * KVH
                     + 2 * 2 * B * kq * H * hd + 4 * B * kq,
                     4 * B * kq * n * H * hd)
         print(f"  {label}: int8 body {ms:.4f} ms, bf16 body on bf16 K/V "
-              f"{bf16_ms:.4f} ms ({ms / bf16_ms:.2f}x), f32-q FMA body "
-              f"{fma_ms:.4f} ms ({fma_ms / ms:.1f}x the int8 body), plain "
+              f"{bf16_ms:.4f} ms ({ms / bf16_ms:.2f}x), plain "
               f"{plain_ms:.4f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}; "
               f"{bnd[0] / ms:.1%} of it)")
+        f32_row(f"{label}, f32 q on int8 K/V", f32q_ms, f32q_plain, None,
+                2 * B * n * KVH * hd + 2 * 2 * B * n * KVH
+                + 2 * 4 * B * kq * H * hd + 4 * B * kq,
+                4 * B * kq * n * H * hd)
         if record is None:
             record = dict(
                 source="src/repro_torch/csrc/sparse_attention.cu",
@@ -917,6 +940,163 @@ def check_int8_attention(torch, flush, gen, randn, randint, assert_close):
                 bound=bnd)
         del k, v, kb, vb, q, qf
     return {"sparse_attention_int8": record}
+
+
+TF32_FLOPS = 495e12       # H100 SXM dense TF32 tensor-core peak
+F32_ROWS = []             # phase 3's f32 rows, printed again at its end
+
+
+def f32_row(label: str, ms: float, plain_ms: float, library_ms,
+            nbytes: float, flops: float, library: str = "") -> None:
+    """Print one of phase 3's f32 rows: the kernel's, its plain version's
+    and (where one exists) a library call's median device ms beside its
+    bound at the f32 CUDA-core peak (exact f32: bytes or 67 TFLOP/s) and
+    the three-pass TF32 figure (3 x the operations at 495 TFLOP/s); kept
+    in ``F32_ROWS``."""
+    bnd = bound(nbytes, flops, F32_FLOPS)
+    tf32 = 3 * flops / TF32_FLOPS * 1e3
+    lib = "-" if library_ms is None else f"{library_ms:.4f} ms ({library})"
+    line = (f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
+            f"{lib}, bound {bnd[0]:.4f} ms ({bnd[1]}, f32 CUDA cores; "
+            f"{bnd[0] / ms:.1%} of it), three-pass TF32 {tf32:.4f} ms")
+    F32_ROWS.append(line)
+    print(f"  f32 row, {line}")
+
+
+# phase 3's f32 attention rows: LLaDA-8B's heads in f32 (the reduced and
+# trained models' path), and phase 8's f32 local layer (RecurrentGemma-9B:
+# B=2, N=16384, 16 heads on one kv head of 256, window 2048, k = 2144)
+F32_ATTN = dict(B=4, N=512, H=32, hd=128)
+F32_LOCAL_KQ = 2144
+
+
+def check_f32_attention(torch, flush, gen, randn, randint, assert_close):
+    """Phase 3's f32 rows (``f32_row``): sparse_attention with f32 q and
+    f32 K/V at LLaDA-8B's shape (kq = 128 and kq = N = 512; library: SDPA
+    in f32 with a bool mask), the banded grid at phase 8's f32 local layer
+    (hd 256, kq = 2144 stratified; bit for bit the dense grid; library:
+    SDPA with the window mask) and proxy_score in f32 at the slice shape
+    (library: ``torch.matmul`` of the projection alone), each within 1e-5
+    of its plain version; and f32 edges: head_dim 36 and 256, GQA groups
+    1 and 8, q, k and v one element off 16-byte alignment, f32 scales on
+    f32 K/V.  TF32 is off for every library call (the matmul and cuDNN
+    flags, asserted)."""
+    import torch.nn.functional as F
+    from repro_torch.core.spa_layer import q_span_bound
+    from repro_torch.kernels import proxy_score as ps
+    from repro_torch.kernels import sparse_attention as sa
+
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+    print("f32 rows (TF32 off: torch.backends.cuda.matmul.allow_tf32 = "
+          "torch.backends.cudnn.allow_tf32 = False)")
+    dev = gen.device
+    f32 = torch.float32
+    tol = dict(atol=1e-5, rtol=0)
+
+    for name, b, n, kq, h, kvh, hd, kw, off in (
+            ("hd36 G=8 window kv_len", 2, 200, 40, 16, 2, 36,
+             dict(window=24, kv_len=[200, 77]), 0),
+            ("hd256 G=1 soft_cap", 2, 300, 50, 4, 4, 256,
+             dict(soft_cap=30.0), 0),
+            ("hd128 G=8 unaligned q, k, v", 2, 300, 33, 16, 2, 128, {}, 1),
+            ("hd120 G=4 f32 scales", 2, 150, 20, 8, 2, 120,
+             dict(scales=True), 0)):
+        def make(*shape):
+            buf = randn(int(torch.tensor(shape).prod()) + off, dtype=f32)
+            return buf[off:].view(*shape)
+        q, k, v = make(b, kq, h, hd), make(b, n, kvh, hd), make(b, n, kvh, hd)
+        qp = randint(0, n, b, kq)
+        kw = dict(kw)
+        if kw.pop("scales", False):
+            kw["k_scale"], kw["v_scale"] = (
+                torch.rand((b, n, kvh), generator=gen, device=dev) * 2
+                for _ in range(2))
+        if "kv_len" in kw:
+            kw["kv_len"] = torch.tensor(kw["kv_len"], dtype=torch.int32,
+                                        device=dev)
+        assert_close(f"f32 {name}", sa.sparse_attention(q, k, v, qp, **kw),
+                     sa.sparse_attention_plain(q, k, v, qp, **kw), **tol)
+
+    B, N, H, hd = (F32_ATTN[x] for x in ("B", "N", "H", "hd"))
+    k, v = randn(B, N, H, hd, dtype=f32), randn(B, N, H, hd, dtype=f32)
+    for kq in (128, N):
+        q = randn(B, kq, H, hd, dtype=f32)
+        pos = (torch.arange(N, device=dev, dtype=torch.int32)[None]
+               .expand(B, N).contiguous() if kq == N else torch.sort(
+                   torch.randperm(N, generator=gen, device=dev)[:kq]
+               ).values.to(torch.int32).expand(B, kq).contiguous())
+        assert_close(f"LLaDA f32 kq={kq}", sa.sparse_attention(q, k, v, pos),
+                     sa.sparse_attention_plain(q, k, v, pos), **tol)
+        mask = torch.ones((B, 1, kq, N), dtype=torch.bool, device=dev)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        f32_row(f"sparse_attention f32 q, f32 K/V, LLaDA-8B heads B={B} "
+                f"N={N} kq={kq}",
+                median_ms(lambda: sa.sparse_attention(q, k, v, pos), torch,
+                          flush, runs=10, warmup=1),
+                median_ms(lambda: sa.sparse_attention_plain(q, k, v, pos),
+                          torch, flush, runs=10, warmup=1),
+                median_ms(lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask), torch, flush, runs=10,
+                    warmup=1),
+                4 * (2 * B * N * H * hd + 2 * B * kq * H * hd) + 4 * B * kq,
+                4 * B * kq * N * H * hd, "SDPA, bool mask")
+        del q, qt, mask
+    del k, v, kt, vt
+
+    B, N, H, KVH, hd, W = (HYBRID[x] for x in ("B", "N", "H", "KVH", "hd",
+                                               "window"))
+    kq = F32_LOCAL_KQ
+    span = q_span_bound(N, kq, 4)
+    pos = _stratified_positions(torch, gen, B, N, kq, 4)
+    band = sa.band_for(pos, N, W, span)
+    assert band is not None, "phase 8's local layer runs the banded grid"
+    k, v = randn(B, N, KVH, hd, dtype=f32), randn(B, N, KVH, hd, dtype=f32)
+    q = randn(B, kq, H, hd, dtype=f32)
+    got = sa.sparse_attention(q, k, v, pos, window=W, banded=True,
+                              q_span=span)
+    assert_close(f"banded f32 hd=256 kq={kq} n_band={band[1]}", got,
+                 sa.sparse_attention_plain(q, k, v, pos, window=W,
+                                           band=band), **tol)
+    assert torch.equal(got, sa.sparse_attention(q, k, v, pos, window=W)), \
+        "f32 banded grid differs from the dense grid"
+    print("  banded f32 hd=256: bit for bit equal to the dense grid")
+    del got
+    kt = k.transpose(1, 2).expand(B, H, N, hd)
+    vt = v.transpose(1, 2).expand(B, H, N, hd)
+    wmask = ((pos[:, :, None].long()
+              - torch.arange(N, device=dev)[None, None, :]).abs()
+             <= W)[:, None]
+    f32_row(f"sparse_attention f32 banded grid, phase 8's local layer B={B} "
+            f"N={N} hd={hd} kq={kq} window {W}",
+            median_ms(lambda: sa.sparse_attention(
+                q, k, v, pos, window=W, banded=True, q_span=span), torch,
+                flush, runs=5, warmup=1),
+            median_ms(lambda: sa.sparse_attention_plain(
+                q, k, v, pos, window=W, band=band), torch, flush, runs=3,
+                warmup=1),
+            median_ms(lambda: F.scaled_dot_product_attention(
+                q.transpose(1, 2), kt, vt, attn_mask=wmask), torch, flush,
+                runs=3, warmup=1),
+            4 * (2 * B * N * KVH * hd + 2 * B * kq * H * hd) + 4 * B * kq,
+            4 * H * hd * window_keys(torch, pos, N, W, band),
+            "SDPA, window mask over all keys")
+    del k, v, q, kt, vt, wmask
+
+    B, N, d, r = (SLICE[x] for x in ("B", "N", "d", "r"))
+    x, w, pc = (randn(B, N, d, dtype=f32), randn(d, r, scale=0.05, dtype=f32),
+                randn(B, N, r, dtype=f32))
+    s_k, p_k = ps.proxy_score(x, w, pc)
+    s_p, p_p = ps.proxy_score_plain(x, w, pc)
+    assert_close("proxy_score f32 slice scores", s_k, s_p, 1e-5, 0)
+    assert_close("proxy_score f32 slice p_now", p_k, p_p, 0, 1e-5)
+    f32_row(f"proxy_score f32 B={B} N={N} d={d} r={r}",
+            median_ms(lambda: ps.proxy_score(x, w, pc), torch, flush),
+            median_ms(lambda: ps.proxy_score_plain(x, w, pc), torch, flush),
+            median_ms(lambda: torch.matmul(x, w), torch, flush),
+            4 * (B * N * d + d * r + 2 * B * N * r) + 4 * B * N,
+            2 * B * N * d * r, "torch.matmul, the projection alone")
+    del x, w, pc
 
 
 NAN_ROW = 1               # phase 3's NaN rows: the batch row whose cache
@@ -985,6 +1165,15 @@ def check_nan_rows(torch, gen, randn, randint):
     check("sparse_attention int8 K/V (NaN scales)",
           attn8(sa.sparse_attention), attn8(sa.sparse_attention_plain),
           (q, ks, vs), (q, poison(ks), poison(vs)))
+    # f32 q (the TF32 body): f32 K/V, and int8 K/V with NaN scales
+    qf, kf, vf = q.float(), kc.float(), vc.float()
+    check("sparse_attention f32 q, f32 K/V", sa.sparse_attention,
+          sa.sparse_attention_plain, (qf, kf, vf, qpos),
+          (qf, poison(kf), poison(vf), qpos))
+    check("sparse_attention f32 q, int8 K/V (NaN scales)",
+          attn8(sa.sparse_attention), attn8(sa.sparse_attention_plain),
+          (qf, ks, vs), (qf, poison(ks), poison(vs)))
+    del qf, kf, vf
     x, w, pc = randn(B, N, d), randn(d, r, scale=0.05), randn(B, N, r)
     check("proxy_score (cached proxies)", ps.proxy_score,
           ps.proxy_score_plain, (x, w, pc), (x, w, poison(pc)))
@@ -1003,6 +1192,17 @@ def check_nan_rows(torch, gen, randn, randint):
           (arena,), (bad_arena,))
     assert torch.equal(sc.gather_pages(bad_arena[None], pt)[0].isnan(),
                        poison(sc.gather_pages(arena[None], pt)[0]).isnan())
+    # f32 (the TF32 body)
+    xf, wf, pcf = x.float(), w.float(), pc.float()
+    check("proxy_score f32 (cached proxies)", ps.proxy_score,
+          ps.proxy_score_plain, (xf, wf, pcf), (xf, wf, poison(pcf)))
+    check("proxy_score f32 (hidden states)", ps.proxy_score,
+          ps.proxy_score_plain, (xf, wf, pcf), (poison(xf), wf, pcf))
+    check("proxy_score_paged f32 (a poisoned page)",
+          lambda a: ps.proxy_score_paged(xf, wf, a, pt),
+          lambda a: ps.proxy_score_paged_plain(xf, wf, a, pt),
+          (arena.float(),), (bad_arena.float(),))
+    del xf, wf, pcf
     xd = randn(B, N, r)
     check("cosine_drift (cached proxies)", ps.cosine_drift,
           ps.cosine_drift_plain, (xd, pc), (xd, poison(pc)))
@@ -2311,12 +2511,12 @@ KERNEL_GROUPS = (("gather_pages + scatter_pages", ("page_copy_kernel",)),
                  ("cosine_drift (+ paged)", ("cosine_drift_kernel",)),
                  ("proxy_score_paged", ("PagedRows",)),
                  ("proxy_score, wide projection",
-                  (("proxy_wgmma", "false"), ("proxy_score_f32", "false>"))),
-                 ("proxy_score", ("proxy_wgmma", "proxy_score_f32")),
+                  (("proxy_wgmma", "false"), ("proxy_tf32", "false"))),
+                 ("proxy_score", ("proxy_wgmma", "proxy_tf32")),
                  ("gather_norm", ("gather_norm",)),
                  ("sparse_attention (dense + banded)",
                   ("attention_bf16_wgmma", "attention_i8_wgmma",
-                   "attention_kernel")),
+                   "attention_tf32_wgmma")),
                  ("rglru_scan", ("rglru_lookback",)),
                  ("ssd_chunk_scan", ("ssd_chunk_",)),
                  ("scatter_update_multi", ("scatter_kernel",)),
@@ -5636,11 +5836,11 @@ MOE_RANGES = {"_dispatch": "routing / gather / combine",
               "_gather": "routing / gather / combine",
               "_combine": "routing / gather / combine",
               "_experts": "expert products"}
-SPA_KERNEL_KEYS = ("proxy_wgmma", "proxy_score_f32", "PagedRows",
+SPA_KERNEL_KEYS = ("proxy_wgmma", "proxy_tf32", "PagedRows",
                    "cosine_drift_kernel", "gather_norm", "scatter_kernel",
                    "page_copy_kernel", "rows_paged_kernel")
 ATTENTION_KEYS = ("attention_bf16_wgmma", "attention_i8_wgmma",
-                  "attention_kernel")
+                  "attention_tf32_wgmma")
 
 
 class MoeRanges:

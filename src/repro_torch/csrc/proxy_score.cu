@@ -34,8 +34,12 @@
 //   rounded to bf16 and stored from the accumulators; the CTAs are
 //   persistent over the tiles, so one tile's stores overlap the next one's
 //   loads.  cosine_drift then scores p_now.
-// f32: 16-row tiles and a plain FMA loop (exact f32, no TF32), with the
-//   same two epilogues.
+// f32: the same GEMM in TF32 with every operand split into a hi / lo
+//   pair and three products a term (f32 accuracy), its own producer
+//   warpgroup splitting x and transposing W_r, with the same two
+//   epilogues (namespace tf below).  Bound at the slice shape in f32: 2.15
+//   GFLOP, 0.032 ms at the f32 CUDA-core peak (the least time for exact
+//   f32), 0.013 ms as three TF32 passes, against 38 MB, 0.011 ms.
 //
 // proxy_score_paged (replaces src/repro/kernels/proxy_score.py:
 //   proxy_score_paged) reads p_cached through a page table from a pooled
@@ -90,7 +94,6 @@
 
 namespace {
 
-constexpr int kThreads = 256;   // 8 warps (the f32 body)
 constexpr int kRMax = 256;      // largest rank a block holds
 
 // Where row `row` of batch row b of p_cached lies.
@@ -441,94 +444,368 @@ int go(const void* x, const void* w, Rows rows, float* scores, bf16* pnow,
 
 }  // namespace wg
 
-// ---- f32: exact FMA loop ----------------------------------------------------
-constexpr int kRows = 16;       // rows of x per block
-constexpr int kTkF = 32;
+// ---- f32: three-pass TF32 wgmma GEMM, score or store epilogue -------------
+// The bf16 body's GEMM with every operand split into a TF32 pair, x = hi +
+// lo (hi = tf32(x), lo = tf32(x - hi)), and each product taken as hi.hi +
+// hi.lo + lo.hi: f32 accuracy (about 2^-21 of each term) from the tensor
+// cores.  A CTA is one consumer warpgroup per 128 columns of the tile (64
+// rows of x; two warpgroups at r > 128) and a producer warpgroup.  The
+// producer copies each stage (32 columns of d) by cp.async, kLead stages
+// ahead: x's rows straight into the swizzled K-major tile they are read
+// from, W_r's 32 rows (MN-major, r contiguous) into a staging layout whose
+// 16-byte units are XOR-swizzled by row.  Then it splits x in place and
+// writes W_r transposed ([columns x 32 of d], K-major: TF32 products take
+// no MN-major operand), hi and lo halves, each quarter-warp's 16-byte
+// stores to distinct banks.  The copies of stage m + kLead go out before
+// stage m is converted, into the slot of stage m - 2, which the consumers
+// release as soon as its products landed.  The tensor cores round their
+// f32 sums toward zero, so each stage's 12 products start from a fresh
+// accumulator and are added into the tile's sum in f32 rounded to
+// nearest.
+// Score epilogue (r <= 256): d split across the `split` CTAs of a cluster
+// as in the bf16 body, the partial tiles summed in rank order through
+// distributed shared memory, then p_now (f32) and the three row sums, one
+// warp a row.  Store epilogue (the wide ranks): 128-column tiles of p,
+// written from the accumulators.
+// What holds it back: a stage takes about four times its products' time
+// at every r (chip_smoke.py phase 3: 21% of the f32 bound at the slice
+// shape), and builds without the copies, without the split or without
+// the products each removed only part of it; W_r^T split once a call by
+// a pre-pass instead of in every row tile's producer measured the same.
+// The stage is latency-bound (its copies, split and products run in
+// series with two stages in flight), not bound by the transposition.
+namespace tf {
 
-template <typename Rows, bool kScore>
-__global__ void __launch_bounds__(kThreads) proxy_score_f32(
-    const float* __restrict__ x, const float* __restrict__ w,
-    Rows pc_row, float* __restrict__ scores,
-    float* __restrict__ pnow, int N, int d, int r, float eps) {
-  __shared__ float xs[kRows][kTkF + 1];
-  __shared__ float ws[kTkF * kRMax];  // reused as the p tile [kRows][kRMax]
+using namespace hopper;
 
-  const int b = blockIdx.y;
-  const int row0 = blockIdx.x * kRows;
-  const int c0 = blockIdx.z * kRMax;        // as in proxy_score_bf16
-  const int nc = min(kRMax, r - c0);
-  const int tid = threadIdx.x;
-  const int trow = tid / 16, tcol = tid % 16;  // 16 rows x 16 column lanes
-  const int nj = (nc + 15) / 16;
-  const float* xb = x + (size_t)b * N * d;
+constexpr int kRows = 64;      // rows of x a tile
+constexpr int kKs = 32;        // columns of d a stage (a 128-byte row)
+constexpr int kMaxSplit = 8;   // portable cluster size
 
-  float acc[kRMax / 16];
-#pragma unroll
-  for (int j = 0; j < kRMax / 16; ++j) acc[j] = 0.f;
+template <int NB>
+struct Cfg {
+  static constexpr int kWG = NB > 128 ? 2 : 1;  // consumer warpgroups
+  static constexpr int kNW = NB / kWG;           // columns a warpgroup
+  static constexpr int kConsumers = 128 * kWG;
+  static constexpr int kThreads = kConsumers + 128;
+  static constexpr int kXHalf = kRows * 128;     // x hi (or lo): [64][32]
+  static constexpr int kWHalf = NB * 128;        // W^T hi (or lo): [NB][32]
+  static constexpr int kStageBytes = 2 * (kXHalf + kWHalf);
+  static constexpr int kFit = (232448 - 1024 - 256) / kStageBytes;
+  static constexpr int kStages = kFit < 6 ? kFit : 6;
+  // stages in flight ahead of the one converted; from 3 stages on the
+  // copies of stage m + kLead are issued before stage m is converted,
+  // into the slot of stage m - 2, which the consumers released once its
+  // products landed; with 2 stages (r > 128), after it
+  static constexpr bool kEarly = kStages >= 3;
+  static constexpr int kLead = kEarly ? kStages - 2 : 1;
+  static constexpr int kBarOff = kStages * kStageBytes;
+  static constexpr int kSmem = kBarOff + 16 * kStages + 1024;
+  static constexpr int kLdP = NB + 4;  // row stride of the partial tile
+  static_assert(kRows * kLdP * 4 <= kBarOff, "partial tile fits the ring");
+};
 
-  for (int k0 = 0; k0 < d; k0 += kTkF) {
-    for (int e = tid; e < kRows * kTkF; e += kThreads) {
-      const int i = e / kTkF, kk = e % kTkF;
-      const int row = row0 + i, col = k0 + kk;
-      xs[i][kk] = (row < N && col < d) ? xb[(size_t)row * d + col] : 0.f;
+// 16-byte unit q of staged W_r row k lies at q ^ w_swz(k): the 8 rows 4 kq
+// + i (kq < 8) the transposition reads at once fall in 8 bank groups.
+__device__ __forceinline__ int w_swz(int k) { return (k >> 2) & 7; }
+
+// A CTA of the cluster (blockIdx.x = its rank, gridDim.x = split) projects
+// the stages [k_lo, k_hi) of d for tile blockIdx.y (row tile fastest, then
+// NB-column tile of r for the store epilogue).
+template <int NB, bool kScore, typename Rows>
+__global__ void __launch_bounds__(Cfg<NB>::kThreads, 1) proxy_tf32(
+    const float* __restrict__ x, const float* __restrict__ w, Rows pc_row,
+    float* __restrict__ scores, float* __restrict__ pnow, int M, int N,
+    int d, int r, int n_kst, int kst_per_rank, int n_row_tiles, int x_wide,
+    int w_wide, float eps) {
+  using C = Cfg<NB>;
+  constexpr int S = C::kStages, NW = C::kNW;
+  extern __shared__ unsigned char tf_smem[];
+  const uint32_t raw = smem_u32(tf_smem);
+  const uint32_t base = (raw + 1023) & ~1023u;
+  unsigned char* sm = tf_smem + (base - raw);
+  const uint32_t s_bar = base + C::kBarOff;  // full[s], then empty[s]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int split = gridDim.x, rank = blockIdx.x;
+  const int row0 = (blockIdx.y % n_row_tiles) * kRows;
+  const int c0 = (blockIdx.y / n_row_tiles) * NB;
+  const int k_lo = rank * kst_per_rank;
+  const int n_st = max(0, min(n_kst, k_lo + kst_per_rank) - k_lo);
+
+  if (tid == 0) {
+    for (int s = 0; s < S; ++s) {
+      mbar_init(s_bar + 8 * s, 128);
+      mbar_init(s_bar + 8 * (S + s), C::kConsumers);
     }
-    for (int e = tid; e < kTkF * nc; e += kThreads) {
-      const int kk = e / nc, c = e % nc;
-      const int col = k0 + kk;
-      ws[kk * kRMax + c] = col < d ? w[(size_t)col * r + c0 + c] : 0.f;
-    }
-    __syncthreads();
-    for (int kk = 0; kk < kTkF; ++kk) {
-      const float xv = xs[trow][kk];
-#pragma unroll
-      for (int j = 0; j < kRMax / 16; ++j) {
-        const int c = tcol + 16 * j;
-        if (j < nj && c < nc) acc[j] = fmaf(xv, ws[kk * kRMax + c], acc[j]);
-      }
-    }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  if constexpr (!kScore) {  // wide r: store this column tile of p
-    const int row = row0 + trow;
-    if (row < N) {
-#pragma unroll
-      for (int j = 0; j < kRMax / 16; ++j) {
-        const int c = tcol + 16 * j;
-        if (j < nj && c < nc) pnow[((size_t)b * N + row) * r + c0 + c] = acc[j];
+  __syncthreads();
+
+  if (tid >= C::kConsumers) {
+    // ---- producer warpgroup ----
+    const int pt = tid - C::kConsumers;
+    // stage n's raw x into its x hi half (its final layout), raw W_r rows
+    // into its W lo half; one commit group a call (empty past the last)
+    auto issue = [&](int n) {
+      if (n < n_st) {
+        const int s = n % S;
+        if (n >= S) mbar_wait(s_bar + 8 * (S + s), ((n / S) - 1) & 1);
+        const int k0 = (k_lo + n) * kKs;
+        const uint32_t xs = base + s * C::kStageBytes;
+        const uint32_t ws = xs + 2 * C::kXHalf + C::kWHalf;
+        if (x_wide) {
+          for (int e = pt; e < kRows * 8; e += 128) {
+            const int m = e / 8, u = e % 8, row = row0 + m, col = k0 + 4 * u;
+            const bool ok = row < M && col < d;
+            cp_async16(xs + m * 128 + ((u ^ (m & 7)) << 4),
+                       ok ? x + (size_t)row * d + col : x, ok);
+          }
+        } else {
+          for (int e = pt; e < kRows * kKs; e += 128) {
+            const int m = e / kKs, c = e % kKs, row = row0 + m, col = k0 + c;
+            const bool ok = row < M && col < d;
+            cp_async4(xs + m * 128 + (((c / 4) ^ (m & 7)) << 4) + (c % 4) * 4,
+                      ok ? x + (size_t)row * d + col : x, ok);
+          }
+        }
+        if (w_wide) {
+          for (int e = pt; e < kKs * (NB / 4); e += 128) {
+            const int k = e / (NB / 4), u = e % (NB / 4), col = c0 + 4 * u;
+            const bool ok = k0 + k < d && col < r;
+            cp_async16(ws + k * NB * 4 + ((u ^ w_swz(k)) << 4),
+                       ok ? w + (size_t)(k0 + k) * r + col : w, ok);
+          }
+        } else {
+          for (int e = pt; e < kKs * NB; e += 128) {
+            const int k = e / NB, c = e % NB, col = c0 + c;
+            const bool ok = k0 + k < d && col < r;
+            cp_async4(ws + k * NB * 4 + (((c / 4) ^ w_swz(k)) << 4) +
+                          (c % 4) * 4,
+                      ok ? w + (size_t)(k0 + k) * r + col : w, ok);
+          }
+        }
       }
+      spa::cp_async_commit();
+    };
+    for (int n = 0; n < C::kLead; ++n) issue(n);
+    for (int m = 0; m < n_st; ++m) {
+      if constexpr (C::kEarly) {
+        issue(m + C::kLead);
+        spa::cp_async_wait<C::kLead>();  // this thread's copies of m
+      } else {
+        spa::cp_async_wait<C::kLead - 1>();
+      }
+      asm volatile("bar.sync 5, 128;\n" ::: "memory");
+      const int s = m % S;
+      unsigned char* xs = sm + s * C::kStageBytes;
+      unsigned char* wt = xs + 2 * C::kXHalf;  // W^T hi, then lo
+      const unsigned char* ws = wt + C::kWHalf;
+      // x: split in place, each thread its own 16-byte units
+#pragma unroll
+      for (int i = 0; i < kRows * 8 / 128; ++i) {
+        const int e = pt + 128 * i, mm = e / 8, u = e % 8;
+        unsigned char* p = xs + mm * 128 + ((u ^ (mm & 7)) << 4);
+        const float4 f = *reinterpret_cast<const float4*>(p);
+        const float v[4] = {f.x, f.y, f.z, f.w};
+        tf32_split_store(p, C::kXHalf, v);
+      }
+      // W_r: task (column quad cq, row quad kq) reads rows 4 kq + i (i <
+      // 4) of columns 4 cq .. 4 cq + 3, and writes for each column c the
+      // 16-byte unit kq of row c of W^T
+      constexpr int kTasks = 8 * (NB / 4);
+      constexpr int kPer = (kTasks + 127) / 128;
+      float v[kPer][4][4];
+#pragma unroll
+      for (int t = 0; t < kPer; ++t) {
+        const int task = pt + 128 * t;
+        if (task < kTasks) {
+          const int kq = task % 8, cq = task / 8;
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int k = 4 * kq + i;
+            const float4 f = *reinterpret_cast<const float4*>(
+                ws + k * NB * 4 + ((cq ^ w_swz(k)) << 4));
+            v[t][i][0] = f.x;
+            v[t][i][1] = f.y;
+            v[t][i][2] = f.z;
+            v[t][i][3] = f.w;
+          }
+        }
+      }
+      asm volatile("bar.sync 5, 128;\n" ::: "memory");  // staging read
+#pragma unroll
+      for (int t = 0; t < kPer; ++t) {
+        const int task = pt + 128 * t;
+        if (task < kTasks) {
+          const int kq = task % 8, cq = task / 8;
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int c = 4 * cq + j;
+            const float col[4] = {v[t][0][j], v[t][1][j], v[t][2][j],
+                                  v[t][3][j]};
+            tf32_split_store(wt + c * 128 + ((kq ^ (c & 7)) << 4), C::kWHalf,
+                        col);
+          }
+        }
+      }
+      // the stage's (generic-proxy) writes -> visible to wgmma
+      fence_proxy_async();
+      mbar_arrive(s_bar + 8 * s);
+      if constexpr (!C::kEarly) issue(m + C::kLead);
+    }
+    spa::cp_async_wait<0>();
+    if constexpr (kScore) {  // the consumers' two cluster barriers
+      cluster_sync();
+      cluster_sync();
+    }
+    return;
+  }
+
+  // ---- consumer warpgroups: 64 rows x NW columns each ----
+  const int wgi = warp / 4;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int r_lo = 16 * (warp % 4) + g;  // acc rows r_lo, r_lo + 8
+  // acc[4j + e]: row r_lo + 8 (e >> 1), column wgi * NW + 8j + 2 t4 + (e &
+  // 1); tp: the stage's sum from a fresh accumulator.  The stage is
+  // released as soon as its products landed, so the producer, which
+  // refills a slot two stages back, never waits on the consumers' current
+  // stage
+  float acc[NW / 2], tp[NW / 2];
+#pragma unroll
+  for (int i = 0; i < NW / 2; ++i) acc[i] = tp[i] = 0.f;
+  for (int n = 0; n < n_st; ++n) {
+    const int s = n % S;
+    mbar_wait(s_bar + 8 * s, (n / S) & 1);
+    const uint32_t xs = base + s * C::kStageBytes;
+    const uint32_t wt = xs + 2 * C::kXHalf + wgi * NW * 128;
+    reg_fence(tp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t a_hi = sw128_desc(xs + kk * 32, 16, 1024);
+      const uint64_t a_lo = sw128_desc(xs + C::kXHalf + kk * 32, 16, 1024);
+      const uint64_t b_hi = sw128_desc(wt + kk * 32, 16, 1024);
+      const uint64_t b_lo = sw128_desc(wt + C::kWHalf + kk * 32, 16, 1024);
+      wgmma_tf32_ss<NW>(tp, a_hi, b_hi, kk > 0);
+      wgmma_tf32_ss<NW>(tp, a_hi, b_lo, 1);
+      wgmma_tf32_ss<NW>(tp, a_lo, b_hi, 1);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(tp);
+    mbar_arrive(s_bar + 8 * (S + s));
+#pragma unroll
+    for (int i = 0; i < NW / 2; ++i) acc[i] += tp[i];
+  }
+
+  if constexpr (!kScore) {
+    // store: this tile of p, straight from the registers
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + r_lo + 8 * h;
+      if (row >= M) continue;
+      float* prow = pnow + (size_t)row * r;
+#pragma unroll
+      for (int j = 0; j < NW / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = c0 + wgi * NW + 8 * j + 2 * t4 + e;
+          if (col < r) prow[col] = acc[4 * j + 2 * h + e];
+        }
     }
   } else {
-    float* ps = ws;
+    // score: this CTA's partial tile into its shared memory (the ring,
+    // which every product and copy is done with); after the cluster
+    // barrier rank q sums rows [q, q + 1) * per of the tile over the
+    // partials of ranks 0, 1, ..., split - 1 in that order
+    asm volatile("bar.sync 1, %0;\n" ::"n"(C::kConsumers) : "memory");
+    float* ps = reinterpret_cast<float*>(sm);  // [kRows][kLdP]
 #pragma unroll
-    for (int j = 0; j < kRMax / 16; ++j) {
-      const int c = tcol + 16 * j;
-      if (j < nj && c < nc) ps[trow * kRMax + c] = acc[j];
-    }
-    __syncthreads();
-    const int warp = tid / 32, lane = tid % 32;
-    for (int i = warp; i < kRows; i += kThreads / 32) {
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int j = 0; j < NW / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          ps[(r_lo + 8 * h) * C::kLdP + wgi * NW + 8 * j + 2 * t4 + e] =
+              acc[4 * j + 2 * h + e];
+    cluster_sync();  // every partial of the cluster is written
+    const int per = kRows / split;  // split is a power of two
+    for (int i = rank * per + warp; i < (rank + 1) * per;
+         i += C::kConsumers / 32) {
       const int row = row0 + i;
-      if (row >= N) continue;
-      const size_t off = ((size_t)b * N + row) * r;
-      const float* pc = pc_row(b, row);
+      if (row >= M) continue;
+      const int b = row / N;
+      const float* pc = pc_row(b, row - b * N);
+      float* prow = pnow + (size_t)row * r;
       float num = 0.f, pp = 0.f, cc = 0.f;
-      for (int c = lane; c < r; c += 32) {
-        const float p = ps[i * kRMax + c];
-        const float q = pc[c];
-        pnow[off + c] = p;
-        num += p * q;
+#pragma unroll
+      for (int u = 0; u < NB / 32; ++u) {
+        const int c = 32 * u + lane;
+        if (c >= r) continue;
+        const uint32_t a = smem_u32(ps + i * C::kLdP + c);
+        float p = split == 1 ? ps[i * C::kLdP + c] : ld_dsmem_f32(mapa(a, 0));
+        for (int q = 1; q < split; ++q) p += ld_dsmem_f32(mapa(a, q));
+        const float qv = pc[c];
+        prow[c] = p;
+        num += p * qv;
         pp += p * p;
-        cc += q * q;
+        cc += qv * qv;
       }
       num = spa::warp_sum(num);
       pp = spa::warp_sum(pp);
       cc = spa::warp_sum(cc);
-      if (lane == 0)
-        scores[(size_t)b * N + row] = num / fmaxf(sqrtf(pp * cc), eps);
+      if (lane == 0) scores[row] = num / fmaxf(sqrtf(pp * cc), eps);
     }
+    cluster_sync();  // no CTA leaves while another reads its partial
   }
 }
 
+// The split of d for the score epilogue: a power of two, at most one CTA
+// an SM over the grid, at most kMaxSplit and one stage of d per CTA.
+int pick_split(int n_row_tiles, int n_kst) {
+  const int sms = spa::sm_count();
+  int split = 1;
+  while (2 * split <= kMaxSplit && 2 * split <= n_kst &&
+         n_row_tiles * 2 * split <= sms)
+    split *= 2;
+  return split;
+}
+
+template <int NB, bool kScore, typename Rows>
+int go(const float* x, const float* w, Rows rows, float* scores,
+       float* pnow, int M, int N, int d, int r, float eps, cudaStream_t s) {
+  using C = Cfg<NB>;
+  auto kern = proxy_tf32<NB, kScore, Rows>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_kst = (d + kKs - 1) / kKs;
+  const int n_row_tiles = (M + kRows - 1) / kRows;
+  const int n_tiles = n_row_tiles * (kScore ? 1 : (r + NB - 1) / NB);
+  const int split = kScore ? pick_split(n_row_tiles, n_kst) : 1;
+  const int per = (n_kst + split - 1) / split;
+  const int x_wide =
+      d % 4 == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0;
+  const int w_wide =
+      r % 4 == 0 && (reinterpret_cast<uintptr_t>(w) & 15) == 0;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(split, n_tiles, 1);
+  cfg.blockDim = dim3(C::kThreads, 1, 1);
+  cfg.dynamicSmemBytes = C::kSmem;
+  cfg.stream = s;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kern, x, w, rows, scores, pnow, M, N,
+                                 d, r, n_kst, per, n_row_tiles, x_wide,
+                                 w_wide, eps);
+}
+
+}  // namespace tf
 
 template <template <typename> class Rows, typename... A>
 int launch(const void* x, const void* w, const void* pc, void* scores,
@@ -551,20 +828,27 @@ int launch(const void* x, const void* w, const void* pc, void* scores,
                                           s);
   }
   if (dtype == spa::kF32) {
-    const dim3 grid((N + kRows - 1) / kRows, B);
-    proxy_score_f32<Rows<float>, true><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w),
-        Rows<float>{static_cast<const float*>(pc), where...},
-        static_cast<float*>(scores), static_cast<float*>(pnow), N, d, r,
-        eps);
-    return (int)cudaGetLastError();
+    const float* xf = static_cast<const float*>(x);
+    const float* wf = static_cast<const float*>(w);
+    const Rows<float> rows{static_cast<const float*>(pc), where...};
+    float* sc = static_cast<float*>(scores);
+    float* pn = static_cast<float*>(pnow);
+    const int M = B * N;
+    return r <= 32    ? tf::go<32, true>(xf, wf, rows, sc, pn, M, N, d, r,
+                                         eps, s)
+           : r <= 64  ? tf::go<64, true>(xf, wf, rows, sc, pn, M, N, d, r,
+                                         eps, s)
+           : r <= 128 ? tf::go<128, true>(xf, wf, rows, sc, pn, M, N, d, r,
+                                          eps, s)
+                      : tf::go<256, true>(xf, wf, rows, sc, pn, M, N, d, r,
+                                          eps, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
 // The projection alone for a wide r (> 256): p_now = x @ w rounded to x's
-// dtype (bf16: the store epilogue over 128 x 256 tiles; f32: one block per
-// (row tile, batch row, 256-column tile)).
+// dtype (bf16: the store epilogue over 128 x 256 tiles; f32: the TF32 store
+// epilogue over 64 x 128 tiles).
 int launch_project(const void* x, const void* w, void* pnow, int B, int N,
                    int d, int r, int dtype, void* stream) {
   if (B <= 0 || N <= 0) return 0;
@@ -576,14 +860,12 @@ int launch_project(const void* x, const void* w, void* pnow, int B, int N,
     return wg::go<256, false>(x, w, DenseRows<T>{nullptr, N, r}, nullptr,
                               static_cast<T*>(pnow), B * N, N, d, r, 0.f, s);
   }
-  if (dtype == spa::kF32) {
-    const dim3 grid((N + kRows - 1) / kRows, B, (r + kRMax - 1) / kRMax);
-    proxy_score_f32<DenseRows<float>, false><<<grid, kThreads, 0, s>>>(
-        static_cast<const float*>(x), static_cast<const float*>(w),
-        DenseRows<float>{nullptr, N, r}, nullptr,
-        static_cast<float*>(pnow), N, d, r, 0.f);
-    return (int)cudaGetLastError();
-  }
+  if (dtype == spa::kF32)
+    return tf::go<128, false>(static_cast<const float*>(x),
+                              static_cast<const float*>(w),
+                              DenseRows<float>{nullptr, N, r}, nullptr,
+                              static_cast<float*>(pnow), B * N, N, d, r, 0.f,
+                              s);
   return (int)cudaErrorInvalidValue;
 }
 

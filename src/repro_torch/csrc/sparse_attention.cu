@@ -36,6 +36,13 @@
 //   TFLOP, 0.56 ms at the bf16 peak against 0.01 ms of bytes.  (The band of
 //   26 blocks is 13312 keys a query, 3.25x what the function needs.)
 //   Prefill (kq = N) is 2.2 TFLOP.
+// Bound of the f32-q path at LLaDA's f32 shape (B=4, N=512, 32 heads of
+//   128, kq=128): 4.29 GFLOP, 0.064 ms at the f32 CUDA-core peak of 67
+//   TFLOP/s (the least time for exact f32 FMAs), or 3 x 4.29 GFLOP of
+//   TF32 products at 495 TFLOP/s, 0.026 ms, against 84 MB (f32 K/V 67 MB,
+//   q and out 16.8 MB), 0.025 ms of bytes.  At DeepSeek-67B's int8 K/V
+//   with f32 q (kq=128) 8.59 GFLOP: 0.128 ms at 67 TFLOP/s, 0.052 ms as
+//   three TF32 passes.
 // Design: a block owns a tile of rows and loops over kv tiles inside the
 //   block (the sequential grid axis of the TPU becomes this loop), so no
 //   state crosses blocks.  The banded grid is the same body with the loop
@@ -67,11 +74,19 @@
 //     accuracy; l sums the unscaled p.  A NaN scale poisons what it
 //     poisons in the plain version: ks[j] the column's scores, vs[j] P'
 //     (0 * NaN where the key is masked, as p * (v * vs) there).
-//   - f32 q, with f32 K/V or int8 K/V and scales, head_dim up to 256 (the
-//     f32 models, which reach the card only in the CPU-parity phases): 16
-//     queries per block, 32-key tiles dequantized to f32 in shared memory,
-//     exact f32 FMAs on the CUDA cores.  Never redesigned: its users are
-//     parity checks, whose arithmetic it keeps.
+//   - f32 q, with f32 K/V (scales optional) or int8 K/V and scales, any
+//     head_dim up to 256 and any alignment (the f32 models: every
+//     reduced() config, the trained models' decode, the CPU-parity phases
+//     of chip_smoke.py): rows are (query, head) pairs of one kv head as
+//     above; a producer warpgroup copies the f32 (or int8) K/V tiles by
+//     cp.async, dequantizes them exactly to f32, splits each value into a
+//     TF32 pair hi + lo and writes K and V^T (TF32 products read both
+//     operands K-major) into a ring; one consumer warpgroup runs S = Q K^T
+//     and O += P V as three TF32 products each (hi.hi + hi.lo + lo.hi: f32
+//     accuracy, about 2^-21 of each term) and the softmax in f32 (namespace
+//     tf below).  Chosen over exact f32 FMAs on the CUDA cores because its
+//     bound is 2.5x lower (0.026 against 0.064 ms at LLaDA's f32 shape)
+//     at the same accuracy class.
 //   bf16 q with bf16 K/V and scales, of a head_dim that is no multiple of
 //   8, or with q, k or v not 16-byte aligned are refused
 //   (cudaErrorInvalidValue), never run on a slower body.
@@ -84,10 +99,6 @@
 #include "hopper.cuh"
 
 namespace {
-
-constexpr int kBQ = 16;        // queries per block
-constexpr int kBK = 32;        // keys per tile (one warp lane per key)
-constexpr int kThreads = 128;  // 4 warps
 
 // The keys [*lo, *hi) a tile of queries at positions [qmin, qmax] visits:
 // its q block's band on the banded grid (band_start >= 0), else every key,
@@ -114,129 +125,11 @@ __device__ __forceinline__ void kv_range(int band_start, int n_band, int bk,
   *hi = (int)max(h, 0LL);
 }
 
-template <typename T>
-__device__ __forceinline__ float load_kv(const void* p, size_t i) {
-  return spa::to_f32(static_cast<const T*>(p)[i]);
-}
-
 // Element i of a dequant scale array, f16 (f16 true) or f32.
 __device__ __forceinline__ float load_scale(const void* p, size_t i,
                                             bool f16) {
   return f16 ? __half2float(static_cast<const __half*>(p)[i])
              : static_cast<const float*>(p)[i];
-}
-
-template <typename T, typename KV>
-__global__ void __launch_bounds__(kThreads) attention_kernel(
-    const T* __restrict__ q, const void* __restrict__ k,
-    const void* __restrict__ v, const int* __restrict__ qpos,
-    const void* __restrict__ ks, const void* __restrict__ vs, bool ks_f16,
-    const int* __restrict__ kvlen, T* __restrict__ out, int kq, int H, int N,
-    int KVH, int hd, int window, float scale, float soft_cap,
-    const int* __restrict__ starts, int n_band, int bq, int bk) {
-  extern __shared__ float smem[];
-  float* qs = smem;                        // [kBQ][hd]
-  float* kt = qs + kBQ * hd;               // [kBK][hd + 1]
-  float* vt = kt + kBK * (hd + 1);         // [kBK][hd]
-  float* sc = vt + kBK * hd;               // [kBQ][kBK] scores, then p
-  float* acc = sc + kBQ * kBK;             // [kBQ][hd]
-  float* m_s = acc + kBQ * hd;             // [kBQ]
-  float* l_s = m_s + kBQ;                  // [kBQ]
-  float* a_s = l_s + kBQ;                  // [kBQ]
-  int* qp_s = reinterpret_cast<int*>(a_s + kBQ);  // [kBQ]
-
-  const int b = blockIdx.z, h = blockIdx.y, q0 = blockIdx.x * kBQ;
-  const int kvh = h / (H / KVH);
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int kv_limit = kvlen ? kvlen[b] : N;
-
-  for (int e = tid; e < kBQ * hd; e += kThreads) {
-    const int i = e / hd, c = e % hd, qi = q0 + i;
-    qs[e] = qi < kq ? spa::to_f32(q[(((size_t)b * kq + qi) * H + h) * hd + c])
-                    : 0.f;
-    acc[e] = 0.f;
-  }
-  if (tid < kBQ) {
-    m_s[tid] = spa::kNegInf;
-    l_s[tid] = 0.f;
-    qp_s[tid] = q0 + tid < kq ? qpos[(size_t)b * kq + q0 + tid] : (1 << 30);
-  }
-  __syncthreads();
-
-  int qmin = INT_MAX, qmax = INT_MIN;
-  for (int i = 0; i < kBQ && q0 + i < kq; ++i) {
-    qmin = min(qmin, qp_s[i]);
-    qmax = max(qmax, qp_s[i]);
-  }
-  int kv_lo, kv_hi;
-  kv_range(starts ? starts[q0 / bq] : -1, n_band, bk, N, kv_limit, window,
-           qmin, qmax, kBK, &kv_lo, &kv_hi);
-  for (int kv0 = kv_lo; kv0 < kv_hi; kv0 += kBK) {
-    for (int e = tid; e < kBK * hd; e += kThreads) {
-      const int j = e / hd, c = e % hd, p = kv0 + j;
-      float kf = 0.f, vf = 0.f;
-      if (p < N) {
-        const size_t row = ((size_t)b * N + p) * KVH + kvh;
-        kf = load_kv<KV>(k, row * hd + c);
-        vf = load_kv<KV>(v, row * hd + c);
-        if (ks) {
-          kf *= load_scale(ks, row, ks_f16);
-          vf *= load_scale(vs, row, ks_f16);
-        }
-      }
-      kt[j * (hd + 1) + c] = kf;
-      vt[j * hd + c] = vf;
-    }
-    __syncthreads();
-
-    for (int e = tid; e < kBQ * kBK; e += kThreads) {
-      const int i = e / kBK, j = e % kBK, p = kv0 + j;
-      float s = 0.f;
-      for (int c = 0; c < hd; ++c) s = fmaf(qs[i * hd + c], kt[j * (hd + 1) + c], s);
-      s *= scale;
-      if (soft_cap > 0.f) s = soft_cap * tanhf(s / soft_cap);
-      const bool valid = p < N && p < kv_limit &&
-                         (window <= 0 || abs(qp_s[i] - p) <= window);
-      sc[e] = valid ? s : spa::kNegInf;
-    }
-    __syncthreads();
-
-    for (int i = warp; i < kBQ; i += kThreads / 32) {
-      const int p = kv0 + lane;
-      const bool valid = p < N && p < kv_limit &&
-                         (window <= 0 || abs(qp_s[i] - p) <= window);
-      const float s = sc[i * kBK + lane];
-      const float m_prev = m_s[i];
-      const float m_new = fmaxf(m_prev, spa::warp_max(s));
-      const float pr = valid ? expf(s - m_new) : 0.f;
-      const float alpha = m_prev <= spa::kNegInf / 2 ? 0.f : expf(m_prev - m_new);
-      const float psum = spa::warp_sum(pr);
-      sc[i * kBK + lane] = pr;
-      if (lane == 0) {
-        l_s[i] = alpha * l_s[i] + psum;
-        m_s[i] = m_new;
-        a_s[i] = alpha;
-      }
-    }
-    __syncthreads();
-
-    for (int e = tid; e < kBQ * hd; e += kThreads) {
-      const int i = e / hd, c = e % hd;
-      float pv = 0.f;
-#pragma unroll 8
-      for (int j = 0; j < kBK; ++j) pv = fmaf(sc[i * kBK + j], vt[j * hd + c], pv);
-      acc[e] = a_s[i] * acc[e] + pv;
-    }
-    __syncthreads();
-  }
-
-  for (int e = tid; e < kBQ * hd; e += kThreads) {
-    const int i = e / hd, c = e % hd, qi = q0 + i;
-    if (qi >= kq) continue;
-    const float l = l_s[i];
-    out[(((size_t)b * kq + qi) * H + h) * hd + c] =
-        spa::from_f32<T>(acc[e] / (l == 0.f ? 1.f : l));
-  }
 }
 
 // ---- bf16 q: warp-specialised wgmma body (bf16 or int8 K/V) ----------------
@@ -324,22 +217,6 @@ struct I8Args {
   const void* vs;
   bool f16;  // scales in f16, else f32
 };
-
-// cp.async of 8 or 16 bytes to shared address dst; pred false zero-fills
-// the destination and reads nothing.
-__device__ __forceinline__ void cp_async8(uint32_t dst, const void* src,
-                                          bool pred) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst),
-               "l"(src), "r"(pred ? 8 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool pred) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(pred ? 16 : 0)
-               : "memory");
-}
 
 // The four int8 codes of w as four bf16 (two bf16x2 words), exactly and
 // without the conversion unit: byte u = code + 128 is placed in the
@@ -862,10 +739,11 @@ struct Grid {
   int qblock, tiles;
 };
 
-Grid grid_of(int B, int kq, int H, int KVH, const int* starts, int bq) {
+Grid grid_of(int B, int kq, int H, int KVH, const int* starts, int bq,
+             int rows) {
   const int G = H / KVH;
   const int qblock = starts ? bq : kq;  // the dense grid: one q block
-  const int tiles = (qblock * G + kRows - 1) / kRows;
+  const int tiles = (qblock * G + rows - 1) / rows;
   return {dim3(((kq + qblock - 1) / qblock) * tiles, KVH, B), qblock, tiles};
 }
 
@@ -886,7 +764,7 @@ int launch(const void* q, const void* k, const void* v, const int* qpos,
       attention_bf16_wgmma<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::kSmem);
   if (err != cudaSuccess) return (int)err;
-  const Grid g = grid_of(B, kq, H, KVH, starts, bq);
+  const Grid g = grid_of(B, kq, H, KVH, starts, bq, kRows);
   attention_bf16_wgmma<HDP><<<g.dims, kThreads, C::kSmem, s>>>(
       tk, tv, static_cast<const bf16*>(q), qpos, kvlen,
       static_cast<bf16*>(out), kq, H, N, KVH, hd, window, scale, soft_cap,
@@ -905,7 +783,7 @@ int launch_i8(const void* q, const I8Args& i8, const int* qpos,
       attention_i8_wgmma<HDP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       C::kSmem);
   if (err != cudaSuccess) return (int)err;
-  const Grid g = grid_of(B, kq, H, KVH, starts, bq);
+  const Grid g = grid_of(B, kq, H, KVH, starts, bq, kRows);
   attention_i8_wgmma<HDP><<<g.dims, kThreads, C::kSmem, s>>>(
       i8, static_cast<const bf16*>(q), qpos, kvlen, static_cast<bf16*>(out),
       kq, H, N, KVH, hd, window, scale, soft_cap, starts, n_band, g.qblock,
@@ -915,29 +793,578 @@ int launch_i8(const void* q, const I8Args& i8, const int* qpos,
 
 }  // namespace wg
 
-size_t smem_bytes(int hd) {
-  return sizeof(float) * (size_t)(kBQ * hd + kBK * (hd + 1) + kBK * hd +
-                                  kBQ * kBK + kBQ * hd + 4 * kBQ);
+// ---- f32 q: warp-specialised three-pass TF32 wgmma body ---------------------
+// A CTA owns kRows = 64 rows, each a (query, head) pair of one kv head and
+// one batch row (as in wg above), so one staged K/V tile serves the whole
+// GQA group.  Warps 0-3 are one consumer warpgroup; warps 4-7 are the
+// producer warpgroup.  Every operand enters the tensor cores as a TF32
+// pair: x = hi + lo, hi = tf32(x), lo = tf32(x - hi) (|x - hi - lo| <=
+// 2^-22 |x|), and each product is hi.hi + hi.lo + lo.hi, the dropped
+// lo.lo and rounding terms about 2^-21 of |a b|: f32 accuracy, the sums in
+// the f32 accumulators.
+// Consumers: Q is split once into hi / lo K-major tiles (128-byte swizzle,
+// 32 columns a 128-byte row).  For each tile of kBN = 32 keys: S = Q K^T
+// as three m64n32k8 products per 8 columns (both operands in shared
+// memory), then the scale, soft cap, masks and online softmax on the S
+// fragment in f32, term for term the plain version's (expf, not ex2),
+// then O = alpha O + P V with P V as three m64nNk8 products per 8 keys,
+// P split in registers (the A fragment) and V^T in shared memory.  The
+// tensor cores round their f32 sums toward zero, and a long chain of
+// products in one accumulator drifts: on an H100 it put f32 outputs 1.3e-5
+// from the plain version at InternVL2-76B's N=1536.  So no chain is longer
+// than 12 products: each 32-column chunk of S and each tile's P V (in
+// slices of up to 128 columns) start from a fresh accumulator and are
+// added into S and O here, in f32 rounded to nearest, as the plain
+// version adds its blocks.  TF32 operands are
+// K-major only, so V arrives transposed ([columns x keys]) and with its
+// keys permuted within each 8-key step: the S fragment holds keys 2t and
+// 2t + 1 of a step in thread t of a quad, the A fragment columns t and t
+// + 4, so key 2m + o sits at position m + 4o, and P enters the product
+// with no shuffle.
+// Producer: the K/V tiles stream through a ring of kUnits units, a unit
+// being the K (or the V) of one tile over kUW <= 128 columns, hi and lo
+// halves (head_dim 256: two K and two V units a tile).  Its 128 threads
+// copy a unit's raw rows by cp.async (16-byte copies where every f32 row
+// is 16-byte aligned, else 4-byte; int8 codes as 4-byte words, or bytes
+// where rows are not 4-byte aligned) into the unit's lo half, kLead units
+// ahead, in a row-major layout whose 16-byte (int8: 4-byte) units are
+// XOR-swizzled by raw_swz(key); then they read the raw values into
+// registers (int8 K/V dequantized to f32 with their row's scale: exact,
+// an int8 code times an f16 scale has at most 19 significant bits, and
+// with f32 scales the product rounds as the plain version's), and write
+// the hi / lo pair: K as K-major rows, V transposed and permuted, each
+// 16-byte store of a quarter-warp to distinct banks.  Keys past N are
+// zero; columns past head_dim are zero, so head_dim is padded with zero
+// columns to HDP (32, 64, 96, 128 or 256).
+// A consumer releases a unit once its products landed; the producer
+// issues unit m + kLead (into the slot unit m + kLead - kUnits left) and
+// then converts unit m, so with kLead <= kUnits - kNU it never waits on
+// a unit the consumers cannot yet release.
+// Registers at HDP = 256: O 128 f32 a thread, a P V slice 16 (32
+// columns), S 16 and one chunk partial 16, P hi / lo 32 (below it: two
+// partials in flight, P V slices of a whole unit).  Shared memory:
+// Q 64 KB per 128 columns of head_dim, a unit 32 KB (at 128 columns).
+namespace tf {
+
+constexpr int kRows = 64;      // one consumer warpgroup
+constexpr int kThreads = 256;  // + a producer warpgroup
+constexpr int kBN = 32;        // keys a tile
+constexpr int kSmemMax = 232448;
+
+template <int HDP>
+struct Cfg {
+  static constexpr int kUW = HDP < 128 ? HDP : 128;  // columns of a unit
+  static constexpr int kNU = HDP / kUW;              // K (and V) units a tile
+  static constexpr int kHalf = kUW * 128;            // bytes of hi (or lo)
+  static constexpr int kUnitBytes = 2 * kHalf;
+  static constexpr int kQHalf = kRows * HDP * 4;
+  // + 1024-byte alignment, barriers, the scales of one unit, the rows'
+  // position range
+  static constexpr int kExtra = 1024 + 512;
+  static constexpr int kFit = (kSmemMax - 2 * kQHalf - kExtra) / kUnitBytes;
+  static constexpr int kUnits = kFit < 8 ? kFit : 8;
+  static constexpr int kLead =
+      kUnits - 2 * kNU - 1 > 1 ? kUnits - 2 * kNU - 1 : 1;
+  static_assert(kLead <= kUnits - kNU, "the producer could wait on itself");
+  static constexpr int kUnitOff = 2 * kQHalf;
+  static constexpr int kBarOff = kUnitOff + kUnits * kUnitBytes;
+  static constexpr int kSclOff = kBarOff + 16 * kUnits;
+  static constexpr int kRngOff = kSclOff + 4 * kBN;
+  static constexpr int kSmem = kRngOff + 16 + 1024;
+  static_assert(kSmem <= kSmemMax, "over the H100's shared memory a block");
+};
+
+using namespace hopper;
+
+// The swizzle of a staged raw row: 16-byte unit (int8: 4-byte word) q of
+// key j lies at q ^ raw_swz(j), so the 8 keys 8s + 2m + o (s < 4, o < 2)
+// the V conversion reads at once fall in 8 distinct bank groups.
+__device__ __forceinline__ int raw_swz(int j) {
+  return ((j >> 3) & 3) | ((j & 1) << 2);
 }
 
-template <typename T, typename KV>
-int launch(const void* q, const void* k, const void* v, const int* qpos,
-           const void* ks, const void* vs, bool ks_f16, const int* kvlen,
+// The K/V operands: f32 rows, or int8 codes, with per-row scales (int8;
+// optional for f32: nullptr means unit scales).
+struct KV {
+  const void* k;
+  const void* v;
+  const void* ks;
+  const void* vs;
+  bool f16;   // scales in f16, else f32
+  bool wide;  // f32: 16-byte copies; int8: 4-byte copies
+};
+
+template <int HDP, bool kI8>
+__global__ void __launch_bounds__(kThreads, 1) attention_tf32_wgmma(
+    const KV kv, const float* __restrict__ q, const int* __restrict__ qpos,
+    const int* __restrict__ kvlen, float* __restrict__ out, int kq, int H,
+    int N, int KVH, int hd, int window, float scale, float soft_cap,
+    const int* __restrict__ starts, int n_band, int bq, int bk,
+    int tiles_per_qb) {
+  using C = Cfg<HDP>;
+  constexpr int UW = C::kUW, NU = C::kNU, U = C::kUnits;
+  // columns of a P V slice (its accumulator: kPW / 2 registers) and S
+  // chunk partials in flight: fewer at HDP = 256, where O holds 128
+  // registers a thread
+  constexpr int kPW = HDP == 256 ? 32 : UW;
+  constexpr int kSt = HDP == 256 ? 1 : 2;
+  extern __shared__ unsigned char tf_smem[];
+  const uint32_t raw_base = smem_u32(tf_smem);
+  const uint32_t base = (raw_base + 1023) & ~1023u;
+  unsigned char* sm = tf_smem + (base - raw_base);
+  const uint32_t s_bar = base + C::kBarOff;  // full[u], then empty[u]
+  float* scl = reinterpret_cast<float*>(sm + C::kSclOff);
+  int* rng = reinterpret_cast<int*>(sm + C::kRngOff);
+  auto unit_at = [&](int slot) {
+    return base + C::kUnitOff + slot * C::kUnitBytes;
+  };
+
+  const int G = H / KVH;
+  const int b = blockIdx.z, kvh = blockIdx.y;
+  const int qb = blockIdx.x / tiles_per_qb;
+  const int row0 = qb * bq * G + (blockIdx.x % tiles_per_qb) * kRows;
+  const int row_end = min((qb + 1) * bq, kq) * G;
+  if (row0 >= row_end) return;  // a spare tile of a short last q block
+  const int tid = threadIdx.x;
+  const int kv_limit = kvlen ? kvlen[b] : N;
+
+  if (tid == 0) {
+    for (int s = 0; s < U; ++s) {
+      mbar_init(s_bar + 8 * s, 128);
+      mbar_init(s_bar + 8 * (U + s), 128);
+    }
+    rng[0] = INT_MAX;
+    rng[1] = INT_MIN;
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid < kRows && row0 + tid < row_end) {
+    const int p = qpos[(size_t)b * kq + (row0 + tid) / G];
+    atomicMin(&rng[0], p);
+    atomicMax(&rng[1], p);
+  }
+  __syncthreads();
+  int kv_lo, kv_hi;
+  kv_range(starts ? starts[qb] : -1, n_band, bk, N, kv_limit, window,
+           rng[0], rng[1], kBN, &kv_lo, &kv_hi);
+  const int n_tiles = kv_hi > kv_lo ? (kv_hi - kv_lo + kBN - 1) / kBN : 0;
+  const int n_units = n_tiles * 2 * NU;
+
+  if (tid >= 128) {
+    // ---- producer warpgroup ----
+    const int pt = tid - 128;
+    const size_t head0 = (size_t)kvh * hd;
+    const size_t key_stride = (size_t)KVH * hd;  // elements between keys
+    const size_t b0 = (size_t)b * N;
+    // unit n's tile, kind and column offset
+    auto unit_of = [&](int n, int* kv0, bool* is_v, int* c0) {
+      const int j = n % (2 * NU);
+      *kv0 = kv_lo + (n / (2 * NU)) * kBN;
+      *is_v = j >= NU;
+      *c0 = (j % NU) * UW;
+    };
+    // copy unit n's raw rows into its slot's lo half; one commit group a
+    // call (empty past the last unit)
+    auto issue = [&](int n) {
+      if (n < n_units) {
+        const int slot = n % U;
+        if (n >= U) mbar_wait(s_bar + 8 * (U + slot), ((n / U) - 1) & 1);
+        int kv0, c0;
+        bool is_v;
+        unit_of(n, &kv0, &is_v, &c0);
+        const uint32_t raw = unit_at(slot) + C::kHalf;
+        if constexpr (!kI8) {
+          const float* src = static_cast<const float*>(is_v ? kv.v : kv.k);
+          if (kv.wide) {
+            for (int e = pt; e < kBN * (UW / 4); e += 128) {
+              const int j = e / (UW / 4), qd = e % (UW / 4), p = kv0 + j;
+              const int col = c0 + 4 * qd;
+              const bool ok = p < N && col < hd;
+              cp_async16(raw + j * UW * 4 + ((qd ^ raw_swz(j)) << 4),
+                         ok ? src + (b0 + p) * key_stride + head0 + col : src,
+                         ok);
+            }
+          } else {
+            for (int e = pt; e < kBN * UW; e += 128) {
+              const int j = e / UW, c = e % UW, p = kv0 + j, col = c0 + c;
+              const bool ok = p < N && col < hd;
+              cp_async4(raw + j * UW * 4 + (((c / 4) ^ raw_swz(j)) << 4) +
+                            (c % 4) * 4,
+                        ok ? src + (b0 + p) * key_stride + head0 + col : src,
+                        ok);
+            }
+          }
+        } else {
+          const int8_t* src = static_cast<const int8_t*>(is_v ? kv.v : kv.k);
+          for (int e = pt; e < kBN * (UW / 4); e += 128) {
+            const int j = e / (UW / 4), wd = e % (UW / 4), p = kv0 + j;
+            const int col = c0 + 4 * wd;
+            const uint32_t dst = raw + j * UW + ((wd ^ raw_swz(j)) << 2);
+            const int8_t* row = src + (b0 + p) * key_stride + head0;
+            if (kv.wide) {
+              const bool ok = p < N && col < hd;
+              cp_async4(dst, ok ? row + col : src, ok);
+            } else {  // rows not 4-byte aligned: bytes, synchronously
+              uint32_t w = 0;
+              for (int i = 0; i < 4; ++i)
+                if (p < N && col + i < hd)
+                  w |= (uint32_t)(uint8_t)row[col + i] << (8 * i);
+              asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(dst), "r"(w)
+                           : "memory");
+            }
+          }
+        }
+      }
+      spa::cp_async_commit();
+    };
+    // the scale of key pt (< kBN) of unit n; 0 past N (its values are 0)
+    auto unit_scale = [&](int n) -> float {
+      if (kv.ks == nullptr || n >= n_units || pt >= kBN) return 0.f;
+      int kv0, c0;
+      bool is_v;
+      unit_of(n, &kv0, &is_v, &c0);
+      const int p = kv0 + pt;
+      if (p >= N) return 0.f;
+      return load_scale(is_v ? kv.vs : kv.ks, (b0 + p) * KVH + kvh, kv.f16);
+    };
+    float scale_next = unit_scale(0);
+    for (int n = 0; n < C::kLead; ++n) issue(n);
+    for (int m = 0; m < n_units; ++m) {
+      issue(m + C::kLead);
+      spa::cp_async_wait<C::kLead>();  // this thread's copies of unit m
+      if (kv.ks != nullptr && pt < kBN) scl[pt] = scale_next;
+      asm volatile("bar.sync 5, 128;\n" ::: "memory");
+      int kv0, c0;
+      bool is_v;
+      unit_of(m, &kv0, &is_v, &c0);
+      const uint32_t u_hi = unit_at(m % U);
+      const unsigned char* raw = sm + (u_hi - base) + C::kHalf;
+      // the four values of 16-byte unit (int8: word) qd of raw key j
+      auto raw4 = [&](int j, int qd, float (&x)[4]) {
+        if constexpr (kI8) {
+          const uint32_t w = *reinterpret_cast<const uint32_t*>(
+              raw + j * UW + ((qd ^ raw_swz(j)) << 2));
+          const float s = scl[j];
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            x[i] = (float)(int8_t)(w >> (8 * i)) * s;
+        } else {
+          const float4 f = *reinterpret_cast<const float4*>(
+              raw + j * UW * 4 + ((qd ^ raw_swz(j)) << 4));
+          const float s = kv.ks != nullptr ? scl[j] : 1.f;
+          x[0] = kv.ks != nullptr ? f.x * s : f.x;
+          x[1] = kv.ks != nullptr ? f.y * s : f.y;
+          x[2] = kv.ks != nullptr ? f.z * s : f.z;
+          x[3] = kv.ks != nullptr ? f.w * s : f.w;
+        }
+      };
+      if (!is_v) {
+        // K: 16-byte unit qd of key j -> chunk qd / 8, row j (K-major)
+        constexpr int kPer = kBN * (UW / 4) / 128;
+        float x[kPer][4];
+#pragma unroll
+        for (int r = 0; r < kPer; ++r) {
+          const int e = pt + 128 * r;
+          raw4(e / (UW / 4), e % (UW / 4), x[r]);
+        }
+        asm volatile("bar.sync 5, 128;\n" ::: "memory");  // raw read
+#pragma unroll
+        for (int r = 0; r < kPer; ++r) {
+          const int e = pt + 128 * r, j = e / (UW / 4), qd = e % (UW / 4);
+          tf32_split_store(sm + (u_hi - base) + (qd / 8) * kBN * 128 +
+                               j * 128 + (((qd % 8) ^ (j & 7)) << 4),
+                           C::kHalf, x[r]);
+        }
+      } else {
+        // V: task (column quad cq, key group kg = 2s + o) reads keys 8s +
+        // 2m + o (m < 4) of columns 4cq .. 4cq + 3 and writes, for each
+        // column c, the 16-byte unit kg of row c of V^T: positions 8s + 4o
+        // + m
+        constexpr int kTasks = 2 * UW;
+        constexpr int kPer = (kTasks + 127) / 128;
+        float x[kPer][4][4];
+#pragma unroll
+        for (int r = 0; r < kPer; ++r) {
+          const int task = pt + 128 * r;
+          if (task < kTasks) {
+            const int kg = task % 8, cq = task / 8;
+#pragma unroll
+            for (int mm = 0; mm < 4; ++mm)
+              raw4(8 * (kg >> 1) + 2 * mm + (kg & 1), cq, x[r][mm]);
+          }
+        }
+        asm volatile("bar.sync 5, 128;\n" ::: "memory");  // raw read
+#pragma unroll
+        for (int r = 0; r < kPer; ++r) {
+          const int task = pt + 128 * r;
+          if (task < kTasks) {
+            const int kg = task % 8, cq = task / 8;
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const int c = 4 * cq + k;
+              const float col[4] = {x[r][0][k], x[r][1][k], x[r][2][k],
+                                    x[r][3][k]};
+              tf32_split_store(
+                  sm + (u_hi - base) + c * 128 + ((kg ^ (c & 7)) << 4),
+                  C::kHalf, col);
+            }
+          }
+        }
+      }
+      // the unit's (generic-proxy) writes -> visible to wgmma
+      fence_proxy_async();
+      mbar_arrive(s_bar + 8 * (m % U));
+      scale_next = unit_scale(m + 1);
+    }
+    spa::cp_async_wait<0>();
+    return;
+  }
+
+  // ---- consumer warpgroup ----
+  // Q -> hi / lo K-major tiles: chunk c (32 columns) of row r at c * kRows
+  // * 128 + r * 128, 16-byte unit u at (u ^ (r & 7)) << 4
+  const bool q_wide =
+      hd % 4 == 0 && (reinterpret_cast<uintptr_t>(q) & 15) == 0;
+  for (int e = tid; e < kRows * (HDP / 4); e += 128) {
+    const int r = e / (HDP / 4), qd = e % (HDP / 4), grow = row0 + r;
+    float x[4] = {0.f, 0.f, 0.f, 0.f};
+    const int col = 4 * qd;
+    if (grow < row_end && col < hd) {
+      const float* src =
+          q + (((size_t)b * kq + grow / G) * H + kvh * G + grow % G) * hd;
+      if (q_wide) {
+        const float4 f = *reinterpret_cast<const float4*>(src + col);
+        x[0] = f.x;
+        x[1] = f.y;
+        x[2] = f.z;
+        x[3] = f.w;
+      } else {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          if (col + i < hd) x[i] = src[col + i];
+      }
+    }
+    tf32_split_store(
+        sm + (qd / 8) * kRows * 128 + r * 128 + (((qd % 8) ^ (r & 7)) << 4),
+        C::kQHalf, x);
+  }
+  fence_proxy_async();
+  asm volatile("bar.sync 1, 128;\n" ::: "memory");
+
+  const int warp = tid / 32, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  int qp[2], rq[2], rh[2];
+  bool live[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int grow = row0 + warp * 16 + g + 8 * e;
+    live[e] = grow < row_end;
+    rq[e] = grow / G;
+    rh[e] = kvh * G + grow % G;
+    qp[e] = live[e] ? qpos[(size_t)b * kq + rq[e]] : (1 << 30);
+  }
+  float m[2] = {spa::kNegInf, spa::kNegInf}, l[2] = {0.f, 0.f};
+  // O: slice sl (kPW columns) in o[sl * kPW / 2 ...], its accumulator
+  // layout (4j + e: row g + 8 (e >> 1), column 8j + 2t + (e & 1))
+  float o[HDP / 2];
+#pragma unroll
+  for (int i = 0; i < HDP / 2; ++i) o[i] = 0.f;
+  // S of a tile, and the partial S of two 32-column chunks: the tensor
+  // cores round their f32 sums toward zero, so no accumulator chain runs
+  // longer than one chunk's 12 products (S) or one tile's (O); the chunks
+  // and tiles are summed here in f32, rounded to nearest
+  float sc[kBN / 2], st[kSt][kBN / 2];
+#pragma unroll
+  for (int i = 0; i < kBN / 2; ++i) {
+    sc[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kSt; ++j) st[j][i] = 0.f;
+  }
+  auto add_chunk = [&](int ch) {
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i)
+      sc[i] = ch == 0 ? st[0][i] : sc[i] + st[ch % kSt][i];
+  };
+  uint32_t p_hi[kBN / 8][4], p_lo[kBN / 8][4];
+  float pv[kPW / 2];  // one slice of P V
+
+  for (int i = 0; i < n_tiles; ++i) {
+    // S = Q K^T: three products per 8 columns
+    const int n_k = i * 2 * NU;
+#pragma unroll
+    for (int u = 0; u < NU; ++u)
+      mbar_wait(s_bar + 8 * ((n_k + u) % U), ((n_k + u) / U) & 1);
+    // each 32-column chunk's three products into a fresh accumulator
+    // (st[ch % kSt], kSt in flight), added into sc in f32 once it landed
+#pragma unroll
+    for (int ch = 0; ch < HDP / 32; ++ch) {
+      const int u = ch / (UW / 32), c = ch % (UW / 32);
+      const uint32_t qa = base + ch * kRows * 128;
+      const uint32_t kb = unit_at((n_k + u) % U) + c * kBN * 128;
+      reg_fence(st[ch % kSt]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t a_hi = sw128_desc(qa + kk * 32, 16, 1024);
+        const uint64_t a_lo =
+            sw128_desc(qa + C::kQHalf + kk * 32, 16, 1024);
+        const uint64_t b_hi = sw128_desc(kb + kk * 32, 16, 1024);
+        const uint64_t b_lo =
+            sw128_desc(kb + C::kHalf + kk * 32, 16, 1024);
+        wgmma_tf32_ss_n32(st[ch % kSt], a_hi, b_hi, kk > 0);
+        wgmma_tf32_ss_n32(st[ch % kSt], a_hi, b_lo, 1);
+        wgmma_tf32_ss_n32(st[ch % kSt], a_lo, b_hi, 1);
+      }
+      wgmma_commit();
+      if constexpr (kSt == 1) {
+        wgmma_wait<0>();
+        reg_fence(st[0]);
+        add_chunk(ch);
+      } else if (ch > 0) {
+        wgmma_wait<1>();
+        reg_fence(st[(ch - 1) % 2]);
+        add_chunk(ch - 1);
+      }
+    }
+    if constexpr (kSt == 2) {
+      wgmma_wait<0>();
+      reg_fence(st[(HDP / 32 - 1) % 2]);
+      add_chunk(HDP / 32 - 1);
+    }
+#pragma unroll
+    for (int u = 0; u < NU; ++u)
+      mbar_arrive(s_bar + 8 * (U + (n_k + u) % U));
+
+    // scale, soft cap, masks and the online softmax (the plain version's
+    // terms): sc[4j + e] is row g + 8 (e >> 1), key kv0 + 8j + 2t + (e & 1)
+    const int kv0 = kv_lo + i * kBN;
+    uint32_t valid = 0;
+    float mx[2] = {spa::kNegInf, spa::kNegInf};
+#pragma unroll
+    for (int idx = 0; idx < kBN / 2; ++idx) {
+      const int row = (idx >> 1) & 1;
+      const int p = kv0 + 8 * (idx >> 2) + 2 * t + (idx & 1);
+      float s = sc[idx] * scale;
+      if (soft_cap > 0.f) s = soft_cap * tanhf(s / soft_cap);
+      const bool ok = p < N && p < kv_limit &&
+                      (window <= 0 || abs(qp[row] - p) <= window);
+      valid |= (uint32_t)ok << idx;
+      sc[idx] = ok ? s : spa::kNegInf;
+      mx[row] = fmaxf(mx[row], sc[idx]);
+    }
+    float alpha[2], rsum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 1));
+      mx[e] = fmaxf(mx[e], __shfl_xor_sync(0xffffffffu, mx[e], 2));
+      const float m_new = fmaxf(m[e], mx[e]);
+      alpha[e] = m[e] <= spa::kNegInf / 2 ? 0.f : expf(m[e] - m_new);
+      m[e] = m_new;
+    }
+#pragma unroll
+    for (int idx = 0; idx < kBN / 2; ++idx) {
+      const int row = (idx >> 1) & 1;
+      sc[idx] = (valid >> idx) & 1 ? expf(sc[idx] - m[row]) : 0.f;
+      rsum[row] += sc[idx];
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      rsum[e] += __shfl_xor_sync(0xffffffffu, rsum[e], 1);
+      rsum[e] += __shfl_xor_sync(0xffffffffu, rsum[e], 2);
+      l[e] = alpha[e] * l[e] + rsum[e];
+    }
+    // P as the A fragment of each 8-key step: a0 (g, key 2t), a1 (g + 8,
+    // 2t), a2 (g, 2t + 1), a3 (g + 8, 2t + 1)
+#pragma unroll
+    for (int kk = 0; kk < kBN / 8; ++kk) {
+      const float x[4] = {sc[4 * kk], sc[4 * kk + 2], sc[4 * kk + 1],
+                          sc[4 * kk + 3]};
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float h = tf32_rna(x[r]);
+        p_hi[kk][r] = __float_as_uint(h);
+        p_lo[kk][r] = __float_as_uint(tf32_rna(x[r] - h));
+      }
+    }
+    // O = alpha O + P V, slice by slice of kPW columns: three products
+    // per 8 keys into a fresh accumulator, V^T rows of 32 keys (128 bytes)
+    const int n_v = n_k + NU;
+#pragma unroll
+    for (int u = 0; u < NU; ++u)
+      mbar_wait(s_bar + 8 * ((n_v + u) % U), ((n_v + u) / U) & 1);
+#pragma unroll
+    for (int sl = 0; sl < HDP / kPW; ++sl) {
+      const int u = sl / (UW / kPW);
+      const uint32_t v_hi =
+          unit_at((n_v + u) % U) + (sl % (UW / kPW)) * kPW * 128;
+#pragma unroll
+      for (int i = 0; i < kPW / 2; ++i) pv[i] = 0.f;
+      reg_fence(pv);
+      reg_fence(p_hi);
+      reg_fence(p_lo);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBN / 8; ++kk) {
+        const uint64_t b_hi = sw128_desc(v_hi + kk * 32, 16, 1024);
+        const uint64_t b_lo =
+            sw128_desc(v_hi + C::kHalf + kk * 32, 16, 1024);
+        wgmma_tf32_rs<kPW>(pv, p_hi[kk], b_hi);
+        wgmma_tf32_rs<kPW>(pv, p_hi[kk], b_lo);
+        wgmma_tf32_rs<kPW>(pv, p_lo[kk], b_hi);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(pv);
+#pragma unroll
+      for (int i = 0; i < kPW / 2; ++i) {
+        float& oi = o[sl * (kPW / 2) + i];
+        oi = alpha[(i >> 1) & 1] * oi + pv[i];
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < NU; ++u)
+      mbar_arrive(s_bar + 8 * (U + (n_v + u) % U));
+  }
+
+  // out = O / l (rows with l == 0 output 0); columns 8j + 2t, +1 of each
+  // unit
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    if (!live[e]) continue;
+    const float den = l[e] == 0.f ? 1.f : l[e];
+    float* orow = out + (((size_t)b * kq + rq[e]) * H + rh[e]) * hd;
+#pragma unroll
+    for (int sl = 0; sl < HDP / kPW; ++sl)
+#pragma unroll
+      for (int j = 0; j < kPW / 8; ++j)
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int col = sl * kPW + 8 * j + 2 * t + c;
+          if (col < hd)
+            orow[col] = o[sl * (kPW / 2) + 4 * j + 2 * e + c] / den;
+        }
+  }
+}
+
+template <int HDP, bool kI8>
+int launch(const KV& kv, const void* q, const int* qpos, const int* kvlen,
            void* out, int B, int kq, int H, int N, int KVH, int hd,
            int window, float scale, float soft_cap, const int* starts,
            int n_band, int bq, int bk, cudaStream_t s) {
-  const size_t bytes = smem_bytes(hd);
-  auto kern = attention_kernel<T, KV>;
+  using C = Cfg<HDP>;
+  auto kern = attention_tf32_wgmma<HDP, kI8>;
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((kq + kBQ - 1) / kBQ, H, B);
-  kern<<<grid, kThreads, bytes, s>>>(
-      static_cast<const T*>(q), k, v, qpos, ks, vs, ks_f16, kvlen,
-      static_cast<T*>(out), kq, H, N, KVH, hd, window, scale, soft_cap,
-      starts, n_band, bq, bk);
+  const wg::Grid g = wg::grid_of(B, kq, H, KVH, starts, bq, kRows);
+  kern<<<g.dims, kThreads, C::kSmem, s>>>(
+      kv, static_cast<const float*>(q), qpos, kvlen, static_cast<float*>(out),
+      kq, H, N, KVH, hd, window, scale, soft_cap, starts, n_band, g.qblock,
+      bk, g.tiles);
   return (int)cudaGetLastError();
 }
+
+}  // namespace tf
 
 }  // namespace
 
@@ -950,7 +1377,9 @@ int launch(const void* q, const void* k, const void* v, const int* qpos,
 // bq must be a multiple of 16 or at least kq, bk a multiple of 64.
 // bf16 q takes bf16 K/V (no scales) or int8 K/V (with scales), a head_dim
 // that is a multiple of 8 up to 256 and 16-byte aligned q, k and v;
-// anything else returns cudaErrorInvalidValue.
+// anything else returns cudaErrorInvalidValue.  f32 q takes f32 K/V (with
+// or without scales) or int8 K/V (with scales), any head_dim up to 256 and
+// any alignment.
 extern "C" int spa_sparse_attention(const void* q, const void* k,
                                     const void* v, const void* qpos,
                                     const void* ks, const void* vs,
@@ -967,7 +1396,7 @@ extern "C" int spa_sparse_attention(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   const int* st = static_cast<const int*>(starts);
   if (st && (n_band <= 0 || bq <= 0 || bk <= 0 || bk % 64 ||
-             (bq % kBQ && bq < kq)))
+             (bq % 16 && bq < kq)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* qp = static_cast<const int*>(qpos);
@@ -1001,12 +1430,30 @@ extern "C" int spa_sparse_attention(const void* q, const void* k,
                 soft_cap, st, n_band, bq, bk, s);
   }
   if (dtype == spa::kF32) {
-    return quant ? launch<float, int8_t>(q, k, v, qp, ks, vs, f16, kvl, out,
-                                         B, kq, H, N, KVH, hd, window, scale,
-                                         soft_cap, st, n_band, bq, bk, s)
-                 : launch<float, float>(q, k, v, qp, ks, vs, f16, kvl, out, B,
-                                        kq, H, N, KVH, hd, window, scale,
-                                        soft_cap, st, n_band, bq, bk, s);
+    // f32 rows 16-byte aligned (16-byte copies), int8 rows 4-byte aligned
+    // (4-byte copies)
+    const uintptr_t kv_addr = reinterpret_cast<uintptr_t>(k) |
+                              reinterpret_cast<uintptr_t>(v);
+    const bool wide = quant ? hd % 4 == 0 && (kv_addr & 3) == 0
+                            : hd % 4 == 0 && (kv_addr & 15) == 0;
+    const tf::KV kv{k, v, ks, vs, f16, wide};
+    // head_dim padded with zero columns to the next instantiated width
+    if (quant) {
+      auto body = hd <= 32    ? tf::launch<32, true>
+                  : hd <= 64  ? tf::launch<64, true>
+                  : hd <= 96  ? tf::launch<96, true>
+                  : hd <= 128 ? tf::launch<128, true>
+                              : tf::launch<256, true>;
+      return body(kv, q, qp, kvl, out, B, kq, H, N, KVH, hd, window, scale,
+                  soft_cap, st, n_band, bq, bk, s);
+    }
+    auto body = hd <= 32    ? tf::launch<32, false>
+                : hd <= 64  ? tf::launch<64, false>
+                : hd <= 96  ? tf::launch<96, false>
+                : hd <= 128 ? tf::launch<128, false>
+                            : tf::launch<256, false>;
+    return body(kv, q, qp, kvl, out, B, kq, H, N, KVH, hd, window, scale,
+                soft_cap, st, n_band, bq, bk, s);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -33,8 +33,10 @@ body, either grid), else ``sparse_attention`` (dense grid) or
 ``sparse_attention_banded``.  On the card, bf16 q takes bf16 K/V (no
 scales) or int8 K/V (with scales) of any head_dim that is a multiple of 8
 up to 256 (padded with zero columns to the kernel's next width) and
-16-byte aligned q, k and v; other bf16 shapes raise.  The kernel reads the
-scales in their own dtype (the cache's f16, or f32).
+16-byte aligned q, k and v; other bf16 shapes raise.  f32 q takes f32 K/V
+(scales optional) or int8 K/V with scales, any head_dim up to 256 and any
+alignment, on the three-pass TF32 body.  The kernel reads the scales in
+their own dtype (the cache's f16, or f32).
 """
 from __future__ import annotations
 

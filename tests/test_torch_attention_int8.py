@@ -169,7 +169,7 @@ def test_emulated_int8_body_nan_scales():
 @pytest.mark.cuda
 def test_cuda_int8_attention_refuses_head_dim_12():
     """bf16 q with int8 K/V at head_dim 12 (no multiple of 8) raises: no
-    body takes it, and none gives way to the FMA body or the plain
+    body takes it, and none gives way to the f32-q body or the plain
     version."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernels have no CPU mode)")

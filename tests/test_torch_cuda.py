@@ -7,8 +7,9 @@ PyTorch is installed:
     PYTHONPATH=src python -m pytest -q --noconftest -m cuda \
         tests/test_torch_cuda.py
 
-Tolerances: f32 within 1e-5 (FMA order only, TF32 off); row copies
-bit-exact.  bf16 outputs may flip by one bf16 ulp, since the kernel and
+Tolerances: f32 within 1e-5 (sum order; the plain versions run with TF32
+off, and f32 attention runs every product as three TF32 products, hi.hi +
+hi.lo + lo.hi, about 2^-21 of each term); row copies bit-exact.  bf16 outputs may flip by one bf16 ulp, since the kernel and
 the plain version sum in different orders before rounding:
 - ``p_now`` and normed rows: 2^-7 of each element (one ulp), plus 1e-5
   for f32 sum-order error on values that cancel to near 0;
@@ -831,3 +832,120 @@ def test_cuda_gather_norm_refuses_wide_rows():
         tps.gather_norm(h, torch.zeros((1, 2), dtype=torch.int32,
                                        device=dev),
                         torch.zeros(d, dtype=_BF16, device=dev))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,group,off,quant", [
+    (36, 8, 0, False), (120, 1, 0, False), (256, 8, 0, False),
+    (128, 1, 1, False), (120, 8, 1, True)],
+    ids=["hd36-G8", "hd120-G1", "hd256-G8", "hd128-G1-unaligned",
+         "hd120-G8-unaligned-int8"])
+def test_cuda_f32_attention_matches_plain(hd, group, off, quant):
+    """f32 q on the three-pass TF32 body: head_dim 36, 120 and 256 (padded
+    with zero columns to 64, 128, 256), GQA groups 1 and 8, q, k and v one
+    element off 16-byte alignment (4-byte copies; int8 codes one byte off:
+    byte loads), with a window, soft_cap and a ragged kv_len with a 0 row,
+    within 1e-5 of the plain version."""
+    _cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    b, n, kq, kvh = 3, 150, 25, 2
+
+    def view(shape, dtype):
+        numel = math.prod(shape) + off
+        if dtype == torch.int8:
+            buf = torch.randint(-127, 128, (numel,), generator=g,
+                                device=dev).to(torch.int8)
+        else:
+            buf = torch.randn(numel, generator=g, device=dev)
+        return buf[off:].view(*shape)
+
+    q = view((b, kq, kvh * group, hd), torch.float32)
+    kvd = torch.int8 if quant else torch.float32
+    k, v = view((b, n, kvh, hd), kvd), view((b, n, kvh, hd), kvd)
+    kw = dict(window=40, soft_cap=25.0,
+              kv_len=torch.tensor([n, 61, 0], device=dev))
+    if quant:
+        kw["k_scale"], kw["v_scale"] = (
+            (torch.rand((b, n, kvh), generator=g, device=dev) * 0.02
+             ).to(torch.float16) for _ in range(2))
+    pos = torch.randint(0, n, (b, kq), generator=g, device=dev)
+    got = tsa.sparse_attention(q, k, v, pos, **kw)
+    want = tsa.sparse_attention_plain(q, k, v, pos, **kw)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    assert not got[2].any(), "a kv_len 0 row must output 0"
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quant", [False, True])
+def test_cuda_f32_banded_equals_dense(quant):
+    """f32 q on the banded grid (head_dim 256, 8 q heads on one kv head,
+    the band covering the window): within 1e-5 of the plain banded
+    version, and bit for bit the dense grid."""
+    _cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(12)
+    b, n, kq, h, hd, window, span = 2, 4100, 700, 8, 256, 64, 1500
+    q = torch.randn(b, kq, h, hd, generator=g, device=dev)
+    if quant:
+        k, v = (torch.randint(-127, 128, (b, n, 1, hd), generator=g,
+                              device=dev).to(torch.int8) for _ in range(2))
+        kw = dict(k_scale=torch.rand((b, n, 1), generator=g, device=dev)
+                  * 0.02,
+                  v_scale=torch.rand((b, n, 1), generator=g, device=dev)
+                  * 0.02)
+    else:
+        k, v = (torch.randn(b, n, 1, hd, generator=g, device=dev)
+                for _ in range(2))
+        kw = {}
+    pos = torch.cat([
+        torch.sort(torch.randint(0, 1500, (b, 512), generator=g,
+                                 device=dev)).values,
+        torch.sort(torch.randint(2000, 3000, (b, kq - 512), generator=g,
+                                 device=dev)).values], dim=1)
+    kw.update(window=window, soft_cap=30.0,
+              kv_len=torch.tensor([n, 2600], device=dev))
+    got = tsa.sparse_attention(q, k, v, pos, banded=True, q_span=span, **kw)
+    want = tsa.sparse_attention_plain(
+        q, k, v, pos, band=tsa.band_for(pos, n, window, span), **kw)
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+    assert torch.equal(got, tsa.sparse_attention(q, k, v, pos, **kw))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,n,d,r,off", [
+    (2, 70, 97, 33, 1), (3, 300, 4096, 128, 0), (1, 40, 256, 200, 0),
+    (2, 33, 4096, 16, 0)],
+    ids=["d97-r33-unaligned", "d4096-r128", "d256-r200", "d4096-r16"])
+def test_cuda_f32_proxy_score_matches_plain(b, n, d, r, off):
+    """The f32 proxy_score body (three-pass TF32, d split over a cluster
+    where the row tiles do not fill the card) at ragged d and r, with x and
+    proxy_mat one element off 16-byte alignment (4-byte copies), and two
+    consumer warpgroups at r > 128: scores within 1e-5, p_now within 1e-5
+    of its largest element; the paged instance bitwise the dense one."""
+    _cuda_or_skip()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(13)
+
+    def view(*shape, scale=1.0):
+        buf = torch.randn(math.prod(shape) + off, generator=g,
+                          device=dev) * scale
+        return buf[off:].view(*shape)
+
+    x, w, pc = view(b, n, d), view(d, r, scale=0.05), view(b, n, r)
+    (s_k, p_k), (s_p, p_p) = (tps.proxy_score(x, w, pc),
+                              tps.proxy_score_plain(x, w, pc))
+    torch.testing.assert_close(s_k, s_p, rtol=0, atol=1e-5)
+    torch.testing.assert_close(p_k, p_p, rtol=0,
+                               atol=1e-5 * float(p_p.abs().max()))
+    page = 1
+    pt = torch.arange(b * n, device=dev, dtype=torch.int32).view(b, n)
+    arena = pc.reshape(b * n, page, r).contiguous()
+    s_g, p_g = tps.proxy_score_paged(x, w, arena, pt)
+    assert torch.equal(s_g, s_k) and torch.equal(p_g, p_k)
+    torch.cuda.synchronize()
