@@ -60,7 +60,8 @@ Phases (each asserts; any failure exits non-zero):
    ssd_chunk_scan at Mamba2-370m's shapes (x [4, 4096, 32, 64], d_state
    128, chunk 256) in bf16 and f32, and with T = 200 < chunk, with the
    device time of each of its three kernels and their ``-Xptxas -v``
-   lines; the row movers (``check_row_movers``): the timing floor (a
+   lines, and its f32 row (the three-pass TF32 body: no CUDA-core
+   ``ssd_chunk_*_f32`` kernel runs); the row movers (``check_row_movers``): the timing floor (a
    one-element kernel), scatter_update_multi at every commit of the
    layer step beyond its record's LLaDA K+V k=128 (k=16, H + proxy, int8
    K+V + scales, int8 H + 2-byte scale + proxy; the hybrid's 512-byte
@@ -118,7 +119,9 @@ Phases (each asserts; any failure exits non-zero):
 10. Mamba2 parity: a 3-layer, full-width Mamba2 (SSD blocks only, NoCache)
    at B=4, N=4096, through ``CudaBackend`` and ``TorchBackend``: f32
    free-running with identical tokens and the final hidden states within
-   1e-5 of their largest value, bf16 in lockstep;
+   1e-5 of their largest value (each backend's decode wall, and the f32
+   scan's device us a call and launches a step in one forward), bf16 in
+   lockstep;
 11. the Mamba2 main path: Mamba2-370m (48 SSD layers, bf16, random
    weights), B=4, prompt 3840 + gen 256, ``DecodeSession.run`` with the
    config's ``NoCache`` and ``CudaBackend`` for 32 steps: exactly two
@@ -2038,30 +2041,21 @@ def check_ssd_kernel(torch, flush, gen):
     """ssd_chunk_scan at Mamba2-370m's decode shape (x [4, 4096, 32, 64],
     ds 128, chunk 256: 16 chunks) in bf16 and f32, and with T < chunk (one
     chunk of 200 rows, ragged 64-row tiles), against the plain chunked
-    einsums: f32 within 1e-4 of the largest output (f32 sums in another
-    order), bf16 within two ulps of the largest output.  Inputs as the
+    einsums: f32 within 1e-5 of the largest output (three TF32 products a
+    term, partials of at most 32 terms), bf16 within two ulps of the
+    largest output.  Inputs as the
     model makes them: dt = softplus(N(0,1) - 3), a = -[1..16] over the
     heads, la the in-chunk cumulative sum of dt * a."""
     import math
     from repro_torch.kernels import ssd_chunk as sc
 
-    dev = torch.device("cuda")
     t0 = time.perf_counter()
     B, N, H, hd, ds, cs = (MAMBA[k] for k in ("B", "N", "H", "hd", "ds",
                                               "chunk"))
     print(f"ssd_chunk_scan (x [{B}, {N}, {H}, {hd}], ds {ds}, chunk {cs})")
 
     def inputs(t, dtype):
-        x = torch.randn((B, t, H, hd), generator=gen, device=dev).to(dtype)
-        bm = torch.randn((B, t, ds), generator=gen, device=dev).to(dtype)
-        cm = torch.randn((B, t, ds), generator=gen, device=dev).to(dtype)
-        dt = torch.nn.functional.softplus(
-            torch.randn((B, t, H), generator=gen, device=dev) - 3.0)
-        a = -torch.linspace(1.0, 16.0, H, device=dev)
-        c = min(cs, t)
-        la = torch.cumsum((dt * a).reshape(B, t // c, c, H),
-                          dim=2).reshape(B, t, H)
-        return x, dt, la, bm, cm
+        return ssd_inputs(torch, gen, t, dtype)
 
     errs = {}
     for t, dtype in ((N, torch.bfloat16), (N, torch.float32),
@@ -2071,7 +2065,7 @@ def check_ssd_kernel(torch, flush, gen):
         want = sc.ssd_chunk_scan_plain(*args, cs).float()
         assert bool(torch.isfinite(got).all()), "non-finite ssd output"
         top = float(want.abs().max())
-        lim = (1e-4 * top if dtype == torch.float32
+        lim = (1e-5 * top if dtype == torch.float32
                else 2 * 2.0 ** (math.floor(math.log2(top)) - 7))
         err = max_err(got, want)
         print(f"  {dtype} T={t}: max_abs_err {err:.3e} (limit {lim:.3e}, "
@@ -2081,12 +2075,7 @@ def check_ssd_kernel(torch, flush, gen):
         del args, got, want
     args = inputs(N, torch.bfloat16)
     nbytes = 2 * 2 * B * N * H * hd + 2 * 2 * B * N * ds + 2 * 4 * B * N * H
-    # the work the data needs: C B^T once per (batch row, chunk), then per
-    # head the causal half of M X (j <= i), C S^T and X^T (w o B)
-    n_chunks = N // cs
-    tri = cs * (cs + 1) // 2
-    flops = (2 * B * n_chunks * cs * cs * ds
-             + 2 * B * n_chunks * H * (tri * hd + 2 * cs * ds * hd))
+    flops = ssd_flops()
     rec = dict(
         source="src/repro_torch/csrc/ssd_chunk.cu",
         replaces="src/repro/kernels/ssd_chunk.py:75",
@@ -2103,26 +2092,103 @@ def check_ssd_kernel(torch, flush, gen):
           f"plain {rec['plain_ms']:.3f} ms")
     # the three kernels of a call: device time each, from a profiler window
     # (the L2 flushed clean before every call)
-    from torch.autograd import DeviceType
     with new_profiler(torch) as prof:
         for _ in range(10):
             flush()
             sc.ssd_chunk_scan(*args, cs)
         torch.cuda.synchronize()
-    for ev in prof.key_averages():
-        if ev.device_type == DeviceType.CUDA and "ssd_chunk_" in ev.key:
-            us = getattr(ev, "self_device_time_total", None)
-            if us is None:
-                us = ev.self_cuda_time_total
-            print(f"  {ev.key[:60]}: {us / 10 / 1e3:.4f} ms a call")
+    for key, us in device_us(prof, "ssd_chunk_").items():
+        print(f"  {key[:60]}: {us / 10 / 1e3:.4f} ms a call")
     for name, lines in sorted(ptxas_lines(
             r"(ssd_chunk_(?:states|pass|outputs)[a-z0-9_]*(?:ILb[01]E)?)"
             ).items()):
         name = name.replace("ILb1E", "<true>").replace("ILb0E", "<false>")
         print(f"  ptxas -v {name}: {', '.join(lines)}")
-    print(f"  this check took {time.perf_counter() - t0:.1f} s")
     del args
+    names = ssd_f32_row(torch, flush, gen)
+    fma = sorted(n for n in names
+                 if re.search(r"ssd_chunk_(?:states|outputs)_f32\b", n))
+    assert not fma, f"the f32 CUDA-core body ran: {fma}"
+    assert any("ssd_chunk_outputs_tf32" in n for n in names), \
+        f"no TF32 outputs stage among the f32 call's kernels: {names}"
+    print(f"  this check took {time.perf_counter() - t0:.1f} s")
     return {"ssd_chunk_scan": rec}
+
+
+def ssd_inputs(torch, gen, t: int, dtype):
+    """Inputs of ssd_chunk_scan at Mamba2-370m's widths (``MAMBA``) and T =
+    t rows, as the model makes them: dt = softplus(N(0,1) - 3), a = -[1..16]
+    over the heads, la the in-chunk cumulative sum of dt * a."""
+    dev = torch.device("cuda")
+    B, H, hd, ds, cs = (MAMBA[k] for k in ("B", "H", "hd", "ds", "chunk"))
+    x = torch.randn((B, t, H, hd), generator=gen, device=dev).to(dtype)
+    bm = torch.randn((B, t, ds), generator=gen, device=dev).to(dtype)
+    cm = torch.randn((B, t, ds), generator=gen, device=dev).to(dtype)
+    dt = torch.nn.functional.softplus(
+        torch.randn((B, t, H), generator=gen, device=dev) - 3.0)
+    a = -torch.linspace(1.0, 16.0, H, device=dev)
+    c = min(cs, t)
+    la = torch.cumsum((dt * a).reshape(B, t // c, c, H),
+                      dim=2).reshape(B, t, H)
+    return x, dt, la, bm, cm
+
+
+def ssd_flops() -> int:
+    """The products ssd_chunk_scan's data needs at Mamba2-370m's shape: per
+    (batch row, chunk) the causal half of G = C B^T (j <= i), then per head
+    the causal half of M X; the chunk states X^T (w o B) and C s_before^T
+    only where a state enters a chunk (chunks 1 .. L-1: the last chunk's
+    state feeds nothing, the first chunk's entering state is zero)."""
+    B, N, H, hd, ds, cs = (MAMBA[k] for k in ("B", "N", "H", "hd", "ds",
+                                              "chunk"))
+    n_chunks, tri = N // cs, cs * (cs + 1) // 2
+    return (2 * B * n_chunks * tri * ds
+            + 2 * B * H * (n_chunks * tri * hd
+                           + 2 * (n_chunks - 1) * cs * ds * hd))
+
+
+def device_us(prof, key: str) -> dict:
+    """Self device us of each kernel of a profiler window whose name holds
+    ``key``, by name."""
+    from torch.autograd import DeviceType
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and key in ev.key:
+            us = getattr(ev, "self_device_time_total", None)
+            out[ev.key] = ev.self_cuda_time_total if us is None else us
+    return out
+
+
+def ssd_f32_row(torch, flush, gen) -> set:
+    """Phase 3's f32 row of ssd_chunk_scan at Mamba2-370m's shape (``f32_row``:
+    the kernel's and the plain version's median device ms, library none,
+    the bound of f32 bytes and the data's products), then the device ms a
+    call of each kernel an f32 call launches (a profiler window, the L2
+    flushed clean before every call).  Returns those kernels' names.  It
+    asserts nothing of the body, so it also times an older tree's."""
+    from repro_torch.kernels import ssd_chunk as sc
+
+    B, N, H, hd, ds, cs = (MAMBA[k] for k in ("B", "N", "H", "hd", "ds",
+                                              "chunk"))
+    args = ssd_inputs(torch, gen, N, torch.float32)
+    nbytes = 2 * 4 * B * N * H * hd + 2 * 4 * B * N * ds + 2 * 4 * B * N * H
+    flops = ssd_flops()
+    ms = median_ms(lambda: sc.ssd_chunk_scan(*args, cs), torch, flush,
+                   runs=20)
+    plain_ms = median_ms(lambda: sc.ssd_chunk_scan_plain(*args, cs), torch,
+                         flush, runs=5, warmup=1)
+    f32_row(f"ssd_chunk_scan Mamba2-370m f32 (x [{B}, {N}, {H}, {hd}], ds "
+            f"{ds}, chunk {cs})", ms, plain_ms, None, nbytes, flops)
+    with new_profiler(torch) as prof:
+        for _ in range(10):
+            flush()
+            sc.ssd_chunk_scan(*args, cs)
+        torch.cuda.synchronize()
+    kernels = device_us(prof, "ssd_chunk_")
+    for key, us in kernels.items():
+        print(f"  f32 {key[:70]}: {us / 10 / 1e3:.4f} ms a call")
+    del args
+    return set(kernels)
 
 
 # ---------------------------------------------------------------------------
@@ -2877,19 +2943,25 @@ def mamba_parity(torch):
     cfg, params, strat, _, prompt = setup
     assert isinstance(strat, NoCache), type(strat).__name__
     _lib.reset_launch_counts()
-    out = {}
+    out, walls = {}, {}
     for name in ("cuda", "torch"):
         with oracle_launches_nothing("mamba2", name == "torch"):
             sess = DecodeSession(params, cfg, backend=name)
             sess.prefill(prompt, 16)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
             toks, info = sess.run()
-            h = transformer.embed_inputs(params, cfg, {"tokens": toks})
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+            h_in = transformer.embed_inputs(params, cfg, {"tokens": toks})
             h = transformer.forward_hidden(
-                params, cfg, h, strategy=strat.with_backend(name))[0]
+                params, cfg, h_in, strategy=strat.with_backend(name))[0]
             torch.cuda.synchronize()
         out[name] = (toks.cpu(), info["steps"], h)
         if name == "cuda":
             launches = _lib.launch_counts()["ssd_chunk_scan"]
+            scan_us, per_step = _scan_in_place(torch, params, cfg, h_in,
+                                               strat)
     assert launches > 0, "ssd_chunk_scan never launched (mamba2 parity)"
     n_diff = int((out["cuda"][0] != out["torch"][0]).sum())
     assert n_diff == 0, f"mamba2 float32: backends differ in {n_diff} tokens"
@@ -2899,6 +2971,11 @@ def mamba_parity(torch):
     print(f"  mamba2 float32: tokens identical, steps {out['cuda'][1]}, "
           f"ssd_chunk_scan launches {launches}, final hidden states differ "
           f"by {h_diff:.3e} of their largest value")
+    print(f"  mamba2 float32 decode wall: CudaBackend {walls['cuda']:.3f} s "
+          f"({walls['cuda'] / out['cuda'][1] * 1e3:.2f} ms/step), "
+          f"TorchBackend {walls['torch']:.3f} s; f32 ssd_chunk_scan in "
+          f"place {scan_us:.2f} us a call (its three kernels), {per_step} "
+          f"launches a step")
     assert h_diff <= 1e-5, f"mamba2 float32 hidden states differ by {h_diff}"
     del setup, params, out, h_c, h_t
     torch.cuda.empty_cache()
@@ -2922,6 +2999,23 @@ def mamba_parity(torch):
           f"{rel:.3e} of their largest value")
     del setup, params, hs, h0
     torch.cuda.empty_cache()
+
+
+def _scan_in_place(torch, params, cfg, h_in, strat):
+    """(device us a call, launches) of ssd_chunk_scan in one CudaBackend
+    forward of the canvas (a decode step's work), from a profiler window."""
+    from repro_torch.kernels import _lib
+    from repro_torch.models import transformer
+
+    before = _lib.launch_counts()["ssd_chunk_scan"]
+    with new_profiler(torch) as prof:
+        transformer.forward_hidden(params, cfg, h_in,
+                                   strategy=strat.with_backend("cuda"))
+        torch.cuda.synchronize()
+    n = _lib.launch_counts()["ssd_chunk_scan"] - before
+    us = sum(device_us(prof, "ssd_chunk_").values())
+    assert n > 0, "ssd_chunk_scan never launched in the forward"
+    return us / n, n
 
 
 def mamba_main_path(torch):

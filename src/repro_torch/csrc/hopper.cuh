@@ -667,6 +667,14 @@ __device__ __forceinline__ void tf32_split_store(unsigned char* dst,
       make_float4(l[0], l[1], l[2], l[3]);
 }
 
+// The swizzle of a raw row staged for transposition (the TF32 producers'
+// V, X_J, w o X, B_J): 16-byte unit (int8: 4-byte word) q of row j lies at
+// q ^ raw_swz(j), so the 8 rows 8s + 2m + o (s < 4, o < 2) that a
+// quarter-warp reads at once fall in 8 distinct bank groups.
+__device__ __forceinline__ int raw_swz(int j) {
+  return ((j >> 3) & 3) | ((j & 1) << 2);
+}
+
 // cp.async of 4, 8 or 16 bytes to shared address dst; pred false
 // zero-fills the destination and reads nothing.
 __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src,

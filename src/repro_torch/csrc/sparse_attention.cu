@@ -876,13 +876,6 @@ struct Cfg {
 
 using namespace hopper;
 
-// The swizzle of a staged raw row: 16-byte unit (int8: 4-byte word) q of
-// key j lies at q ^ raw_swz(j), so the 8 keys 8s + 2m + o (s < 4, o < 2)
-// the V conversion reads at once fall in 8 distinct bank groups.
-__device__ __forceinline__ int raw_swz(int j) {
-  return ((j >> 3) & 3) | ((j & 1) << 2);
-}
-
 // The K/V operands: f32 rows, or int8 codes, with per-row scales (int8;
 // optional for f32: nullptr means unit scales).
 struct KV {

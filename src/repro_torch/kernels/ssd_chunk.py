@@ -23,7 +23,10 @@ recurrence (for tests).  The wrapper takes the plain version for CPU
 tensors and launches ``csrc/ssd_chunk.cu`` for CUDA ones: chunk states in
 parallel, a pass over the chunks, then the outputs (three kernels, counted
 as one launch), with the chunk states in an f32 workspace
-[B, T / cs, H, 64, 128] that the wrapper allocates.
+[B, T / cs, H, 64, 128] that the wrapper allocates (f32 inputs: [B, T / cs,
+H, 2, 64, 128], the pass writing each state as a TF32 hi / lo pair).  Both
+dtypes run on the tensor cores: bf16 products, and f32 ones in three-pass
+TF32 (``tests/test_torch_ssd_tf32.py`` emulates their arithmetic).
 """
 from __future__ import annotations
 
@@ -156,9 +159,11 @@ def ssd_chunk_scan(x: torch.Tensor, dt: torch.Tensor, la: torch.Tensor,
     x, dt, la = x.contiguous(), dt.contiguous(), la.contiguous()
     b, c = b.contiguous(), c.contiguous()
     y = torch.empty_like(x)
-    # the chunk states (none when the sequence is one chunk)
+    # the chunk states (none when the sequence is one chunk); f32 keeps
+    # each as a TF32 pair, twice the floats
     n_chunks = t // cs
-    ws = (torch.empty(bsz * n_chunks * h * MAX_HEAD_DIM * MAX_D_STATE,
+    pairs = 2 if x.dtype == torch.float32 else 1
+    ws = (torch.empty(bsz * n_chunks * h * pairs * MAX_HEAD_DIM * MAX_D_STATE,
                       dtype=torch.float32, device=x.device)
           if n_chunks > 1 else None)
     lib = _lib.load()
